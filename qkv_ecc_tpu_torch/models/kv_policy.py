@@ -1,0 +1,211 @@
+"""KV-cache protection policy and the write chain (counterpart of
+``qkv_ecc_tpu/models/kv_policy.py``, int4 and golay).
+
+The write chain of a decode step is quantize -> XOR the folded scrub delta
+-> encode -> pack. Masks come from an explicit ``torch.Generator`` or are
+passed in as tensors (``mask=`` raw logical-codeword masks, ``folded=``
+deltas already folded by ``swar.scrub_fold_mask``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..codecs.fault_injection import flip_mask
+from ..kernels import swar
+
+N_BITS = {"int4": 4, "hamming74": 7, "hamming84": 8, "golay": 24, "fp8": 8}
+
+
+@dataclasses.dataclass(frozen=True)
+class KVCachePolicy:
+    """Cache-mode policy: codec, fault model and scrubbing.
+
+    inject_at: "write" flips the stored codewords once (errors persist);
+    "read" re-corrupts raw INT4 nibbles at every attend (the unprotected
+    ``int4`` arm, a later slice). scrub: correct at write time so reads only
+    extract data nibbles (the only read path this slice carries)."""
+
+    codec: str = "int4"
+    ber: float = 0.0
+    inject_errors: bool = False
+    seed: int = 42
+    use_interpolation: bool = False
+    inject_at: str = "write"
+    scrub: bool = True
+
+    def __post_init__(self):
+        if self.inject_at not in ("write", "read"):
+            raise ValueError(f"inject_at must be write|read, got {self.inject_at}")
+        if self.inject_at == "read" and self.codec != "int4":
+            raise ValueError("read-time injection is only defined for int4")
+
+
+MODE_CONFIG = {
+    "fp16": {"codec": "fp16", "use_interpolation": False},
+    "fp8": {"codec": "fp8", "use_interpolation": False},
+    "int4": {"codec": "int4", "use_interpolation": False, "inject_at": "read"},
+    "int4-write-inject": {"codec": "int4", "use_interpolation": False},
+    "int4-hamming": {"codec": "hamming74", "use_interpolation": False},
+    "int4-hamming84": {"codec": "hamming84", "use_interpolation": False},
+    "int4-hamming84-interp": {"codec": "hamming84", "use_interpolation": True},
+    "int12-golay": {"codec": "golay", "use_interpolation": False},
+}
+
+
+def policy_for_mode(mode: str, ber: float = 0.0, seed: int = 42) -> KVCachePolicy:
+    if mode not in MODE_CONFIG:
+        raise ValueError(f"Unknown cache mode: {mode}. Valid: {list(MODE_CONFIG)}")
+    cfg = MODE_CONFIG[mode]
+    return KVCachePolicy(
+        codec=cfg["codec"],
+        ber=ber,
+        inject_errors=ber > 0,
+        seed=seed,
+        use_interpolation=cfg["use_interpolation"],
+        inject_at=cfg.get("inject_at", "write"),
+    )
+
+
+def write_inject(policy: KVCachePolicy) -> bool:
+    return policy.inject_errors and policy.ber > 0 and policy.inject_at == "write"
+
+
+def _quantize(x: torch.Tensor):
+    """Per-(position, head) symmetric INT4, scale floor 1.0 on zero rows.
+    x / scale in float32, rounded half to even (as jnp.round)."""
+    absmax = x.abs().amax(dim=-1)
+    scale = torch.where(absmax == 0, 1.0, absmax / 7.0)
+    q = torch.clamp(torch.round(x / scale[..., None]), -8, 7) + 8
+    return q.to(torch.int32), scale
+
+
+def _draw(mask, generator, shape, policy):
+    if mask is not None:
+        return mask.to(torch.int32)
+    if generator is None:
+        raise ValueError("fault injection needs a mask or a torch.Generator")
+    return flip_mask(shape, policy.ber, N_BITS[policy.codec], generator)
+
+
+def encode_kv(x, policy: KVCachePolicy, generator=None, mask=None):
+    """Quantize + encode + (inject) one K or V tensor [..., D].
+
+    Returns (logical codewords int32, scales float32, flipped bit count)."""
+    codec = policy.codec
+    if codec not in ("int4", "golay"):
+        swar.unsupported(codec)
+    x = x.to(torch.float32)
+    q, scale = _quantize(x)
+    enc = swar.encode_codewords(codec, q, x.shape[-1])
+    flips = torch.zeros((), dtype=torch.int64, device=x.device)
+    if write_inject(policy):
+        m = _draw(mask, generator, enc.shape, policy)
+        flips = swar.C.popcount(m).sum()
+        enc = enc ^ m
+    return enc, scale, flips
+
+
+def _apply_golay_fold(q, folded):
+    """q' = where(bit 4, 0, q ^ (delta & 0xF)); deltas are 5-bit, so bit 4
+    is set exactly when delta >= 16."""
+    return torch.where(folded >= 16, 0, q ^ folded)
+
+
+def _fold_for(policy, q_shape, generator, mask, folded):
+    """The folded write delta of one tensor: given, or folded from the given
+    or drawn raw mask."""
+    if folded is not None:
+        return folded
+    head_dim = q_shape[-1]
+    if policy.codec == "golay":
+        shape = q_shape[:-1] + (swar.padded_values("golay", head_dim) // 3,)
+    else:
+        shape = q_shape[:-1] + (swar.padded_values(policy.codec, head_dim),)
+    return swar.scrub_fold_mask(policy.codec, _draw(mask, generator, shape, policy))
+
+
+def encode_kv_scrubbed(x, policy: KVCachePolicy, generator=None, mask=None,
+                       folded=None):
+    """Quantize + encode with the write-path scrub folded into the mask:
+    scrub_codewords(encode(q) ^ mask) == encode(q ^ fold(mask)).
+
+    Returns (scrubbed logical codewords, scales)."""
+    codec = policy.codec
+    if codec not in ("int4", "golay"):
+        swar.unsupported(codec)
+    x = x.to(torch.float32)
+    q, scale = _quantize(x)
+    head_dim = x.shape[-1]
+    q = swar._pad_values(q, swar.padded_values(codec, head_dim)) & 0xF
+    if write_inject(policy):
+        f = _fold_for(policy, x.shape, generator, mask, folded)
+        if codec == "golay":
+            q = _apply_golay_fold(q, f)
+        else:
+            q = q ^ (f.to(torch.int32) & 0xF)
+    if codec == "golay":
+        return swar.golay_encode_wide(swar.golay_pack_thirds(q)), scale
+    return q, scale
+
+
+def encode_pack_kv_scrubbed(x, policy: KVCachePolicy, generator=None, mask=None,
+                            folded=None):
+    """encode_kv_scrubbed + pack_kv in one chain, the decode step's write
+    path; golay rows are packed straight from the folded nibbles.
+
+    Returns (packed rows [..., row_words], scales)."""
+    codec = policy.codec
+    if codec != "golay":
+        cw, scale = encode_kv_scrubbed(x, policy, generator, mask=mask, folded=folded)
+        return pack_kv(cw, policy, x.shape[-1]), scale
+    x = x.to(torch.float32)
+    head_dim = x.shape[-1]
+    q, scale = _quantize(x)
+    q = swar._pad_values(q, swar.padded_values("golay", head_dim))
+    if write_inject(policy):
+        q = _apply_golay_fold(q, _fold_for(policy, x.shape, generator, mask, folded))
+    return swar.golay_pack_rows_from_nibbles(q, head_dim), scale
+
+
+def hoisted_write_deltas(policy: KVCachePolicy, num_layers: int, enc_shape,
+                         generator=None, raw_masks=None) -> torch.Tensor:
+    """Every layer's (K, V) folded write delta in one chain.
+
+    raw_masks: [num_layers, 2, *enc_shape] logical masks to fold, or None to
+    draw them from ``generator``. enc_shape is the d12 codeword shape
+    [..., C] for golay and the padded nibble shape otherwise.
+    Returns uint8 [num_layers, 2, *fold shape] (golay's last axis C -> 3C)."""
+    if raw_masks is None:
+        raw_masks = _draw(None, generator, (num_layers, 2) + tuple(enc_shape), policy)
+    return swar.scrub_fold_mask(policy.codec, raw_masks).to(torch.uint8)
+
+
+def pack_kv(enc, policy: KVCachePolicy, head_dim: int):
+    """Logical codewords -> packed int32 storage words."""
+    return swar.pack_codewords(policy.codec, enc, head_dim)
+
+
+def decode_kv(enc, scale, policy: KVCachePolicy, *, head_dim: int):
+    """Decode + dequantize, the inverse of encode_kv.
+
+    Returns (x float32 [..., head_dim], corrected, detected)."""
+    codec = policy.codec
+    if policy.inject_at == "read" and policy.inject_errors and policy.ber > 0:
+        raise NotImplementedError(
+            "read-time injection (mode 'int4') comes with kernel K2r, a later slice")
+    zero = torch.zeros((), dtype=torch.int64, device=enc.device)
+    if codec == "int4":
+        dec = enc.to(torch.int32) & 0xF
+        corrected = detected = zero
+    elif codec == "golay":
+        data12, cnt = swar.golay_decode_wide(enc, zero_uncorrectable=False)
+        corrected = torch.where(cnt < 4, cnt, 0).sum()
+        detected = (cnt == 4).sum()
+        dec = swar.golay_unpack_thirds(data12)
+    else:
+        swar.unsupported(codec)
+    x = (dec[..., :head_dim].to(torch.float32) - 8.0) * scale[..., None]
+    return x, corrected, detected

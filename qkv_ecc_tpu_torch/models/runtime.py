@@ -1,0 +1,274 @@
+"""Generation runtime over the paged ECC cache (counterpart of
+``qkv_ecc_tpu/models/runtime.py``; the scrubbed path of the llama
+architecture in the int4 and golay modes).
+
+Prefill writes whole pages with an indexed store and attends through the
+codec round trip. Each decode step runs, per layer, the projections and RoPE,
+the scrub-folded write chain, and the fused write+attend kernel
+(kernels/paged_attention.py), which updates the caches in place; the golay
+parity columns of all layers land in one ``index_put_`` per K/V at the end of
+the step. Block allocation is static: sequence b owns pages [b*P, (b+1)*P).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..cache.layout import ECCCacheConfig, allocate_ecc_kv_cache
+from ..device import resolve_device
+from ..kernels import swar
+from ..kernels.paged_attention import paged_attention_ecc_write_attend
+from .config import ModelConfig
+from .kv_policy import (
+    KVCachePolicy,
+    decode_kv,
+    encode_kv,
+    encode_pack_kv_scrubbed,
+    hoisted_write_deltas,
+    pack_kv,
+    write_inject,
+)
+from .layers import apply_rope, causal_attention, rms_norm, rope_frequencies
+
+
+def _use_scrub(policy: KVCachePolicy) -> bool:
+    """Write-path scrubbing: persistent write-time injection, no
+    interpolation. This slice carries no other decode path."""
+    return (
+        policy.scrub
+        and policy.codec in ("int4", "hamming74", "hamming84", "golay")
+        and not policy.use_interpolation
+        and policy.inject_at == "write"
+    )
+
+
+def _check_slice(cfg: ModelConfig, policy: KVCachePolicy):
+    if cfg.arch != "llama":
+        raise NotImplementedError(f"architecture '{cfg.arch}' is a later slice")
+    if policy.codec not in ("int4", "golay"):
+        swar.unsupported(policy.codec)
+    if not _use_scrub(policy):
+        raise NotImplementedError(
+            "only the scrubbed write-inject path is ported; correcting reads "
+            "(kernel K2) and read-time injection (K2r) come later")
+    if not swar.scrub_extract_ok(policy.codec, cfg.head_dim):
+        raise NotImplementedError(
+            f"golay at head_dim {cfg.head_dim} needs the correcting read (kernel K2)")
+
+
+def init_generation_state(cfg: ModelConfig, policy: KVCachePolicy, batch: int,
+                          max_tokens: int, block_size: int = 128, device=None):
+    """Allocate the paged cache and the static sequential block table on
+    ``device`` (None: the card). Returns (state, block_table, cache_cfg)."""
+    device = resolve_device(device)
+    pages_per_seq = -(-max_tokens // block_size)
+    cache_cfg = ECCCacheConfig(
+        num_blocks=batch * pages_per_seq,
+        block_size=block_size,
+        num_layers=cfg.num_layers,
+        num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.head_dim,
+        codec=policy.codec,
+        max_seqs=batch,
+    )
+    state = allocate_ecc_kv_cache(cache_cfg, device=device)
+    state["context_len"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+    block_table = torch.arange(batch * pages_per_seq, dtype=torch.int32,
+                               device=device).reshape(batch, pages_per_seq)
+    return state, block_table, cache_cfg
+
+
+def _physical_pages(block_table, positions, bs):
+    """Physical page of each position [B, S]; raises on a page of -1 (an
+    index_put_ would wrap it to the last page)."""
+    phys = torch.gather(block_table.long(), 1, (positions // bs).long())
+    if bool((phys < 0).any()):
+        raise ValueError("write to a sequence with no page (block table entry -1)")
+    return phys
+
+
+def _write_tokens(state, layer_idx, block_table, positions, kc, vc, ks, vs):
+    """Store S packed tokens of every sequence: cache[layer, phys, h, :, slot]
+    = rows[b, s, h, :]. kc/vc: [B, S, H, row_words] full rows, split here at
+    the data/parity boundary; ks/vs: [B, S, H]; positions: [B, S]."""
+    bs = state["k_cache"].shape[4]
+    dw = state["k_cache"].shape[3]
+    phys = _physical_pages(block_table, positions, bs)
+    slots = (positions % bs).long()
+    state["k_cache"][layer_idx][phys, :, :, slots] = kc[..., :dw]
+    state["v_cache"][layer_idx][phys, :, :, slots] = vc[..., :dw]
+    if "k_parity" in state:
+        state["k_parity"][layer_idx][phys, :, :, slots] = kc[..., dw:]
+        state["v_parity"][layer_idx][phys, :, :, slots] = vc[..., dw:]
+    state["k_scales"][layer_idx][phys, :, slots] = ks
+    state["v_scales"][layer_idx][phys, :, slots] = vs
+    return state
+
+
+def _proj_qkv(x, lp, cfg: ModelConfig, positions, inv_freq):
+    B, S, _ = x.shape
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
+    q = (h @ lp["q_proj"]).reshape(B, S, H, D)
+    k = (h @ lp["k_proj"]).reshape(B, S, Hkv, D)
+    v = (h @ lp["v_proj"]).reshape(B, S, Hkv, D)
+    return apply_rope(q, positions, inv_freq), apply_rope(k, positions, inv_freq), v
+
+
+def _attn_out_mlp(x, attn, lp, cfg: ModelConfig):
+    B, S = x.shape[:2]
+    x = x + attn.reshape(B, S, cfg.num_heads * cfg.head_dim) @ lp["o_proj"]
+    h = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
+    h = torch.nn.functional.silu(h @ lp["gate_proj"]) * (h @ lp["up_proj"])
+    return x + h @ lp["down_proj"]
+
+
+def _embed(params, input_ids, cfg: ModelConfig):
+    return params["embed"][input_ids].to(cfg.torch_dtype)
+
+
+def _lm_head(params, x, cfg: ModelConfig):
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
+    return (x @ head.to(x.dtype)).to(torch.float32)
+
+
+def _inv_freq(cfg: ModelConfig, device):
+    return rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_llama3,
+                            device=device)
+
+
+@torch.no_grad()
+def prefill(params, input_ids, state, block_table, cfg: ModelConfig,
+            policy: KVCachePolicy, generator=None):
+    """Process the prompt [B, S]: write the cache and return the last
+    token's logits [B, V] float32. Attention reads the codec round trip of
+    what was written. With injection on, masks come from ``generator``."""
+    _check_slice(cfg, policy)
+    B, S = input_ids.shape
+    device = input_ids.device
+    positions = torch.arange(S, device=device).expand(B, S)
+    inv_freq = _inv_freq(cfg, device)
+    x = _embed(params, input_ids, cfg)
+    for i, lp in enumerate(params["layers"]):
+        q, k, v = _proj_qkv(x, lp, cfg, positions, inv_freq)
+        kc, ks, _ = encode_kv(k, policy, generator)
+        vc, vs, _ = encode_kv(v, policy, generator)
+        _write_tokens(
+            state, i, block_table, positions,
+            pack_kv(swar.scrub_codewords(policy.codec, kc), policy, cfg.head_dim),
+            pack_kv(swar.scrub_codewords(policy.codec, vc), policy, cfg.head_dim),
+            ks, vs,
+        )
+        k_dec, _, _ = decode_kv(kc, ks, policy, head_dim=cfg.head_dim)
+        v_dec, _, _ = decode_kv(vc, vs, policy, head_dim=cfg.head_dim)
+        attn = causal_attention(q, k_dec.to(x.dtype), v_dec.to(x.dtype),
+                                cfg.num_kv_groups, sliding_window=cfg.sliding_window)
+        x = _attn_out_mlp(x, attn, lp, cfg)
+    logits = _lm_head(params, x[:, -1:, :], cfg)[:, 0]
+    state["context_len"] = torch.full((B,), S, dtype=torch.int32, device=device)
+    return logits, state
+
+
+def write_mask_shape(policy: KVCachePolicy, batch: int, cfg: ModelConfig):
+    """Logical injection-mask shape of one decode token's K or V write: the
+    d12 codeword array for golay, padded nibbles for int4."""
+    pv = swar.padded_values(policy.codec, cfg.head_dim)
+    return (batch, 1, cfg.num_kv_heads, pv // 3 if policy.codec == "golay" else pv)
+
+
+@torch.no_grad()
+def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
+                policy: KVCachePolicy, generator=None, hoisted_masks=None):
+    """One decode step: token_ids [B] -> logits [B, V] float32; the caches
+    advance in place.
+
+    hoisted_masks: folded write deltas [L, 2, *fold shape]
+    (kv_policy.hoisted_write_deltas); drawn here from ``generator`` when
+    injection is on and none are given."""
+    _check_slice(cfg, policy)
+    B = token_ids.shape[0]
+    L = len(params["layers"])
+    pos = state["context_len"]
+    positions = pos[:, None]
+    bs = state["k_cache"].shape[4]
+    dw = state["k_cache"].shape[3]
+    inv_freq = _inv_freq(cfg, token_ids.device)
+    phys = _physical_pages(block_table, positions, bs)[:, 0]
+    inject = write_inject(policy)
+    if inject and hoisted_masks is None:
+        hoisted_masks = hoisted_write_deltas(
+            policy, L, write_mask_shape(policy, B, cfg), generator=generator)
+    x = _embed(params, token_ids[:, None], cfg)
+    has_parity = "k_parity" in state
+    k_par, v_par = [], []
+    ctx = pos + 1
+    for i, lp in enumerate(params["layers"]):
+        q, k, v = _proj_qkv(x, lp, cfg, positions, inv_freq)
+        kc, ks = encode_pack_kv_scrubbed(
+            k, policy, folded=hoisted_masks[i, 0] if inject else None)
+        vc, vs = encode_pack_kv_scrubbed(
+            v, policy, folded=hoisted_masks[i, 1] if inject else None)
+        kc, vc = kc[:, 0], vc[:, 0]  # [B, Hkv, row_words]
+        if has_parity:
+            k_par.append(kc[..., dw:])
+            v_par.append(vc[..., dw:])
+        attn = paged_attention_ecc_write_attend(
+            q[:, 0], kc[..., :dw].contiguous(), vc[..., :dw].contiguous(),
+            ks[:, 0].contiguous(), vs[:, 0].contiguous(),
+            state["k_cache"], state["v_cache"], state["k_scales"], state["v_scales"],
+            block_table, ctx, i, codec=policy.codec,
+            sliding_window=cfg.sliding_window,
+        )
+        x = _attn_out_mlp(x, attn[:, None], lp, cfg)
+    if has_parity:
+        # parity[l, phys[b], h, :, slot[b]] = col[b, l, h, :], all layers at once
+        slots = (pos % bs).long()
+        layers = torch.arange(L, device=phys.device)[None, :]
+        kp = torch.stack(k_par, dim=1)  # [B, L, Hkv, pw]
+        vp = torch.stack(v_par, dim=1)
+        idx = (layers, phys[:, None], slice(None), slice(None), slots[:, None])
+        state["k_parity"][idx] = kp
+        state["v_parity"][idx] = vp
+    state["context_len"] = ctx
+    return _lm_head(params, x, cfg)[:, 0], state
+
+
+@torch.no_grad()
+def decode_loop(params, logits, state, block_table, cfg: ModelConfig,
+                policy: KVCachePolicy, generator, num_steps: int):
+    """``num_steps`` greedy decode steps in a Python loop, each step's write
+    deltas drawn from ``generator`` in one chain.
+
+    Returns (logits [B, V] after the last step, state, tokens [num_steps, B]
+    - the argmax token fed into each step)."""
+    tokens = []
+    for _ in range(num_steps):
+        tok = torch.argmax(logits, dim=-1)
+        tokens.append(tok)
+        logits, state = decode_step(params, tok, state, block_table, cfg, policy,
+                                    generator)
+    return logits, state, torch.stack(tokens)
+
+
+@torch.no_grad()
+def generate(params, input_ids, cfg: ModelConfig, policy: KVCachePolicy,
+             max_new_tokens: int = 32, block_size: int = 128, device=None):
+    """Greedy generation on ``device`` (None: the card), masks drawn from a
+    generator seeded with policy.seed. input_ids: [B, S] ints.
+    Returns [B, S + max_new_tokens]."""
+    device = resolve_device(device)
+    input_ids = torch.as_tensor(input_ids).to(device=device, dtype=torch.long)
+    B, S = input_ids.shape
+    state, block_table, _ = init_generation_state(
+        cfg, policy, B, S + max_new_tokens, block_size, device=device)
+    generator = torch.Generator(device=device).manual_seed(policy.seed)
+    logits, state = prefill(params, input_ids, state, block_table, cfg, policy, generator)
+    tokens = [input_ids]
+    for step in range(max_new_tokens):
+        tok = torch.argmax(logits, dim=-1)
+        tokens.append(tok[:, None])
+        if step == max_new_tokens - 1:
+            break
+        logits, state = decode_step(params, tok, state, block_table, cfg, policy, generator)
+    return torch.cat(tokens, dim=1)

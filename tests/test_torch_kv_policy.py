@@ -1,0 +1,149 @@
+"""The port's write chain (qkv_ecc_tpu_torch.models.kv_policy) against the
+JAX package's: quantization, encoding, the scrub-folded write with explicit
+masks, the hoisted fold and decoding, bit for bit at BER 0 and 1e-2."""
+
+import os
+
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+
+import jax  # noqa: E402,F401
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import torch  # noqa: E402
+
+from qkv_ecc_tpu.kernels import swar as js  # noqa: E402
+from qkv_ecc_tpu.models import kv_policy as jp  # noqa: E402
+from qkv_ecc_tpu_torch.codecs.fault_injection import flip_mask  # noqa: E402
+from qkv_ecc_tpu_torch.kernels import swar as ts  # noqa: E402
+from qkv_ecc_tpu_torch.models import kv_policy as tp  # noqa: E402
+
+torch.set_num_threads(1)
+MODES = {"int4": "int4-write-inject", "golay": "int12-golay"}
+
+
+def same(jax_out, torch_out):
+    np.testing.assert_array_equal(np.asarray(jax_out), torch_out.numpy())
+
+
+def numpy_mask(rng, shape, ber, n_bits):
+    """Per-bit Bernoulli(ber) XOR mask made with numpy, fed to both sides."""
+    flips = rng.random((n_bits,) + tuple(shape)) < ber
+    return (flips.astype(np.int64) << np.arange(n_bits).reshape((n_bits,) + (1,) * len(shape))
+            ).sum(0).astype(np.int32)
+
+
+def inputs(head_dim, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, 5, 3, head_dim)).astype(np.float32)
+    x[0, 0, 0] = 0.0  # a zero row: scale floor 1.0
+    x[1, 2, 1, :4] = [3.5, -3.5, 0.5, 7.0]  # rounding ties at scale 1.0
+    return rng, x
+
+
+def mask_shape(codec, x):
+    pv = ts.padded_values(codec, x.shape[-1])
+    return x.shape[:-1] + (pv // 3 if codec == "golay" else pv,)
+
+
+def test_policy_tables():
+    assert tp.N_BITS == jp.N_BITS
+    assert tp.MODE_CONFIG == jp.MODE_CONFIG
+    for mode in jp.MODE_CONFIG:
+        a = jp.policy_for_mode(mode, ber=1e-2, seed=3)
+        b = tp.policy_for_mode(mode, ber=1e-2, seed=3)
+        for f in ("codec", "ber", "inject_errors", "seed", "use_interpolation", "inject_at", "scrub"):
+            assert getattr(a, f) == getattr(b, f), (mode, f)
+
+
+@pytest.mark.parametrize("head_dim", [16, 128])
+def test_quantize(head_dim):
+    _, x = inputs(head_dim)
+    jq, js_ = jp._quantize(jnp.asarray(x))
+    tq, ts_ = tp._quantize(torch.from_numpy(x))
+    same(jq, tq)
+    same(js_, ts_)
+
+
+@pytest.mark.parametrize("codec", ["int4", "golay"])
+@pytest.mark.parametrize("head_dim", [16, 128])
+@pytest.mark.parametrize("ber", [0.0, 1e-2])
+def test_write_chain(codec, head_dim, ber):
+    rng, x = inputs(head_dim, seed=head_dim)
+    jpol = jp.policy_for_mode(MODES[codec], ber=ber)
+    tpol = tp.policy_for_mode(MODES[codec], ber=ber)
+    mask = numpy_mask(rng, mask_shape(codec, x), max(ber, 1e-2), tp.N_BITS[codec])
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    jm, tm = jnp.asarray(mask), torch.from_numpy(mask)
+
+    jenc, jsc, jfl = jp.encode_kv(jx, jpol, None, mask=jm)
+    tenc, tsc, tfl = tp.encode_kv(tx, tpol, mask=tm)
+    same(jenc, tenc)
+    same(jsc, tsc)
+    assert int(jfl) == int(tfl)
+    same(jp.pack_kv(jenc, jpol, head_dim), tp.pack_kv(tenc, tpol, head_dim))
+
+    jsc_cw, _ = jp.encode_kv_scrubbed(jx, jpol, None, mask=jm)
+    tsc_cw, _ = tp.encode_kv_scrubbed(tx, tpol, mask=tm)
+    same(jsc_cw, tsc_cw)
+    # the fold equals scrubbing the injected codewords
+    if ber > 0:
+        same(js.scrub_codewords(codec, jenc), tsc_cw)
+
+    jrows, jsc2 = jp.encode_pack_kv_scrubbed(jx, jpol, None, mask=jm)
+    trows, tsc2 = tp.encode_pack_kv_scrubbed(tx, tpol, mask=tm)
+    same(jrows, trows)
+    same(jsc2, tsc2)
+    same(jp.pack_kv(jsc_cw, jpol, head_dim), trows)
+    folded = ts.scrub_fold_mask(codec, tm)
+    trows_f, _ = tp.encode_pack_kv_scrubbed(tx, tpol, folded=folded.to(torch.uint8))
+    assert torch.equal(trows_f, trows)
+
+
+@pytest.mark.parametrize("codec", ["int4", "golay"])
+def test_hoisted_write_deltas(codec):
+    """JAX folds each layer's threefry mask with swar.scrub_fold_mask; the
+    port folds the same raw masks given explicitly."""
+    rng = np.random.default_rng(5)
+    pv = ts.padded_values(codec, 128)
+    enc_shape = (4, 1, 8, pv // 3 if codec == "golay" else pv)
+    raw = numpy_mask(rng, (3, 2) + enc_shape, 1e-2, tp.N_BITS[codec])
+    pol = tp.policy_for_mode(MODES[codec], ber=1e-2)
+    got = tp.hoisted_write_deltas(pol, 3, enc_shape, raw_masks=torch.from_numpy(raw))
+    want = js.scrub_fold_mask(codec, jnp.asarray(raw)).astype(jnp.uint8)
+    assert got.dtype == torch.uint8
+    same(want, got)
+    drawn = tp.hoisted_write_deltas(pol, 3, enc_shape, generator=torch.Generator().manual_seed(0))
+    assert drawn.shape == got.shape and drawn.dtype == torch.uint8
+
+
+@pytest.mark.parametrize("codec", ["int4", "golay"])
+@pytest.mark.parametrize("ber", [1e-2, 8e-2])
+def test_decode_kv(codec, ber):
+    rng, x = inputs(128, seed=9)
+    pol_j = jp.policy_for_mode(MODES[codec], ber=ber)
+    pol_t = tp.policy_for_mode(MODES[codec], ber=ber)
+    mask = numpy_mask(rng, mask_shape(codec, x), ber, tp.N_BITS[codec])
+    jenc, jsc, _ = jp.encode_kv(jnp.asarray(x), pol_j, None, mask=jnp.asarray(mask))
+    tenc, tsc, _ = tp.encode_kv(torch.from_numpy(x), pol_t, mask=torch.from_numpy(mask))
+    jx, jcorr, jdet = jp.decode_kv(jenc, jsc, pol_j, head_dim=128)
+    tx, tcorr, tdet = tp.decode_kv(tenc, tsc, pol_t, head_dim=128)
+    same(jx, tx)
+    assert (int(jcorr), int(jdet)) == (int(tcorr), int(tdet))
+
+
+def test_read_injection_not_ported():
+    pol = tp.policy_for_mode("int4", ber=1e-2)
+    enc = torch.zeros((1, 8), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="K2r"):
+        tp.decode_kv(enc, torch.ones(1), pol, head_dim=8)
+
+
+def test_flip_mask_rate_and_determinism():
+    g = torch.Generator().manual_seed(11)
+    m = flip_mask((200_000,), 1e-2, 24, g)
+    assert m.dtype == torch.int32 and int(m.max()) < (1 << 24)
+    rate = float(ts.C.popcount(m).sum()) / (200_000 * 24)
+    assert abs(rate - 1e-2) < 0.03 * 1e-2
+    again = flip_mask((200_000,), 1e-2, 24, torch.Generator().manual_seed(11))
+    assert torch.equal(m, again)
