@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/ with nvcc, holds each against its
-plain PyTorch version at the bench-0.9b shapes, drives the scrubbed
-int4-write-inject and int12-golay decode of bench-0.9b (random bf16 weights
-from a seed, batch 8, prompt 1024, 32 greedy steps at BER 1e-2) through the
-port's entry points, checks that every kernel of that path was launched, and
-times the kernels. Every phase prints one line with its seconds; any failure
-exits non-zero. Without a CUDA device it fails.
+Builds the port's CUDA kernels from csrc/ with nvcc (one process per source,
+all at once), holds each against its plain PyTorch version at the bench-0.9b
+shapes, drives the decode of bench-0.9b (random bf16 weights from a seed,
+batch 8, prompt 1024, 32 greedy steps at BER 1e-2) in the five arms of the
+JAX bench.py - int12-golay, int4-hamming84, int4-hamming,
+int4-hamming84-interp and int4-write-inject, round-robin over two rounds -
+through the port's entry points, checks that every kernel of that path was
+launched exactly as often as the path calls it, times the kernels and
+traces the decode step of each arm. Every phase prints one line with its
+seconds; any failure exits non-zero. Without a CUDA device it fails.
 
 Output, last lines: the kernel table as one JSON object, the card's name and
 power limit from nvidia-smi, then {"ok": true, "device": {...}}.
@@ -23,9 +26,18 @@ import time
 T0 = time.perf_counter()
 BER = 1e-2
 BATCH, PROMPT, STEPS = 8, 1024, 32
-MODES = ("int4-write-inject", "int12-golay")
+ROUNDS = 2
+# bench.py's arms, in its order; the last is the baseline of the ratios
+MODES = ("int12-golay", "int4-hamming84", "int4-hamming", "int4-hamming84-interp",
+         "int4-write-inject")
+SCRUBBED = tuple(m for m in MODES if m != "int4-hamming84-interp")  # read by write_attend
+BASELINE = "int4-write-inject"
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM: HBM3 rate and fp32 rate outside the
 PEAK_FP32_FLOPS = 67e12     # tensor cores (NVIDIA data sheet)
+# SECDED decode of one data word with its parity word (decode_attend.cu:
+# codeword rebuild 10, two SWAR decodes of 49, repack 4) and the
+# interpolation of one word (10), in 32-bit integer operations
+DECODE_OPS_PER_WORD, INTERP_OPS_PER_WORD = 112, 10
 
 
 def say(msg):
@@ -80,9 +92,10 @@ def encoded_cache(torch, cfg, codec, ctx_before, block_size, gen, device):
 
 def kernel_check(torch, gen, device):
     """write_attend against write_attend_plain at bench-0.9b attention
-    shapes: unequal contexts (1, partial pages, 1024, 1152), int4 and golay
-    data words, bf16 and fp32 queries, one call with a sliding window.
-    Caches and scales must be equal; outputs within output_tolerance."""
+    shapes: unequal contexts (1, partial pages, 1024, 1152), int4, golay and
+    hamming74 data words, bf16 and fp32 queries, one call with a sliding
+    window. Caches and scales must be equal; outputs within
+    output_tolerance."""
     import dataclasses
     from qkv_ecc_tpu_torch.kernels.paged_attention import (
         paged_attention_ecc_write_attend as write_attend, write_attend_plain)
@@ -94,7 +107,8 @@ def kernel_check(torch, gen, device):
     B, Hq, Hkv, D = len(ctx_before), cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     worst = 0.0
     cases = [("int4", torch.bfloat16, None), ("golay", torch.bfloat16, None),
-             ("golay", torch.float32, None), ("int4", torch.bfloat16, 256)]
+             ("golay", torch.float32, None), ("int4", torch.bfloat16, 256),
+             ("hamming74", torch.bfloat16, None)]
     for codec, qdtype, window in cases:
         state, bt, policy = encoded_cache(torch, cfg, codec, ctx_before, 128, gen, device)
         q = torch.randn((B, Hq, D), generator=gen, device=device).to(qdtype)
@@ -129,6 +143,93 @@ def kernel_check(torch, gen, device):
     return worst
 
 
+# tokens given a double error in values 0-3 of every row, K and V: 0, the
+# seam tokens of 512-token chunks (511, 1023) and the tokens after them; the
+# new column at ctx-1 gets one too
+SEAM_TOKENS = (0, 510, 511, 512, 1022, 1023, 1024)
+
+
+def unscrubbed_h84_cache(torch, cfg, ctx_before, gen, device):
+    """A hamming84 cache as the interpolation arm writes it - raw codewords,
+    random flips at BER 2e-2 from the generator - with a double error forced
+    at SEAM_TOKENS; and the new rows (data ++ parity, double included)."""
+    from qkv_ecc_tpu_torch.models.kv_policy import encode_kv, pack_kv, policy_for_mode
+    from qkv_ecc_tpu_torch.models.runtime import init_generation_state, _write_tokens
+
+    policy = policy_for_mode("int4-hamming84-interp", ber=2e-2)
+    B, Hkv, D = len(ctx_before), cfg.num_kv_heads, cfg.head_dim
+    T = max(ctx_before) + 1
+    state, bt, _ = init_generation_state(cfg, policy, B, T, 128, device=device)
+    pos = torch.arange(T, device=device).expand(B, T)
+    forced = torch.zeros((T,), dtype=torch.bool, device=device)
+    forced[[t for t in SEAM_TOKENS if t < T]] = True
+
+    def rows(shape, force):
+        cw, scale, _ = encode_kv(torch.randn(shape, generator=gen, device=device), policy,
+                                 generator=gen)
+        cw[..., :4] ^= torch.where(force[..., None, None], 0x11, 0).to(torch.int32)
+        return pack_kv(cw, policy, D), scale
+
+    for layer in range(cfg.num_layers):
+        kc, ks = rows((B, T, Hkv, D), forced[None, :].expand(B, T))
+        vc, vs = rows((B, T, Hkv, D), forced[None, :].expand(B, T))
+        _write_tokens(state, layer, bt, pos, kc, vc, ks, vs)
+    new = torch.ones((B, 1), dtype=torch.bool, device=device)
+    kn, ksn = rows((B, 1, Hkv, D), new)
+    vn, vsn = rows((B, 1, Hkv, D), new)
+    return state, bt, (kn[:, 0].contiguous(), vn[:, 0].contiguous(),
+                       ksn[:, 0].contiguous(), vsn[:, 0].contiguous())
+
+
+def decode_kernel_check(torch, gen, device):
+    """decode_attend against write_decode_attend_plain at bench-0.9b
+    attention shapes, both instances (with and without interpolation), 512-
+    token chunks, doubles forced at tokens 0, 511, 512, 1023, 1024 and
+    ctx-1 over unequal contexts (1 .. 1152). Caches, parity and scales must
+    be equal; outputs within output_tolerance."""
+    import dataclasses
+    from qkv_ecc_tpu_torch.kernels.paged_attention import (
+        h84_decode_rows, gather_pages, paged_attention_ecc_write_attend as write_attend,
+        write_decode_attend_plain)
+    from qkv_ecc_tpu_torch.models.config import BENCH_0_9B
+
+    cfg = dataclasses.replace(BENCH_0_9B, num_layers=2)
+    ctx_before = [1151, 1023, 1024, 0, 511, 512, 777, 1100]  # after the write: 1 .. 1152
+    B, Hq, D = len(ctx_before), cfg.num_heads, cfg.head_dim
+    state, bt, new = unscrubbed_h84_cache(torch, cfg, ctx_before, gen, device)
+    ctx = torch.tensor(ctx_before, dtype=torch.int32, device=device) + 1
+    rows = gather_pages(state["k_cache"], bt, 1, bt.shape[1], state["k_parity"])
+    _, dbl = h84_decode_rows(rows, state["k_cache"].shape[3])
+    names = ("k_cache", "v_cache", "k_scales", "v_scales", "k_parity", "v_parity")
+    worst = 0.0
+    for interp in (True, False):
+        q = torch.randn((B, Hq, D), generator=gen, device=device).to(torch.bfloat16)
+        a = {n: state[n].clone() for n in names}
+        p = {n: state[n].clone() for n in names}
+        out = write_attend(q, new[0], new[1], new[2], new[3], a["k_cache"], a["v_cache"],
+                           a["k_scales"], a["v_scales"], bt, ctx, 1, a["k_parity"], a["v_parity"],
+                           codec="hamming84", scrub=False, use_interpolation=interp)
+        torch.cuda.synchronize()
+        ref = write_decode_attend_plain(
+            q, new[0], new[1], new[2], new[3], p["k_cache"], p["v_cache"], p["k_scales"],
+            p["v_scales"], bt, ctx, 1, p["k_parity"], p["v_parity"], sm_scale=D ** -0.5,
+            interpolate=interp, pages_per_chunk=4)
+        for n in names:
+            if not torch.equal(a[n], p[n]):
+                fail(f"decode_attend check (interpolate={interp}): {n} after the write "
+                     "differs from the plain version")
+        diff = (out.float() - ref.float()).abs()
+        tol = output_tolerance(ref)
+        err = diff.max().item()
+        say(f"  decode_attend interpolate={interp}: max |kernel - plain| = {err:.3e}, largest "
+            f"share of its tolerance {(diff / tol).max().item():.3e}; caches, parity and scales "
+            f"equal; {int(dbl.sum())} K values of layer 1 read as doubles")
+        if not bool((diff <= tol).all()) or not torch.isfinite(out).all():
+            fail(f"decode_attend check (interpolate={interp}): output differs beyond tolerance")
+        worst = max(worst, err)
+    return worst
+
+
 def output_tolerance(ref):
     """Per element of the [B, Hq, D] output: 2^-7 |ref| is one bf16 ulp of
     the element (the last rounding, which both sides make), and 2^-8 of the
@@ -144,13 +245,15 @@ def output_tolerance(ref):
 
 
 def tiny_agreement(torch, device):
-    """tiny-llama prefill + 6 decode steps at BER 1e-2, on the card (kernel)
-    and on the CPU (plain version), same weights and masks."""
+    """tiny-llama prefill + 6 decode steps at BER 1e-2 in every arm, on the
+    card (kernels) and on the CPU (plain versions), same weights and
+    masks."""
     from qkv_ecc_tpu_torch.models.config import TINY_LLAMA as cfg
-    from qkv_ecc_tpu_torch.models.kv_policy import hoisted_write_deltas, policy_for_mode
+    from qkv_ecc_tpu_torch.models.kv_policy import (
+        hoisted_logical_masks, hoisted_write_deltas, policy_for_mode)
     from qkv_ecc_tpu_torch.models.registry import init_params
     from qkv_ecc_tpu_torch.models.runtime import (
-        decode_step, init_generation_state, prefill, write_mask_shape)
+        _use_scrub, decode_step, init_generation_state, prefill, write_mask_shape)
 
     params_cpu = init_params(cfg, seed=0, device="cpu")
     ids = torch.randint(0, cfg.vocab_size, (2, 21), generator=torch.Generator().manual_seed(1))
@@ -158,8 +261,9 @@ def tiny_agreement(torch, device):
         pol0 = policy_for_mode(mode, ber=0.0)
         pol = policy_for_mode(mode, ber=BER)
         gen = torch.Generator().manual_seed(2)
-        masks = [hoisted_write_deltas(pol, cfg.num_layers, write_mask_shape(pol, 2, cfg),
-                                      generator=gen) for _ in range(6)]
+        hoist = hoisted_write_deltas if _use_scrub(pol) else hoisted_logical_masks
+        masks = [hoist(pol, cfg.num_layers, write_mask_shape(pol, 2, cfg), generator=gen)
+                 for _ in range(6)]
         logits_by_dev = {}
         for dev in ("cpu", device):
             params = {k: v for k, v in params_cpu.items() if k != "layers"}
@@ -181,7 +285,7 @@ def tiny_agreement(torch, device):
 
 def trace_decode(torch, params, ids, gen, device, smi):
     """Device busy share of the decode step: torch.profiler over 4 steps of
-    each mode, kernel time summed over the window's wall time."""
+    each arm, kernel time summed over the window's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from qkv_ecc_tpu_torch.models.config import BENCH_0_9B as cfg
@@ -201,14 +305,61 @@ def trace_decode(torch, params, ids, gen, device, smi):
             wall_us = 1e6 * (time.perf_counter() - t)
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         busy = sum(e.time_range.elapsed_us() for e in kernels)
-        attend = sum(e.time_range.elapsed_us() for e in kernels if "write_attend_kernel" in e.name)
+        attend = {name: sum(e.time_range.elapsed_us() for e in kernels if name in e.name)
+                  for name in ("write_attend_kernel", "decode_attend_kernel")}
         if not kernels or busy <= 0:
             say(f"  {mode}: device time not measured (the profiler recorded no device events)")
             continue
         say(f"  {mode} (profiled, 4 steps): {wall_us / 4e3:.3f} ms/step wall, "
             f"{len(kernels) / 4:.0f} device kernels/step, device busy {busy / 4e3:.3f} ms/step "
             f"({100 * busy / wall_us:.1f}% of wall, idle {100 - 100 * busy / wall_us:.1f}%), "
-            f"write_attend {attend / 4e3:.3f} ms/step ({smi})")
+            f"write_attend {attend['write_attend_kernel'] / 4e3:.3f} ms/step, decode_attend "
+            f"{attend['decode_attend_kernel'] / 4e3:.3f} ms/step ({smi})")
+
+
+def device_ms(torch, fn, n, layers, wrapper):
+    """Device time per call of fn over n calls run back to back on the card,
+    cycling the layers, after 3 warm-up calls. The stream is first held by a
+    sleep kernel while the host queues all n calls between two CUDA events,
+    so the events time the device alone, without the host's time per call,
+    which is longer than the kernel's (timed includes it). If the sleep ended
+    before the last call was queued, the run is repeated with a longer one.
+    The wrapper's counter must show exactly n launches."""
+    for i in range(3):
+        fn(i % layers)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for cycles in (1 << 28, 1 << 30):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        start.record()
+        before = wrapper.launches
+        for i in range(n):
+            fn(i % layers)
+        end.record()
+        queued_in_time = not start.query()  # the device was still asleep
+        torch.cuda.synchronize()
+        launched = wrapper.launches - before
+        if launched != n:
+            fail(f"{n} timed calls launched their kernel {launched} times")
+        if queued_in_time:
+            return start.elapsed_time(end) / n
+    fail(f"the host did not queue {n} calls within a sleep of {cycles} cycles")
+
+
+def timed(torch, fn, n, layers):
+    """ms per call over n back-to-back calls after 3 warm-up calls, by CUDA
+    events, cycling the layers (24 layers of cache, 226-453 MB, keep each
+    call's pages out of the 50 MB L2, as in the decode step)."""
+    for i in range(3):
+        fn(i % layers)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(n):
+        fn(i % layers)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def main():
@@ -222,7 +373,8 @@ def main():
         fail(f"the port package is missing ({e}): run from the repository root")
     from qkv_ecc_tpu_torch.kernels import _build
     from qkv_ecc_tpu_torch.kernels.paged_attention import (
-        paged_attention_ecc_write_attend as write_attend, write_attend_plain)
+        paged_attention_ecc_write_attend as write_attend, write_attend_plain,
+        write_decode_attend, write_decode_attend_plain)
     from qkv_ecc_tpu_torch.models.config import BENCH_0_9B as cfg
     from qkv_ecc_tpu_torch.models.kv_policy import policy_for_mode
     from qkv_ecc_tpu_torch.models.registry import init_params
@@ -237,15 +389,18 @@ def main():
             f"{count} device(s); nvidia-smi: {smi}")
 
     with Phase("build"):
-        b = _build.build("write_attend")
-        say(f"  {b.name}: built in {b.seconds:.2f} s -> {b.path.name}")
-        for line in b.log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                say(f"    {line.strip()}")
+        t = time.perf_counter()
+        for b in _build.build_all():
+            say(f"  {b.name}: built in {b.seconds:.2f} s -> {b.path.name}")
+            for line in b.log.splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    say(f"    {line.strip()}")
+        say(f"  all sources, in parallel: {time.perf_counter() - t:.2f} s")
 
     gen = torch.Generator(device=device).manual_seed(0)
     with Phase("kernel check"):
         max_err = kernel_check(torch, gen, device)
+        max_err_decode = decode_kernel_check(torch, gen, device)
 
     with Phase("tiny agreement"):
         tiny_agreement(torch, device)
@@ -253,45 +408,63 @@ def main():
     with Phase("slice"):
         params = init_params(cfg, seed=0, device=device, dtype=torch.bfloat16)
         ids = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=device)
-        runs = {}
-        for mode in MODES:  # warm-up of both modes, before the counted run
+        for mode in MODES:  # warm-up of every arm, before the counted run
             pol = policy_for_mode(mode, ber=BER, seed=42)
             st, bt, _ = init_generation_state(cfg, pol, BATCH, 256, device=device)
             lg, st = prefill(params, ids[:, :128], st, bt, cfg, pol, gen)
             decode_loop(params, lg, st, bt, cfg, pol, gen, 2)
         torch.cuda.synchronize()
         write_attend.launches = 0
-        for mode in MODES:
-            pol = policy_for_mode(mode, ber=BER, seed=42)
-            g = torch.Generator(device=device).manual_seed(42)
-            state, bt, _ = init_generation_state(cfg, pol, BATCH, PROMPT + STEPS, device=device)
-            t = time.perf_counter()
-            logits, state = prefill(params, ids, state, bt, cfg, pol, g)
-            torch.cuda.synchronize()
-            t_prefill = time.perf_counter() - t
-            t = time.perf_counter()
-            logits, state, toks = decode_loop(params, logits, state, bt, cfg, pol, g, STEPS)
-            torch.cuda.synchronize()
-            t_decode = time.perf_counter() - t
-            if logits.shape != (BATCH, cfg.vocab_size) or not torch.isfinite(logits).all():
-                fail(f"{mode}: logits not finite or of the wrong shape")
-            if toks.shape != (STEPS, BATCH) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
-                fail(f"{mode}: tokens out of range")
-            if not torch.equal(state["context_len"].cpu(), torch.full((BATCH,), PROMPT + STEPS, dtype=torch.int32)):
-                fail(f"{mode}: context lengths did not advance")
-            runs[mode] = dict(state=state, bt=bt, prefill_s=t_prefill,
-                              ms_step=1e3 * t_decode / STEPS,
-                              tok_s=BATCH * STEPS / t_decode)
+        write_decode_attend.launches = 0
+        runs = {mode: [] for mode in MODES}
+        for rnd in range(ROUNDS):
+            for mode in MODES:
+                pol = policy_for_mode(mode, ber=BER, seed=42)
+                g = torch.Generator(device=device).manual_seed(42 + rnd)
+                state, bt, _ = init_generation_state(cfg, pol, BATCH, PROMPT + STEPS, device=device)
+                t = time.perf_counter()
+                logits, state = prefill(params, ids, state, bt, cfg, pol, g)
+                torch.cuda.synchronize()
+                t_prefill = time.perf_counter() - t
+                t = time.perf_counter()
+                logits, state, toks = decode_loop(params, logits, state, bt, cfg, pol, g, STEPS)
+                torch.cuda.synchronize()
+                t_decode = time.perf_counter() - t
+                if logits.shape != (BATCH, cfg.vocab_size) or not torch.isfinite(logits).all():
+                    fail(f"{mode}: logits not finite or of the wrong shape")
+                if toks.shape != (STEPS, BATCH) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
+                    fail(f"{mode}: tokens out of range")
+                if not torch.equal(state["context_len"].cpu(), torch.full((BATCH,), PROMPT + STEPS, dtype=torch.int32)):
+                    fail(f"{mode}: context lengths did not advance")
+                last = rnd + 1 == ROUNDS  # the kernel timing reads the last round's caches
+                runs[mode].append(dict(state=state if last else None, bt=bt, prefill_s=t_prefill,
+                                       ms_step=1e3 * t_decode / STEPS,
+                                       tok_s=BATCH * STEPS / t_decode))
+                del state
         launches = write_attend.launches
-        expected = cfg.num_layers * STEPS * len(MODES)
-        say(f"  write_attend launches in the run: {launches} (expected {cfg.num_layers} layers x "
-            f"{STEPS} steps x {len(MODES)} modes = {expected})")
-        if launches != expected:
-            fail("the decode path did not go through the write_attend kernel on every layer and step")
-        for mode, r in runs.items():
-            say(f"  {mode}: prefill {r['prefill_s']:.3f} s, decode {r['ms_step']:.3f} ms/step, "
-                f"{r['tok_s']:.1f} tokens/s (batch {BATCH}, ctx {PROMPT}+{STEPS}, BER {BER}; "
-                f"{smi})")
+        launches_decode = write_decode_attend.launches
+        per_arm = cfg.num_layers * STEPS * ROUNDS
+        for name, got, arms in (("write_attend", launches, SCRUBBED),
+                                ("decode_attend", launches_decode, MODES[3:4])):
+            say(f"  {name} launches in the run: {got} (expected {cfg.num_layers} layers x "
+                f"{STEPS} steps x {ROUNDS} rounds x {len(arms)} arm(s) {list(arms)} = "
+                f"{per_arm * len(arms)})")
+            if got != per_arm * len(arms):
+                fail(f"the decode path did not go through the {name} kernel on every layer "
+                     "and step of its arms")
+        for mode, rs in runs.items():
+            for rnd, r in enumerate(rs):
+                base = runs[BASELINE][rnd]
+                say(f"  round {rnd} {mode}: prefill {r['prefill_s']:.3f} s, decode "
+                    f"{r['ms_step']:.3f} ms/step, {r['tok_s']:.1f} tokens/s, "
+                    f"{r['tok_s'] / base['tok_s']:.4f} x int4-write-inject's tokens/s "
+                    f"(batch {BATCH}, ctx {PROMPT}+{STEPS}, BER {BER}; {smi})")
+        for mode, rs in runs.items():
+            mean_tok = sum(r["tok_s"] for r in rs) / len(rs)
+            base_tok = sum(r["tok_s"] for r in runs[BASELINE]) / ROUNDS
+            say(f"  {mode}: mean over {ROUNDS} rounds "
+                f"{sum(r['ms_step'] for r in rs) / len(rs):.3f} ms/step, {mean_tok:.1f} tokens/s, "
+                f"ratio to int4-write-inject {mean_tok / base_tok:.4f} ({smi})")
         # a decode step reads every weight once except the embedding table
         # (one row per token): the step's least time on this card
         wbytes = sum(t.numel() * t.element_size() for n, t in params.items()
@@ -299,17 +472,22 @@ def main():
         wbytes += sum(t.numel() * t.element_size() for lp in params["layers"] for t in lp.values())
         say(f"  weights read per decode step: {wbytes / 1e9:.3f} GB, "
             f"{1e3 * wbytes / PEAK_BYTES_PER_S:.3f} ms at 3.35 TB/s")
-        ratio = runs[MODES[1]]["tok_s"] / runs[MODES[0]]["tok_s"]
-        say(f"  golay/int4 tokens/s ratio: {ratio:.4f} ({smi})")
 
     with Phase("kernel timing"):
-        r = runs["int12-golay"]
-        state, bt = r["state"], r["bt"]
-        names = ("k_cache", "v_cache", "k_scales", "v_scales")
-        L, _, Hkv, Wd, bs = state["k_cache"].shape
-        ctx = state["context_len"].clone()  # the column at ctx-1 is rewritten as is
+        group = cfg.num_heads // cfg.num_kv_heads
         q = torch.randn((BATCH, cfg.num_heads, cfg.head_dim), generator=gen,
                         device=device).to(torch.bfloat16)
+
+        def bound(nbytes, flops, int_ops):
+            bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+            ops_ms = 1e3 * (flops + int_ops) / PEAK_FP32_FLOPS
+            return max((bytes_ms, "bytes"), (ops_ms, "operations")) + (bytes_ms, ops_ms)
+
+        # K1 on the golay arm's cache (the column at ctx-1 is rewritten)
+        state, bt = runs["int12-golay"][-1]["state"], runs["int12-golay"][-1]["bt"]
+        names = ("k_cache", "v_cache", "k_scales", "v_scales")
+        L, _, Hkv, Wd, bs = state["k_cache"].shape
+        ctx = state["context_len"].clone()
         kn = torch.zeros((BATCH, Hkv, Wd), dtype=torch.int32, device=device)
         sn = torch.ones((BATCH, Hkv), dtype=torch.float32, device=device)
 
@@ -321,40 +499,67 @@ def main():
             return write_attend_plain(q, kn, kn, sn, sn, *(state[n] for n in names), bt, ctx,
                                       layer, sm_scale=cfg.head_dim ** -0.5)
 
-        def timed(fn, n):
-            # cycling the 24 layers (226 MB of cache) keeps each call's pages
-            # out of the 50 MB L2, as in the decode step
-            for i in range(3):
-                fn(i % L)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            for i in range(n):
-                fn(i % L)
-            end.record()
-            torch.cuda.synchronize()
-            return start.elapsed_time(end) / n
-
-        ms = timed(call, 240)
-        plain_ms = timed(plain, 24)
-        ms2 = timed(call, 240)
+        ms = device_ms(torch, call, 240, L, write_attend)
+        call_ms = timed(torch, call, 240, L)
+        plain_ms = timed(torch, plain, 24, L)
+        ms = min(ms, device_ms(torch, call, 240, L, write_attend))
         # least work of one call: read each live token's K and V data words
         # and scales once, the query, block table and lengths; write the new
         # columns, scales and the output. Operations: QK and PV, one
         # multiply-add each per (token, KV head, group head, value), in fp32.
         tokens = int(ctx.sum())
-        group = cfg.num_heads // Hkv
         nbytes = (tokens * Hkv * (2 * Wd * 4 + 2 * 4) + 2 * q.numel() * q.element_size()
                   + 2 * BATCH * Hkv * (Wd * 4 + 4) + bt.numel() * 4 + BATCH * 4)
         flops = 2 * 2 * tokens * Hkv * group * cfg.head_dim
-        bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
-        ops_ms = 1e3 * flops / PEAK_FP32_FLOPS
-        bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
-        ms = min(ms, ms2)
-        say(f"  write_attend at ctx {PROMPT + STEPS}: {ms * 1e3:.2f} us/launch; bound {bound_ms * 1e3:.2f} us "
+        bound_ms, bound_by, bytes_ms, ops_ms = bound(nbytes, flops, 0)
+        say(f"  write_attend at ctx {PROMPT + STEPS}: {ms * 1e3:.2f} us/launch on the device "
+            f"(CUDA events, calls queued behind a sleep; {call_ms * 1e3:.2f} us per "
+            f"back-to-back call, host included); bound {bound_ms * 1e3:.2f} us "
             f"by {bound_by} ({nbytes / 1e6:.2f} MB at 3.35 TB/s = {bytes_ms * 1e3:.2f} us; "
             f"{flops / 1e6:.1f} MFLOP fp32 at 67 TFLOP/s = {ops_ms * 1e3:.2f} us); share of bound "
             f"{bound_ms / ms:.3f}; plain version {plain_ms * 1e3:.1f} us; library call: none ({smi})")
+        k1 = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+        # decode_attend on the interpolation arm's cache: data ++ parity rows
+        state, bt = (runs["int4-hamming84-interp"][-1][k] for k in ("state", "bt"))
+        pnames = ("k_cache", "v_cache", "k_scales", "v_scales")
+        rn = torch.zeros((BATCH, Hkv, 2 * Wd), dtype=torch.int32, device=device)
+        ctx = state["context_len"].clone()
+        dec = {}
+        for interp in (True, False):
+            def call_d(layer):
+                return write_attend(q, rn, rn, sn, sn, *(state[n] for n in pnames), bt, ctx,
+                                    layer, state["k_parity"], state["v_parity"],
+                                    codec="hamming84", scrub=False, use_interpolation=interp)
+
+            def plain_d(layer):
+                return write_decode_attend_plain(
+                    q, rn, rn, sn, sn, *(state[n] for n in pnames), bt, ctx, layer,
+                    state["k_parity"], state["v_parity"], sm_scale=cfg.head_dim ** -0.5,
+                    interpolate=interp, pages_per_chunk=4)
+
+            ms_d = device_ms(torch, call_d, 240, L, write_decode_attend)
+            call_ms_d = timed(torch, call_d, 240, L)
+            plain_ms_d = timed(torch, plain_d, 24, L)
+            ms_d = min(ms_d, device_ms(torch, call_d, 240, L, write_decode_attend))
+            # least work: each live token's K and V data and parity words and
+            # scales read once, the query, table and lengths; the new rows and
+            # scales written, and the output. Operations: the QK and PV
+            # multiply-adds in fp32, and the SECDED decode (and interpolation)
+            # of every word in 32-bit integer operations, both at 67 T/s
+            nbytes_d = (tokens * Hkv * (2 * 2 * Wd * 4 + 2 * 4) + 2 * q.numel() * q.element_size()
+                        + 2 * BATCH * Hkv * (2 * Wd * 4 + 4) + bt.numel() * 4 + BATCH * 4)
+            int_ops = tokens * Hkv * 2 * Wd * (DECODE_OPS_PER_WORD
+                                               + (INTERP_OPS_PER_WORD if interp else 0))
+            b_ms, b_by, bytes_ms, ops_ms = bound(nbytes_d, flops, int_ops)
+            say(f"  decode_attend interpolate={interp} at ctx {PROMPT + STEPS}: {ms_d * 1e3:.2f} "
+                f"us/launch on the device (CUDA events, calls queued behind a sleep; "
+                f"{call_ms_d * 1e3:.2f} us per back-to-back call, host included); bound {b_ms * 1e3:.2f} us by {b_by} "
+                f"({nbytes_d / 1e6:.2f} MB at 3.35 TB/s = {bytes_ms * 1e3:.2f} us; {flops / 1e6:.1f} MFLOP fp32 + "
+                f"{int_ops / 1e6:.1f} M int32 ops at 67 T/s = {ops_ms * 1e3:.2f} us); share of "
+                f"bound {b_ms / ms_d:.3f}; plain version {plain_ms_d * 1e3:.1f} us; library "
+                f"call: none ({smi})")
+            dec[interp] = dict(ms=ms_d, plain_ms=plain_ms_d, bound_ms=b_ms, bound_by=b_by)
 
     with Phase("trace"):
         trace_decode(torch, params, ids, gen, device, smi)
@@ -366,10 +571,16 @@ def main():
         "replaces": "qkv_ecc_tpu/kernels/paged_attention.py:1056",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        **k1,
+        "library_ms": None,
+    }, {
+        "name": "decode_attend",
+        "route": "cuda",
+        "source": "qkv_ecc_tpu_torch/csrc/decode_attend.cu",
+        "replaces": "qkv_ecc_tpu/kernels/paged_attention.py:677",
+        "launches": launches_decode,
+        "max_abs_err": max_err_decode,
+        **dec[True],
         "library_ms": None,
     }]}
     say(f"total {time.perf_counter() - T0:.1f} s")

@@ -1,11 +1,11 @@
 """Physical layout of the paged ECC KV cache (counterpart of
-``qkv_ecc_tpu/cache/layout.py``, int4 and golay).
+``qkv_ecc_tpu/cache/layout.py``, the packed-int codecs).
 
 The JAX package's format, kept so that caches compare bit for bit:
   * data arrays k_cache/v_cache [layers, blocks, kv_heads, data_words,
     block_size] int32, tokens on the minor axis;
   * parity arrays k_parity/v_parity [layers, blocks, kv_heads, parity_words,
-    block_size] int32 (golay only);
+    block_size] int32 (hamming74, hamming84 and golay);
   * scales k_scales/v_scales [layers, blocks, kv_heads, block_size] float32.
 """
 
@@ -18,7 +18,7 @@ import torch
 from ..device import resolve_device
 from ..kernels import swar
 
-CODEC_CHOICES = ("int4", "golay")
+CODEC_CHOICES = ("int4", "hamming74", "hamming84", "golay")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +71,8 @@ class ECCCacheConfig:
 
 def allocate_ecc_kv_cache(config: ECCCacheConfig, device=None) -> dict:
     """Zeroed cache tensors: k_cache, v_cache, k_scales, v_scales, plus
-    k_parity/v_parity for golay. ``device=None`` means the card."""
+    k_parity/v_parity for the codecs that have parity. ``device=None``
+    means the card."""
     device = resolve_device(device)
 
     def zeros(shape, dtype):

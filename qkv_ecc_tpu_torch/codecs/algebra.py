@@ -1,5 +1,6 @@
-"""Golay(24,12) tables shared by the packed-cache codecs (counterpart of
-``qkv_ecc_tpu/codecs/algebra.py``; only what this slice's path needs).
+"""Golay(24,12) tables and the SECDED error classes shared by the
+packed-cache codecs (counterpart of ``qkv_ecc_tpu/codecs/algebra.py``; only
+what the port's paths need).
 
 Golay(24,12): codeword = data(12 low bits) | parity << 12, data = three INT4
 nibbles, G = [I12 | B], H = [B^T | I12].
@@ -8,6 +9,23 @@ nibbles, G = [I12 | B], H = [B^T | I12].
 from __future__ import annotations
 
 import numpy as np
+
+
+class ErrorType:
+    """Hamming(8,4) SECDED decode classification.
+
+    (syndrome, overall parity) -> class:
+        syndrome==0, parity ok   -> NO_ERROR
+        syndrome!=0, parity bad  -> SINGLE_CORRECTED
+        syndrome!=0, parity ok   -> DOUBLE_DETECTED  (data preserved, corrupt)
+        syndrome==0, parity bad  -> PARITY_ONLY      (data valid)
+    """
+
+    NO_ERROR = 0
+    SINGLE_CORRECTED = 1
+    DOUBLE_DETECTED = 2
+    PARITY_ONLY = 3
+
 
 # Sentinel error_count for an uncorrectable Golay codeword (>3 bit errors).
 GOLAY_UNCORRECTABLE_COUNT = 4

@@ -1,0 +1,183 @@
+// Online-softmax paged attention over int4-packed nibble words, shared by
+// the port's write+attend kernels (write_attend.cu, decode_attend.cu).
+//
+// A block of kThreads threads attends the GROUP query heads of one KV head
+// of one sequence, page by page:
+//   phase A (the caller): thread per token - the token's K words into
+//     qk_dot, the scores into p_s and the running lmax; the token's V words
+//     and V scale staged in v_s / vs_s;
+//   phases B and C (attend_page): the page's softmax weights, V scale folded
+//     in and rounded to bf16, against the running maximum, then thread per
+//     head-dim value - the staged V page contracted into acc.
+// Precision follows the TPU kernel's "fast" path: q rounded to bf16 (the
+// caller stages it so), p * v_scale rounded to bf16, fp32 sums.
+//
+// Bit order (swar.pack_int4): byte k of data word j holds value 4j+k in its
+// low nibble and value DP/2+4j+k in its high nibble, DP = 8 * data words
+// (the padded value count; values >= head_dim are padding).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace paged_attend {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// dot[g] = sum over the DP values of q_s[g][v] * (nibble v - 8); q_s is zero
+// at the padding values, so they add nothing.
+template <int WD, int GROUP>
+__device__ __forceinline__ void qk_dot(const int32_t (&kw)[WD], const float* q_s,
+                                       float (&dot)[GROUP]) {
+  constexpr int DP = 8 * WD;
+  constexpr int HALF = DP / 2;
+#pragma unroll
+  for (int g = 0; g < GROUP; ++g) dot[g] = 0.f;
+#pragma unroll
+  for (int j = 0; j < WD; ++j) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float lo = (float)((kw[j] >> (8 * k)) & 0xF) - 8.f;
+      const float hi = (float)((kw[j] >> (8 * k + 4)) & 0xF) - 8.f;
+#pragma unroll
+      for (int g = 0; g < GROUP; ++g) {
+        dot[g] = fmaf(q_s[g * DP + 4 * j + k], lo, dot[g]);
+        dot[g] = fmaf(q_s[g * DP + HALF + 4 * j + k], hi, dot[g]);
+      }
+    }
+  }
+}
+
+// Block-wide state of the online softmax, in shared memory.
+template <int GROUP>
+struct SoftmaxState {
+  float red[GROUP][kWarps];
+  float m[GROUP], l[GROUP], alpha[GROUP];
+};
+
+// Phases B and C of one page whose scores (kNegInf where not live) are in
+// p_s [GROUP][bs], whose per-thread score maxima are lmax, and whose V words
+// and scales are staged in v_s [WD][bs + 1] and vs_s [bs]. Thread tid owns
+// head-dim value tid (when owns_d) and accumulates it in acc. Ends with a
+// block barrier, after which the staging buffers may be refilled.
+template <int WD, int GROUP>
+__device__ __forceinline__ void attend_page(const float (&lmax)[GROUP], float* p_s,
+                                            const float* vs_s, const int32_t* v_s,
+                                            SoftmaxState<GROUP>& st, float (&acc)[GROUP],
+                                            int page_tok, int ctx, int first_tok, int bs) {
+  constexpr int DP = 8 * WD;
+  constexpr int HALF = DP / 2;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+#pragma unroll
+  for (int g = 0; g < GROUP; ++g) {
+    const float v = warp_max(lmax[g]);
+    if (lane == 0) st.red[g][warp] = v;
+  }
+  __syncthreads();
+  if (tid < GROUP) {
+    float mp = st.red[tid][0];
+    for (int w = 1; w < kWarps; ++w) mp = fmaxf(mp, st.red[tid][w]);
+    const float m_old = st.m[tid];
+    const float m_new = fmaxf(m_old, mp);
+    st.alpha[tid] = expf(m_old - m_new);
+    st.m[tid] = m_new;
+  }
+  __syncthreads();
+
+  // phase B: softmax weights, V scale folded in and rounded to bf16
+  float lsum[GROUP];
+#pragma unroll
+  for (int g = 0; g < GROUP; ++g) lsum[g] = 0.f;
+  for (int t = tid; t < bs; t += kThreads) {
+    const int tok = page_tok + t;
+    const bool live = tok < ctx && tok >= first_tok;
+    const float vs = vs_s[t];
+#pragma unroll
+    for (int g = 0; g < GROUP; ++g) {
+      const float p = expf(p_s[g * bs + t] - st.m[g]);
+      lsum[g] += p;
+      p_s[g * bs + t] = live ? __bfloat162float(__float2bfloat16(p * vs)) : 0.f;
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < GROUP; ++g) {
+    const float v = warp_sum(lsum[g]);
+    if (lane == 0) st.red[g][warp] = v;
+  }
+  __syncthreads();
+  if (tid < GROUP) {
+    float sum = 0.f;
+    for (int w = 0; w < kWarps; ++w) sum += st.red[tid][w];
+    st.l[tid] = st.l[tid] * st.alpha[tid] + sum;
+  }
+
+  // phase C: thread per head-dim value - contract the staged V page
+  if (tid < DP) {
+    const int dd = tid < HALF ? tid : tid - HALF;
+    const int dshift = (dd & 3) * 8 + (tid < HALF ? 0 : 4);
+    const int32_t* vrow = v_s + (dd >> 2) * (bs + 1);
+#pragma unroll
+    for (int g = 0; g < GROUP; ++g) acc[g] *= st.alpha[g];
+    for (int t = 0; t < bs; ++t) {
+      const float vv = (float)((vrow[t] >> dshift) & 0xF) - 8.f;
+#pragma unroll
+      for (int g = 0; g < GROUP; ++g) acc[g] = fmaf(p_s[g * bs + t], vv, acc[g]);
+    }
+  }
+  __syncthreads();
+}
+
+// Stage the group's queries (bf16) as floats, zero beyond head_dim HD, and
+// reset the softmax state.
+template <int WD, int GROUP, int HD>
+__device__ __forceinline__ void stage_queries(const __nv_bfloat16* q, float* q_s,
+                                              SoftmaxState<GROUP>& st) {
+  constexpr int DP = 8 * WD;
+  for (int i = threadIdx.x; i < GROUP * DP; i += kThreads) {
+    const int g = i / DP, v = i % DP;
+    q_s[i] = v < HD ? __bfloat162float(q[g * HD + v]) : 0.f;
+  }
+  if (threadIdx.x < GROUP) {
+    st.m[threadIdx.x] = kNegInf;
+    st.l[threadIdx.x] = 0.f;
+  }
+}
+
+// out[g][d] = acc / l for the head-dim value d = tid < HD.
+template <int GROUP, int HD>
+__device__ __forceinline__ void store_output(const float (&acc)[GROUP],
+                                             const SoftmaxState<GROUP>& st, void* out,
+                                             size_t row0, int out_bf16) {
+  const int tid = threadIdx.x;
+  if (tid >= HD) return;
+#pragma unroll
+  for (int g = 0; g < GROUP; ++g) {
+    const float l = st.l[g];
+    const float o = l > 0.f ? acc[g] / l : 0.f;
+    const size_t idx = (row0 + g) * HD + tid;
+    if (out_bf16)
+      ((__nv_bfloat16*)out)[idx] = __float2bfloat16(o);
+    else
+      ((float*)out)[idx] = o;
+  }
+}
+
+}  // namespace paged_attend

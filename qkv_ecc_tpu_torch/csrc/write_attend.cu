@@ -21,7 +21,10 @@
 // accumulated in fp32.
 //
 // Bit order (swar.pack_int4): byte k of data word j holds value 4j+k in its
-// low nibble and value D/2+4j+k in its high nibble.
+// low nibble and value DP/2+4j+k in its high nibble, DP = 8 * data words.
+// hamming74 pads the values of a row to a multiple of 32, so at head_dim 16
+// its 4 data words carry 16 padding nibbles: the queries are zero there and
+// the output drops them.
 //
 // Bound on this card: bytes. Per call it must read each live token's K and V
 // data words and scales once: B * ctx * Hkv * (2*Wd*4 + 2*4) bytes, about
@@ -32,40 +35,25 @@
 // Design: one block of 128 threads per (KV head, sequence), looping over the
 // sequence's pages. Phase A maps threads to tokens (coalesced loads of the
 // token-minor words: thread t reads word j of token t at j*bs + t), computes
-// the group's scores and stages the V words in shared memory; phase C maps
-// threads to head-dim values and contracts the staged V page against the
-// softmax weights. At the bench shapes that is 8 x 8 = 64 blocks on the
-// H100's 132 SMs; splitting a sequence's pages over blocks is later work.
+// the group's scores and stages the V words in shared memory; phases B and C
+// (paged_attend.cuh, shared with decode_attend.cu) take the page's softmax
+// weights and map threads to head-dim values to contract the staged V page.
+// At the bench shapes that is 8 x 8 = 64 blocks on the H100's 132 SMs;
+// splitting a sequence's pages over blocks is later work.
 // The new token is attended from the column passed in (in registers), not
 // read back from the cache, so the in-place write needs no fence. Each block
 // writes only its own head's column and scale, so blocks never race. The
 // kernel allocates nothing.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "paged_attend.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr float kNegInf = -1e30f;
+using namespace paged_attend;
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <int WD, int GROUP>
+template <int WD, int GROUP, int HD>
 __global__ void __launch_bounds__(kThreads) write_attend_kernel(
-    const __nv_bfloat16* __restrict__ q,  // [B, Hq, D]
+    const __nv_bfloat16* __restrict__ q,  // [B, Hq, HD]
     const int32_t* __restrict__ k_new,    // [B, Hkv, WD]
     const int32_t* __restrict__ v_new,
     const float* __restrict__ ks_new,     // [B, Hkv]
@@ -76,36 +64,28 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
     float* v_scales,
     const int32_t* __restrict__ block_table,   // [B, P]
     const int32_t* __restrict__ context_lens,  // [B]
-    void* out,                                 // [B, Hq, D] fp32 or bf16
+    void* out,                                 // [B, Hq, HD] fp32 or bf16
     int Hkv, int bs, int NB, int P, int layer, float sm_scale, int window,
     int out_bf16) {
-  constexpr int D = 8 * WD;
-  constexpr int HALF = D / 2;
+  constexpr int DP = 8 * WD;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
 
   extern __shared__ float smem[];
-  float* q_s = smem;                          // [GROUP][D]
-  float* p_s = q_s + GROUP * D;               // [GROUP][bs] scores, then weights
+  float* q_s = smem;                          // [GROUP][DP]
+  float* p_s = q_s + GROUP * DP;              // [GROUP][bs] scores, then weights
   float* vs_s = p_s + GROUP * bs;             // [bs] V scales
   int32_t* v_s = (int32_t*)(vs_s + bs);       // [WD][bs + 1] V words (padded rows)
-  __shared__ float red[GROUP][kWarps];
-  __shared__ float m_sh[GROUP], l_sh[GROUP], alpha_sh[GROUP];
+  __shared__ SoftmaxState<GROUP> st;
 
   const int Hq = Hkv * GROUP;
   const int ctx = context_lens[b];
   const int tok_new = ctx - 1;
   const size_t head_page = (size_t)layer * NB * Hkv;  // page index base of this layer
+  const size_t row0 = (size_t)b * Hq + (size_t)h * GROUP;
 
-  for (int i = tid; i < GROUP * D; i += kThreads)
-    q_s[i] = __bfloat162float(q[((size_t)b * Hq + (size_t)h * GROUP) * D + i]);
-  if (tid < GROUP) {
-    m_sh[tid] = kNegInf;
-    l_sh[tid] = 0.f;
-  }
+  stage_queries<WD, GROUP, HD>(q + row0 * HD, q_s, st);
 
   const int32_t* kn = k_new + ((size_t)b * Hkv + h) * WD;
   const int32_t* vn = v_new + ((size_t)b * Hkv + h) * WD;
@@ -128,12 +108,6 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
       }
     }
   }
-
-  // the head-dim value this thread owns in phase C
-  const bool owns_d = tid < D;
-  const int dd = tid < HALF ? tid : tid - HALF;
-  const int dj = dd >> 2;
-  const int dshift = (dd & 3) * 8 + (tid < HALF ? 0 : 4);
 
   float acc[GROUP];
 #pragma unroll
@@ -167,21 +141,7 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
       const float ks = is_new ? ksn : ksp[t];
       vs_s[t] = is_new ? vsn : vsp[t];
       float dot[GROUP];
-#pragma unroll
-      for (int g = 0; g < GROUP; ++g) dot[g] = 0.f;
-#pragma unroll
-      for (int j = 0; j < WD; ++j) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float lo = (float)((kw[j] >> (8 * k)) & 0xF) - 8.f;
-          const float hi = (float)((kw[j] >> (8 * k + 4)) & 0xF) - 8.f;
-#pragma unroll
-          for (int g = 0; g < GROUP; ++g) {
-            dot[g] = fmaf(q_s[g * D + 4 * j + k], lo, dot[g]);
-            dot[g] = fmaf(q_s[g * D + HALF + 4 * j + k], hi, dot[g]);
-          }
-        }
-      }
+      qk_dot<WD, GROUP>(kw, q_s, dot);
       const float kscale = ks * sm_scale;
 #pragma unroll
       for (int g = 0; g < GROUP; ++g) {
@@ -190,90 +150,25 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
         lmax[g] = fmaxf(lmax[g], s);
       }
     }
-#pragma unroll
-    for (int g = 0; g < GROUP; ++g) {
-      const float v = warp_max(lmax[g]);
-      if (lane == 0) red[g][warp] = v;
-    }
-    __syncthreads();
-    if (tid < GROUP) {
-      float mp = red[tid][0];
-      for (int w = 1; w < kWarps; ++w) mp = fmaxf(mp, red[tid][w]);
-      const float m_old = m_sh[tid];
-      const float m_new = fmaxf(m_old, mp);
-      alpha_sh[tid] = expf(m_old - m_new);
-      m_sh[tid] = m_new;
-    }
-    __syncthreads();
-
-    // phase B: softmax weights, V scale folded in and rounded to bf16
-    float lsum[GROUP];
-#pragma unroll
-    for (int g = 0; g < GROUP; ++g) lsum[g] = 0.f;
-    for (int t = tid; t < bs; t += kThreads) {
-      const int tok = pg * bs + t;
-      const bool live = tok < ctx && tok >= first_tok;
-      const float vs = vs_s[t];
-#pragma unroll
-      for (int g = 0; g < GROUP; ++g) {
-        const float p = expf(p_s[g * bs + t] - m_sh[g]);
-        lsum[g] += p;
-        p_s[g * bs + t] = live ? __bfloat162float(__float2bfloat16(p * vs)) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < GROUP; ++g) {
-      const float v = warp_sum(lsum[g]);
-      if (lane == 0) red[g][warp] = v;
-    }
-    __syncthreads();
-    if (tid < GROUP) {
-      float sum = 0.f;
-      for (int w = 0; w < kWarps; ++w) sum += red[tid][w];
-      l_sh[tid] = l_sh[tid] * alpha_sh[tid] + sum;
-    }
-
-    // phase C: thread per head-dim value - contract the staged V page
-    if (owns_d) {
-#pragma unroll
-      for (int g = 0; g < GROUP; ++g) acc[g] *= alpha_sh[g];
-      const int32_t* vrow = v_s + dj * (bs + 1);
-      for (int t = 0; t < bs; ++t) {
-        const float vv = (float)((vrow[t] >> dshift) & 0xF) - 8.f;
-#pragma unroll
-        for (int g = 0; g < GROUP; ++g) acc[g] = fmaf(p_s[g * bs + t], vv, acc[g]);
-      }
-    }
-    __syncthreads();
+    attend_page<WD, GROUP>(lmax, p_s, vs_s, v_s, st, acc, pg * bs, ctx, first_tok, bs);
   }
 
-  if (owns_d) {
-#pragma unroll
-    for (int g = 0; g < GROUP; ++g) {
-      const float l = l_sh[g];
-      const float o = l > 0.f ? acc[g] / l : 0.f;
-      const size_t idx = ((size_t)b * Hq + (size_t)h * GROUP + g) * D + tid;
-      if (out_bf16)
-        ((__nv_bfloat16*)out)[idx] = __float2bfloat16(o);
-      else
-        ((float*)out)[idx] = o;
-    }
-  }
+  store_output<GROUP, HD>(acc, st, out, row0, out_bf16);
 }
 
-template <int WD, int GROUP>
+template <int WD, int GROUP, int HD>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    const void* ks_new, const void* vs_new, void* k_cache,
                    void* v_cache, void* k_scales, void* v_scales,
                    const void* block_table, const void* context_lens, void* out,
                    int B, int Hkv, int bs, int NB, int P, int layer,
                    float sm_scale, int window, int out_bf16, cudaStream_t stream) {
-  constexpr int D = 8 * WD;
-  const size_t smem = (size_t)(GROUP * D + GROUP * bs + bs) * sizeof(float) +
+  constexpr int DP = 8 * WD;
+  const size_t smem = (size_t)(GROUP * DP + GROUP * bs + bs) * sizeof(float) +
                       (size_t)WD * (bs + 1) * sizeof(int32_t);
   if (smem > 48 * 1024) return cudaErrorInvalidValue;
   dim3 grid(Hkv, B);
-  write_attend_kernel<WD, GROUP><<<grid, kThreads, smem, stream>>>(
+  write_attend_kernel<WD, GROUP, HD><<<grid, kThreads, smem, stream>>>(
       (const __nv_bfloat16*)q, (const int32_t*)k_new, (const int32_t*)v_new,
       (const float*)ks_new, (const float*)vs_new, (int32_t*)k_cache,
       (int32_t*)v_cache, (float*)k_scales, (float*)v_scales,
@@ -285,23 +180,25 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
-// success). Instances are built only for the (data words per row, group)
-// pairs of the registered models: (2, 2) for tiny-llama (head_dim 16) and
-// (16, 2) for bench-0.9b (head_dim 128); any other pair returns
-// cudaErrorInvalidValue. All tensors contiguous; q bf16; out fp32
-// (out_bf16 = 0) or bf16 (out_bf16 = 1); window <= 0 means no window.
+// success). Instances are built only for the (data words per row, group,
+// head_dim) of the registered models: (2, 2, 16) and (4, 2, 16) for
+// tiny-llama (hamming74 pads to 4 words) and (16, 2, 128) for bench-0.9b;
+// any other triple returns cudaErrorInvalidValue. All tensors contiguous;
+// q bf16; out fp32 (out_bf16 = 0) or bf16 (out_bf16 = 1); window <= 0 means
+// no window.
 extern "C" int write_attend_launch(
     const void* q, const void* k_new, const void* v_new, const void* ks_new,
     const void* vs_new, void* k_cache, void* v_cache, void* k_scales,
     void* v_scales, const void* block_table, const void* context_lens,
-    void* out, int B, int Hkv, int group, int wd, int bs, int NB, int P,
-    int layer, float sm_scale, int window, int out_bf16, void* stream) {
+    void* out, int B, int Hkv, int group, int wd, int head_dim, int bs, int NB,
+    int P, int layer, float sm_scale, int window, int out_bf16, void* stream) {
 #define WA_ARGS q, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales, \
     v_scales, block_table, context_lens, out, B, Hkv, bs, NB, P, layer,     \
     sm_scale, window, out_bf16, (cudaStream_t)stream
   cudaError_t err = cudaErrorInvalidValue;
-  if (wd == 2 && group == 2) err = launch<2, 2>(WA_ARGS);
-  if (wd == 16 && group == 2) err = launch<16, 2>(WA_ARGS);
+  if (wd == 2 && group == 2 && head_dim == 16) err = launch<2, 2, 16>(WA_ARGS);
+  if (wd == 4 && group == 2 && head_dim == 16) err = launch<4, 2, 16>(WA_ARGS);
+  if (wd == 16 && group == 2 && head_dim == 128) err = launch<16, 2, 128>(WA_ARGS);
 #undef WA_ARGS
   return (int)err;
 }

@@ -2,8 +2,9 @@
 load them with ctypes.
 
 Each source under ``csrc/`` becomes ``_build/lib<name>-<hash>.so`` (the hash
-covers the source and the flags, so an edited source rebuilds). Builds run
-at first use, never at import.
+covers the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited source rebuilds). Builds run at first use, never at import;
+``build_all`` starts one nvcc per source, all at once.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
+SOURCES = ("write_attend", "decode_attend")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -60,30 +62,46 @@ def find_nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=SOURCES) -> list[Built]:
+    """Build each csrc/<name>.cu that is not built yet, one nvcc process per
+    source, all started together; raises with nvcc's output when a build
+    fails."""
+    todo = {}
+    for name in names:
+        if name in _BUILT:
+            continue
+        target = _target(name)
+        if target.exists():
+            _BUILT[name] = Built(name, target, 0.0, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        todo[name] = (proc, tmp, target, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, target, t0) in todo.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, target)
+        _BUILT[name] = Built(name, target, time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [_BUILT[name] for name in names]
 
 
 def build(name: str) -> Built:
-    """Build csrc/<name>.cu unless it is built already; raises with nvcc's
-    output when the build fails."""
-    if name in _BUILT:
-        return _BUILT[name]
-    target = _target(name)
-    if target.exists():
-        _BUILT[name] = Built(name, target, 0.0, "")
-        return _BUILT[name]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
-    os.replace(tmp, target)
-    _BUILT[name] = Built(name, target, time.perf_counter() - t0, proc.stdout)
-    return _BUILT[name]
+    """Build csrc/<name>.cu unless it is built already."""
+    return build_all((name,))[0]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,9 +1,9 @@
-"""int32 Golay helpers on torch tensors (counterpart of
-``qkv_ecc_tpu/kernels/common.py``, golay part).
+"""int32 Hamming and Golay helpers on torch tensors (counterpart of
+``qkv_ecc_tpu/kernels/common.py``).
 
 Unsigned 32-bit arithmetic is done in int32 with explicit masks: every value
-these helpers see is a 24-bit codeword or a 12-bit word, so no sign bit is
-ever set.
+these helpers see is a 7/8-bit Hamming codeword, a 24-bit Golay codeword or
+a 12-bit word, so no sign bit is ever set.
 """
 
 from __future__ import annotations
@@ -25,6 +25,96 @@ def popcount(x: torch.Tensor) -> torch.Tensor:
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
     return (x + (x >> 8) + (x >> 16) + (x >> 24)) & 0x3F
+
+
+# Hamming(7,4) syndrome -> bit position (-1: no error).
+_H74_LUT_PACKED = (-1, 4, 5, 0, 6, 1, 2, 3)
+
+
+def hamming7_syndrome_i32(cw7: torch.Tensor) -> torch.Tensor:
+    c = [(cw7 >> i) & 1 for i in range(7)]
+    s0 = c[0] ^ c[1] ^ c[3] ^ c[4]
+    s1 = c[0] ^ c[2] ^ c[3] ^ c[5]
+    s2 = c[1] ^ c[2] ^ c[3] ^ c[6]
+    return s0 | (s1 << 1) | (s2 << 2)
+
+
+def h74_error_mask_i32(syndrome: torch.Tensor) -> torch.Tensor:
+    """Syndrome -> XOR correction mask of the 7-bit codeword."""
+    mask = torch.zeros_like(syndrome)
+    for s_val, pos in enumerate(_H74_LUT_PACKED):
+        if pos >= 0:
+            mask = torch.where(syndrome == s_val, 1 << pos, mask)
+    return mask
+
+
+def hamming74_decode_i32(cw: torch.Tensor):
+    """7-bit codewords -> (data nibbles, error detected)."""
+    cw7 = cw & 0x7F
+    syndrome = hamming7_syndrome_i32(cw7)
+    return (cw7 ^ h74_error_mask_i32(syndrome)) & 0xF, syndrome != 0
+
+
+def _odd_parity7(cw7: torch.Tensor) -> torch.Tensor:
+    p = cw7 ^ (cw7 >> 4)
+    p = p ^ (p >> 2)
+    p = p ^ (p >> 1)
+    return p & 1
+
+
+def hamming84_decode_i32(cw: torch.Tensor):
+    """8-bit SECDED codewords -> (data, ErrorType as int32)."""
+    cw7 = cw & 0x7F
+    parity_error = ((cw >> 7) & 1) != _odd_parity7(cw7)
+    syndrome = hamming7_syndrome_i32(cw7)
+    error_type = torch.where(
+        syndrome == 0,
+        torch.where(parity_error, 3, 0),
+        torch.where(parity_error, 1, 2),
+    ).to(torch.int32)
+    correction = torch.where(error_type == 1, h74_error_mask_i32(syndrome), 0)
+    return (cw7 ^ correction) & 0xF, error_type
+
+
+def _h74_data_correction_i32(syndrome: torch.Tensor) -> torch.Tensor:
+    """XOR mask for the data nibble only: syndromes {3, 5, 6, 7} flip data
+    bits {0, 1, 2, 3}; the others are parity-bit errors."""
+    return torch.where(
+        syndrome == 3,
+        1,
+        torch.where(syndrome >= 5,
+                    torch.ones_like(syndrome) << torch.clamp(syndrome - 4, min=0), 0),
+    )
+
+
+def hamming74_correct_data_i32(cw: torch.Tensor) -> torch.Tensor:
+    """Data-only Hamming(7,4) correction (no error flags)."""
+    cw7 = cw & 0x7F
+    return (cw7 ^ _h74_data_correction_i32(hamming7_syndrome_i32(cw7))) & 0xF
+
+
+def hamming84_correct_data_i32(cw: torch.Tensor) -> torch.Tensor:
+    """Data-only SECDED correction: singles corrected, doubles keep their
+    corrupt data bits (the data output of hamming84_decode_i32)."""
+    cw7 = cw & 0x7F
+    syndrome = hamming7_syndrome_i32(cw7)
+    single = (syndrome != 0) & ((popcount(cw & 0xFF) & 1) == 1)
+    corr = torch.where(single, _h74_data_correction_i32(syndrome), 0)
+    return (cw7 ^ corr) & 0xF
+
+
+def hamming74_encode_i32(d: torch.Tensor) -> torch.Tensor:
+    d = d & 0xF
+    b = [(d >> i) & 1 for i in range(4)]
+    p0 = b[0] ^ b[1] ^ b[3]
+    p1 = b[0] ^ b[2] ^ b[3]
+    p2 = b[1] ^ b[2] ^ b[3]
+    return d | (p0 << 4) | (p1 << 5) | (p2 << 6)
+
+
+def hamming84_encode_i32(d: torch.Tensor) -> torch.Tensor:
+    cw7 = hamming74_encode_i32(d)
+    return cw7 | (_odd_parity7(cw7) << 7)
 
 
 def _parity(x: torch.Tensor) -> torch.Tensor:

@@ -1,20 +1,27 @@
 """Packed-cache codec math on torch int32 tensors (counterpart of
-``qkv_ecc_tpu/kernels/swar.py``, int4 and golay).
+``qkv_ecc_tpu/kernels/swar.py``).
 
-The storage format is the JAX package's, bit for bit:
+The storage format is the JAX package's, bit for bit. Every row is
+data-first: the int4-packed data nibbles, then the codec's parity.
 
-  int4   8 nibbles per int32 word (``pack_int4``): byte k of word j holds
-         value 4j+k in its low nibble and value D/2+4j+k in its high nibble.
-  golay  codeword c protects values (c, c+C, c+2C) (third-partitioned over
-         the padded codeword count C). Rows are data-first: the int4-packed
-         data nibbles, then a nibble plane (codeword bits 12-15 and the
-         padding values) and a byte plane (bits 16-23).
+  int4       8 nibbles per int32 word (``pack_int4``): byte k of word j holds
+             value 4j+k in its low nibble and value D/2+4j+k in its high
+             nibble.
+  hamming84  data nibbles int4-packed, then the parity nibbles (codeword
+             bits 4-7) int4-packed the same way.
+  hamming74  data nibbles int4-packed, then 3 bit-sliced parity planes of G
+             words each: bit t of plane p word g is parity bit p of value
+             t*G + g.
+  golay      codeword c protects values (c, c+C, c+2C) (third-partitioned
+             over the padded codeword count C). The int4-packed data
+             nibbles, then a nibble plane (codeword bits 12-15 and the
+             padding values) and a byte plane (bits 16-23).
 
 Every ECC row keeps its data nibbles in the int4 layout, so a scrubbed read
 is an int4 read and never touches parity.
 
 Unsigned arithmetic runs in int32 with explicit masks; shifts left wrap as
-two's complement, as in XLA.
+two's complement and shifts right are arithmetic, as in XLA.
 """
 
 from __future__ import annotations
@@ -27,18 +34,17 @@ from ..codecs.algebra import GOLAY_B_ROW_MASKS
 from . import common as C
 
 _B_MASKS = tuple(int(m) for m in GOLAY_B_ROW_MASKS)
+M1 = 0x01010101  # bit 0 of each byte
 
 # Codecs of the JAX package that later slices bring, and which slice.
 _LATER = {
-    "hamming74": "the int4-hamming write chain (next slice)",
-    "hamming84": "the int4-hamming84 write chain (next slice)",
     "fp16": "the float cache arms (a later slice)",
     "fp8": "the float cache arms (a later slice)",
 }
 
 
 def unsupported(codec: str):
-    """Raise for a codec this slice does not carry."""
+    """Raise for a codec the port does not carry yet."""
     if codec in _LATER:
         raise NotImplementedError(
             f"codec '{codec}' is not ported yet: it comes with {_LATER[codec]}"
@@ -91,6 +97,168 @@ def unpack_int4(w: torch.Tensor, axis: int = -1) -> torch.Tensor:
 def int4_split(x: torch.Tensor):
     """Packed int4 words -> (lo, hi) nibble-in-byte-slot words."""
     return x & 0x0F0F0F0F, (x >> 4) & 0x0F0F0F0F
+
+
+# =============================================================================
+# hamming84: 4 codewords per int32 word, byte slots (SWAR)
+# =============================================================================
+
+
+def h84_swar_syndromes(x: torch.Tensor):
+    """Per-byte SECDED syndromes of 4 codewords per int32 word: (a, b, c,
+    podd), the syndrome bits s0/s1/s2 and odd overall parity, each in bit 0
+    of every byte."""
+    x1, x2, x3 = x >> 1, x >> 2, x >> 3
+    x4, x5, x6 = x >> 4, x >> 5, x >> 6
+    a = (x ^ x1 ^ x3 ^ x4) & M1
+    b = (x ^ x2 ^ x3 ^ x5) & M1
+    c = (x1 ^ x2 ^ x3 ^ x6) & M1
+    p = x ^ x4
+    p = p ^ (p >> 2)
+    p = p ^ (p >> 1)
+    return a, b, c, p & M1
+
+
+def _h84_data_correction(a, b, c, single):
+    """Data-nibble XOR masks from per-byte syndrome bits: syndromes
+    {3, 5, 6, 7} flip data bits {0, 1, 2, 3}, the rest are parity-bit flips."""
+    ab = a & b
+    corr = (
+        (ab & (c ^ M1))
+        | ((a & (b ^ M1) & c) << 1)
+        | (((a ^ M1) & b & c) << 2)
+        | ((ab & c) << 3)
+    )
+    return corr & (single * 0xF)
+
+
+def h84_swar_correct_data(x: torch.Tensor) -> torch.Tensor:
+    """4 SECDED codewords per word -> 4 corrected data nibbles (byte slots);
+    doubles keep their corrupt data (hamming84_correct_data_i32)."""
+    a, b, c, podd = h84_swar_syndromes(x)
+    single = (a | b | c) & podd
+    return (x ^ _h84_data_correction(a, b, c, single)) & 0x0F0F0F0F
+
+
+def h84_swar_decode(x: torch.Tensor):
+    """h84_swar_correct_data plus the (singles, doubles) masks, bit 0 of
+    each byte."""
+    a, b, c, podd = h84_swar_syndromes(x)
+    nonzero = a | b | c
+    single = nonzero & podd
+    double = nonzero & (podd ^ M1)
+    corr = _h84_data_correction(a, b, c, single)
+    return (x ^ corr) & 0x0F0F0F0F, single, double
+
+
+def h84_swar_encode(n: torch.Tensor) -> torch.Tensor:
+    """4 nibbles per word (byte slots) -> 4 SECDED codewords per word."""
+    p0 = (n ^ (n >> 1) ^ (n >> 3)) & M1
+    p1 = (n ^ (n >> 2) ^ (n >> 3)) & M1
+    p2 = ((n >> 1) ^ (n >> 2) ^ (n >> 3)) & M1
+    cw = n | (p0 << 4) | (p1 << 5) | (p2 << 6)
+    q = cw ^ (cw >> 4)
+    q = q ^ (q >> 2)
+    q = q ^ (q >> 1)
+    return cw | ((q & M1) << 7)
+
+
+def h84_split_pack(cw: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """[..., pv] 8-bit codewords -> [..., pv/4] words: pack_int4 of the data
+    nibbles, then pack_int4 of the parity nibbles (cw >> 4)."""
+    cw = _last(cw, axis)
+    out = torch.cat([pack_int4(cw & 0xF), pack_int4((cw >> 4) & 0xF)], dim=-1)
+    return torch.movedim(out, -1, axis)
+
+
+def h84_split_unpack(w: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Inverse of h84_split_pack: [..., W] -> [..., 4W] codewords."""
+    w = _last(w, axis)
+    half = w.shape[-1] // 2
+    out = unpack_int4(w[..., :half]) | (unpack_int4(w[..., half:]) << 4)
+    return torch.movedim(out, -1, axis)
+
+
+def h84_rebuild_cw_words(dw: torch.Tensor, pw: torch.Tensor):
+    """(data words, parity words) -> byte-slot codeword words (lo, hi): lo
+    holds the codewords of values [0, pv/2), hi those of [pv/2, pv)."""
+    lo = (dw & 0x0F0F0F0F) | ((pw & 0x0F0F0F0F) << 4)
+    hi = ((dw >> 4) & 0x0F0F0F0F) | (((pw >> 4) & 0x0F0F0F0F) << 4)
+    return lo, hi
+
+
+# =============================================================================
+# hamming74: int4-packed data nibbles + 3 bit-sliced parity planes
+# =============================================================================
+
+
+def _slice_pack(bits_vals: torch.Tensor, nbits: int, axis: int = -1) -> torch.Tensor:
+    """[..., 32G] small ints -> [..., nbits*G] bit-sliced plane words
+    (plane-major: word p*G + g holds bit p of value t*G + g at bit t). The
+    32 bits of a word are gathered as 4 bytes, so no sum leaves int32."""
+    x = _last(bits_vals, axis)
+    pre = x.shape[:-1]
+    G = x.shape[-1] // 32
+    c = x.reshape(pre + (4, 8, G))  # value (8k + i) * G + g
+    shifts = torch.arange(nbits, dtype=torch.int32, device=x.device)
+    planes = (c[..., None] >> shifts) & 1  # [..., k, i, g, p]
+    ibits = torch.arange(8, dtype=torch.int32, device=x.device).reshape(8, 1, 1)
+    by = (planes << ibits).sum(-3, dtype=torch.int32)  # [..., k, g, p]: byte k
+    by = by.movedim(-3, -1).movedim(-2, -3)  # [..., p, g, k]
+    words = pack_bytes4(by).reshape(pre + (nbits * G,))
+    return torch.movedim(words, -1, axis)
+
+
+def _slice_unpack(w: torch.Tensor, nbits: int, axis: int = -1) -> torch.Tensor:
+    """Inverse of _slice_pack: [..., nbits*G] plane words -> [..., 32G]."""
+    w = _last(w, axis)
+    pre = w.shape[:-1]
+    G = w.shape[-1] // nbits
+    planes = w.reshape(pre + (nbits, G))
+    t = torch.arange(32, dtype=torch.int32, device=w.device).reshape(32, 1, 1)
+    bits = (planes[..., None, :, :] >> t) & 1  # [..., t, p, g]
+    p = torch.arange(nbits, dtype=torch.int32, device=w.device).reshape(nbits, 1)
+    cw = (bits << p).sum(-2, dtype=torch.int32).reshape(pre + (32 * G,))
+    return torch.movedim(cw, -1, axis)
+
+
+def h74_split_pack(cw: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """[..., pv] 7-bit codewords -> [..., 7*pv/32] words: pack_int4 of the
+    data nibbles (pv/8 words), then 3 bit-sliced parity planes (3*pv/32)."""
+    cw = _last(cw, axis)
+    out = torch.cat([pack_int4(cw & 0xF), _slice_pack((cw >> 4) & 7, 3)], dim=-1)
+    return torch.movedim(out, -1, axis)
+
+
+def h74_split_unpack(w: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Inverse of h74_split_pack: [..., W] -> [..., 32*W/7] codewords."""
+    w = _last(w, axis)
+    pv = 32 * w.shape[-1] // 7
+    out = unpack_int4(w[..., : pv // 8]) | (_slice_unpack(w[..., pv // 8 :], 3) << 4)
+    return torch.movedim(out, -1, axis)
+
+
+def h74_plane_bits(plane: torch.Tensor, G: int) -> torch.Tensor:
+    """One parity plane [G, bs] -> per-value bits [32G, bs] int32 0/1 (value
+    v = t*G + g is bit t of plane word g)."""
+    rep = torch.cat([plane.to(torch.int32)] * 32, dim=0)
+    t = torch.arange(rep.shape[0], dtype=torch.int32, device=plane.device) // G
+    return (rep >> t[:, None]) & 1
+
+
+def h74_value_correct(d, p0, p1, p2):
+    """Per-value Hamming(7,4) correction of data nibbles d with parity bits
+    p0-p2 (0/1): returns (corrected nibbles, nonzero-syndrome mask 0/1)."""
+    s0 = (d ^ (d >> 1) ^ (d >> 3) ^ p0) & 1
+    s1 = (d ^ (d >> 2) ^ (d >> 3) ^ p1) & 1
+    s2 = ((d >> 1) ^ (d >> 2) ^ (d >> 3) ^ p2) & 1
+    corr = (
+        (s0 & s1 & (s2 ^ 1))
+        | ((s0 & (s1 ^ 1) & s2) << 1)
+        | (((s0 ^ 1) & s1 & s2) << 2)
+        | ((s0 & s1 & s2) << 3)
+    )
+    return d ^ corr, s0 | s1 | s2
 
 
 # =============================================================================
@@ -248,8 +416,10 @@ def golay_decode_wide(cw: torch.Tensor, *, zero_uncorrectable: bool):
 
 def padded_values(codec: str, head_dim: int) -> int:
     """Protected values per row after padding to the codec's granularity."""
-    if codec == "int4":
+    if codec in ("int4", "hamming84"):
         return round_up(head_dim, 8)
+    if codec == "hamming74":
+        return round_up(head_dim, 32)
     if codec == "golay":
         return 3 * round_up(-(-head_dim // 3), 4)
     unsupported(codec)
@@ -260,16 +430,20 @@ def row_words(codec: str, head_dim: int) -> int:
     pv = padded_values(codec, head_dim)
     if codec == "int4":
         return pv // 8
+    if codec == "hamming74":
+        return 7 * pv // 32
+    if codec == "hamming84":
+        return pv // 4
     return 3 * (pv // 3) // 4  # golay
 
 
 def data_words(codec: str, head_dim: int) -> int:
     """int32 words of the row's data prefix - the only words a scrubbed read
-    streams (16 for head_dim 128 in both codecs)."""
+    streams (16 for head_dim 128 in every codec)."""
     if codec == "golay":
         return golay_data_nibbles(head_dim) // 8
-    if codec == "int4":
-        return round_up(head_dim, 8) // 8
+    if codec in ("int4", "hamming74", "hamming84"):
+        return padded_values(codec, head_dim) // 8
     unsupported(codec)
 
 
@@ -301,16 +475,21 @@ def scrub_extract_ok(codec: str, head_dim: int) -> bool:
     prefix, so a scrubbed read extracts nibbles without decoding."""
     if codec == "golay":
         return golay_prefix_covers_values(head_dim)
-    if codec == "int4":
+    if codec in ("int4", "hamming74", "hamming84"):
         return True
     unsupported(codec)
 
 
 def pack_codewords(codec: str, cw: torch.Tensor, head_dim: int, axis: int = -1):
-    """Per-value logical codewords -> packed int32 storage words (int4:
-    padded nibbles; golay: padded_values()//3 24-bit codewords)."""
+    """Per-value logical codewords -> packed int32 storage words (int4 /
+    hamming74 / hamming84: padded_values() nibbles / 7-bit / 8-bit codewords;
+    golay: padded_values()//3 24-bit codewords)."""
     if codec == "int4":
         return pack_int4(cw, axis=axis)
+    if codec == "hamming74":
+        return h74_split_pack(cw, axis=axis)
+    if codec == "hamming84":
+        return h84_split_pack(cw, axis=axis)
     if codec == "golay":
         return golay_split_pack(cw, head_dim, axis=axis)
     unsupported(codec)
@@ -320,6 +499,10 @@ def unpack_codewords(codec: str, w: torch.Tensor, head_dim: int, axis: int = -1)
     """Inverse of pack_codewords."""
     if codec == "int4":
         return unpack_int4(w, axis=axis)
+    if codec == "hamming74":
+        return h74_split_unpack(w, axis=axis)
+    if codec == "hamming84":
+        return h84_split_unpack(w, axis=axis)
     if codec == "golay":
         return golay_split_unpack(w, head_dim, axis=axis)
     unsupported(codec)
@@ -342,9 +525,12 @@ def encode_codewords(codec: str, q: torch.Tensor, head_dim: int) -> torch.Tensor
     injection domain), padded to the codec's packing granularity."""
     if codec == "golay":
         return golay_encode_wide(golay_data12(q, head_dim))
+    q = _pad_values(q.to(torch.int32), padded_values(codec, head_dim)) & 0xF
     if codec == "int4":
-        return _pad_values(q.to(torch.int32), padded_values(codec, head_dim)) & 0xF
-    unsupported(codec)
+        return q
+    if codec == "hamming74":
+        return C.hamming74_encode_i32(q)
+    return C.hamming84_encode_i32(q)
 
 
 def scrub_fold_mask(codec: str, mask: torch.Tensor) -> torch.Tensor:
@@ -353,12 +539,16 @@ def scrub_fold_mask(codec: str, mask: torch.Tensor) -> torch.Tensor:
     For a linear code the scrub's correction of encode(q) ^ mask depends on
     the mask alone, so the scrubbed codeword is encode(q ^ delta). Returns the
     delta in the nibble domain:
-      int4:  mask & 0xF (mask shape);
+      int4 / hamming74 / hamming84: the nibble delta (mask shape);
       golay: per-value nibble | (uncorrectable << 4) over the padded values
              [..., 3C]; apply as where(bit4, 0, q ^ (delta & 0xF))."""
     mask = mask.to(torch.int32)
     if codec == "int4":
         return mask & 0xF
+    if codec == "hamming74":
+        return C.hamming74_correct_data_i32(mask)
+    if codec == "hamming84":
+        return C.hamming84_correct_data_i32(mask)
     if codec == "golay":
         d, cnt = golay_decode_wide(mask, zero_uncorrectable=False)
         dn = golay_unpack_thirds(d)
@@ -370,9 +560,14 @@ def scrub_fold_mask(codec: str, mask: torch.Tensor) -> torch.Tensor:
 
 def scrub_codewords(codec: str, cw: torch.Tensor) -> torch.Tensor:
     """Write-path scrub: decode each logical codeword and re-encode its
-    corrected data (uncorrectable golay -> the all-zero codeword)."""
+    corrected data (uncorrectable golay -> the all-zero codeword; hamming84
+    doubles re-encode their kept data)."""
     if codec == "int4":
         return cw
+    if codec == "hamming74":
+        return C.hamming74_encode_i32(C.hamming74_correct_data_i32(cw))
+    if codec == "hamming84":
+        return C.hamming84_encode_i32(C.hamming84_correct_data_i32(cw))
     if codec == "golay":
         d12, _ = golay_decode_wide(cw, zero_uncorrectable=True)
         return golay_encode_wide(d12)
@@ -384,6 +579,10 @@ def decode_values(codec: str, cw: torch.Tensor, head_dim: int, *,
     """Logical codewords -> corrected nibbles [..., head_dim]."""
     if codec == "int4":
         dec = cw.to(torch.int32) & 0xF
+    elif codec == "hamming74":
+        dec = C.hamming74_correct_data_i32(cw.to(torch.int32))
+    elif codec == "hamming84":
+        dec = C.hamming84_correct_data_i32(cw.to(torch.int32))
     elif codec == "golay":
         d12, _ = golay_decode_wide(cw, zero_uncorrectable=zero_uncorrectable)
         dec = golay_unpack_thirds(d12)

@@ -1,10 +1,12 @@
 """KV-cache protection policy and the write chain (counterpart of
-``qkv_ecc_tpu/models/kv_policy.py``, int4 and golay).
+``qkv_ecc_tpu/models/kv_policy.py``, the packed-int codecs).
 
-The write chain of a decode step is quantize -> XOR the folded scrub delta
--> encode -> pack. Masks come from an explicit ``torch.Generator`` or are
-passed in as tensors (``mask=`` raw logical-codeword masks, ``folded=``
-deltas already folded by ``swar.scrub_fold_mask``).
+The scrubbed write chain of a decode step is quantize -> XOR the folded
+scrub delta -> encode -> pack; the unscrubbed one (hamming84 with
+interpolation or without scrub) is quantize -> encode -> XOR the raw mask ->
+pack. Masks come from an explicit ``torch.Generator`` or are passed in as
+tensors (``mask=`` raw logical-codeword masks, ``folded=`` deltas already
+folded by ``swar.scrub_fold_mask``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ import dataclasses
 import torch
 
 from ..codecs.fault_injection import flip_mask
+from ..codecs.interpolation import interpolate_double_errors
+from ..kernels import common as C
 from ..kernels import swar
 
 N_BITS = {"int4": 4, "hamming74": 7, "hamming84": 8, "golay": 24, "fp8": 8}
@@ -26,7 +30,8 @@ class KVCachePolicy:
     inject_at: "write" flips the stored codewords once (errors persist);
     "read" re-corrupts raw INT4 nibbles at every attend (the unprotected
     ``int4`` arm, a later slice). scrub: correct at write time so reads only
-    extract data nibbles (the only read path this slice carries)."""
+    extract data nibbles; interpolation turns it off, since it needs the
+    doubles mask of every read."""
 
     codec: str = "int4"
     ber: float = 0.0
@@ -95,8 +100,6 @@ def encode_kv(x, policy: KVCachePolicy, generator=None, mask=None):
 
     Returns (logical codewords int32, scales float32, flipped bit count)."""
     codec = policy.codec
-    if codec not in ("int4", "golay"):
-        swar.unsupported(codec)
     x = x.to(torch.float32)
     q, scale = _quantize(x)
     enc = swar.encode_codewords(codec, q, x.shape[-1])
@@ -134,12 +137,11 @@ def encode_kv_scrubbed(x, policy: KVCachePolicy, generator=None, mask=None,
 
     Returns (scrubbed logical codewords, scales)."""
     codec = policy.codec
-    if codec not in ("int4", "golay"):
-        swar.unsupported(codec)
     x = x.to(torch.float32)
-    q, scale = _quantize(x)
     head_dim = x.shape[-1]
-    q = swar._pad_values(q, swar.padded_values(codec, head_dim)) & 0xF
+    pv = swar.padded_values(codec, head_dim)
+    q, scale = _quantize(x)
+    q = swar._pad_values(q, pv) & 0xF
     if write_inject(policy):
         f = _fold_for(policy, x.shape, generator, mask, folded)
         if codec == "golay":
@@ -148,6 +150,10 @@ def encode_kv_scrubbed(x, policy: KVCachePolicy, generator=None, mask=None,
             q = q ^ (f.to(torch.int32) & 0xF)
     if codec == "golay":
         return swar.golay_encode_wide(swar.golay_pack_thirds(q)), scale
+    if codec == "hamming74":
+        return C.hamming74_encode_i32(q), scale
+    if codec == "hamming84":
+        return C.hamming84_encode_i32(q), scale
     return q, scale
 
 
@@ -183,13 +189,25 @@ def hoisted_write_deltas(policy: KVCachePolicy, num_layers: int, enc_shape,
     return swar.scrub_fold_mask(policy.codec, raw_masks).to(torch.uint8)
 
 
+def hoisted_logical_masks(policy: KVCachePolicy, num_layers: int, enc_shape,
+                          generator=None) -> torch.Tensor:
+    """Every layer's (K, V) raw logical-codeword mask in one chain, for the
+    unscrubbed write path (encode_kv(mask=...)): uint8 [num_layers, 2,
+    *enc_shape], enc_shape the padded nibble shape. Only codecs whose masks
+    fit 8 bits (int4, hamming74, hamming84) have this hoist."""
+    if N_BITS[policy.codec] > 8:
+        raise ValueError(f"codec '{policy.codec}' masks do not fit 8 bits")
+    return _draw(None, generator, (num_layers, 2) + tuple(enc_shape), policy).to(torch.uint8)
+
+
 def pack_kv(enc, policy: KVCachePolicy, head_dim: int):
     """Logical codewords -> packed int32 storage words."""
     return swar.pack_codewords(policy.codec, enc, head_dim)
 
 
-def decode_kv(enc, scale, policy: KVCachePolicy, *, head_dim: int):
-    """Decode + dequantize, the inverse of encode_kv.
+def decode_kv(enc, scale, policy: KVCachePolicy, *, head_dim: int, seq_axis: int = 1):
+    """Decode + (interpolate along ``seq_axis``) + dequantize, the inverse of
+    encode_kv.
 
     Returns (x float32 [..., head_dim], corrected, detected)."""
     codec = policy.codec
@@ -205,6 +223,17 @@ def decode_kv(enc, scale, policy: KVCachePolicy, *, head_dim: int):
         corrected = torch.where(cnt < 4, cnt, 0).sum()
         detected = (cnt == 4).sum()
         dec = swar.golay_unpack_thirds(data12)
+    elif codec == "hamming74":
+        dec, err = C.hamming74_decode_i32(enc.to(torch.int32))
+        corrected = err.sum()
+        detected = zero
+    elif codec == "hamming84":
+        dec, et = C.hamming84_decode_i32(enc.to(torch.int32))
+        corrected = (et == 1).sum()
+        detected = (et == 2).sum()
+        if policy.use_interpolation:
+            dec = interpolate_double_errors(
+                dec.to(torch.uint8), et, seq_dim=seq_axis).to(torch.int32)
     else:
         swar.unsupported(codec)
     x = (dec[..., :head_dim].to(torch.float32) - 8.0) * scale[..., None]

@@ -1,13 +1,21 @@
 """Generation runtime over the paged ECC cache (counterpart of
-``qkv_ecc_tpu/models/runtime.py``; the scrubbed path of the llama
-architecture in the int4 and golay modes).
+``qkv_ecc_tpu/models/runtime.py``; the llama architecture in the five modes
+of the JAX bench.py: int4-write-inject, int4-hamming, int4-hamming84 and
+int12-golay scrubbed, and int4-hamming84-interp).
 
 Prefill writes whole pages with an indexed store and attends through the
 codec round trip. Each decode step runs, per layer, the projections and RoPE,
-the scrub-folded write chain, and the fused write+attend kernel
-(kernels/paged_attention.py), which updates the caches in place; the golay
-parity columns of all layers land in one ``index_put_`` per K/V at the end of
-the step. Block allocation is static: sequence b owns pages [b*P, (b+1)*P).
+the write chain, and the fused write+attend kernel
+(kernels/paged_attention.py), which updates the caches in place:
+
+  * scrubbed modes: the scrub-folded write and the extract read (K1); the
+    parity columns of all layers land in one ``index_put_`` per K/V at the
+    end of the step;
+  * hamming84 with interpolation or without scrub: the raw-mask write of
+    full rows and the correcting read, which streams parity and writes the
+    data and parity columns itself.
+
+Block allocation is static: sequence b owns pages [b*P, (b+1)*P).
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ from .kv_policy import (
     decode_kv,
     encode_kv,
     encode_pack_kv_scrubbed,
+    hoisted_logical_masks,
     hoisted_write_deltas,
     pack_kv,
     write_inject,
@@ -33,7 +42,7 @@ from .layers import apply_rope, causal_attention, rms_norm, rope_frequencies
 
 def _use_scrub(policy: KVCachePolicy) -> bool:
     """Write-path scrubbing: persistent write-time injection, no
-    interpolation. This slice carries no other decode path."""
+    interpolation (it needs the per-read doubles mask)."""
     return (
         policy.scrub
         and policy.codec in ("int4", "hamming74", "hamming84", "golay")
@@ -42,18 +51,26 @@ def _use_scrub(policy: KVCachePolicy) -> bool:
     )
 
 
-def _check_slice(cfg: ModelConfig, policy: KVCachePolicy):
+def _check_slice(cfg: ModelConfig, policy: KVCachePolicy, collect_ecc_stats=False):
+    """Raise for what the port does not carry yet: other architectures and
+    codecs, read-time injection (K2r), per-read statistics and the
+    correcting reads other than hamming84's (K2)."""
     if cfg.arch != "llama":
         raise NotImplementedError(f"architecture '{cfg.arch}' is a later slice")
-    if policy.codec not in ("int4", "golay"):
+    if policy.codec not in ("int4", "hamming74", "hamming84", "golay"):
         swar.unsupported(policy.codec)
-    if not _use_scrub(policy):
+    if policy.inject_at == "read":
         raise NotImplementedError(
-            "only the scrubbed write-inject path is ported; correcting reads "
-            "(kernel K2) and read-time injection (K2r) come later")
-    if not swar.scrub_extract_ok(policy.codec, cfg.head_dim):
+            "read-time injection (mode 'int4') comes with kernel K2r, a later slice")
+    if collect_ecc_stats:
         raise NotImplementedError(
-            f"golay at head_dim {cfg.head_dim} needs the correcting read (kernel K2)")
+            "per-read ECC statistics (collect_ecc_stats) come with kernel K2's counting "
+            "pass, a later slice")
+    if _use_scrub(policy) and swar.scrub_extract_ok(policy.codec, cfg.head_dim):
+        return
+    if policy.codec != "hamming84":
+        raise NotImplementedError(
+            f"the {policy.codec} correcting read (kernel K2) is not ported yet")
 
 
 def init_generation_state(cfg: ModelConfig, policy: KVCachePolicy, batch: int,
@@ -143,8 +160,12 @@ def prefill(params, input_ids, state, block_table, cfg: ModelConfig,
             policy: KVCachePolicy, generator=None):
     """Process the prompt [B, S]: write the cache and return the last
     token's logits [B, V] float32. Attention reads the codec round trip of
-    what was written. With injection on, masks come from ``generator``."""
+    what was written. With injection on, masks come from ``generator``.
+    Scrubbed modes store scrubbed codewords; the others store the raw ones
+    and attend through the decode (with interpolation along the sequence
+    when asked)."""
     _check_slice(cfg, policy)
+    scrub = _use_scrub(policy)
     B, S = input_ids.shape
     device = input_ids.device
     positions = torch.arange(S, device=device).expand(B, S)
@@ -154,14 +175,12 @@ def prefill(params, input_ids, state, block_table, cfg: ModelConfig,
         q, k, v = _proj_qkv(x, lp, cfg, positions, inv_freq)
         kc, ks, _ = encode_kv(k, policy, generator)
         vc, vs, _ = encode_kv(v, policy, generator)
-        _write_tokens(
-            state, i, block_table, positions,
-            pack_kv(swar.scrub_codewords(policy.codec, kc), policy, cfg.head_dim),
-            pack_kv(swar.scrub_codewords(policy.codec, vc), policy, cfg.head_dim),
-            ks, vs,
-        )
-        k_dec, _, _ = decode_kv(kc, ks, policy, head_dim=cfg.head_dim)
-        v_dec, _, _ = decode_kv(vc, vs, policy, head_dim=cfg.head_dim)
+        kcs = swar.scrub_codewords(policy.codec, kc) if scrub else kc
+        vcs = swar.scrub_codewords(policy.codec, vc) if scrub else vc
+        _write_tokens(state, i, block_table, positions, pack_kv(kcs, policy, cfg.head_dim),
+                      pack_kv(vcs, policy, cfg.head_dim), ks, vs)
+        k_dec, _, _ = decode_kv(kc, ks, policy, head_dim=cfg.head_dim, seq_axis=1)
+        v_dec, _, _ = decode_kv(vc, vs, policy, head_dim=cfg.head_dim, seq_axis=1)
         attn = causal_attention(q, k_dec.to(x.dtype), v_dec.to(x.dtype),
                                 cfg.num_kv_groups, sliding_window=cfg.sliding_window)
         x = _attn_out_mlp(x, attn, lp, cfg)
@@ -172,21 +191,25 @@ def prefill(params, input_ids, state, block_table, cfg: ModelConfig,
 
 def write_mask_shape(policy: KVCachePolicy, batch: int, cfg: ModelConfig):
     """Logical injection-mask shape of one decode token's K or V write: the
-    d12 codeword array for golay, padded nibbles for int4."""
+    d12 codeword array for golay, padded nibbles otherwise."""
     pv = swar.padded_values(policy.codec, cfg.head_dim)
     return (batch, 1, cfg.num_kv_heads, pv // 3 if policy.codec == "golay" else pv)
 
 
 @torch.no_grad()
 def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
-                policy: KVCachePolicy, generator=None, hoisted_masks=None):
+                policy: KVCachePolicy, generator=None, hoisted_masks=None,
+                collect_ecc_stats: bool = False):
     """One decode step: token_ids [B] -> logits [B, V] float32; the caches
     advance in place.
 
-    hoisted_masks: folded write deltas [L, 2, *fold shape]
-    (kv_policy.hoisted_write_deltas); drawn here from ``generator`` when
-    injection is on and none are given."""
-    _check_slice(cfg, policy)
+    hoisted_masks: every layer's write masks for this step, [L, 2, *shape]
+    uint8 - folded deltas (kv_policy.hoisted_write_deltas) in the scrubbed
+    modes, raw logical masks (kv_policy.hoisted_logical_masks, padded nibble
+    shape) otherwise. Drawn here from ``generator`` in one chain when
+    injection is on and none are given. collect_ecc_stats is not ported
+    (kernel K2's counting pass) and raises."""
+    _check_slice(cfg, policy, collect_ecc_stats)
     B = token_ids.shape[0]
     L = len(params["layers"])
     pos = state["context_len"]
@@ -195,33 +218,43 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
     dw = state["k_cache"].shape[3]
     inv_freq = _inv_freq(cfg, token_ids.device)
     phys = _physical_pages(block_table, positions, bs)[:, 0]
+    scrub = _use_scrub(policy)
     inject = write_inject(policy)
     if inject and hoisted_masks is None:
-        hoisted_masks = hoisted_write_deltas(
-            policy, L, write_mask_shape(policy, B, cfg), generator=generator)
+        hoist = hoisted_write_deltas if scrub else hoisted_logical_masks
+        hoisted_masks = hoist(policy, L, write_mask_shape(policy, B, cfg), generator=generator)
     x = _embed(params, token_ids[:, None], cfg)
-    has_parity = "k_parity" in state
+    # scrubbed: the kernel reads data words only and the parity columns are
+    # stored at the end of the step; otherwise parity streams through it
+    scatter_parity = scrub and "k_parity" in state
+    parity_args = () if scrub else (state["k_parity"], state["v_parity"])
     k_par, v_par = [], []
     ctx = pos + 1
     for i, lp in enumerate(params["layers"]):
         q, k, v = _proj_qkv(x, lp, cfg, positions, inv_freq)
-        kc, ks = encode_pack_kv_scrubbed(
-            k, policy, folded=hoisted_masks[i, 0] if inject else None)
-        vc, vs = encode_pack_kv_scrubbed(
-            v, policy, folded=hoisted_masks[i, 1] if inject else None)
+        masks = hoisted_masks[i] if inject else (None, None)
+        if scrub:
+            kc, ks = encode_pack_kv_scrubbed(k, policy, folded=masks[0])
+            vc, vs = encode_pack_kv_scrubbed(v, policy, folded=masks[1])
+        else:
+            kc, ks, _ = encode_kv(k, policy, mask=masks[0])
+            vc, vs, _ = encode_kv(v, policy, mask=masks[1])
+            kc, vc = pack_kv(kc, policy, cfg.head_dim), pack_kv(vc, policy, cfg.head_dim)
         kc, vc = kc[:, 0], vc[:, 0]  # [B, Hkv, row_words]
-        if has_parity:
+        if scatter_parity:
             k_par.append(kc[..., dw:])
             v_par.append(vc[..., dw:])
+        if scrub:
+            kc, vc = kc[..., :dw], vc[..., :dw]
         attn = paged_attention_ecc_write_attend(
-            q[:, 0], kc[..., :dw].contiguous(), vc[..., :dw].contiguous(),
+            q[:, 0], kc.contiguous(), vc.contiguous(),
             ks[:, 0].contiguous(), vs[:, 0].contiguous(),
             state["k_cache"], state["v_cache"], state["k_scales"], state["v_scales"],
-            block_table, ctx, i, codec=policy.codec,
-            sliding_window=cfg.sliding_window,
+            block_table, ctx, i, *parity_args, codec=policy.codec, scrub=scrub,
+            use_interpolation=policy.use_interpolation, sliding_window=cfg.sliding_window,
         )
         x = _attn_out_mlp(x, attn[:, None], lp, cfg)
-    if has_parity:
+    if scatter_parity:
         # parity[l, phys[b], h, :, slot[b]] = col[b, l, h, :], all layers at once
         slots = (pos % bs).long()
         layers = torch.arange(L, device=phys.device)[None, :]
@@ -236,12 +269,15 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
 
 @torch.no_grad()
 def decode_loop(params, logits, state, block_table, cfg: ModelConfig,
-                policy: KVCachePolicy, generator, num_steps: int):
+                policy: KVCachePolicy, generator, num_steps: int,
+                collect_ecc_stats: bool = False):
     """``num_steps`` greedy decode steps in a Python loop, each step's write
-    deltas drawn from ``generator`` in one chain.
+    masks (folded deltas or raw logical masks, as the mode writes) drawn
+    from ``generator`` in one chain for all layers.
 
     Returns (logits [B, V] after the last step, state, tokens [num_steps, B]
     - the argmax token fed into each step)."""
+    _check_slice(cfg, policy, collect_ecc_stats)
     tokens = []
     for _ in range(num_steps):
         tok = torch.argmax(logits, dim=-1)

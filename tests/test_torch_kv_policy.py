@@ -19,7 +19,9 @@ from qkv_ecc_tpu_torch.kernels import swar as ts  # noqa: E402
 from qkv_ecc_tpu_torch.models import kv_policy as tp  # noqa: E402
 
 torch.set_num_threads(1)
-MODES = {"int4": "int4-write-inject", "golay": "int12-golay"}
+MODES = {"int4": "int4-write-inject", "golay": "int12-golay", "hamming74": "int4-hamming",
+         "hamming84": "int4-hamming84"}
+CODECS = list(MODES)
 
 
 def same(jax_out, torch_out):
@@ -65,7 +67,7 @@ def test_quantize(head_dim):
     same(js_, ts_)
 
 
-@pytest.mark.parametrize("codec", ["int4", "golay"])
+@pytest.mark.parametrize("codec", CODECS)
 @pytest.mark.parametrize("head_dim", [16, 128])
 @pytest.mark.parametrize("ber", [0.0, 1e-2])
 def test_write_chain(codec, head_dim, ber):
@@ -100,7 +102,7 @@ def test_write_chain(codec, head_dim, ber):
     assert torch.equal(trows_f, trows)
 
 
-@pytest.mark.parametrize("codec", ["int4", "golay"])
+@pytest.mark.parametrize("codec", CODECS)
 def test_hoisted_write_deltas(codec):
     """JAX folds each layer's threefry mask with swar.scrub_fold_mask; the
     port folds the same raw masks given explicitly."""
@@ -117,7 +119,7 @@ def test_hoisted_write_deltas(codec):
     assert drawn.shape == got.shape and drawn.dtype == torch.uint8
 
 
-@pytest.mark.parametrize("codec", ["int4", "golay"])
+@pytest.mark.parametrize("codec", CODECS)
 @pytest.mark.parametrize("ber", [1e-2, 8e-2])
 def test_decode_kv(codec, ber):
     rng, x = inputs(128, seed=9)
@@ -147,3 +149,47 @@ def test_flip_mask_rate_and_determinism():
     assert abs(rate - 1e-2) < 0.03 * 1e-2
     again = flip_mask((200_000,), 1e-2, 24, torch.Generator().manual_seed(11))
     assert torch.equal(m, again)
+
+
+@pytest.mark.parametrize("seq_axis", [1, 0])
+def test_decode_kv_interpolation(seq_axis):
+    """hamming84 with interpolation: the unscrubbed codewords of a 33-token
+    sequence at BER 8e-2 (doubles at about 1 value in 8), decoded,
+    interpolated along the sequence axis and dequantized, bit for bit."""
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(2, 33, 3, 16)).astype(np.float32)
+    pol_j = jp.policy_for_mode("int4-hamming84-interp", ber=8e-2)
+    pol_t = tp.policy_for_mode("int4-hamming84-interp", ber=8e-2)
+    mask = numpy_mask(rng, mask_shape("hamming84", x), 8e-2, 8)
+    jenc, jsc, _ = jp.encode_kv(jnp.asarray(x), pol_j, None, mask=jnp.asarray(mask))
+    tenc, tsc, _ = tp.encode_kv(torch.from_numpy(x), pol_t, mask=torch.from_numpy(mask))
+    same(jenc, tenc)
+    jx, jcorr, jdet = jp.decode_kv(jenc, jsc, pol_j, head_dim=16, seq_axis=seq_axis)
+    tx, tcorr, tdet = tp.decode_kv(tenc, tsc, pol_t, head_dim=16, seq_axis=seq_axis)
+    same(jx, tx)
+    assert (int(jcorr), int(jdet)) == (int(tcorr), int(tdet))
+    assert int(tdet) > 50  # doubles were there to interpolate
+    plain = tp.decode_kv(tenc, tsc, tp.policy_for_mode("int4-hamming84", ber=8e-2),
+                         head_dim=16)[0]
+    assert not torch.equal(plain, tx)
+
+
+@pytest.mark.parametrize("codec", ["int4", "hamming74", "hamming84"])
+def test_hoisted_logical_masks(codec):
+    """The unscrubbed write path's hoist: raw masks of every layer in one
+    draw, uint8, which encode_kv XORs as the explicit mask it is."""
+    pol = tp.policy_for_mode(MODES[codec], ber=5e-2)
+    shape = (2, 1, 3, ts.padded_values(codec, 16))
+    m = tp.hoisted_logical_masks(pol, 4, shape, generator=torch.Generator().manual_seed(1))
+    assert m.dtype == torch.uint8 and m.shape == (4, 2) + shape
+    assert int(m.max()) < (1 << tp.N_BITS[codec]) and int(m.max()) > 0
+    again = tp.hoisted_logical_masks(pol, 4, shape, generator=torch.Generator().manual_seed(1))
+    assert torch.equal(m, again)
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 1, 3, 16)).astype(np.float32))
+    enc, _, flips = tp.encode_kv(x, pol, mask=m[2, 1])
+    clean, _, _ = tp.encode_kv(x, tp.policy_for_mode(MODES[codec]))
+    assert torch.equal(enc ^ clean, m[2, 1].to(torch.int32))
+    assert int(flips) == int(ts.C.popcount(m[2, 1].to(torch.int32)).sum())
+    with pytest.raises(ValueError, match="8 bits"):
+        tp.hoisted_logical_masks(tp.policy_for_mode("int12-golay", ber=5e-2), 1, shape,
+                                 generator=torch.Generator())

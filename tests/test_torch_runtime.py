@@ -1,9 +1,11 @@
-"""The port's scrubbed decode slice (qkv_ecc_tpu_torch.models.runtime) against
-the JAX runtime on tiny-llama with the same weights (params_from_jax): prefill
-at BER 0, then decode steps at BER 1e-2 on the same numpy-made raw masks,
-folded by each package and passed as hoisted_masks.
+"""The port's decode slice (qkv_ecc_tpu_torch.models.runtime) against the JAX
+runtime on tiny-llama with the same weights (params_from_jax), in the five
+modes of bench.py and hamming84 without scrub: prefill at BER 0, then decode
+steps on the same numpy-made raw masks, passed as hoisted_masks - folded by
+each package in the scrubbed modes, raw in the others (BER 1e-2; 5e-2 for
+the hamming84 correcting reads, so that doubles reach the interpolation).
 
-Stored words (data nibbles and golay parity) must be equal after prefill and
+Stored words (data nibbles and parity) must be equal after prefill and
 after every decode step: none differs on these inputs. They could, because
 the two frameworks' float32 matmuls differ by an ulp, and a K/V value on a
 quantization boundary would then land on the neighbouring nibble; the test
@@ -21,6 +23,7 @@ Tolerances, with their reasons:
   * greedy tokens must be identical.
 """
 
+import dataclasses
 import os
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -37,9 +40,12 @@ from qkv_ecc_tpu.models.config import TINY_LLAMA as J_TINY  # noqa: E402
 from qkv_ecc_tpu.models.kv_policy import policy_for_mode as j_policy  # noqa: E402
 from qkv_ecc_tpu.models.registry import init_params as j_init  # noqa: E402
 from qkv_ecc_tpu_torch.kernels.paged_attention import paged_attention_ecc_write_attend  # noqa: E402
+from qkv_ecc_tpu_torch.kernels.paged_attention import write_decode_attend  # noqa: E402
+from qkv_ecc_tpu_torch.kernels import swar  # noqa: E402
+from qkv_ecc_tpu_torch.kernels.common import hamming84_decode_i32  # noqa: E402
 from qkv_ecc_tpu_torch.models import runtime as tr  # noqa: E402
 from qkv_ecc_tpu_torch.models.config import TINY_LLAMA as T_TINY  # noqa: E402
-from qkv_ecc_tpu_torch.models.kv_policy import hoisted_write_deltas  # noqa: E402
+from qkv_ecc_tpu_torch.models.kv_policy import N_BITS, hoisted_write_deltas  # noqa: E402
 from qkv_ecc_tpu_torch.models.kv_policy import policy_for_mode as t_policy  # noqa: E402
 from qkv_ecc_tpu_torch.models.llama import params_from_jax  # noqa: E402
 
@@ -79,15 +85,30 @@ def test_config_copied():
         assert getattr(J_TINY, f) == getattr(T_TINY, f), f
 
 
-@pytest.mark.parametrize("mode", ["int4-write-inject", "int12-golay"])
+NO_SCRUB = "int4-hamming84/scrub=False"
+
+
+def policies(mode, ber=0.0):
+    """(JAX policy, port policy) of a bench.py mode, or of NO_SCRUB."""
+    base = mode.split("/")[0]
+    jpol, tpol = j_policy(base, ber=ber), t_policy(base, ber=ber)
+    if mode == NO_SCRUB:
+        jpol, tpol = dataclasses.replace(jpol, scrub=False), dataclasses.replace(tpol, scrub=False)
+    return jpol, tpol
+
+
+@pytest.mark.parametrize("mode", ["int4-write-inject", "int12-golay", "int4-hamming",
+                                  "int4-hamming84", "int4-hamming84-interp", NO_SCRUB])
 def test_slice_matches_jax(weights, mode):
     jparams, tparams = weights
-    codec = {"int4-write-inject": "int4", "int12-golay": "golay"}[mode]
+    jpol0, tpol0 = policies(mode)
+    codec = tpol0.codec
+    scrubbed = mode != NO_SCRUB and not tpol0.use_interpolation
+    ber = 1e-2 if scrubbed else 5e-2
     rng = np.random.default_rng(0)
     ids = rng.integers(0, J_TINY.vocab_size, (B, PROMPT))
     T = PROMPT + STEPS + 2
 
-    jpol0, tpol0 = j_policy(mode), t_policy(mode)
     jstate, jbt, _ = jr.init_generation_state(J_TINY, jpol0, B, T, block_size=BS)
     tstate, tbt, _ = tr.init_generation_state(T_TINY, tpol0, B, T, block_size=BS, device="cpu")
     np.testing.assert_array_equal(np.asarray(jbt), tbt.numpy())
@@ -97,15 +118,19 @@ def test_slice_matches_jax(weights, mode):
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), rtol=1e-4, atol=1e-5)
     compare_caches(jstate, tstate, "prefill", 4.8e-7)
 
-    jpol, tpol = j_policy(mode, ber=1e-2), t_policy(mode, ber=1e-2)
+    jpol, tpol = policies(mode, ber)
     shape = tr.write_mask_shape(tpol, B, T_TINY)
     assert shape == jr._write_mask_shape(jpol, B, J_TINY)
-    launches = paged_attention_ecc_write_attend.launches
+    launches = paged_attention_ecc_write_attend.launches, write_decode_attend.launches
     for step in range(STEPS):
-        raw = numpy_masks(rng, (T_TINY.num_layers, 2) + shape, 1e-2, 24 if codec == "golay" else 4)
-        jh = js.scrub_fold_mask(codec, jnp.asarray(raw)).astype(jnp.uint8)
-        th = hoisted_write_deltas(tpol, T_TINY.num_layers, shape, raw_masks=torch.from_numpy(raw))
-        np.testing.assert_array_equal(np.asarray(jh), th.numpy())
+        raw = numpy_masks(rng, (T_TINY.num_layers, 2) + shape, ber, N_BITS[codec])
+        if scrubbed:
+            jh = js.scrub_fold_mask(codec, jnp.asarray(raw)).astype(jnp.uint8)
+            th = hoisted_write_deltas(tpol, T_TINY.num_layers, shape,
+                                      raw_masks=torch.from_numpy(raw))
+            np.testing.assert_array_equal(np.asarray(jh), th.numpy())
+        else:  # raw logical masks, XORed into the codewords
+            jh, th = jnp.asarray(raw.astype(np.uint8)), torch.from_numpy(raw.astype(np.uint8))
         jtok, ttok = jnp.argmax(jlogits, axis=-1), torch.argmax(tlogits, dim=-1)
         np.testing.assert_array_equal(np.asarray(jtok), ttok.numpy(), err_msg=f"step {step}")
         jlogits, jstate = jr.decode_step(jparams, jtok, jstate, jbt, J_TINY, jpol,
@@ -117,16 +142,22 @@ def test_slice_matches_jax(weights, mode):
                                    err_msg=f"step {step}")
         compare_caches(jstate, tstate, f"step {step}", 1e-3)
     np.testing.assert_array_equal(np.asarray(jstate["context_len"]), tstate["context_len"].numpy())
-    assert paged_attention_ecc_write_attend.launches == launches  # the CPU path never launches
+    # the CPU path never launches
+    assert (paged_attention_ecc_write_attend.launches, write_decode_attend.launches) == launches
+    if not scrubbed:  # the cache holds doubles, which the correcting read decoded
+        rows = torch.cat([tstate["k_cache"], tstate["k_parity"]], dim=3).movedim(3, -1)
+        _, et = hamming84_decode_i32(swar.unpack_codewords("hamming84", rows, 16))
+        assert int((et == 2).sum()) > 0
 
 
-@pytest.mark.parametrize("mode", ["int4-write-inject", "int12-golay"])
+@pytest.mark.parametrize("mode", ["int4-write-inject", "int12-golay", "int4-hamming",
+                                  "int4-hamming84", "int4-hamming84-interp", NO_SCRUB])
 def test_decode_loop_and_generate(weights, mode):
     """decode_loop feeds argmax tokens step by step (same as decode_step in
     a loop); generate = prefill + greedy decode; both deterministic per
     seed."""
     _, tparams = weights
-    pol = t_policy(mode, ber=1e-2, seed=3)
+    pol = dataclasses.replace(policies(mode, 1e-2)[1], seed=3)
     ids = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (B, PROMPT)))
     out1 = tr.generate(tparams, ids, T_TINY, pol, max_new_tokens=5, block_size=BS, device="cpu")
     out2 = tr.generate(tparams, ids, T_TINY, pol, max_new_tokens=5, block_size=BS, device="cpu")
@@ -168,14 +199,21 @@ def test_negative_page_raises(weights):
 
 
 def test_unported_paths_raise(weights):
+    """What stays to come: int4 read-time injection (K2r), the golay and
+    hamming74 correcting reads and per-read statistics (K2)."""
     _, tparams = weights
     state, bt, _ = tr.init_generation_state(T_TINY, t_policy("int4-write-inject"), B, 40, BS,
                                             device="cpu")
     ids = torch.zeros((B, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="K2"):
+    with pytest.raises(NotImplementedError, match="K2r"):
         tr.prefill(tparams, ids, state, bt, T_TINY, t_policy("int4", ber=1e-2))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tr.prefill(tparams, ids, state, bt, T_TINY, t_policy("int4-hamming84"))
+    for mode in ("int12-golay", "int4-hamming"):
+        pol = dataclasses.replace(t_policy(mode, ber=1e-2), scrub=False)
+        with pytest.raises(NotImplementedError, match="K2"):
+            tr.prefill(tparams, ids, state, bt, T_TINY, pol)
+    pol = t_policy("int4-hamming84-interp", ber=1e-2)
+    with pytest.raises(NotImplementedError, match="K2"):
+        tr.decode_step(tparams, ids[:, 0], state, bt, T_TINY, pol, collect_ecc_stats=True)
 
 
 @pytest.mark.parametrize("llama3", [False, True])
