@@ -4,15 +4,23 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from csrc/ with nvcc (one process per source,
-all at once), holds each against its plain PyTorch version at the bench-0.9b
-shapes, drives the decode of bench-0.9b (random bf16 weights from a seed,
-batch 8, prompt 1024, 32 greedy steps at BER 1e-2) in the five arms of the
-JAX bench.py - int12-golay, int4-hamming84, int4-hamming,
-int4-hamming84-interp and int4-write-inject, round-robin over two rounds -
-through the port's entry points, checks that every kernel of that path was
-launched exactly as often as the path calls it, times the kernels and
-traces the decode step of each arm. Every phase prints one line with its
-seconds; any failure exits non-zero. Without a CUDA device it fails.
+all at once), holds every kernel branch against its plain PyTorch version at
+the bench-0.9b shapes (the scrubbed extract read, int4's read-time
+injection, the hamming84 / hamming74 / golay correcting reads with and
+without ECC statistics, the -1 page clamp, precision "highest"), checks the
+card against the CPU on tiny-llama in every mode, then drives bench-0.9b
+(random bf16 weights from a seed, batch 8, prompt 1024) through the port's
+entry points on two paths: the decode slice - 32 greedy steps at BER 1e-2
+in the five arms of the JAX bench.py (int12-golay, int4-hamming84,
+int4-hamming, int4-hamming84-interp, int4-write-inject) and the unprotected
+read-inject arm int4, round-robin over two rounds - and the stats phase,
+decode_loop(collect_ecc_stats=True) for 8 steps in int4, int12-golay,
+int4-hamming, int4-hamming84 and int4-hamming84-interp (the protected ones
+without scrub), whose counts must show corrections, detections and int4's
+flip rate. Each path checks that every kernel branch it calls was launched
+exactly as often as it calls it. Then it times the kernels and traces the
+decode step of each arm. Every phase prints one line with its seconds; any
+failure exits non-zero. Without a CUDA device it fails.
 
 Output, last lines: the kernel table as one JSON object, the card's name and
 power limit from nvidia-smi, then {"ok": true, "device": {...}}.
@@ -26,18 +34,27 @@ import time
 T0 = time.perf_counter()
 BER = 1e-2
 BATCH, PROMPT, STEPS = 8, 1024, 32
+STATS_STEPS = 8
 ROUNDS = 2
-# bench.py's arms, in its order; the last is the baseline of the ratios
+# bench.py's arms, in its order, then the unprotected read-inject arm; the
+# fifth is the baseline of the ratios
 MODES = ("int12-golay", "int4-hamming84", "int4-hamming", "int4-hamming84-interp",
-         "int4-write-inject")
-SCRUBBED = tuple(m for m in MODES if m != "int4-hamming84-interp")  # read by write_attend
+         "int4-write-inject", "int4")
 BASELINE = "int4-write-inject"
+# the stats phase's arms (the protected ones without scrub)
+STATS_MODES = ("int4", "int12-golay", "int4-hamming", "int4-hamming84", "int4-hamming84-interp")
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM: HBM3 rate and fp32 rate outside the
 PEAK_FP32_FLOPS = 67e12     # tensor cores (NVIDIA data sheet)
-# SECDED decode of one data word with its parity word (decode_attend.cu:
-# codeword rebuild 10, two SWAR decodes of 49, repack 4) and the
-# interpolation of one word (10), in 32-bit integer operations
+# 32-bit integer operations counted from the sources: the SECDED decode of
+# one data word with its parity word (decode_attend.cu: codeword rebuild 10,
+# two SWAR decodes of 49, repack 4) and the interpolation of one word (10);
+# hamming74's decode of one data word (parity gather 8 lanes x 3 planes x 4,
+# syndromes 15, correction 14, count 5); golay's IMLD of one codeword
+# (rebuild 18, two products by B of 60, two candidate loops of 72 and 84,
+# selects and counts 22, repack 9); the read flips of one word (32 hashes of
+# 12.5: fmix32 8, counter, compare, insert; XOR and count 5)
 DECODE_OPS_PER_WORD, INTERP_OPS_PER_WORD = 112, 10
+H74_OPS_PER_WORD, GOLAY_OPS_PER_CODEWORD, INJECT_OPS_PER_WORD = 130, 325, 405
 
 
 def say(msg):
@@ -91,11 +108,11 @@ def encoded_cache(torch, cfg, codec, ctx_before, block_size, gen, device):
 
 
 def kernel_check(torch, gen, device):
-    """write_attend against write_attend_plain at bench-0.9b attention
-    shapes: unequal contexts (1, partial pages, 1024, 1152), int4, golay and
-    hamming74 data words, bf16 and fp32 queries, one call with a sliding
-    window. Caches and scales must be equal; outputs within
-    output_tolerance."""
+    """write_attend's clean read against write_attend_plain at bench-0.9b
+    attention shapes: unequal contexts (1, partial pages, 1024, 1152), int4,
+    golay and hamming74 data words, bf16 and fp32 queries, one call with a
+    sliding window, one at precision "highest". Caches and scales must be
+    equal; outputs within output_tolerance."""
     import dataclasses
     from qkv_ecc_tpu_torch.kernels.paged_attention import (
         paged_attention_ecc_write_attend as write_attend, write_attend_plain)
@@ -106,10 +123,11 @@ def kernel_check(torch, gen, device):
     ctx_before = [0, 1023, 1151, 129, 500, 777, 64, 1000]  # after the write: 1 .. 1152
     B, Hq, Hkv, D = len(ctx_before), cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     worst = 0.0
-    cases = [("int4", torch.bfloat16, None), ("golay", torch.bfloat16, None),
-             ("golay", torch.float32, None), ("int4", torch.bfloat16, 256),
-             ("hamming74", torch.bfloat16, None)]
-    for codec, qdtype, window in cases:
+    cases = [("int4", torch.bfloat16, None, "fast"), ("golay", torch.bfloat16, None, "fast"),
+             ("golay", torch.float32, None, "fast"), ("int4", torch.bfloat16, 256, "fast"),
+             ("hamming74", torch.bfloat16, None, "fast"),
+             ("golay", torch.float32, None, "highest")]
+    for codec, qdtype, window, precision in cases:
         state, bt, policy = encoded_cache(torch, cfg, codec, ctx_before, 128, gen, device)
         q = torch.randn((B, Hq, D), generator=gen, device=device).to(qdtype)
         kn, ksn = encode_pack_kv_scrubbed(
@@ -123,23 +141,13 @@ def kernel_check(torch, gen, device):
         a = {n: state[n].clone() for n in names}
         p = {n: state[n].clone() for n in names}
         out = write_attend(q, kn, vn, ksn, vsn, *(a[n] for n in names), bt, ctx, 1,
-                           codec=codec, sliding_window=window)
+                           codec=codec, scrub=True, sliding_window=window, precision=precision)
         torch.cuda.synchronize()
         ref = write_attend_plain(q, kn, vn, ksn, vsn, *(p[n] for n in names), bt, ctx, 1,
-                                 sm_scale=D ** -0.5, sliding_window=window)
-        for n in names:
-            if not torch.equal(a[n], p[n]):
-                fail(f"kernel check {codec}: {n} after the write differs from the plain version")
-        diff = (out.float() - ref.float()).abs()
-        tol = output_tolerance(ref)
-        err = diff.max().item()
-        say(f"  write_attend {codec} q={str(qdtype)[6:]} window={window}: "
-            f"max |kernel - plain| = {err:.3e}, largest share of its tolerance "
-            f"{(diff / tol).max().item():.3e} (tolerance per element: 2^-7 |plain| + "
-            f"2^-8 max |plain| of its row); caches and scales equal")
-        if not bool((diff <= tol).all()) or not torch.isfinite(out).all():
-            fail(f"kernel check {codec}: output differs beyond tolerance")
-        worst = max(worst, err)
+                                 sm_scale=D ** -0.5, sliding_window=window, precision=precision)
+        worst = max(worst, check_outputs(
+            f"write_attend {codec} q={str(qdtype)[6:]} window={window} precision={precision}",
+            out, ref, a, p, names))
     return worst
 
 
@@ -149,25 +157,30 @@ def kernel_check(torch, gen, device):
 SEAM_TOKENS = (0, 510, 511, 512, 1022, 1023, 1024)
 
 
-def unscrubbed_h84_cache(torch, cfg, ctx_before, gen, device):
-    """A hamming84 cache as the interpolation arm writes it - raw codewords,
-    random flips at BER 2e-2 from the generator - with a double error forced
-    at SEAM_TOKENS; and the new rows (data ++ parity, double included)."""
+def unscrubbed_cache(torch, cfg, mode, ctx_before, gen, device, ber=2e-2):
+    """A cache as an unscrubbed arm writes it - raw codewords, random flips
+    at BER 2e-2 from the generator (golay: about 0.17% of codewords
+    uncorrectable, hamming84: 1.1% of values doubles) - and the new rows
+    (data ++ parity). hamming84 gets a double error forced at SEAM_TOKENS
+    and in every new row."""
+    import dataclasses
     from qkv_ecc_tpu_torch.models.kv_policy import encode_kv, pack_kv, policy_for_mode
     from qkv_ecc_tpu_torch.models.runtime import init_generation_state, _write_tokens
 
-    policy = policy_for_mode("int4-hamming84-interp", ber=2e-2)
+    policy = dataclasses.replace(policy_for_mode(mode, ber=ber), scrub=False)
     B, Hkv, D = len(ctx_before), cfg.num_kv_heads, cfg.head_dim
     T = max(ctx_before) + 1
     state, bt, _ = init_generation_state(cfg, policy, B, T, 128, device=device)
     pos = torch.arange(T, device=device).expand(B, T)
     forced = torch.zeros((T,), dtype=torch.bool, device=device)
-    forced[[t for t in SEAM_TOKENS if t < T]] = True
+    if policy.codec == "hamming84":
+        forced[[t for t in SEAM_TOKENS if t < T]] = True
 
     def rows(shape, force):
         cw, scale, _ = encode_kv(torch.randn(shape, generator=gen, device=device), policy,
                                  generator=gen)
-        cw[..., :4] ^= torch.where(force[..., None, None], 0x11, 0).to(torch.int32)
+        if policy.codec == "hamming84":
+            cw[..., :4] ^= torch.where(force[..., None, None], 0x11, 0).to(torch.int32)
         return pack_kv(cw, policy, D), scale
 
     for layer in range(cfg.num_layers):
@@ -181,12 +194,38 @@ def unscrubbed_h84_cache(torch, cfg, ctx_before, gen, device):
                        ksn[:, 0].contiguous(), vsn[:, 0].contiguous())
 
 
+def check_outputs(name, out, ref, a, p, names, stats=None, ref_stats=None):
+    """Arrays after the write equal, stats equal, outputs within
+    output_tolerance (per element: 2^-7 |plain| + 2^-8 max |plain| of its
+    row); returns the largest |kernel - plain|."""
+    import torch
+
+    for n in names:
+        if not torch.equal(a[n], p[n]):
+            fail(f"{name}: {n} after the write differs from the plain version")
+    if stats is not None and not torch.equal(stats, ref_stats):
+        fail(f"{name}: stats {stats.tolist()} differ from the plain version's {ref_stats.tolist()}")
+    diff = (out.float() - ref.float()).abs()
+    tol = output_tolerance(ref)
+    err = diff.max().item()
+    counts = "" if stats is None else f"; stats equal, summed over the batch {stats.sum(0).tolist()}"
+    say(f"  {name}: max |kernel - plain| = {err:.3e}, largest share of its tolerance "
+        f"{(diff / tol.clamp(min=1e-30)).max().item():.3e}; arrays after the write equal{counts}")
+    if not bool((diff <= tol).all()) or not torch.isfinite(out).all():
+        fail(f"{name}: output differs beyond tolerance")
+    return err
+
+
 def decode_kernel_check(torch, gen, device):
     """decode_attend against write_decode_attend_plain at bench-0.9b
-    attention shapes, both instances (with and without interpolation), 512-
-    token chunks, doubles forced at tokens 0, 511, 512, 1023, 1024 and
-    ctx-1 over unequal contexts (1 .. 1152). Caches, parity and scales must
-    be equal; outputs within output_tolerance."""
+    attention shapes (B 8, Hkv 8, group 2, head_dim 128, contexts 1 to 1152,
+    layer 1), 512-token chunks: hamming84 with and without interpolation
+    (doubles forced at tokens 0, 511, 512, 1023, 1024 and ctx-1), with and
+    without stats; hamming74 and golay, with and without stats; golay once
+    more with one row whose page is -1 (ctx 1: written to page 0, which no
+    other row reads). Caches, parity, scales and stats must be equal;
+    outputs within output_tolerance. Returns the largest error of each
+    codec's branch."""
     import dataclasses
     from qkv_ecc_tpu_torch.kernels.paged_attention import (
         h84_decode_rows, gather_pages, paged_attention_ecc_write_attend as write_attend,
@@ -196,36 +235,91 @@ def decode_kernel_check(torch, gen, device):
     cfg = dataclasses.replace(BENCH_0_9B, num_layers=2)
     ctx_before = [1151, 1023, 1024, 0, 511, 512, 777, 1100]  # after the write: 1 .. 1152
     B, Hq, D = len(ctx_before), cfg.num_heads, cfg.head_dim
-    state, bt, new = unscrubbed_h84_cache(torch, cfg, ctx_before, gen, device)
-    ctx = torch.tensor(ctx_before, dtype=torch.int32, device=device) + 1
-    rows = gather_pages(state["k_cache"], bt, 1, bt.shape[1], state["k_parity"])
-    _, dbl = h84_decode_rows(rows, state["k_cache"].shape[3])
     names = ("k_cache", "v_cache", "k_scales", "v_scales", "k_parity", "v_parity")
+    worst = {}
+    for mode in ("int4-hamming84", "int4-hamming", "int12-golay"):
+        state, bt, new = unscrubbed_cache(torch, cfg, mode, ctx_before, gen, device)
+        codec = {"int4-hamming84": "hamming84", "int4-hamming": "hamming74",
+                 "int12-golay": "golay"}[mode]
+        ctx = torch.tensor(ctx_before, dtype=torch.int32, device=device) + 1
+        if codec == "hamming84":
+            rows = gather_pages(state["k_cache"], bt, 1, bt.shape[1], state["k_parity"])
+            _, dbl = h84_decode_rows(rows, state["k_cache"].shape[3])
+            say(f"  hamming84 cache: {int(dbl.sum())} K values of layer 1 read as doubles")
+        variants = [(i, st) for i in ((True, False) if codec == "hamming84" else (False,))
+                    for st in (False, True)]
+        if codec == "golay":
+            variants.append(("-1 page", False))
+        for interp, stats in variants:
+            bt_c, ctx_c = bt, ctx
+            if interp == "-1 page":  # row 3 (ctx 1) has no page; row 0 reads none
+                bt_c, ctx_c = bt.clone(), ctx.clone()
+                bt_c[3] = -1
+                ctx_c[0] = 0
+            q = torch.randn((B, Hq, D), generator=gen, device=device).to(torch.bfloat16)
+            a = {n: state[n].clone() for n in names}
+            p = {n: state[n].clone() for n in names}
+            out = write_attend(q, new[0], new[1], new[2], new[3], a["k_cache"], a["v_cache"],
+                               a["k_scales"], a["v_scales"], bt_c, ctx_c, 1, a["k_parity"],
+                               a["v_parity"], codec=codec, scrub=False,
+                               use_interpolation=interp is True, collect_stats=stats)
+            torch.cuda.synchronize()
+            ref = write_decode_attend_plain(
+                q, new[0], new[1], new[2], new[3], p["k_cache"], p["v_cache"], p["k_scales"],
+                p["v_scales"], bt_c, ctx_c, 1, p["k_parity"], p["v_parity"], codec=codec,
+                sm_scale=D ** -0.5, interpolate=interp is True, pages_per_chunk=4,
+                collect_stats=stats)
+            (out, st), (ref, ref_st) = (out, ref) if stats else ((out, None), (ref, None))
+            name = f"decode_attend {codec} interpolate={interp} stats={stats}"
+            err = check_outputs(name, out, ref, a, p, names, st, ref_st)
+            if stats and not (int(st[:, 0].sum()) > 0
+                              and (codec == "hamming74" or int(st[:, 1].sum()) > 0)):
+                fail(f"{name}: the errors in the cache were not counted")
+            if interp == "-1 page" and torch.equal(a["k_cache"][1, 0], state["k_cache"][1, 0]):
+                fail(f"{name}: the row whose page is -1 did not write page 0")
+            key = codec + ("-interp" if interp is True else "")
+            worst[key] = max(worst.get(key, 0.0), err)
+    return worst
+
+
+def read_inject_check(torch, gen, device):
+    """int4's read-time injection (write_attend with read_inject_ber 1e-2, a
+    device seed) against write_attend_plain at bench-0.9b attention shapes,
+    with and without stats: caches and scales equal (they change only in the
+    new column), the flipped-bit count equal, outputs within
+    output_tolerance."""
+    import dataclasses
+    from qkv_ecc_tpu_torch.kernels.paged_attention import (
+        paged_attention_ecc_write_attend as write_attend, write_attend_plain)
+    from qkv_ecc_tpu_torch.models.config import BENCH_0_9B
+
+    cfg = dataclasses.replace(BENCH_0_9B, num_layers=2)
+    ctx_before = [0, 1023, 1151, 129, 500, 777, 64, 1000]
+    B, Hq, D = len(ctx_before), cfg.num_heads, cfg.head_dim
+    state, bt, new = unscrubbed_cache(torch, cfg, "int4", ctx_before, gen, device, ber=0.0)
+    ctx = torch.tensor(ctx_before, dtype=torch.int32, device=device) + 1
+    names = ("k_cache", "v_cache", "k_scales", "v_scales")
     worst = 0.0
-    for interp in (True, False):
+    for stats in (False, True):
         q = torch.randn((B, Hq, D), generator=gen, device=device).to(torch.bfloat16)
+        seed = torch.randint(-2 ** 31, 2 ** 31, (), generator=gen, device=device).to(torch.int32)
         a = {n: state[n].clone() for n in names}
         p = {n: state[n].clone() for n in names}
-        out = write_attend(q, new[0], new[1], new[2], new[3], a["k_cache"], a["v_cache"],
-                           a["k_scales"], a["v_scales"], bt, ctx, 1, a["k_parity"], a["v_parity"],
-                           codec="hamming84", scrub=False, use_interpolation=interp)
+        out = write_attend(q, *new, *(a[n] for n in names), bt, ctx, 1, codec="int4",
+                           read_inject_ber=BER, read_inject_seed=seed, collect_stats=stats)
         torch.cuda.synchronize()
-        ref = write_decode_attend_plain(
-            q, new[0], new[1], new[2], new[3], p["k_cache"], p["v_cache"], p["k_scales"],
-            p["v_scales"], bt, ctx, 1, p["k_parity"], p["v_parity"], sm_scale=D ** -0.5,
-            interpolate=interp, pages_per_chunk=4)
-        for n in names:
-            if not torch.equal(a[n], p[n]):
-                fail(f"decode_attend check (interpolate={interp}): {n} after the write "
-                     "differs from the plain version")
-        diff = (out.float() - ref.float()).abs()
-        tol = output_tolerance(ref)
-        err = diff.max().item()
-        say(f"  decode_attend interpolate={interp}: max |kernel - plain| = {err:.3e}, largest "
-            f"share of its tolerance {(diff / tol).max().item():.3e}; caches, parity and scales "
-            f"equal; {int(dbl.sum())} K values of layer 1 read as doubles")
-        if not bool((diff <= tol).all()) or not torch.isfinite(out).all():
-            fail(f"decode_attend check (interpolate={interp}): output differs beyond tolerance")
+        ref = write_attend_plain(q, *new, *(p[n] for n in names), bt, ctx, 1,
+                                 sm_scale=D ** -0.5, read_threshold=int(BER * 2 ** 32),
+                                 read_seed=seed, pages_per_chunk=4, collect_stats=stats)
+        (out, st), (ref, ref_st) = (out, ref) if stats else ((out, None), (ref, None))
+        err = check_outputs(f"write_attend int4 read-inject BER {BER} stats={stats}", out, ref,
+                            a, p, names, st, ref_st)
+        if stats:
+            bits = int(ctx.sum()) * cfg.num_kv_heads * 2 * state["k_cache"].shape[3] * 32
+            rate = int(st[:, 0].sum()) / bits
+            say(f"    flipped {int(st[:, 0].sum())} of {bits} bits read: rate {rate:.6f}")
+            if not 0.9 * BER < rate < 1.1 * BER or int(st[:, 1].sum()) != 0:
+                fail("read-inject: the flipped-bit count is off its rate")
         worst = max(worst, err)
     return worst
 
@@ -244,10 +338,19 @@ def output_tolerance(ref):
     return 2.0 ** -7 * r + 2.0 ** -8 * r.amax(dim=-1, keepdim=True)
 
 
+TINY_MODES = MODES + ("int12-golay/scrub=False", "int4-hamming/scrub=False",
+                      "int4-write-inject/scrub=False", "int12-golay/stats", "int4-hamming/stats",
+                      "int4-hamming84/stats", "int4-hamming84-interp/stats", "int4/stats")
+
+
 def tiny_agreement(torch, device):
-    """tiny-llama prefill + 6 decode steps at BER 1e-2 in every arm, on the
-    card (kernels) and on the CPU (plain versions), same weights and
-    masks."""
+    """tiny-llama prefill + 6 decode steps at BER 1e-2 in every mode (the
+    arms, the unscrubbed reads, collect_ecc_stats), on the card (kernels)
+    and on the CPU (plain versions), same weights, write masks, prefill read
+    flips and read seeds: logits within 1e-2, the same greedy tokens and the
+    same ECC counts."""
+    import dataclasses
+    from qkv_ecc_tpu_torch.codecs.fault_injection import flip_mask
     from qkv_ecc_tpu_torch.models.config import TINY_LLAMA as cfg
     from qkv_ecc_tpu_torch.models.kv_policy import (
         hoisted_logical_masks, hoisted_write_deltas, policy_for_mode)
@@ -257,30 +360,46 @@ def tiny_agreement(torch, device):
 
     params_cpu = init_params(cfg, seed=0, device="cpu")
     ids = torch.randint(0, cfg.vocab_size, (2, 21), generator=torch.Generator().manual_seed(1))
-    for mode in MODES:
-        pol0 = policy_for_mode(mode, ber=0.0)
-        pol = policy_for_mode(mode, ber=BER)
+    for mode in TINY_MODES:
+        base = mode.split("/")[0]
+        stats = mode.endswith("/stats")
+        pol = policy_for_mode(base, ber=BER)
+        if mode.endswith("/scrub=False"):
+            pol = dataclasses.replace(pol, scrub=False)
+        read = pol.inject_at == "read"
+        pol0 = pol if read else policy_for_mode(base, ber=0.0)
         gen = torch.Generator().manual_seed(2)
-        hoist = hoisted_write_deltas if _use_scrub(pol) else hoisted_logical_masks
+        hoist = hoisted_write_deltas if _use_scrub(pol) and not stats else hoisted_logical_masks
         masks = [hoist(pol, cfg.num_layers, write_mask_shape(pol, 2, cfg), generator=gen)
                  for _ in range(6)]
-        logits_by_dev = {}
+        read_masks = flip_mask((cfg.num_layers, 2, 2, 21, cfg.num_kv_heads, cfg.head_dim), BER,
+                               4, gen) if read else None
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (6,), generator=gen).tolist()
+        runs = {}
         for dev in ("cpu", device):
-            params = {k: v for k, v in params_cpu.items() if k != "layers"}
-            params = {k: v.to(dev) for k, v in params.items()}
+            params = {k: v.to(dev) for k, v in params_cpu.items() if k != "layers"}
             params["layers"] = [{k: v.to(dev) for k, v in lp.items()} for lp in params_cpu["layers"]]
             state, bt, _ = init_generation_state(cfg, pol, 2, 32, 16, device=dev)
-            logits, state = prefill(params, ids.to(dev), state, bt, cfg, pol0)
-            seq = [logits.cpu()]
-            for m in masks:
-                logits, state = decode_step(params, torch.argmax(logits, -1), state, bt,
-                                            cfg, pol, hoisted_masks=m.to(dev))
+            logits, state = prefill(params, ids.to(dev), state, bt, cfg, pol0,
+                                    read_masks=None if read_masks is None else read_masks.to(dev))
+            seq, toks = [logits.cpu()], []
+            for m, seed in zip(masks, seeds):
+                toks.append(torch.argmax(logits, -1).cpu())
+                logits, state = decode_step(params, torch.argmax(logits, -1), state, bt, cfg, pol,
+                                            hoisted_masks=m.to(dev), collect_ecc_stats=stats,
+                                            read_inject_seed=seed if read else None)
                 seq.append(logits.cpu())
-            logits_by_dev[str(dev)] = torch.stack(seq)
-        err = (logits_by_dev["cpu"] - logits_by_dev[str(device)]).abs().max().item()
-        say(f"  tiny-llama {mode}: max |logits card - logits cpu| = {err:.3e} (tolerance 1e-2)")
-        if not err <= 1e-2:
-            fail(f"tiny-llama {mode}: the card's logits disagree with the CPU's")
+            counts = [state[n].cpu() for n in ("ecc_corrected", "ecc_detected")] if stats else []
+            runs[str(dev)] = (torch.stack(seq), torch.stack(toks), counts)
+        (lc, tc, cc), (lg, tg, cg) = runs["cpu"], runs[str(device)]
+        err = (lc - lg).abs().max().item()
+        same_counts = all(torch.equal(x, y) for x, y in zip(cc, cg))
+        say(f"  tiny-llama {mode}: max |logits card - logits cpu| = {err:.3e} (tolerance 1e-2); "
+            f"tokens {'identical' if torch.equal(tc, tg) else 'DIFFER'}"
+            + (f"; ECC counts card {[c.tolist() for c in cg]}, cpu {[c.tolist() for c in cc]}"
+               if stats else ""))
+        if not err <= 1e-2 or not torch.equal(tc, tg) or not same_counts:
+            fail(f"tiny-llama {mode}: the card disagrees with the CPU")
 
 
 def trace_decode(torch, params, ids, gen, device, smi):
@@ -362,7 +481,34 @@ def timed(torch, fn, n, layers):
     return start.elapsed_time(end) / n
 
 
+def reset_counts(*wrappers):
+    for w in wrappers:
+        w.launches = 0
+        for k in w.launches_by:
+            w.launches_by[k] = 0
+
+
+def check_launches(path, expected):
+    """Each branch's launches in a path against layers x steps x rounds x
+    the arms that call it."""
+    for name, (got, want, how) in expected.items():
+        say(f"  {path}: {name} launches {got} (expected {how} = {want})")
+        if got != want:
+            fail(f"{path}: the decode path did not go through the {name} kernel on every "
+                 "layer and step of its arms")
+
+
+def bound(nbytes, flops, int_ops):
+    """(least ms, "bytes" or "operations", bytes ms, operations ms): bytes at
+    3.35 TB/s, fp32 and 32-bit integer operations at 67 T/s."""
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    ops_ms = 1e3 * (flops + int_ops) / PEAK_FP32_FLOPS
+    return max((bytes_ms, "bytes"), (ops_ms, "operations")) + (bytes_ms, ops_ms)
+
+
 def main():
+    import dataclasses
+
     import torch
 
     if not torch.cuda.is_available():
@@ -401,10 +547,12 @@ def main():
     with Phase("kernel check"):
         max_err = kernel_check(torch, gen, device)
         max_err_decode = decode_kernel_check(torch, gen, device)
+        max_err_inject = read_inject_check(torch, gen, device)
 
     with Phase("tiny agreement"):
         tiny_agreement(torch, device)
 
+    per_arm = cfg.num_layers * STEPS * ROUNDS
     with Phase("slice"):
         params = init_params(cfg, seed=0, device=device, dtype=torch.bfloat16)
         ids = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen, device=device)
@@ -414,8 +562,7 @@ def main():
             lg, st = prefill(params, ids[:, :128], st, bt, cfg, pol, gen)
             decode_loop(params, lg, st, bt, cfg, pol, gen, 2)
         torch.cuda.synchronize()
-        write_attend.launches = 0
-        write_decode_attend.launches = 0
+        reset_counts(write_attend, write_decode_attend)
         runs = {mode: [] for mode in MODES}
         for rnd in range(ROUNDS):
             for mode in MODES:
@@ -441,17 +588,18 @@ def main():
                                        ms_step=1e3 * t_decode / STEPS,
                                        tok_s=BATCH * STEPS / t_decode))
                 del state
-        launches = write_attend.launches
-        launches_decode = write_decode_attend.launches
-        per_arm = cfg.num_layers * STEPS * ROUNDS
-        for name, got, arms in (("write_attend", launches, SCRUBBED),
-                                ("decode_attend", launches_decode, MODES[3:4])):
-            say(f"  {name} launches in the run: {got} (expected {cfg.num_layers} layers x "
-                f"{STEPS} steps x {ROUNDS} rounds x {len(arms)} arm(s) {list(arms)} = "
-                f"{per_arm * len(arms)})")
-            if got != per_arm * len(arms):
-                fail(f"the decode path did not go through the {name} kernel on every layer "
-                     "and step of its arms")
+        slice_launches = (dict(write_attend.launches_by), dict(write_decode_attend.launches_by))
+        how = f"{cfg.num_layers} layers x {STEPS} steps x {ROUNDS} rounds x"
+        check_launches("slice", {
+            "write_attend read": (slice_launches[0]["read"], per_arm * 4,
+                                  f"{how} 4 arms (the scrubbed ones)"),
+            "write_attend read-inject": (slice_launches[0]["read-inject"], per_arm,
+                                         f"{how} 1 arm (int4)"),
+            "decode_attend hamming84-interp": (slice_launches[1]["hamming84-interp"], per_arm,
+                                               f"{how} 1 arm (int4-hamming84-interp)"),
+            "decode_attend other branches": (write_decode_attend.launches
+                                             - slice_launches[1]["hamming84-interp"], 0, "none"),
+        })
         for mode, rs in runs.items():
             for rnd, r in enumerate(rs):
                 base = runs[BASELINE][rnd]
@@ -473,116 +621,177 @@ def main():
         say(f"  weights read per decode step: {wbytes / 1e9:.3f} GB, "
             f"{1e3 * wbytes / PEAK_BYTES_PER_S:.3f} ms at 3.35 TB/s")
 
+    with Phase("stats"):
+        # decode_loop(collect_ecc_stats=True): scrub off, every read counts
+        reset_counts(write_attend, write_decode_attend)
+        stats_runs = {}
+        for mode in STATS_MODES:
+            pol = policy_for_mode(mode, ber=BER, seed=42)
+            if pol.inject_at == "write":
+                pol = dataclasses.replace(pol, scrub=False)
+            g = torch.Generator(device=device).manual_seed(7)
+            state, bt, _ = init_generation_state(cfg, pol, BATCH, PROMPT + STATS_STEPS,
+                                                 device=device)
+            logits, state = prefill(params, ids, state, bt, cfg, pol, g)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, state, toks = decode_loop(params, logits, state, bt, cfg, pol, g, STATS_STEPS,
+                                              collect_ecc_stats=True)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t) / STATS_STEPS
+            if not torch.isfinite(logits).all():
+                fail(f"stats {mode}: logits not finite")
+            corr = int(state["ecc_corrected"].sum())
+            det = int(state["ecc_detected"].sum())
+            line = (f"  stats {mode}{'' if pol.inject_at == 'read' else ' scrub=False'}: "
+                    f"{ms:.3f} ms/step over {STATS_STEPS} steps; summed over the batch: "
+                    f"corrected {corr}, detected {det}")
+            if pol.inject_at == "read":
+                bits = sum(cfg.num_layers * 2 * BATCH * (PROMPT + s + 1) * cfg.num_kv_heads
+                           * state["k_cache"].shape[3] * 32 for s in range(STATS_STEPS))
+                ratio = corr / (BER * bits)
+                line += (f" (flipped read bits; {bits} bits read, flipped / (BER x bits) "
+                         f"= {ratio:.6f}, band 0.98-1.02)")
+                ok = 0.98 <= ratio <= 1.02 and det == 0
+            else:
+                ok = corr > 0 and (pol.codec == "hamming74" or det > 0)
+            say(line + f" ({smi})")
+            if not ok:
+                fail(f"stats {mode}: the counts are not what the errors in the cache make")
+            stats_runs[mode] = dict(state=state, bt=bt, ms_step=ms, corrected=corr, detected=det)
+        stats_launches = (dict(write_attend.launches_by), dict(write_decode_attend.launches_by))
+        per_stats_arm = cfg.num_layers * STATS_STEPS
+        how = f"{cfg.num_layers} layers x {STATS_STEPS} steps x 1 arm"
+        check_launches("stats", {
+            f"write_attend {k}": (stats_launches[0][k], per_stats_arm if k == "read-inject" else 0,
+                                  how + " (int4)" if k == "read-inject" else "none")
+            for k in stats_launches[0]} | {
+            f"decode_attend {k}": (v, per_stats_arm, how) for k, v in stats_launches[1].items()})
+
     with Phase("kernel timing"):
         group = cfg.num_heads // cfg.num_kv_heads
         q = torch.randn((BATCH, cfg.num_heads, cfg.head_dim), generator=gen,
                         device=device).to(torch.bfloat16)
+        names = ("k_cache", "v_cache", "k_scales", "v_scales")
+        sm = cfg.head_dim ** -0.5
+        sn = torch.ones((BATCH, cfg.num_kv_heads), dtype=torch.float32, device=device)
+        timings = {}
 
-        def bound(nbytes, flops, int_ops):
-            bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
-            ops_ms = 1e3 * (flops + int_ops) / PEAK_FP32_FLOPS
-            return max((bytes_ms, "bytes"), (ops_ms, "operations")) + (bytes_ms, ops_ms)
+        def time_kernel(key, label, call, plain, wrapper, state, bt, words_read, int_ops, row_w):
+            """Device time (behind a sleep), back-to-back time, the plain
+            version's time and the bound of one call on `state`'s caches."""
+            L = state["k_cache"].shape[0]
+            ms = device_ms(torch, call, 240, L, wrapper)
+            call_ms = timed(torch, call, 240, L)
+            plain_ms = timed(torch, plain, 24, L)
+            ms = min(ms, device_ms(torch, call, 240, L, wrapper))
+            tokens = int(state["context_len"].sum())
+            Hkv = state["k_cache"].shape[2]
+            # least work of one call: read each live token's K and V words
+            # and scales once, the query, block table and lengths; write the
+            # new rows, scales and the output. Operations: QK and PV, one
+            # multiply-add each per (token, KV head, group head, value), in
+            # fp32, and the integer operations counted from the source
+            nbytes = (tokens * Hkv * (2 * words_read * 4 + 2 * 4) + 2 * q.numel() * q.element_size()
+                      + 2 * BATCH * Hkv * (row_w * 4 + 4) + bt.numel() * 4 + BATCH * 4)
+            flops = 2 * 2 * tokens * Hkv * group * cfg.head_dim
+            ops = int_ops(tokens, Hkv)
+            b_ms, b_by, bytes_ms, ops_ms = bound(nbytes, flops, ops)
+            say(f"  {label} at ctx {tokens // BATCH}: {ms * 1e3:.2f} us/launch on the device "
+                f"(CUDA events, calls queued behind a sleep; {call_ms * 1e3:.2f} us per "
+                f"back-to-back call, host included); bound {b_ms * 1e3:.2f} us by {b_by} "
+                f"({nbytes / 1e6:.2f} MB at 3.35 TB/s = {bytes_ms * 1e3:.2f} us; "
+                f"{flops / 1e6:.1f} MFLOP fp32 + {ops / 1e6:.1f} M int32 ops at 67 T/s = "
+                f"{ops_ms * 1e3:.2f} us); share of bound {b_ms / ms:.3f}; plain version "
+                f"{plain_ms * 1e3:.1f} us; library call: none ({smi})")
+            timings[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
         # K1 on the golay arm's cache (the column at ctx-1 is rewritten)
         state, bt = runs["int12-golay"][-1]["state"], runs["int12-golay"][-1]["bt"]
-        names = ("k_cache", "v_cache", "k_scales", "v_scales")
-        L, _, Hkv, Wd, bs = state["k_cache"].shape
+        Wd = state["k_cache"].shape[3]
         ctx = state["context_len"].clone()
-        kn = torch.zeros((BATCH, Hkv, Wd), dtype=torch.int32, device=device)
-        sn = torch.ones((BATCH, Hkv), dtype=torch.float32, device=device)
+        kn = torch.zeros((BATCH, cfg.num_kv_heads, Wd), dtype=torch.int32, device=device)
+        time_kernel(
+            "read", "write_attend (scrub-extract read)",
+            lambda layer: write_attend(q, kn, kn, sn, sn, *(state[n] for n in names), bt, ctx,
+                                       layer, codec="golay", scrub=True),
+            lambda layer: write_attend_plain(q, kn, kn, sn, sn, *(state[n] for n in names), bt,
+                                             ctx, layer, sm_scale=sm),
+            write_attend, state, bt, Wd, lambda tok, h: 0, Wd)
 
-        def call(layer):
-            return write_attend(q, kn, kn, sn, sn, *(state[n] for n in names), bt, ctx, layer,
-                                codec="golay")
-
-        def plain(layer):
-            return write_attend_plain(q, kn, kn, sn, sn, *(state[n] for n in names), bt, ctx,
-                                      layer, sm_scale=cfg.head_dim ** -0.5)
-
-        ms = device_ms(torch, call, 240, L, write_attend)
-        call_ms = timed(torch, call, 240, L)
-        plain_ms = timed(torch, plain, 24, L)
-        ms = min(ms, device_ms(torch, call, 240, L, write_attend))
-        # least work of one call: read each live token's K and V data words
-        # and scales once, the query, block table and lengths; write the new
-        # columns, scales and the output. Operations: QK and PV, one
-        # multiply-add each per (token, KV head, group head, value), in fp32.
-        tokens = int(ctx.sum())
-        nbytes = (tokens * Hkv * (2 * Wd * 4 + 2 * 4) + 2 * q.numel() * q.element_size()
-                  + 2 * BATCH * Hkv * (Wd * 4 + 4) + bt.numel() * 4 + BATCH * 4)
-        flops = 2 * 2 * tokens * Hkv * group * cfg.head_dim
-        bound_ms, bound_by, bytes_ms, ops_ms = bound(nbytes, flops, 0)
-        say(f"  write_attend at ctx {PROMPT + STEPS}: {ms * 1e3:.2f} us/launch on the device "
-            f"(CUDA events, calls queued behind a sleep; {call_ms * 1e3:.2f} us per "
-            f"back-to-back call, host included); bound {bound_ms * 1e3:.2f} us "
-            f"by {bound_by} ({nbytes / 1e6:.2f} MB at 3.35 TB/s = {bytes_ms * 1e3:.2f} us; "
-            f"{flops / 1e6:.1f} MFLOP fp32 at 67 TFLOP/s = {ops_ms * 1e3:.2f} us); share of bound "
-            f"{bound_ms / ms:.3f}; plain version {plain_ms * 1e3:.1f} us; library call: none ({smi})")
-        k1 = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-
-        # decode_attend on the interpolation arm's cache: data ++ parity rows
-        state, bt = (runs["int4-hamming84-interp"][-1][k] for k in ("state", "bt"))
-        pnames = ("k_cache", "v_cache", "k_scales", "v_scales")
-        rn = torch.zeros((BATCH, Hkv, 2 * Wd), dtype=torch.int32, device=device)
+        # K2r on the stats phase's int4 cache, seed on the device
+        state, bt = (stats_runs["int4"][k] for k in ("state", "bt"))
         ctx = state["context_len"].clone()
-        dec = {}
-        for interp in (True, False):
-            def call_d(layer):
-                return write_attend(q, rn, rn, sn, sn, *(state[n] for n in pnames), bt, ctx,
-                                    layer, state["k_parity"], state["v_parity"],
-                                    codec="hamming84", scrub=False, use_interpolation=interp)
+        seed = torch.randint(-2 ** 31, 2 ** 31, (), generator=gen, device=device).to(torch.int32)
+        time_kernel(
+            "read-inject", f"write_attend int4 read-inject BER {BER}",
+            lambda layer: write_attend(q, kn, kn, sn, sn, *(state[n] for n in names), bt, ctx,
+                                       layer, codec="int4", read_inject_ber=BER,
+                                       read_inject_seed=seed),
+            lambda layer: write_attend_plain(q, kn, kn, sn, sn, *(state[n] for n in names), bt,
+                                             ctx, layer, sm_scale=sm,
+                                             read_threshold=int(BER * 2 ** 32), read_seed=seed,
+                                             pages_per_chunk=4),
+            write_attend, state, bt, Wd, lambda tok, h: tok * h * 2 * Wd * INJECT_OPS_PER_WORD,
+            Wd)
 
-            def plain_d(layer):
+        # decode_attend: hamming84 on the interpolation arm's cache, hamming74
+        # and golay on the stats phase's unscrubbed caches
+        for key, codec, src, interp, per_row in (
+                ("hamming84-interp", "hamming84", runs["int4-hamming84-interp"][-1], True,
+                 lambda w, p: w * (DECODE_OPS_PER_WORD + INTERP_OPS_PER_WORD)),
+                ("hamming84", "hamming84", runs["int4-hamming84-interp"][-1], False,
+                 lambda w, p: w * DECODE_OPS_PER_WORD),
+                ("hamming74", "hamming74", stats_runs["int4-hamming"], False,
+                 lambda w, p: w * H74_OPS_PER_WORD),
+                ("golay", "golay", stats_runs["int12-golay"], False,
+                 lambda w, p: 4 * (w + p) // 3 * GOLAY_OPS_PER_CODEWORD)):
+            state, bt = src["state"], src["bt"]
+            ctx = state["context_len"].clone()
+            Pw = state["k_parity"].shape[3]
+            rn = torch.zeros((BATCH, cfg.num_kv_heads, Wd + Pw), dtype=torch.int32, device=device)
+
+            def call_d(layer, state=state, bt=bt, ctx=ctx, rn=rn, codec=codec, interp=interp):
+                return write_attend(q, rn, rn, sn, sn, *(state[n] for n in names), bt, ctx,
+                                    layer, state["k_parity"], state["v_parity"], codec=codec,
+                                    use_interpolation=interp)
+
+            def plain_d(layer, state=state, bt=bt, ctx=ctx, rn=rn, codec=codec, interp=interp):
                 return write_decode_attend_plain(
-                    q, rn, rn, sn, sn, *(state[n] for n in pnames), bt, ctx, layer,
-                    state["k_parity"], state["v_parity"], sm_scale=cfg.head_dim ** -0.5,
+                    q, rn, rn, sn, sn, *(state[n] for n in names), bt, ctx, layer,
+                    state["k_parity"], state["v_parity"], codec=codec, sm_scale=sm,
                     interpolate=interp, pages_per_chunk=4)
 
-            ms_d = device_ms(torch, call_d, 240, L, write_decode_attend)
-            call_ms_d = timed(torch, call_d, 240, L)
-            plain_ms_d = timed(torch, plain_d, 24, L)
-            ms_d = min(ms_d, device_ms(torch, call_d, 240, L, write_decode_attend))
-            # least work: each live token's K and V data and parity words and
-            # scales read once, the query, table and lengths; the new rows and
-            # scales written, and the output. Operations: the QK and PV
-            # multiply-adds in fp32, and the SECDED decode (and interpolation)
-            # of every word in 32-bit integer operations, both at 67 T/s
-            nbytes_d = (tokens * Hkv * (2 * 2 * Wd * 4 + 2 * 4) + 2 * q.numel() * q.element_size()
-                        + 2 * BATCH * Hkv * (2 * Wd * 4 + 4) + bt.numel() * 4 + BATCH * 4)
-            int_ops = tokens * Hkv * 2 * Wd * (DECODE_OPS_PER_WORD
-                                               + (INTERP_OPS_PER_WORD if interp else 0))
-            b_ms, b_by, bytes_ms, ops_ms = bound(nbytes_d, flops, int_ops)
-            say(f"  decode_attend interpolate={interp} at ctx {PROMPT + STEPS}: {ms_d * 1e3:.2f} "
-                f"us/launch on the device (CUDA events, calls queued behind a sleep; "
-                f"{call_ms_d * 1e3:.2f} us per back-to-back call, host included); bound {b_ms * 1e3:.2f} us by {b_by} "
-                f"({nbytes_d / 1e6:.2f} MB at 3.35 TB/s = {bytes_ms * 1e3:.2f} us; {flops / 1e6:.1f} MFLOP fp32 + "
-                f"{int_ops / 1e6:.1f} M int32 ops at 67 T/s = {ops_ms * 1e3:.2f} us); share of "
-                f"bound {b_ms / ms_d:.3f}; plain version {plain_ms_d * 1e3:.1f} us; library "
-                f"call: none ({smi})")
-            dec[interp] = dict(ms=ms_d, plain_ms=plain_ms_d, bound_ms=b_ms, bound_by=b_by)
+            time_kernel(key, f"decode_attend {key}", call_d, plain_d, write_decode_attend, state,
+                        bt, Wd + Pw, lambda tok, h, f=per_row, p=Pw: tok * h * 2 * f(Wd, p), Wd + Pw)
 
     with Phase("trace"):
         trace_decode(torch, params, ids, gen, device, smi)
 
-    table = {"kernels": [{
-        "name": "write_attend",
-        "route": "cuda",
-        "source": "qkv_ecc_tpu_torch/csrc/write_attend.cu",
-        "replaces": "qkv_ecc_tpu/kernels/paged_attention.py:1056",
-        "launches": launches,
-        "max_abs_err": max_err,
-        **k1,
-        "library_ms": None,
-    }, {
-        "name": "decode_attend",
-        "route": "cuda",
-        "source": "qkv_ecc_tpu_torch/csrc/decode_attend.cu",
-        "replaces": "qkv_ecc_tpu/kernels/paged_attention.py:677",
-        "launches": launches_decode,
-        "max_abs_err": max_err_decode,
-        **dec[True],
-        "library_ms": None,
-    }]}
+    def entry(name, key, source, replaces, launches, err):
+        return dict(name=name, route="cuda", source=f"qkv_ecc_tpu_torch/csrc/{source}",
+                    replaces=f"qkv_ecc_tpu/kernels/{replaces}", launches=launches,
+                    max_abs_err=err, **timings[key], library_ms=None)
+
+    sl, st = slice_launches, stats_launches
+    table = {"kernels": [
+        entry("write_attend", "read", "write_attend.cu", "paged_attention.py:1056",
+              sl[0]["read"] + st[0]["read"], max_err),
+        entry("write_attend read-inject (K2r)", "read-inject", "write_attend.cu",
+              "paged_attention.py:352", sl[0]["read-inject"] + st[0]["read-inject"],
+              max_err_inject),
+        entry("decode_attend", "hamming84-interp", "decode_attend.cu", "paged_attention.py:677",
+              sl[1]["hamming84-interp"] + st[1]["hamming84-interp"],
+              max_err_decode["hamming84-interp"]),
+        entry("decode_attend hamming84 (K2)", "hamming84", "decode_attend.cu",
+              "paged_attention.py:135", sl[1]["hamming84"] + st[1]["hamming84"],
+              max_err_decode["hamming84"]),
+        entry("decode_attend hamming74 (K2)", "hamming74", "decode_attend.cu",
+              "paged_attention.py:143", sl[1]["hamming74"] + st[1]["hamming74"],
+              max_err_decode["hamming74"]),
+        entry("decode_attend golay (K2)", "golay", "decode_attend.cu", "paged_attention.py:154",
+              sl[1]["golay"] + st[1]["golay"], max_err_decode["golay"]),
+    ]}
     say(f"total {time.perf_counter() - T0:.1f} s")
     say(json.dumps(table))
     say(smi)

@@ -9,8 +9,9 @@
 //   phases B and C (attend_page): the page's softmax weights, V scale folded
 //     in and rounded to bf16, against the running maximum, then thread per
 //     head-dim value - the staged V page contracted into acc.
-// Precision follows the TPU kernel's "fast" path: q rounded to bf16 (the
-// caller stages it so), p * v_scale rounded to bf16, fp32 sums.
+// Precision follows the TPU kernel's: "fast" rounds q to bf16 (the caller
+// passes it so) and p * v_scale to bf16; "highest" (exact) reads an fp32 q
+// and keeps p * v_scale in fp32; sums in fp32.
 //
 // Bit order (swar.pack_int4): byte k of data word j holds value 4j+k in its
 // low nibble and value DP/2+4j+k in its high nibble, DP = 8 * data words
@@ -80,7 +81,8 @@ template <int WD, int GROUP>
 __device__ __forceinline__ void attend_page(const float (&lmax)[GROUP], float* p_s,
                                             const float* vs_s, const int32_t* v_s,
                                             SoftmaxState<GROUP>& st, float (&acc)[GROUP],
-                                            int page_tok, int ctx, int first_tok, int bs) {
+                                            int page_tok, int ctx, int first_tok, int bs,
+                                            bool exact) {
   constexpr int DP = 8 * WD;
   constexpr int HALF = DP / 2;
   const int tid = threadIdx.x;
@@ -102,7 +104,7 @@ __device__ __forceinline__ void attend_page(const float (&lmax)[GROUP], float* p
   }
   __syncthreads();
 
-  // phase B: softmax weights, V scale folded in and rounded to bf16
+  // phase B: softmax weights, V scale folded in (rounded to bf16 unless exact)
   float lsum[GROUP];
 #pragma unroll
   for (int g = 0; g < GROUP; ++g) lsum[g] = 0.f;
@@ -114,7 +116,8 @@ __device__ __forceinline__ void attend_page(const float (&lmax)[GROUP], float* p
     for (int g = 0; g < GROUP; ++g) {
       const float p = expf(p_s[g * bs + t] - st.m[g]);
       lsum[g] += p;
-      p_s[g * bs + t] = live ? __bfloat162float(__float2bfloat16(p * vs)) : 0.f;
+      const float pv = exact ? p * vs : __bfloat162float(__float2bfloat16(p * vs));
+      p_s[g * bs + t] = live ? pv : 0.f;
     }
   }
 #pragma unroll
@@ -145,15 +148,18 @@ __device__ __forceinline__ void attend_page(const float (&lmax)[GROUP], float* p
   __syncthreads();
 }
 
-// Stage the group's queries (bf16) as floats, zero beyond head_dim HD, and
-// reset the softmax state.
+// Stage the group's queries (bf16, or fp32 when q_f32) as floats, zero
+// beyond head_dim HD, and reset the softmax state.
 template <int WD, int GROUP, int HD>
-__device__ __forceinline__ void stage_queries(const __nv_bfloat16* q, float* q_s,
+__device__ __forceinline__ void stage_queries(const void* q, bool q_f32, float* q_s,
                                               SoftmaxState<GROUP>& st) {
   constexpr int DP = 8 * WD;
   for (int i = threadIdx.x; i < GROUP * DP; i += kThreads) {
     const int g = i / DP, v = i % DP;
-    q_s[i] = v < HD ? __bfloat162float(q[g * HD + v]) : 0.f;
+    const int idx = g * HD + v;
+    q_s[i] = v >= HD ? 0.f
+             : q_f32 ? ((const float*)q)[idx]
+                     : __bfloat162float(((const __nv_bfloat16*)q)[idx]);
   }
   if (threadIdx.x < GROUP) {
     st.m[threadIdx.x] = kNegInf;
@@ -177,6 +183,23 @@ __device__ __forceinline__ void store_output(const float (&acc)[GROUP],
       ((__nv_bfloat16*)out)[idx] = __float2bfloat16(o);
     else
       ((float*)out)[idx] = o;
+  }
+}
+
+__device__ __forceinline__ int warp_sum_int(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Adds the block's per-thread counts into stats[row] (two int32 slots) by
+// one atomicAdd per warp and slot; integer atomics are exact in any order.
+__device__ __forceinline__ void flush_stats(int* stats, int row, int c0, int c1) {
+  c0 = warp_sum_int(c0);
+  c1 = warp_sum_int(c1);
+  if ((threadIdx.x & 31) == 0) {
+    if (c0) atomicAdd(stats + 2 * row, c0);
+    if (c1) atomicAdd(stats + 2 * row + 1, c1);
   }
 }
 

@@ -3,22 +3,40 @@
 //
 // Replaces the TPU kernel qkv_ecc_tpu/kernels/paged_attention.py
 // paged_attention_ecc_write_attend -> _paged_attn_kernel with
-// fused_write=True, scrub=True (the scrub-extract branch, _extract_kt_tile).
-// That branch serves every scrubbed codec: int4, and golay / hamming whose
-// rows keep their data nibbles int4-packed in the data arrays. Parity is
-// never read here; the caller scatters the new token's parity column.
+// fused_write=True in its two reads of int4-packed data words alone:
+//   * scrub=True, the scrub-extract branch (_extract_kt_tile, kernel K1):
+//     every scrubbed codec - int4, and golay / hamming whose rows keep their
+//     data nibbles int4-packed in the data arrays. Parity is never read
+//     here; the caller scatters the new token's parity column.
+//   * codec="int4", scrub=False, the general loop's nibble split: with
+//     read_inject, the read-time injection of mode int4 (_read_flip_mask ->
+//     swar.hash_flip_mask, kernel K2r), and with stats, its count of flipped
+//     read bits (slot 0 of the [B, 2] stats).
 //
 // What it computes, per sequence b and KV head h:
 //   1. writes the new token's packed data column k_new[b, h, :] (v_new) and
-//      its scales into slot ctx-1 of its page, in place;
+//      its scales into slot ctx-1 of its page, in place; a page entry of -1
+//      is clamped to physical page 0 and written there, as on the TPU; a
+//      token at or beyond page num_pages is not written;
 //   2. attends the group = Hq / Hkv query heads of h over tokens [0, ctx)
-//      (or the last `window` of them): K nibbles minus the zero point 8,
-//      scores scaled by the per-token K scale and sm_scale, online softmax
-//      over pages, V scale folded into the softmax weights, V nibbles minus
-//      8, output acc / l.
-// Precision follows the TPU kernel's "fast" path: q is rounded to bf16, the
-// weighted softmax terms p * v_scale are rounded to bf16, everything is
-// accumulated in fp32.
+//      (or the last `window` of them) of the first num_pages pages: K
+//      nibbles minus the zero point 8, scores scaled by the per-token K scale
+//      and sm_scale, online softmax over pages, V scale folded into the
+//      softmax weights, V nibbles minus 8, output acc / l;
+//   3. with read_inject, every raw K and V word read - the new column too,
+//      which the TPU kernel overlays before it reads - is XORed with the
+//      murmur-hash Bernoulli mask of its position: bit `bit` of word j of
+//      slot s in the tile of (layer, b, chunk c, page i of the chunk, h,
+//      K/V t) flips when
+//        fmix32(((base + j * bs + s) * 32 + bit) * 0x9E3779B9 + seed) < thr
+//      with base = uid * WD * bs and uid = ((((layer * B + b) * num_chunks +
+//      c) * ppc + i) * Hkv + h) * 2 + t, all mod 2^32 (the TPU's int32
+//      arithmetic, done here in uint32: signed overflow is undefined in C++).
+//      The cache keeps its clean words. With stats, slot 0 of row b adds the
+//      flipped bits of every valid token (t < ctx: the whole context, also
+//      before a sliding window).
+// Precision: "fast" rounds q (the caller passes it as bf16) and p * v_scale
+// to bf16; "highest" (exact) reads an fp32 q and keeps p * v_scale in fp32.
 //
 // Bit order (swar.pack_int4): byte k of data word j holds value 4j+k in its
 // low nibble and value DP/2+4j+k in its high nibble, DP = 8 * data words.
@@ -26,24 +44,31 @@
 // its 4 data words carry 16 padding nibbles: the queries are zero there and
 // the output drops them.
 //
-// Bound on this card: bytes. Per call it must read each live token's K and V
-// data words and scales once: B * ctx * Hkv * (2*Wd*4 + 2*4) bytes, about
-// 10 MB at the bench-0.9b step (B 8, Hkv 8, Wd 16, ctx 1152), i.e. 3 us at
-// 3.35 TB/s. The arithmetic (2 * group * D multiply-adds per token and head
-// for each of QK and PV) is far below the fp32 rate.
+// Bound on this card: bytes for the reads without injection. Per call it
+// must read each live token's K and V data words and scales once: B * ctx *
+// Hkv * (2*Wd*4 + 2*4) bytes, about 9.3 MB at the bench-0.9b step (B 8, Hkv
+// 8, Wd 16, ctx 1056), i.e. 2.8 us at 3.35 TB/s. With injection, the hash
+// dominates: 32 murmur hashes per word (about 12.5 integer operations
+// each), 2 * 16 words per token and head, about 0.86 G operations per call
+// at the bench step - 14 us at 67 T/s, so operations bound it. Read
+// injection is a template parameter: the clean read compiles without the
+// hash.
 //
 // Design: one block of 128 threads per (KV head, sequence), looping over the
 // sequence's pages. Phase A maps threads to tokens (coalesced loads of the
-// token-minor words: thread t reads word j of token t at j*bs + t), computes
-// the group's scores and stages the V words in shared memory; phases B and C
-// (paged_attend.cuh, shared with decode_attend.cu) take the page's softmax
-// weights and map threads to head-dim values to contract the staged V page.
-// At the bench shapes that is 8 x 8 = 64 blocks on the H100's 132 SMs;
-// splitting a sequence's pages over blocks is later work.
-// The new token is attended from the column passed in (in registers), not
-// read back from the cache, so the in-place write needs no fence. Each block
-// writes only its own head's column and scale, so blocks never race. The
-// kernel allocates nothing.
+// token-minor words: thread t reads word j of token t at j*bs + t), XORs the
+// token's masks (the 32 hashes of a word are independent, which gives the
+// scheduler its parallelism), computes the group's scores and stages the V
+// words in shared memory; phases B and C (paged_attend.cuh, shared with
+// decode_attend.cu) take the page's softmax weights and map threads to
+// head-dim values to contract the staged V page. At the bench shapes that is
+// 8 x 8 = 64 blocks on the H100's 132 SMs; splitting a sequence's pages over
+// blocks is later work. The new token is attended from the column passed in
+// (in registers), not read back from the cache, so the in-place write needs
+// no fence. Each block writes only its own head's column and scale, so
+// blocks never race, except rows whose page is -1: several such rows write
+// page 0 in no fixed order, as the TPU leaves undefined. The kernel
+// allocates nothing; the wrapper zeroes the stats.
 
 #include "paged_attend.cuh"
 
@@ -51,9 +76,45 @@ namespace {
 
 using namespace paged_attend;
 
-template <int WD, int GROUP, int HD>
+// murmur3's 32-bit finalizer (swar._murmur_mix)
+__device__ __forceinline__ uint32_t fmix32(uint32_t z) {
+  z ^= z >> 16;
+  z *= 0x85EBCA6Bu;
+  z ^= z >> 13;
+  z *= 0xC2B2AE35u;
+  z ^= z >> 16;
+  return z;
+}
+
+// The 32-bit flip mask of one word whose counter (base + j * bs + slot) is
+// elem: bit b flips when fmix32((elem * 32 + b) * 0x9E3779B9 + seed) < thr.
+__device__ __forceinline__ uint32_t flip_word(uint32_t elem, uint32_t seed, uint32_t thr) {
+  const uint32_t x0 = elem * 32u * 0x9E3779B9u + seed;
+  uint32_t m = 0;
+#pragma unroll
+  for (int bit = 0; bit < 32; ++bit) {
+    m |= (uint32_t)(fmix32(x0 + (uint32_t)bit * 0x9E3779B9u) < thr) << bit;
+  }
+  return m;
+}
+
+struct ReadInject {  // the read flips of one call
+  uint32_t thr, seed;
+  uint32_t uid0;  // ((layer * B + b) * num_chunks) * ppc, mod 2^32
+  int ppc, Hkv, h, WD, bs;
+
+  // the tile base of page pg, K (t = 0) or V (t = 1)
+  __device__ __forceinline__ uint32_t base(int pg, int t) const {
+    const uint32_t chunk = (uint32_t)(pg / ppc), i = (uint32_t)(pg % ppc);
+    const uint32_t uid =
+        (((uid0 + chunk * (uint32_t)ppc) + i) * (uint32_t)Hkv + (uint32_t)h) * 2u + (uint32_t)t;
+    return uid * (uint32_t)WD * (uint32_t)bs;
+  }
+};
+
+template <int WD, int GROUP, int HD, bool INJECT>
 __global__ void __launch_bounds__(kThreads) write_attend_kernel(
-    const __nv_bfloat16* __restrict__ q,  // [B, Hq, HD]
+    const void* __restrict__ q,          // [B, Hq, HD] bf16, or fp32 when exact
     const int32_t* __restrict__ k_new,    // [B, Hkv, WD]
     const int32_t* __restrict__ v_new,
     const float* __restrict__ ks_new,     // [B, Hkv]
@@ -65,8 +126,10 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
     const int32_t* __restrict__ block_table,   // [B, P]
     const int32_t* __restrict__ context_lens,  // [B]
     void* out,                                 // [B, Hq, HD] fp32 or bf16
-    int Hkv, int bs, int NB, int P, int layer, float sm_scale, int window,
-    int out_bf16) {
+    int* stats,                                // [B, 2] int32, or null
+    const int32_t* __restrict__ seed_ptr,      // the read seed on the device, or null
+    int Hkv, int bs, int NB, int P, int num_pages, int layer, float sm_scale, int window,
+    int out_bf16, int exact, uint32_t thr, uint32_t seed_val, int num_chunks, int ppc) {
   constexpr int DP = 8 * WD;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -85,27 +148,36 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
   const size_t head_page = (size_t)layer * NB * Hkv;  // page index base of this layer
   const size_t row0 = (size_t)b * Hq + (size_t)h * GROUP;
 
-  stage_queries<WD, GROUP, HD>(q + row0 * HD, q_s, st);
+  stage_queries<WD, GROUP, HD>((const char*)q + row0 * HD * (exact ? 4 : 2), exact, q_s, st);
 
   const int32_t* kn = k_new + ((size_t)b * Hkv + h) * WD;
   const int32_t* vn = v_new + ((size_t)b * Hkv + h) * WD;
   const float ksn = ks_new[(size_t)b * Hkv + h];
   const float vsn = vs_new[(size_t)b * Hkv + h];
 
+  ReadInject ri;
+  ri.thr = thr;
+  ri.seed = seed_ptr ? (uint32_t)*seed_ptr : seed_val;
+  ri.uid0 = ((uint32_t)layer * gridDim.y + (uint32_t)b) * (uint32_t)num_chunks * (uint32_t)ppc;
+  ri.ppc = ppc;
+  ri.Hkv = Hkv;
+  ri.h = h;
+  ri.WD = WD;
+  ri.bs = bs;
+  int flipped = 0;  // read bits flipped over this thread's valid tokens
+
   // 1. the in-place write of the new token's column and scales
-  if (ctx > 0 && tok_new / bs < P) {
-    const int phys = block_table[(size_t)b * P + tok_new / bs];
-    if (phys >= 0) {
-      const size_t page = head_page + (size_t)phys * Hkv + h;
-      const int slot = tok_new % bs;
-      for (int j = tid; j < WD; j += kThreads) {
-        k_cache[(page * WD + j) * bs + slot] = kn[j];
-        v_cache[(page * WD + j) * bs + slot] = vn[j];
-      }
-      if (tid == 0) {
-        k_scales[page * bs + slot] = ksn;
-        v_scales[page * bs + slot] = vsn;
-      }
+  if (ctx > 0 && tok_new / bs < num_pages) {
+    const int phys = max(block_table[(size_t)b * P + tok_new / bs], 0);
+    const size_t page = head_page + (size_t)phys * Hkv + h;
+    const int slot = tok_new % bs;
+    for (int j = tid; j < WD; j += kThreads) {
+      k_cache[(page * WD + j) * bs + slot] = kn[j];
+      v_cache[(page * WD + j) * bs + slot] = vn[j];
+    }
+    if (tid == 0) {
+      k_scales[page * bs + slot] = ksn;
+      v_scales[page * bs + slot] = vsn;
     }
   }
 
@@ -114,15 +186,31 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
   for (int g = 0; g < GROUP; ++g) acc[g] = 0.f;
 
   const int first_tok = window > 0 ? max(0, ctx - window) : 0;
-  const int npages = min((ctx + bs - 1) / bs, P);
+  const int npages = min((ctx + bs - 1) / bs, num_pages);
+  // the flips of pages before the window are counted, never attended
+  const int count_from = stats && INJECT ? 0 : first_tok / bs;
   __syncthreads();
 
-  for (int pg = first_tok / bs; pg < npages; ++pg) {
+  for (int pg = count_from; pg < npages; ++pg) {
     const size_t page = head_page + (size_t)max(block_table[(size_t)b * P + pg], 0) * Hkv + h;
     const int32_t* kp = k_cache + page * WD * bs;
     const int32_t* vp = v_cache + page * WD * bs;
     const float* ksp = k_scales + page * bs;
     const float* vsp = v_scales + page * bs;
+    const uint32_t kbase = INJECT ? ri.base(pg, 0) : 0u;
+    const uint32_t vbase = INJECT ? ri.base(pg, 1) : 0u;
+
+    if (INJECT && pg < first_tok / bs) {  // before the window: count the flips only
+      for (int t = tid; t < bs; t += kThreads) {
+        if (pg * bs + t >= ctx) continue;
+        for (int j = 0; j < WD; ++j) {
+          const uint32_t elem = (uint32_t)(j * bs + t);
+          flipped += __popc(flip_word(kbase + elem, ri.seed, ri.thr)) +
+                     __popc(flip_word(vbase + elem, ri.seed, ri.thr));
+        }
+      }
+      continue;
+    }
 
     // phase A: thread per token - scores, and the V page into shared memory
     float lmax[GROUP];
@@ -135,8 +223,18 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
       int32_t kw[WD];
 #pragma unroll
       for (int j = 0; j < WD; ++j) {
-        kw[j] = is_new ? kn[j] : kp[j * bs + t];
-        v_s[j * (bs + 1) + t] = is_new ? vn[j] : vp[j * bs + t];
+        int32_t kword = is_new ? kn[j] : kp[j * bs + t];
+        int32_t vword = is_new ? vn[j] : vp[j * bs + t];
+        if constexpr (INJECT) {
+          const uint32_t elem = (uint32_t)(j * bs + t);
+          const uint32_t km = flip_word(kbase + elem, ri.seed, ri.thr);
+          const uint32_t vm = flip_word(vbase + elem, ri.seed, ri.thr);
+          kword ^= (int32_t)km;
+          vword ^= (int32_t)vm;
+          if (tok < ctx) flipped += __popc(km) + __popc(vm);
+        }
+        kw[j] = kword;
+        v_s[j * (bs + 1) + t] = vword;
       }
       const float ks = is_new ? ksn : ksp[t];
       vs_s[t] = is_new ? vsn : vsp[t];
@@ -150,30 +248,35 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
         lmax[g] = fmaxf(lmax[g], s);
       }
     }
-    attend_page<WD, GROUP>(lmax, p_s, vs_s, v_s, st, acc, pg * bs, ctx, first_tok, bs);
+    attend_page<WD, GROUP>(lmax, p_s, vs_s, v_s, st, acc, pg * bs, ctx, first_tok, bs,
+                           exact != 0);
   }
 
   store_output<GROUP, HD>(acc, st, out, row0, out_bf16);
+  if (stats) flush_stats(stats, b, flipped, 0);
 }
 
-template <int WD, int GROUP, int HD>
+template <int WD, int GROUP, int HD, bool INJECT>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    const void* ks_new, const void* vs_new, void* k_cache,
                    void* v_cache, void* k_scales, void* v_scales,
-                   const void* block_table, const void* context_lens, void* out,
-                   int B, int Hkv, int bs, int NB, int P, int layer,
-                   float sm_scale, int window, int out_bf16, cudaStream_t stream) {
+                   const void* block_table, const void* context_lens, void* out, void* stats,
+                   const void* seed_ptr, int B, int Hkv, int bs, int NB, int P, int num_pages,
+                   int layer, float sm_scale, int window, int out_bf16, int exact,
+                   uint32_t thr, uint32_t seed_val, int num_chunks, int ppc,
+                   cudaStream_t stream) {
   constexpr int DP = 8 * WD;
   const size_t smem = (size_t)(GROUP * DP + GROUP * bs + bs) * sizeof(float) +
                       (size_t)WD * (bs + 1) * sizeof(int32_t);
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024 || num_pages < 1 || num_pages > P || ppc < 1 || num_chunks < 1)
+    return cudaErrorInvalidValue;
   dim3 grid(Hkv, B);
-  write_attend_kernel<WD, GROUP, HD><<<grid, kThreads, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const int32_t*)k_new, (const int32_t*)v_new,
-      (const float*)ks_new, (const float*)vs_new, (int32_t*)k_cache,
-      (int32_t*)v_cache, (float*)k_scales, (float*)v_scales,
-      (const int32_t*)block_table, (const int32_t*)context_lens, out, Hkv, bs,
-      NB, P, layer, sm_scale, window, out_bf16);
+  write_attend_kernel<WD, GROUP, HD, INJECT><<<grid, kThreads, smem, stream>>>(
+      q, (const int32_t*)k_new, (const int32_t*)v_new, (const float*)ks_new,
+      (const float*)vs_new, (int32_t*)k_cache, (int32_t*)v_cache, (float*)k_scales,
+      (float*)v_scales, (const int32_t*)block_table, (const int32_t*)context_lens, out,
+      (int*)stats, (const int32_t*)seed_ptr, Hkv, bs, NB, P, num_pages, layer, sm_scale,
+      window, out_bf16, exact, thr, seed_val, num_chunks, ppc);
   return cudaGetLastError();
 }
 
@@ -181,24 +284,35 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
 // success). Instances are built only for the (data words per row, group,
-// head_dim) of the registered models: (2, 2, 16) and (4, 2, 16) for
+// head_dim) of the registered models, each with and without read
+// injection (a template parameter, so the clean read compiles without the
+// hash): (2, 2, 16) and (4, 2, 16) for
 // tiny-llama (hamming74 pads to 4 words) and (16, 2, 128) for bench-0.9b;
 // any other triple returns cudaErrorInvalidValue. All tensors contiguous;
-// q bf16; out fp32 (out_bf16 = 0) or bf16 (out_bf16 = 1); window <= 0 means
-// no window.
+// q bf16 (exact = 0) or fp32 (exact = 1); out fp32 (out_bf16 = 0) or bf16
+// (out_bf16 = 1); window <= 0 means no window; P is the block table's row
+// stride and num_pages <= P the pages attended; stats (null: not counted)
+// must be zeroed by the caller; the read seed is *seed_ptr when seed_ptr is
+// not null, else seed_val; thr and seed_val carry uint32 bits in an int.
 extern "C" int write_attend_launch(
     const void* q, const void* k_new, const void* v_new, const void* ks_new,
     const void* vs_new, void* k_cache, void* v_cache, void* k_scales,
     void* v_scales, const void* block_table, const void* context_lens,
-    void* out, int B, int Hkv, int group, int wd, int head_dim, int bs, int NB,
-    int P, int layer, float sm_scale, int window, int out_bf16, void* stream) {
-#define WA_ARGS q, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales, \
-    v_scales, block_table, context_lens, out, B, Hkv, bs, NB, P, layer,     \
-    sm_scale, window, out_bf16, (cudaStream_t)stream
+    void* out, void* stats, const void* seed_ptr, int B, int Hkv, int group, int wd,
+    int head_dim, int bs, int NB, int P, int num_pages, int layer, float sm_scale,
+    int window, int out_bf16, int exact, int read_inject, int thr, int seed_val,
+    int num_chunks, int ppc, void* stream) {
+#define WA_ARGS q, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales, v_scales,    \
+    block_table, context_lens, out, stats, seed_ptr, B, Hkv, bs, NB, P, num_pages, layer, \
+    sm_scale, window, out_bf16, exact, (uint32_t)thr, (uint32_t)seed_val, num_chunks, ppc, \
+    (cudaStream_t)stream
+#define WA_LAUNCH(W, G, H) \
+  err = read_inject ? launch<W, G, H, true>(WA_ARGS) : launch<W, G, H, false>(WA_ARGS)
   cudaError_t err = cudaErrorInvalidValue;
-  if (wd == 2 && group == 2 && head_dim == 16) err = launch<2, 2, 16>(WA_ARGS);
-  if (wd == 4 && group == 2 && head_dim == 16) err = launch<4, 2, 16>(WA_ARGS);
-  if (wd == 16 && group == 2 && head_dim == 128) err = launch<16, 2, 128>(WA_ARGS);
+  if (wd == 2 && group == 2 && head_dim == 16) WA_LAUNCH(2, 2, 16);
+  if (wd == 4 && group == 2 && head_dim == 16) WA_LAUNCH(4, 2, 16);
+  if (wd == 16 && group == 2 && head_dim == 128) WA_LAUNCH(16, 2, 128);
+#undef WA_LAUNCH
 #undef WA_ARGS
   return (int)err;
 }

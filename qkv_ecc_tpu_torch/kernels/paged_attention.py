@@ -1,17 +1,19 @@
 """Fused decode-step cache write + paged attention (counterpart of
 ``qkv_ecc_tpu/kernels/paged_attention.py``: ``paged_attention_ecc_write_attend``
-in scrub-extract mode and in the hamming84 correcting read with and without
-interpolation, ``gather_pages``, ``gather_scales`` and
+for the packed-int codecs, ``gather_pages``, ``gather_scales`` and
 ``paged_attention_ecc_reference``).
 
 Two hand-written CUDA kernels serve ``paged_attention_ecc_write_attend``:
 
-  * ``csrc/write_attend.cu`` (K1): the scrub-extract read of every packed
-    codec; its launches are counted in
+  * ``csrc/write_attend.cu`` (K1, K2r): reads int4-packed data words only -
+    the scrub-extract read of every packed codec, and int4's general read
+    (``scrub=False``), with the read-time injection of mode ``int4`` and its
+    flipped-bit count; launches counted in
     ``paged_attention_ecc_write_attend.launches``;
-  * ``csrc/decode_attend.cu``: the hamming84 correcting read (SECDED decode
-    of data ++ parity, optionally the temporal interpolation of double
-    errors); its launches are counted in ``write_decode_attend.launches``.
+  * ``csrc/decode_attend.cu`` (K2, K3): the correcting read of the parity
+    codecs - hamming84 (optionally interpolating double errors), hamming74
+    and golay - with the per-read ECC statistics; launches counted in
+    ``write_decode_attend.launches``.
 
 For tensors on the card the wrapper launches the kernel or raises; for
 tensors on the CPU it runs the kernel's plain PyTorch version
@@ -26,18 +28,26 @@ import functools
 
 import torch
 
+from . import common as C
 from . import swar
 from ._build import load
 
 _NEG_INF = -1e30
+_PACKED = ("int4", "hamming74", "hamming84", "golay")
 # (data words per row, GQA group, head_dim) instantiated in
-# csrc/write_attend.cu: those of the registered models, tiny-llama (int4,
-# golay, hamming84: 2 words; hamming74 pads 16 values to 32: 4 words) and
-# bench-0.9b (16 words in every codec)
+# csrc/write_attend.cu, each with and without read injection: those of the
+# registered models, tiny-llama (int4, golay, hamming84: 2 words; hamming74
+# pads 16 values to 32: 4 words) and bench-0.9b (16 words in every codec)
 KERNEL_SHAPES = ((2, 2, 16), (4, 2, 16), (16, 2, 128))
-# (data words per row, GQA group) instantiated in csrc/decode_attend.cu, each
-# with and without interpolation; head_dim is 8 * data words for hamming84
-DECODE_KERNEL_SHAPES = ((2, 2), (16, 2))
+# (codec, data words, parity words, GQA group, head_dim) instantiated in
+# csrc/decode_attend.cu for tiny-llama and bench-0.9b (hamming84 with and
+# without interpolation)
+DECODE_KERNEL_SHAPES = (
+    ("hamming84", 2, 2, 2, 16), ("hamming84", 16, 16, 2, 128),
+    ("hamming74", 4, 3, 2, 16), ("hamming74", 16, 12, 2, 128),
+    ("golay", 2, 4, 2, 16), ("golay", 16, 17, 2, 128),
+)
+_CODEC_IDS = {"hamming84": 0, "hamming74": 1, "golay": 2}
 
 
 def gather_pages(cache, block_table, layer_idx, num_pages, parity=None):
@@ -97,18 +107,18 @@ def paged_attention_ecc_reference(query, k_cache, v_cache, k_scales, v_scales,
 
 
 def _write_column(cols, arrays, scale_cols, scale_arrays, block_table, context_lens,
-                  layer_idx):
+                  layer_idx, num_pages):
     """Store each sequence's new columns (``cols[i]`` [B, Hkv, w] into
-    ``arrays[i]``) and scales at slot ctx-1, in place; rows whose slot has
-    no page (ctx 0, beyond the table, page -1) are skipped, as the kernels
-    skip them."""
+    ``arrays[i]``) and scales at slot ctx-1, in place, as the TPU kernel
+    does: a page entry of -1 is clamped to physical page 0 and written there;
+    rows whose slot has no page (ctx 0, at or beyond ``num_pages``) are
+    skipped."""
     bs = arrays[0].shape[4]
     tok = context_lens.long() - 1
     pidx = tok.clamp(min=0) // bs
-    inside = (tok >= 0) & (pidx < block_table.shape[1])
-    phys = block_table.long().gather(1, pidx.clamp(max=block_table.shape[1] - 1)[:, None])[:, 0]
-    rows = torch.nonzero(inside & (phys >= 0))[:, 0]
-    phys, slot = phys[rows], tok[rows] % bs
+    rows = torch.nonzero((tok >= 0) & (pidx < num_pages))[:, 0]
+    phys = block_table.long()[rows, pidx[rows]].clamp(min=0)
+    slot = tok[rows] % bs
     for col, arr in zip(cols, arrays):
         arr[layer_idx][phys, :, :, slot] = col[rows]
     for col, arr in zip(scale_cols, scale_arrays):
@@ -116,17 +126,17 @@ def _write_column(cols, arrays, scale_cols, scale_arrays, block_table, context_l
 
 
 def _online_attend(query, kn, vn, ks, vs, context_lens, bs, *, sm_scale,
-                   sliding_window):
+                   sliding_window, exact=False):
     """The kernels' attention over dequantization-free codes: kn / vn
     [B, Hkv, tokens, D] nibbles minus 8 (float32), ks / vs [B, Hkv, tokens]
     scales. A masked softmax taken online page by page with the kernels'
-    precision (bf16 q, bf16 p * v_scale against the running maximum, fp32
-    sums)."""
+    precision: "fast" (``exact`` False) rounds q and p * v_scale to bf16,
+    "highest" keeps both in float32; sums in float32."""
     batch, num_q_heads, head_dim = query.shape
     num_kv_heads, tokens = kn.shape[1], kn.shape[2]
     group = num_q_heads // num_kv_heads
-    q = query.to(torch.bfloat16).to(torch.float32).reshape(
-        batch, num_kv_heads, group, head_dim)
+    q = query.to(torch.float32) if exact else query.to(torch.bfloat16).to(torch.float32)
+    q = q.reshape(batch, num_kv_heads, group, head_dim)
     ctx = context_lens.long()[:, None]
     tok = torch.arange(tokens, device=q.device)[None, :]
     live = tok < ctx
@@ -146,7 +156,8 @@ def _online_attend(query, kn, vn, ks, vs, context_lens, bs, *, sm_scale,
         p = torch.exp(s - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         pv = torch.where(live[..., t], p * vs[:, :, None, t], torch.zeros_like(p))
-        pv = pv.to(torch.bfloat16).to(torch.float32)
+        if not exact:
+            pv = pv.to(torch.bfloat16).to(torch.float32)
         acc = acc * alpha + torch.einsum("bhgt,bhtd->bhgd", pv, vn[:, :, t])
         m = m_new
     out = torch.where(l > 0, acc / torch.where(l > 0, l, torch.ones_like(l)),
@@ -154,26 +165,136 @@ def _online_attend(query, kn, vn, ks, vs, context_lens, bs, *, sm_scale,
     return out.reshape(batch, num_q_heads, head_dim).to(query.dtype)
 
 
-def write_attend_plain(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache,
-                       k_scales, v_scales, block_table, context_lens, layer_idx,
-                       *, sm_scale, sliding_window=None):
-    """K1's function in plain PyTorch: the in-place column write, then
-    gather, unpack and dequantize the data nibbles (padding values dropped),
-    and the online softmax of ``_online_attend``."""
-    _write_column((k_new, v_new), (k_cache, v_cache), (ks_new, vs_new),
-                  (k_scales, v_scales), block_table, context_lens, layer_idx)
-    head_dim = query.shape[-1]
-    num_pages = block_table.shape[1]
+def read_flip_mask(seed, threshold: int, layer_idx: int, batch: int, num_pages: int,
+                   pages_per_chunk: int, num_kv_heads: int, data_words: int,
+                   block_size: int, device=None) -> torch.Tensor:
+    """The read-time flips of mode ``int4`` (the TPU kernel's
+    ``_read_flip_mask``): [2 (K, V), batch, num_pages * block_size,
+    num_kv_heads, data_words] int32, in gather_pages' token-major layout.
+    The tile of (sequence b, page p = c * pages_per_chunk + i of chunk c,
+    head h, K/V t) is ``swar.hash_flip_mask(seed, uid * data_words *
+    block_size, (data_words, block_size))`` with uid = ((((layer * batch +
+    b) * num_chunks + c) * pages_per_chunk + i) * num_kv_heads + h) * 2 + t
+    and num_chunks = cdiv(num_pages, pages_per_chunk): the flips depend on
+    the batch size and the chunking."""
+    num_chunks = C.cdiv(num_pages, pages_per_chunk)
+    ar = functools.partial(torch.arange, dtype=torch.int64, device=device)
+    b = ar(batch).reshape(batch, 1, 1, 1)
+    p = ar(num_pages).reshape(1, num_pages, 1, 1)
+    h = ar(num_kv_heads).reshape(1, 1, num_kv_heads, 1)
+    t = ar(2).reshape(1, 1, 1, 2)
+    uid = (((layer_idx * batch + b) * num_chunks * pages_per_chunk + p) * num_kv_heads + h) * 2 + t
+    base = (uid * (data_words * block_size)) & 0xFFFFFFFF
+    m = swar.hash_flip_mask(seed, base[..., None, None], (data_words, block_size), threshold)
+    # [B, P, H, 2, W, bs] -> [2, B, P * bs, H, W]
+    return m.permute(3, 0, 1, 5, 2, 4).reshape(
+        2, batch, num_pages * block_size, num_kv_heads, data_words)
 
-    def nibbles(cache):
+
+def decode_rows(codec: str, rows: torch.Tensor, data_words: int, head_dim: int):
+    """Full rows [..., W] (data ++ parity) -> (the corrected nibbles of the
+    data words [..., 8 * data_words] in value order, the doubles mask
+    [..., 8 * data_words] bool for hamming84 or None), as the correcting
+    reads decode them: hamming84 keeps the data of doubles; hamming74
+    corrects each value from its three parity planes; golay rebuilds the
+    24-bit codewords and reads an uncorrectable one as 0; int4 splits
+    nibbles."""
+    dw = data_words
+    if codec == "int4":
+        return swar.unpack_int4(rows[..., :dw]), None
+    if codec == "hamming84":
+        return h84_decode_rows(rows, dw)
+    if codec == "hamming74":
+        p = swar._slice_unpack(rows[..., dw:], 3)
+        d = swar.unpack_int4(rows[..., :dw])
+        dec, _ = swar.h74_value_correct(d, p & 1, (p >> 1) & 1, (p >> 2) & 1)
+        return dec, None
+    if codec == "golay":
+        d12, _ = swar.golay_decode_wide(swar.golay_split_unpack(rows, head_dim),
+                                        zero_uncorrectable=True)
+        return swar.golay_unpack_thirds(d12)[..., : 8 * dw], None
+    swar.unsupported(codec)
+
+
+def count_errors(codec: str, rows: torch.Tensor, valid: torch.Tensor, data_words: int,
+                 head_dim: int) -> torch.Tensor:
+    """Per-read ECC statistics of full rows [B, T, H, W] over the tokens
+    where ``valid`` [B, T] holds: [B, 2] int32 (corrected, detected) summed
+    over heads, words and valid tokens (the TPU kernel's ``_count_errors``).
+    hamming84: singles and doubles; hamming74: nonzero syndromes (padding
+    values included); golay: corrected bits (error counts 1-3) and
+    uncorrectable codewords; int4: nothing."""
+    dw = data_words
+    zero = torch.zeros(rows.shape[:3], dtype=torch.int32, device=rows.device)
+    if codec == "int4":
+        corr, det = zero, zero
+    elif codec == "hamming84":
+        corr, det = zero, zero
+        for piece in swar.h84_rebuild_cw_words(rows[..., :dw], rows[..., dw:]):
+            _, single, double = swar.h84_swar_decode(piece)
+            corr = corr + C.popcount(single).sum(-1, dtype=torch.int32)
+            det = det + C.popcount(double).sum(-1, dtype=torch.int32)
+    elif codec == "hamming74":
+        p = swar._slice_unpack(rows[..., dw:], 3)
+        _, err = swar.h74_value_correct(swar.unpack_int4(rows[..., :dw]), p & 1,
+                                        (p >> 1) & 1, (p >> 2) & 1)
+        corr, det = err.sum(-1, dtype=torch.int32), zero
+    elif codec == "golay":
+        _, cnt = swar.golay_decode_wide(swar.golay_split_unpack(rows, head_dim),
+                                        zero_uncorrectable=True)
+        corr = torch.where(cnt < 4, cnt, 0).sum(-1, dtype=torch.int32)
+        det = (cnt == 4).sum(-1, dtype=torch.int32)
+    else:
+        swar.unsupported(codec)
+    v = valid[:, :, None]
+    return torch.stack([torch.where(v, corr, 0).sum((1, 2), dtype=torch.int32),
+                        torch.where(v, det, 0).sum((1, 2), dtype=torch.int32)], dim=1)
+
+
+def _valid_tokens(context_lens, tokens):
+    return torch.arange(tokens, device=context_lens.device)[None, :] < context_lens.long()[:, None]
+
+
+def write_attend_plain(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales,
+                       v_scales, block_table, context_lens, layer_idx, *, sm_scale,
+                       num_pages=None, precision="fast", sliding_window=None,
+                       read_threshold=None, read_seed=0, pages_per_chunk=1,
+                       collect_stats=False):
+    """K1's function in plain PyTorch: the in-place column write, then
+    gather the data words (with ``read_threshold``, XORed with
+    ``read_flip_mask``; the cache keeps its clean words), split the nibbles
+    (padding values dropped) and attend as ``_online_attend``. Returns the
+    output, or (output, stats [B, 2] int32) with ``collect_stats``: slot 0
+    counts the flipped read bits over the valid tokens."""
+    num_pages = block_table.shape[1] if num_pages is None else num_pages
+    _write_column((k_new, v_new), (k_cache, v_cache), (ks_new, vs_new),
+                  (k_scales, v_scales), block_table, context_lens, layer_idx, num_pages)
+    batch, head_dim = query.shape[0], query.shape[-1]
+    _, _, Hkv, Wd, bs = k_cache.shape
+    flips = None
+    if read_threshold is not None:
+        flips = read_flip_mask(read_seed, read_threshold, layer_idx, batch, num_pages,
+                               pages_per_chunk, Hkv, Wd, bs, device=query.device)
+
+    def nibbles(cache, t):
         rows = gather_pages(cache, block_table, layer_idx, num_pages)
+        if flips is not None:
+            rows = rows ^ flips[t]
         nib = swar.unpack_int4(rows)[..., :head_dim].to(torch.float32) - 8.0
         return nib.movedim(1, 2)  # [batch, kv_heads, tokens, D]
 
     ks = gather_scales(k_scales, block_table, layer_idx, num_pages).movedim(1, 2)
     vs = gather_scales(v_scales, block_table, layer_idx, num_pages).movedim(1, 2)
-    return _online_attend(query, nibbles(k_cache), nibbles(v_cache), ks, vs, context_lens,
-                          k_cache.shape[4], sm_scale=sm_scale, sliding_window=sliding_window)
+    out = _online_attend(query, nibbles(k_cache, 0), nibbles(v_cache, 1), ks, vs, context_lens,
+                         bs, sm_scale=sm_scale, sliding_window=sliding_window,
+                         exact=precision == "highest")
+    if not collect_stats:
+        return out
+    stats = torch.zeros((batch, 2), dtype=torch.int32, device=query.device)
+    if flips is not None:
+        valid = _valid_tokens(context_lens, num_pages * bs)[None, :, :, None, None]
+        stats[:, 0] = torch.where(valid, C.popcount(flips), 0).sum((0, 2, 3, 4), dtype=torch.int32)
+    return out, stats
 
 
 def h84_decode_rows(rows, data_words: int):
@@ -206,31 +327,42 @@ def interpolate_chunked(nib, dbl, context_lens, chunk_tokens: int):
 
 def write_decode_attend_plain(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache,
                               k_scales, v_scales, block_table, context_lens, layer_idx,
-                              k_parity, v_parity, *, sm_scale, interpolate: bool,
-                              pages_per_chunk: int, sliding_window=None):
+                              k_parity, v_parity, *, codec, sm_scale, pages_per_chunk,
+                              interpolate=False, num_pages=None, precision="fast",
+                              sliding_window=None, collect_stats=False):
     """The decode_attend kernel's function in plain PyTorch: write the new
-    full rows (data and parity columns) and scales in place, SECDED-decode
-    every page of data ++ parity, interpolate the doubles chunk by chunk
-    (``interpolate_chunked``) when asked, then the online softmax of
-    ``_online_attend``."""
+    full rows (data and parity columns) and scales in place, gather every
+    page of data ++ parity, decode it (``decode_rows``), interpolate
+    hamming84's doubles chunk by chunk (``interpolate_chunked``) when asked,
+    then attend as ``_online_attend``. Returns the output, or (output,
+    stats [B, 2] int32 of ``count_errors`` over K and V) with
+    ``collect_stats``."""
+    num_pages = block_table.shape[1] if num_pages is None else num_pages
     dw = k_cache.shape[3]
     _write_column((k_new[..., :dw], v_new[..., :dw], k_new[..., dw:], v_new[..., dw:]),
                   (k_cache, v_cache, k_parity, v_parity), (ks_new, vs_new),
-                  (k_scales, v_scales), block_table, context_lens, layer_idx)
+                  (k_scales, v_scales), block_table, context_lens, layer_idx, num_pages)
     head_dim = query.shape[-1]
-    num_pages, bs = block_table.shape[1], k_cache.shape[4]
+    bs = k_cache.shape[4]
+    valid = _valid_tokens(context_lens, num_pages * bs)
+    stats = torch.zeros((query.shape[0], 2), dtype=torch.int32, device=query.device)
 
     def codes(cache, parity):
+        nonlocal stats
         rows = gather_pages(cache, block_table, layer_idx, num_pages, parity)
-        nib, dbl = h84_decode_rows(rows, dw)
-        if interpolate:
+        if collect_stats:
+            stats = stats + count_errors(codec, rows, valid, dw, head_dim)
+        nib, dbl = decode_rows(codec, rows, dw, head_dim)
+        if interpolate and codec == "hamming84":
             nib = interpolate_chunked(nib, dbl, context_lens, pages_per_chunk * bs)
         return (nib[..., :head_dim].to(torch.float32) - 8.0).movedim(1, 2)
 
     ks = gather_scales(k_scales, block_table, layer_idx, num_pages).movedim(1, 2)
     vs = gather_scales(v_scales, block_table, layer_idx, num_pages).movedim(1, 2)
-    return _online_attend(query, codes(k_cache, k_parity), codes(v_cache, v_parity), ks, vs,
-                          context_lens, bs, sm_scale=sm_scale, sliding_window=sliding_window)
+    out = _online_attend(query, codes(k_cache, k_parity), codes(v_cache, v_parity), ks, vs,
+                         context_lens, bs, sm_scale=sm_scale, sliding_window=sliding_window,
+                         exact=precision == "highest")
+    return (out, stats) if collect_stats else out
 
 
 def _check(name, problems):
@@ -266,22 +398,46 @@ def _stream(query):
     return torch.cuda.current_stream(query.device).cuda_stream
 
 
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+
+
 @functools.lru_cache(maxsize=None)
-def _launcher(name: str, n_ptrs: int, n_ints: int, n_tail_ints: int):
+def _launcher(name: str, signature: str):
     """The C launcher ``<name>_launch`` of csrc/<name>.cu, built and loaded
-    at first use: n_ptrs pointers, n_ints ints, sm_scale, n_tail_ints ints,
-    the stream; returns a cudaError_t."""
+    at first use; ``signature`` spells its arguments, p for a pointer (the
+    stream last), i for an int, f for a float. Returns a cudaError_t."""
     fn = getattr(load(name), f"{name}_launch")
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_float]
-                   + [ctypes.c_int] * n_tail_ints + [ctypes.c_void_p])
+    fn.argtypes = [_CTYPES[c] for c in signature]
     return fn
 
 
+def _i32(x: int) -> int:
+    """An unsigned 32-bit value as the C int with the same bits."""
+    x &= 0xFFFFFFFF
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def _kernel_query(query, precision):
+    """The query as the kernels read it: bf16 for "fast", fp32 for
+    "highest"."""
+    dtype = torch.float32 if precision == "highest" else torch.bfloat16
+    return query if query.dtype == dtype else query.to(dtype)
+
+
+def _seed_args(seed):
+    """(device pointer or None, value): a tensor seed is read by the kernel
+    on the device, so drawing it costs the host no sync."""
+    if torch.is_tensor(seed) and seed.device.type == "cuda":
+        return seed.to(torch.int32).reshape(()).contiguous(), 0
+    return None, _i32(int(seed))
+
+
 def _launch(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales,
-            v_scales, block_table, context_lens, layer_idx, sm_scale,
-            sliding_window):
-    """Check what K1 takes, allocate the output and launch
+            v_scales, block_table, context_lens, layer_idx, *, sm_scale, num_pages,
+            precision, sliding_window, read_threshold, read_seed, pages_per_chunk,
+            collect_stats):
+    """Check what K1 takes, allocate the output (and the stats) and launch
     csrc/write_attend.cu on the current stream."""
     batch, num_q_heads, head_dim = query.shape
     L, NB, Hkv, Wd, bs = k_cache.shape
@@ -294,154 +450,216 @@ def _launch(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales,
          f"(data words, GQA group, head_dim) = {(Wd, group, head_dim)} has no kernel "
          f"instance; built: {KERNEL_SHAPES}"),
     ])
-    q = query if query.dtype == torch.bfloat16 else query.to(torch.bfloat16)
+    q = _kernel_query(query, precision)
     out = torch.empty(query.shape, dtype=query.dtype, device=query.device)
+    stats = torch.zeros((batch, 2), dtype=torch.int32, device=query.device) if collect_stats else None
+    seed_t, seed_v = _seed_args(read_seed)
     ptrs = (q, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales, v_scales,
-            block_table, context_lens, out)
-    rc = _launcher("write_attend", 12, 9, 2)(
-        *(t.data_ptr() for t in ptrs), batch, Hkv, group, Wd, head_dim, bs, NB,
-        block_table.shape[1], int(layer_idx), float(sm_scale), int(sliding_window or 0),
-        int(query.dtype == torch.bfloat16), _stream(query))
+            block_table, context_lens, out, stats, seed_t)
+    rc = _launcher("write_attend", "p" * 14 + "i" * 10 + "f" + "i" * 8 + "p")(
+        *(0 if t is None else t.data_ptr() for t in ptrs), batch, Hkv, group, Wd, head_dim,
+        bs, NB, block_table.shape[1], num_pages, int(layer_idx), float(sm_scale),
+        int(sliding_window or 0), int(query.dtype == torch.bfloat16),
+        int(precision == "highest"), int(read_threshold is not None),
+        _i32(read_threshold or 0), seed_v, C.cdiv(num_pages, pages_per_chunk),
+        pages_per_chunk, _stream(query))
     if rc != 0:
         raise RuntimeError(f"write_attend kernel launch failed: cudaError {rc}")
     paged_attention_ecc_write_attend.launches += 1
-    return out
+    paged_attention_ecc_write_attend.launches_by[
+        "read" if read_threshold is None else "read-inject"] += 1
+    return (out, stats) if collect_stats else out
+
+
+def write_attend(*args, **kw):
+    """K1 (and K2r): on the card csrc/write_attend.cu (or raise), on the CPU
+    write_attend_plain. Arguments as write_attend_plain."""
+    query = args[0]
+    if query.device.type == "cuda":
+        return _launch(*args, **kw)
+    if query.device.type == "cpu":
+        return write_attend_plain(*args, **kw)
+    raise ValueError(f"write_attend: no kernel for device {query.device}")
 
 
 def _launch_decode(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales,
-                   v_scales, block_table, context_lens, layer_idx, k_parity, v_parity,
-                   sm_scale, interpolate, pages_per_chunk, sliding_window):
-    """Check what csrc/decode_attend.cu takes, allocate the output and
-    launch it on the current stream."""
+                   v_scales, block_table, context_lens, layer_idx, k_parity, v_parity, *,
+                   codec, sm_scale, pages_per_chunk, interpolate, num_pages, precision,
+                   sliding_window, collect_stats):
+    """Check what csrc/decode_attend.cu takes, allocate the output (and the
+    stats) and launch it on the current stream."""
     batch, num_q_heads, head_dim = query.shape
     L, NB, Hkv, Wd, bs = k_cache.shape
+    Pw = k_parity.shape[3]
     group = num_q_heads // Hkv
+    shape = (codec, Wd, Pw, group, head_dim)
     _check("decode_attend", _common_problems(
         query, (k_new, v_new), (ks_new, vs_new), (k_cache, v_cache, k_parity, v_parity),
         (k_scales, v_scales), block_table, context_lens, layer_idx) + [
-        (k_parity.shape[3] == Wd and k_new.shape[2] == 2 * Wd,
-         "hamming84 rows hold as many parity words as data words"),
-        (group * Hkv == num_q_heads and head_dim == 8 * Wd
-         and (Wd, group) in DECODE_KERNEL_SHAPES,
-         f"(data words, GQA group) = {(Wd, group)} at head_dim {head_dim} has no kernel "
+        (v_parity.shape[3] == Pw and k_new.shape[2] == Wd + Pw,
+         "new rows hold the data and parity words"),
+        (group * Hkv == num_q_heads and shape in DECODE_KERNEL_SHAPES,
+         f"(codec, data words, parity words, GQA group, head_dim) = {shape} has no kernel "
          f"instance; built: {DECODE_KERNEL_SHAPES}"),
         (pages_per_chunk >= 1, "pages_per_chunk must be positive"),
     ])
-    q = query if query.dtype == torch.bfloat16 else query.to(torch.bfloat16)
+    q = _kernel_query(query, precision)
     out = torch.empty(query.shape, dtype=query.dtype, device=query.device)
+    stats = torch.zeros((batch, 2), dtype=torch.int32, device=query.device) if collect_stats else None
     ptrs = (q, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_parity, v_parity,
-            k_scales, v_scales, block_table, context_lens, out)
-    rc = _launcher("decode_attend", 14, 8, 4)(
-        *(t.data_ptr() for t in ptrs), batch, Hkv, group, Wd, bs, NB, block_table.shape[1],
-        int(layer_idx), float(sm_scale), int(sliding_window or 0),
-        int(query.dtype == torch.bfloat16), int(pages_per_chunk * bs), int(bool(interpolate)),
-        _stream(query))
+            k_scales, v_scales, block_table, context_lens, out, stats)
+    rc = _launcher("decode_attend", "p" * 15 + "i" * 13 + "f" + "i" * 5 + "p")(
+        *(0 if t is None else t.data_ptr() for t in ptrs), batch, Hkv, group,
+        _CODEC_IDS[codec], Wd, Pw, head_dim, bs, NB, block_table.shape[1], num_pages,
+        int(layer_idx), int(sliding_window or 0), float(sm_scale),
+        int(query.dtype == torch.bfloat16), int(precision == "highest"),
+        int(pages_per_chunk * bs), int(bool(interpolate and codec == "hamming84")),
+        int(collect_stats), _stream(query))
     if rc != 0:
         raise RuntimeError(f"decode_attend kernel launch failed: cudaError {rc}")
     write_decode_attend.launches += 1
-    return out
+    write_decode_attend.launches_by[
+        codec + ("-interp" if interpolate and codec == "hamming84" else "")] += 1
+    return (out, stats) if collect_stats else out
 
 
-def write_decode_attend(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales,
-                        v_scales, block_table, context_lens, layer_idx, k_parity, v_parity,
-                        *, sm_scale, interpolate: bool, pages_per_chunk: int,
-                        sliding_window=None):
-    """The hamming84 correcting read: on the card csrc/decode_attend.cu (or
-    raise), on the CPU write_decode_attend_plain. Arguments as
-    write_decode_attend_plain."""
-    args = (query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales, v_scales,
-            block_table, context_lens, layer_idx, k_parity, v_parity)
+def write_decode_attend(*args, **kw):
+    """The correcting read of the parity codecs: on the card
+    csrc/decode_attend.cu (or raise), on the CPU write_decode_attend_plain.
+    Arguments as write_decode_attend_plain."""
+    query = args[0]
     if query.device.type == "cuda":
-        return _launch_decode(*args, sm_scale, interpolate, pages_per_chunk, sliding_window)
+        return _launch_decode(*args, **kw)
     if query.device.type == "cpu":
-        return write_decode_attend_plain(*args, sm_scale=sm_scale, interpolate=interpolate,
-                                         pages_per_chunk=pages_per_chunk,
-                                         sliding_window=sliding_window)
+        return write_decode_attend_plain(*args, **kw)
     raise ValueError(f"decode_attend: no kernel for device {query.device}")
 
 
 write_decode_attend.launches = 0
+# launches by branch: the codec, hamming84 with interpolation apart
+write_decode_attend.launches_by = dict.fromkeys(
+    ("hamming84", "hamming84-interp", "hamming74", "golay"), 0)
+
+
+def _check_scrub_flags(scrub, codec, use_interpolation, collect_stats, read_inject_ber):
+    """The TPU wrapper's refusals of a scrubbed read: it streams the data
+    words alone, so whatever must see parity or raw-bit corruption needs
+    scrub off."""
+    if not scrub:
+        return
+    if codec not in _PACKED:
+        raise ValueError(f"scrub requires a packed-int codec, got '{codec}'")
+    if use_interpolation:
+        raise ValueError("scrub + interpolation is unsupported: scrubbing re-encodes "
+                         "double-error data as valid codewords, which would erase the "
+                         "doubles mask interpolation keys on")
+    if collect_stats:
+        raise ValueError("collect_stats counts corrections per READ; disable scrub to "
+                         "collect them")
+    if read_inject_ber:
+        raise ValueError("read-time injection corrupts raw packed bits per attend; the "
+                         "scrub fast path would not decode them - disable scrub")
+
+
+def _read_threshold(read_inject_ber: float, codec: str):
+    """Unsigned 32-bit Bernoulli threshold of read-time injection, or None."""
+    if not read_inject_ber or read_inject_ber <= 0:
+        return None
+    if codec != "int4":
+        raise ValueError("read-time injection is only defined for the unprotected int4 arm")
+    return min(int(float(read_inject_ber) * (2.0 ** 32)), 0xFFFFFFFF)
 
 
 def paged_attention_ecc_write_attend(query, k_new, v_new, ks_new, vs_new,
                                      k_cache, v_cache, k_scales, v_scales,
                                      block_table, context_lens, layer_idx,
                                      k_parity=None, v_parity=None, *,
-                                     codec: str, scrub: bool = True,
+                                     scrub: bool = False, codec: str = "hamming84",
+                                     block_size: int = 128, num_pages=None,
+                                     sm_scale=None, pages_per_chunk=None,
+                                     precision: str = "fast",
                                      use_interpolation: bool = False,
-                                     pages_per_chunk=None, sm_scale=None,
-                                     sliding_window=None, collect_stats: bool = False,
-                                     read_inject_ber: float = 0.0):
+                                     collect_stats: bool = False,
+                                     read_inject_ber: float = 0.0, read_inject_seed=0,
+                                     sliding_window=None):
     """Write the new token's packed column and scales at slot ctx-1 (in
-    place), then attend over the cache. Returns the attention output
-    [B, Hq, D] in query's dtype.
+    place), then attend over the first ``num_pages`` pages of the table.
+    Returns the attention output [B, Hq, D] in query's dtype, or (output,
+    stats [B, 2] int32) with ``collect_stats``. Signature, defaults and
+    errors are the JAX function's; the caches are updated in place instead
+    of returned.
 
     query [B, Hq, D] (bf16 or fp32); ks_new/vs_new [B, Hkv] fp32; caches
-    [L, NB, Hkv, data_words, bs] int32; scales [L, NB, Hkv, bs] fp32;
-    block_table [B, P] int32; context_lens [B] int32 including the new token.
+    [L, NB, Hkv, data_words, block_size] int32; scales [L, NB, Hkv, bs] fp32;
+    block_table [B, P] int32 (an entry of -1 reads and writes page 0, as on
+    the TPU); context_lens [B] int32 including the new token.
 
-    scrub=True (the port's default; the JAX signature defaults to False):
-    the scrub-extract read of a write-scrubbed cache, kernel K1. k_new/v_new
-    are the data words [B, Hkv, data_words]; parity is not an operand (the
-    caller stores the new parity column).
+    scrub=True: the scrub-extract read of a write-scrubbed cache (kernel
+    K1). k_new/v_new are the data words [B, Hkv, data_words]; parity is
+    not an operand (the caller stores the new parity column).
 
-    scrub=False: the correcting read, streaming k_parity/v_parity
-    [L, NB, Hkv, parity_words, bs]; k_new/v_new are full rows (data ++
-    parity) and both columns are written. Ported for hamming84, with
-    ``use_interpolation`` (kernel K3) or without (K2's hamming84 branch);
-    ``pages_per_chunk`` (default: 512 tokens of pages, capped at the table)
-    sets where the interpolation's chunk seams fall, as on the TPU.
-
-    Not ported yet, and raising NotImplementedError: the hamming74 and golay
-    correcting reads and ``collect_stats`` (K2), and int4 read-time
-    injection (K2r)."""
-    head_dim = query.shape[-1]
-    if codec not in ("int4", "hamming74", "hamming84", "golay"):
+    scrub=False: the correcting read. hamming84 (with ``use_interpolation``,
+    kernel K3), hamming74 and golay stream k_parity/v_parity [L, NB, Hkv,
+    parity_words, bs]; k_new/v_new are full rows (data ++ parity) and both
+    columns are written (kernel K2). int4 has no parity: its read is K1's,
+    and ``read_inject_ber`` > 0 flips the raw words read at every call with
+    ``swar.hash_flip_mask`` from ``read_inject_seed`` (an int, or an int32
+    tensor on the query's device, read there without a host sync; kernel
+    K2r) - the cache keeps its clean words. ``collect_stats`` counts per
+    sequence over the valid tokens (the new one included): corrected and
+    detected errors of the parity codecs, the flipped read bits in slot 0
+    for read injection. ``pages_per_chunk`` (default: 512 tokens of pages,
+    capped at num_pages) sets where the interpolation's chunk seams fall and
+    the read flips' counters, as on the TPU. ``precision`` "fast" rounds q
+    and p * v_scale to bf16, "highest" keeps them in fp32."""
+    if codec not in _PACKED:
         swar.unsupported(codec)
-    if read_inject_ber:
-        raise NotImplementedError(
-            "read-time injection (mode 'int4') comes with kernel K2r, a later slice")
-    if collect_stats:
-        raise NotImplementedError(
-            "per-read ECC statistics (collect_stats) come with kernel K2's counting "
-            "pass, a later slice")
-    if scrub and use_interpolation:
-        raise ValueError("scrub + interpolation: scrubbing re-encodes double-error data "
-                         "as valid codewords, which erases the doubles mask")
-    extract = scrub and swar.scrub_extract_ok(codec, head_dim)
-    if not extract and codec != "hamming84":
-        raise NotImplementedError(
-            f"the {codec} correcting read (kernel K2) is not ported yet")
+    head_dim = query.shape[-1]
+    bs = k_cache.shape[4]
+    if bs != block_size:
+        raise ValueError(f"block_size {block_size} != the cache's {bs}")
+    if precision not in ("fast", "highest"):
+        raise ValueError(f"precision must be 'fast' or 'highest', got '{precision}'")
+    num_pages = block_table.shape[1] if num_pages is None else int(num_pages)
+    if not 1 <= num_pages <= block_table.shape[1]:
+        raise ValueError(f"num_pages {num_pages} outside [1, {block_table.shape[1]}]")
     sm_scale = float(head_dim) ** -0.5 if sm_scale is None else sm_scale
+    if pages_per_chunk is None:  # the TPU kernel's chunk: 512 tokens of pages
+        pages_per_chunk = max(1, 512 // bs)
+    cp = min(pages_per_chunk, num_pages)
+    _check_scrub_flags(scrub, codec, use_interpolation, collect_stats, read_inject_ber)
+    extract = scrub and swar.scrub_extract_ok(codec, head_dim)
+    if extract and (k_parity is not None or v_parity is not None):
+        raise ValueError("scrub-extract write_attend must not receive the parity arrays: "
+                         "the caller stores the new parity column")
+    threshold = _read_threshold(read_inject_ber, codec)
     dw = swar.data_words(codec, head_dim)
     if k_cache.shape[3] != dw:
         raise ValueError(f"cache has {k_cache.shape[3]} data words, "
                          f"{codec} at head_dim {head_dim} has {dw}")
-    if extract:
-        if k_parity is not None or v_parity is not None:
-            raise ValueError("the scrub-extract read takes no parity arrays: the caller "
-                             "stores the new parity column")
-        args = (query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales,
-                v_scales, block_table, context_lens, layer_idx)
-        if query.device.type == "cuda":
-            return _launch(*args, sm_scale, sliding_window)
-        if query.device.type == "cpu":
-            return write_attend_plain(*args, sm_scale=sm_scale, sliding_window=sliding_window)
-        raise ValueError(f"write_attend: no kernel for device {query.device}")
+    common = dict(sm_scale=sm_scale, num_pages=num_pages, precision=precision,
+                  sliding_window=sliding_window, collect_stats=collect_stats)
+    args = (query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales, v_scales,
+            block_table, context_lens, layer_idx)
+    if extract or codec == "int4":
+        if k_new.shape[-1] != dw:
+            raise ValueError(f"k_new last dim {k_new.shape[-1]} != expected {dw} "
+                             "(data words)")
+        return write_attend(*args, read_threshold=threshold, read_seed=read_inject_seed,
+                            pages_per_chunk=cp, **common)
     if k_parity is None or v_parity is None:
-        raise ValueError("the hamming84 correcting read needs k_parity and v_parity")
-    pw = swar.parity_words(codec, head_dim)
-    if k_parity.shape[3] != pw or k_new.shape[-1] != dw + pw:
-        raise ValueError(f"hamming84 at head_dim {head_dim}: parity arrays of {pw} words "
-                         f"and new rows of {dw + pw} words (data ++ parity)")
-    if pages_per_chunk is None:  # the TPU kernel's chunk: 512 tokens of pages
-        pages_per_chunk = max(1, 512 // k_cache.shape[4])
-    cp = min(pages_per_chunk, block_table.shape[1])
-    return write_decode_attend(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache,
-                               k_scales, v_scales, block_table, context_lens, layer_idx,
-                               k_parity, v_parity, sm_scale=sm_scale,
-                               interpolate=use_interpolation, pages_per_chunk=cp,
-                               sliding_window=sliding_window)
+        raise ValueError(f"codec '{codec}' needs k_parity/v_parity operands for correcting "
+                         "reads (split cache layout); only the scrub extract path runs "
+                         "without them")
+    pw = k_parity.shape[3]
+    if k_new.shape[-1] != dw + pw:
+        raise ValueError(f"k_new last dim {k_new.shape[-1]} != expected {dw + pw} "
+                         "(data ++ parity rows)")
+    return write_decode_attend(*args, k_parity, v_parity, codec=codec, pages_per_chunk=cp,
+                               interpolate=use_interpolation, **common)
 
 
-paged_attention_ecc_write_attend.launches = 0
+paged_attention_ecc_write_attend.launches = 0  # csrc/write_attend.cu
+# its launches by branch: the reads of clean words (the scrub extract, int4
+# without injection) and mode int4's read-time injection
+paged_attention_ecc_write_attend.launches_by = {"read": 0, "read-inject": 0}

@@ -410,6 +410,57 @@ def golay_decode_wide(cw: torch.Tensor, *, zero_uncorrectable: bool):
 
 
 # =============================================================================
+# Counter-hash Bernoulli flips (read-time injection inside the kernels)
+# =============================================================================
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(z: torch.Tensor, c: int) -> torch.Tensor:
+    """(z * c) mod 2^32 for z in [0, 2^32) held in int64: the product is
+    split at 16 bits of c, so no partial product leaves int64."""
+    lo = z * (c & 0xFFFF)
+    hi = ((z * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _murmur_mix(z: torch.Tensor) -> torch.Tensor:
+    """murmur3's 32-bit finalizer on unsigned 32-bit values held in int64
+    (JAX's int32 version: its arithmetic shifts are masked to the logical
+    ones, its products wrap)."""
+    z = z ^ (z >> 16)
+    z = _mul32(z, 0x85EBCA6B)
+    z = z ^ (z >> 13)
+    z = _mul32(z, 0xC2B2AE35)
+    return z ^ (z >> 16)
+
+
+def hash_flip_mask(seed, base, shape, threshold: int, n_bits: int = 32) -> torch.Tensor:
+    """Deterministic Bernoulli bit-flip mask, bit for bit JAX's
+    ``swar.hash_flip_mask``: bit b of the element at (r, ..., l) of
+    ``shape`` flips when murmur((((base + r * shape[-1] + l) * n_bits + b)
+    * 0x9E3779B9 + seed) mod 2^32) < threshold, unsigned. ``seed``: an int
+    or an integer tensor (read as int32); ``base``: an int or an integer
+    tensor broadcastable against ``shape`` (each tile its own base).
+    Returns int32."""
+    dev = base.device if torch.is_tensor(base) else (
+        seed.device if torch.is_tensor(seed) else None)
+    r = torch.arange(shape[0], dtype=torch.int64, device=dev).reshape(
+        (shape[0],) + (1,) * (len(shape) - 1))
+    l = torch.arange(shape[-1], dtype=torch.int64, device=dev)
+    elem = (r * shape[-1] + l).expand(tuple(shape))
+    base = torch.as_tensor(base, device=dev).to(torch.int64)
+    seed = torch.as_tensor(seed, device=dev).to(torch.int64) & _M32
+    c0 = (((base + elem) & _M32) * n_bits) & _M32
+    mask = torch.zeros(torch.broadcast_shapes(base.shape, elem.shape), dtype=torch.int64,
+                       device=dev)
+    for b in range(n_bits):
+        z = _murmur_mix((_mul32((c0 + b) & _M32, 0x9E3779B9) + seed) & _M32)
+        mask = mask | ((z < int(threshold)).to(torch.int64) << b)
+    return (mask - ((mask >> 31) << 32)).to(torch.int32)
+
+
+# =============================================================================
 # Row packing by codec
 # =============================================================================
 

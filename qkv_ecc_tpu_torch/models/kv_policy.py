@@ -2,11 +2,12 @@
 ``qkv_ecc_tpu/models/kv_policy.py``, the packed-int codecs).
 
 The scrubbed write chain of a decode step is quantize -> XOR the folded
-scrub delta -> encode -> pack; the unscrubbed one (hamming84 with
-interpolation or without scrub) is quantize -> encode -> XOR the raw mask ->
-pack. Masks come from an explicit ``torch.Generator`` or are passed in as
-tensors (``mask=`` raw logical-codeword masks, ``folded=`` deltas already
-folded by ``swar.scrub_fold_mask``).
+scrub delta -> encode -> pack; the unscrubbed one (interpolation, a policy
+without scrub, or a step that collects ECC statistics) is quantize -> encode
+-> XOR the raw mask -> pack. Masks come from an explicit ``torch.Generator``
+or are passed in as tensors (``mask=`` raw logical-codeword masks,
+``folded=`` deltas already folded by ``swar.scrub_fold_mask``,
+``read_mask=`` the read-time flips of the unprotected ``int4`` arm).
 """
 
 from __future__ import annotations
@@ -29,17 +30,21 @@ class KVCachePolicy:
 
     inject_at: "write" flips the stored codewords once (errors persist);
     "read" re-corrupts raw INT4 nibbles at every attend (the unprotected
-    ``int4`` arm, a later slice). scrub: correct at write time so reads only
-    extract data nibbles; interpolation turns it off, since it needs the
-    doubles mask of every read."""
+    ``int4`` arm): the cache stays clean and each read draws fresh flips.
+    scrub: correct at write time so reads only extract data nibbles;
+    interpolation, read injection and per-read statistics turn it off. The
+    default codec is JAX's, "fp16", which the port does not carry yet."""
 
-    codec: str = "int4"
+    codec: str = "fp16"
     ber: float = 0.0
     inject_errors: bool = False
     seed: int = 42
     use_interpolation: bool = False
     inject_at: str = "write"
     scrub: bool = True
+
+    def with_seed(self, seed: int) -> "KVCachePolicy":
+        return dataclasses.replace(self, seed=seed)
 
     def __post_init__(self):
         if self.inject_at not in ("write", "read"):
@@ -103,10 +108,10 @@ def encode_kv(x, policy: KVCachePolicy, generator=None, mask=None):
     x = x.to(torch.float32)
     q, scale = _quantize(x)
     enc = swar.encode_codewords(codec, q, x.shape[-1])
-    flips = torch.zeros((), dtype=torch.int64, device=x.device)
+    flips = torch.zeros((), dtype=torch.int32, device=x.device)
     if write_inject(policy):
         m = _draw(mask, generator, enc.shape, policy)
-        flips = swar.C.popcount(m).sum()
+        flips = swar.C.popcount(m).sum(dtype=torch.int32)
         enc = enc ^ m
     return enc, scale, flips
 
@@ -192,12 +197,12 @@ def hoisted_write_deltas(policy: KVCachePolicy, num_layers: int, enc_shape,
 def hoisted_logical_masks(policy: KVCachePolicy, num_layers: int, enc_shape,
                           generator=None) -> torch.Tensor:
     """Every layer's (K, V) raw logical-codeword mask in one chain, for the
-    unscrubbed write path (encode_kv(mask=...)): uint8 [num_layers, 2,
-    *enc_shape], enc_shape the padded nibble shape. Only codecs whose masks
-    fit 8 bits (int4, hamming74, hamming84) have this hoist."""
-    if N_BITS[policy.codec] > 8:
-        raise ValueError(f"codec '{policy.codec}' masks do not fit 8 bits")
-    return _draw(None, generator, (num_layers, 2) + tuple(enc_shape), policy).to(torch.uint8)
+    unscrubbed write path (encode_kv(mask=...)): [num_layers, 2,
+    *enc_shape], enc_shape the padded nibble shape (golay: the d12
+    codeword shape). uint8 for the codecs whose masks fit 8 bits, int32 for
+    golay's 24-bit masks."""
+    m = _draw(None, generator, (num_layers, 2) + tuple(enc_shape), policy)
+    return m if N_BITS[policy.codec] > 8 else m.to(torch.uint8)
 
 
 def pack_kv(enc, policy: KVCachePolicy, head_dim: int):
@@ -205,36 +210,49 @@ def pack_kv(enc, policy: KVCachePolicy, head_dim: int):
     return swar.pack_codewords(policy.codec, enc, head_dim)
 
 
-def decode_kv(enc, scale, policy: KVCachePolicy, *, head_dim: int, seq_axis: int = 1):
+def decode_kv(enc, scale, policy: KVCachePolicy, *, head_dim: int, seq_axis: int = 1,
+              read_mask=None):
     """Decode + (interpolate along ``seq_axis``) + dequantize, the inverse of
     encode_kv.
 
-    Returns (x float32 [..., head_dim], corrected, detected)."""
+    With policy.inject_at == "read" (the unprotected int4 arm) and injection
+    on, ``read_mask`` (an int mask of enc's shape, the flips JAX draws from
+    its ``read_key``) is XORed into the raw nibbles before dequantization.
+
+    Returns (x float32 [..., head_dim], corrected, detected[, read_flips
+    when read_mask is given]), the counts int32 scalars."""
     codec = policy.codec
-    if policy.inject_at == "read" and policy.inject_errors and policy.ber > 0:
-        raise NotImplementedError(
-            "read-time injection (mode 'int4') comes with kernel K2r, a later slice")
-    zero = torch.zeros((), dtype=torch.int64, device=enc.device)
+    zero = torch.zeros((), dtype=torch.int32, device=enc.device)
+    read_inject = (policy.inject_at == "read" and policy.inject_errors and policy.ber > 0
+                   and read_mask is not None)
+    read_flips = zero
     if codec == "int4":
-        dec = enc.to(torch.int32) & 0xF
+        enc = enc.to(torch.int32)
+        if read_inject:
+            m = read_mask.to(torch.int32)
+            read_flips = C.popcount(m).sum(dtype=torch.int32)
+            enc = enc ^ m
+        dec = enc & 0xF
         corrected = detected = zero
     elif codec == "golay":
         data12, cnt = swar.golay_decode_wide(enc, zero_uncorrectable=False)
-        corrected = torch.where(cnt < 4, cnt, 0).sum()
-        detected = (cnt == 4).sum()
+        corrected = torch.where(cnt < 4, cnt, 0).sum(dtype=torch.int32)
+        detected = (cnt == 4).sum(dtype=torch.int32)
         dec = swar.golay_unpack_thirds(data12)
     elif codec == "hamming74":
         dec, err = C.hamming74_decode_i32(enc.to(torch.int32))
-        corrected = err.sum()
+        corrected = err.sum(dtype=torch.int32)
         detected = zero
     elif codec == "hamming84":
         dec, et = C.hamming84_decode_i32(enc.to(torch.int32))
-        corrected = (et == 1).sum()
-        detected = (et == 2).sum()
+        corrected = (et == 1).sum(dtype=torch.int32)
+        detected = (et == 2).sum(dtype=torch.int32)
         if policy.use_interpolation:
             dec = interpolate_double_errors(
                 dec.to(torch.uint8), et, seq_dim=seq_axis).to(torch.int32)
     else:
         swar.unsupported(codec)
     x = (dec[..., :head_dim].to(torch.float32) - 8.0) * scale[..., None]
+    if read_mask is not None:
+        return x, corrected, detected, read_flips
     return x, corrected, detected

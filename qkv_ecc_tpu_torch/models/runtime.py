@@ -1,7 +1,8 @@
 """Generation runtime over the paged ECC cache (counterpart of
-``qkv_ecc_tpu/models/runtime.py``; the llama architecture in the five modes
-of the JAX bench.py: int4-write-inject, int4-hamming, int4-hamming84 and
-int12-golay scrubbed, and int4-hamming84-interp).
+``qkv_ecc_tpu/models/runtime.py``; the llama architecture in every
+packed-int mode: int4 (read-time injection), int4-write-inject,
+int4-hamming, int4-hamming84, int4-hamming84-interp and int12-golay, with
+or without scrub, and with per-read ECC statistics).
 
 Prefill writes whole pages with an indexed store and attends through the
 codec round trip. Each decode step runs, per layer, the projections and RoPE,
@@ -11,9 +12,12 @@ the write chain, and the fused write+attend kernel
   * scrubbed modes: the scrub-folded write and the extract read (K1); the
     parity columns of all layers land in one ``index_put_`` per K/V at the
     end of the step;
-  * hamming84 with interpolation or without scrub: the raw-mask write of
-    full rows and the correcting read, which streams parity and writes the
-    data and parity columns itself.
+  * unscrubbed modes (interpolation, ``scrub=False``, and every step that
+    collects ECC statistics): the raw-mask write of full rows and the
+    correcting read (K2, K3), which streams parity and writes the data and
+    parity columns itself;
+  * mode ``int4``: a clean write and K1's general read, which flips the raw
+    words it reads from a per-step seed (K2r).
 
 Block allocation is static: sequence b owns pages [b*P, (b+1)*P).
 """
@@ -28,6 +32,7 @@ from ..kernels import swar
 from ..kernels.paged_attention import paged_attention_ecc_write_attend
 from .config import ModelConfig
 from .kv_policy import (
+    N_BITS,
     KVCachePolicy,
     decode_kv,
     encode_kv,
@@ -37,6 +42,7 @@ from .kv_policy import (
     pack_kv,
     write_inject,
 )
+from ..codecs.fault_injection import flip_mask
 from .layers import apply_rope, causal_attention, rms_norm, rope_frequencies
 
 
@@ -51,26 +57,18 @@ def _use_scrub(policy: KVCachePolicy) -> bool:
     )
 
 
-def _check_slice(cfg: ModelConfig, policy: KVCachePolicy, collect_ecc_stats=False):
+def _check_slice(cfg: ModelConfig, policy: KVCachePolicy):
     """Raise for what the port does not carry yet: other architectures and
-    codecs, read-time injection (K2r), per-read statistics and the
-    correcting reads other than hamming84's (K2)."""
+    the float codecs."""
     if cfg.arch != "llama":
         raise NotImplementedError(f"architecture '{cfg.arch}' is a later slice")
     if policy.codec not in ("int4", "hamming74", "hamming84", "golay"):
         swar.unsupported(policy.codec)
-    if policy.inject_at == "read":
-        raise NotImplementedError(
-            "read-time injection (mode 'int4') comes with kernel K2r, a later slice")
-    if collect_ecc_stats:
-        raise NotImplementedError(
-            "per-read ECC statistics (collect_ecc_stats) come with kernel K2's counting "
-            "pass, a later slice")
-    if _use_scrub(policy) and swar.scrub_extract_ok(policy.codec, cfg.head_dim):
-        return
-    if policy.codec != "hamming84":
-        raise NotImplementedError(
-            f"the {policy.codec} correcting read (kernel K2) is not ported yet")
+
+
+def _read_inject(policy: KVCachePolicy) -> bool:
+    """Fresh flips of the raw nibbles at every read: the int4 arm."""
+    return policy.inject_at == "read" and policy.inject_errors and policy.ber > 0
 
 
 def init_generation_state(cfg: ModelConfig, policy: KVCachePolicy, batch: int,
@@ -157,15 +155,19 @@ def _inv_freq(cfg: ModelConfig, device):
 
 @torch.no_grad()
 def prefill(params, input_ids, state, block_table, cfg: ModelConfig,
-            policy: KVCachePolicy, generator=None):
+            policy: KVCachePolicy, generator=None, read_masks=None):
     """Process the prompt [B, S]: write the cache and return the last
     token's logits [B, V] float32. Attention reads the codec round trip of
-    what was written. With injection on, masks come from ``generator``.
-    Scrubbed modes store scrubbed codewords; the others store the raw ones
-    and attend through the decode (with interpolation along the sequence
-    when asked)."""
+    what was written. With write injection on, masks come from
+    ``generator``. Scrubbed modes store scrubbed codewords; the others store
+    the raw ones and attend through the decode (with interpolation along the
+    sequence when asked; golay keeps an uncorrectable codeword's data here).
+    Mode ``int4`` stores clean nibbles and attends through fresh read flips:
+    ``read_masks`` [L, 2, B, S, Hkv, D'] (the flips JAX draws from each
+    layer's key folded with "READ"), or drawn from ``generator``."""
     _check_slice(cfg, policy)
     scrub = _use_scrub(policy)
+    read = _read_inject(policy)
     B, S = input_ids.shape
     device = input_ids.device
     positions = torch.arange(S, device=device).expand(B, S)
@@ -179,14 +181,26 @@ def prefill(params, input_ids, state, block_table, cfg: ModelConfig,
         vcs = swar.scrub_codewords(policy.codec, vc) if scrub else vc
         _write_tokens(state, i, block_table, positions, pack_kv(kcs, policy, cfg.head_dim),
                       pack_kv(vcs, policy, cfg.head_dim), ks, vs)
-        k_dec, _, _ = decode_kv(kc, ks, policy, head_dim=cfg.head_dim, seq_axis=1)
-        v_dec, _, _ = decode_kv(vc, vs, policy, head_dim=cfg.head_dim, seq_axis=1)
+        if read:
+            km, vm = (read_masks[i] if read_masks is not None else
+                      [_draw_read(kc.shape, policy, generator) for _ in range(2)])
+            k_dec = decode_kv(kc, ks, policy, head_dim=cfg.head_dim, read_mask=km)[0]
+            v_dec = decode_kv(vc, vs, policy, head_dim=cfg.head_dim, read_mask=vm)[0]
+        else:
+            k_dec = decode_kv(kc, ks, policy, head_dim=cfg.head_dim, seq_axis=1)[0]
+            v_dec = decode_kv(vc, vs, policy, head_dim=cfg.head_dim, seq_axis=1)[0]
         attn = causal_attention(q, k_dec.to(x.dtype), v_dec.to(x.dtype),
                                 cfg.num_kv_groups, sliding_window=cfg.sliding_window)
         x = _attn_out_mlp(x, attn, lp, cfg)
     logits = _lm_head(params, x[:, -1:, :], cfg)[:, 0]
     state["context_len"] = torch.full((B,), S, dtype=torch.int32, device=device)
     return logits, state
+
+
+def _draw_read(shape, policy: KVCachePolicy, generator):
+    if generator is None:
+        raise ValueError("read-time injection needs read masks or a torch.Generator")
+    return flip_mask(shape, policy.ber, N_BITS["int4"], generator)
 
 
 def write_mask_shape(policy: KVCachePolicy, batch: int, cfg: ModelConfig):
@@ -199,17 +213,25 @@ def write_mask_shape(policy: KVCachePolicy, batch: int, cfg: ModelConfig):
 @torch.no_grad()
 def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
                 policy: KVCachePolicy, generator=None, hoisted_masks=None,
-                collect_ecc_stats: bool = False):
+                collect_ecc_stats: bool = False, read_inject_seed=None):
     """One decode step: token_ids [B] -> logits [B, V] float32; the caches
     advance in place.
 
-    hoisted_masks: every layer's write masks for this step, [L, 2, *shape]
-    uint8 - folded deltas (kv_policy.hoisted_write_deltas) in the scrubbed
-    modes, raw logical masks (kv_policy.hoisted_logical_masks, padded nibble
-    shape) otherwise. Drawn here from ``generator`` in one chain when
-    injection is on and none are given. collect_ecc_stats is not ported
-    (kernel K2's counting pass) and raises."""
-    _check_slice(cfg, policy, collect_ecc_stats)
+    hoisted_masks: every layer's write masks for this step, [L, 2, *shape] -
+    folded deltas (kv_policy.hoisted_write_deltas, uint8) in the scrubbed
+    modes, raw logical masks (kv_policy.hoisted_logical_masks: uint8, int32
+    for golay) otherwise. Drawn here from ``generator`` in one chain when
+    write injection is on and none are given.
+
+    collect_ecc_stats: turn scrub off (the correcting read counts per read)
+    and add the kernels' per-sequence counts of every layer into
+    state["ecc_corrected"] / state["ecc_detected"] ([B] int32; mode int4
+    counts its flipped read bits in the first).
+
+    read_inject_seed: the seed of mode int4's read flips this step (an int,
+    or an int32 scalar tensor that the kernel reads on the card without a
+    host sync); drawn from ``generator`` on its device when not given."""
+    _check_slice(cfg, policy)
     B = token_ids.shape[0]
     L = len(params["layers"])
     pos = state["context_len"]
@@ -218,7 +240,13 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
     dw = state["k_cache"].shape[3]
     inv_freq = _inv_freq(cfg, token_ids.device)
     phys = _physical_pages(block_table, positions, bs)[:, 0]
-    scrub = _use_scrub(policy)
+    scrub = _use_scrub(policy) and not collect_ecc_stats
+    ri_ber = policy.ber if _read_inject(policy) else 0.0
+    if ri_ber and read_inject_seed is None:
+        if generator is None:
+            raise ValueError("read-time injection needs a read_inject_seed or a torch.Generator")
+        read_inject_seed = torch.randint(-2 ** 31, 2 ** 31, (), generator=generator,
+                                         device=generator.device).to(torch.int32)
     inject = write_inject(policy)
     if inject and hoisted_masks is None:
         hoist = hoisted_write_deltas if scrub else hoisted_logical_masks
@@ -226,10 +254,12 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
     x = _embed(params, token_ids[:, None], cfg)
     # scrubbed: the kernel reads data words only and the parity columns are
     # stored at the end of the step; otherwise parity streams through it
-    scatter_parity = scrub and "k_parity" in state
-    parity_args = () if scrub else (state["k_parity"], state["v_parity"])
+    has_parity = "k_parity" in state
+    extract = scrub and has_parity and swar.scrub_extract_ok(policy.codec, cfg.head_dim)
+    parity_args = (state["k_parity"], state["v_parity"]) if has_parity and not extract else ()
     k_par, v_par = [], []
     ctx = pos + 1
+    corrected = detected = torch.zeros((B,), dtype=torch.int32, device=token_ids.device)
     for i, lp in enumerate(params["layers"]):
         q, k, v = _proj_qkv(x, lp, cfg, positions, inv_freq)
         masks = hoisted_masks[i] if inject else (None, None)
@@ -241,20 +271,28 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
             vc, vs, _ = encode_kv(v, policy, mask=masks[1])
             kc, vc = pack_kv(kc, policy, cfg.head_dim), pack_kv(vc, policy, cfg.head_dim)
         kc, vc = kc[:, 0], vc[:, 0]  # [B, Hkv, row_words]
-        if scatter_parity:
+        if extract:
             k_par.append(kc[..., dw:])
             v_par.append(vc[..., dw:])
-        if scrub:
             kc, vc = kc[..., :dw], vc[..., :dw]
-        attn = paged_attention_ecc_write_attend(
+        out = paged_attention_ecc_write_attend(
             q[:, 0], kc.contiguous(), vc.contiguous(),
             ks[:, 0].contiguous(), vs[:, 0].contiguous(),
             state["k_cache"], state["v_cache"], state["k_scales"], state["v_scales"],
             block_table, ctx, i, *parity_args, codec=policy.codec, scrub=scrub,
-            use_interpolation=policy.use_interpolation, sliding_window=cfg.sliding_window,
+            block_size=bs, use_interpolation=policy.use_interpolation,
+            collect_stats=collect_ecc_stats, read_inject_ber=ri_ber,
+            read_inject_seed=read_inject_seed if ri_ber else 0,
+            sliding_window=cfg.sliding_window,
         )
+        if collect_ecc_stats:
+            attn, stats = out
+            corrected = corrected + stats[:, 0]
+            detected = detected + stats[:, 1]
+        else:
+            attn = out
         x = _attn_out_mlp(x, attn[:, None], lp, cfg)
-    if scatter_parity:
+    if k_par:
         # parity[l, phys[b], h, :, slot[b]] = col[b, l, h, :], all layers at once
         slots = (pos % bs).long()
         layers = torch.arange(L, device=phys.device)[None, :]
@@ -263,6 +301,10 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
         idx = (layers, phys[:, None], slice(None), slice(None), slots[:, None])
         state["k_parity"][idx] = kp
         state["v_parity"][idx] = vp
+    if collect_ecc_stats:
+        zeros = torch.zeros((B,), dtype=torch.int32, device=token_ids.device)
+        state["ecc_corrected"] = state.get("ecc_corrected", zeros) + corrected
+        state["ecc_detected"] = state.get("ecc_detected", zeros) + detected
     state["context_len"] = ctx
     return _lm_head(params, x, cfg)[:, 0], state
 
@@ -272,27 +314,36 @@ def decode_loop(params, logits, state, block_table, cfg: ModelConfig,
                 policy: KVCachePolicy, generator, num_steps: int,
                 collect_ecc_stats: bool = False):
     """``num_steps`` greedy decode steps in a Python loop, each step's write
-    masks (folded deltas or raw logical masks, as the mode writes) drawn
-    from ``generator`` in one chain for all layers.
+    masks (folded deltas or raw logical masks, as the mode writes) or read
+    seed drawn from ``generator``. With ``collect_ecc_stats`` the counters
+    state["ecc_corrected"] / state["ecc_detected"] start at 0 when absent
+    and add up over the steps.
 
     Returns (logits [B, V] after the last step, state, tokens [num_steps, B]
     - the argmax token fed into each step)."""
-    _check_slice(cfg, policy, collect_ecc_stats)
+    _check_slice(cfg, policy)
+    if collect_ecc_stats:
+        B = logits.shape[0]
+        for name in ("ecc_corrected", "ecc_detected"):
+            state.setdefault(name, torch.zeros((B,), dtype=torch.int32, device=logits.device))
     tokens = []
     for _ in range(num_steps):
         tok = torch.argmax(logits, dim=-1)
         tokens.append(tok)
         logits, state = decode_step(params, tok, state, block_table, cfg, policy,
-                                    generator)
+                                    generator, collect_ecc_stats=collect_ecc_stats)
     return logits, state, torch.stack(tokens)
 
 
 @torch.no_grad()
 def generate(params, input_ids, cfg: ModelConfig, policy: KVCachePolicy,
-             max_new_tokens: int = 32, block_size: int = 128, device=None):
-    """Greedy generation on ``device`` (None: the card), masks drawn from a
-    generator seeded with policy.seed. input_ids: [B, S] ints.
-    Returns [B, S + max_new_tokens]."""
+             max_new_tokens: int = 32, block_size: int = 128, device=None,
+             return_ecc_stats: bool = False):
+    """Greedy generation on ``device`` (None: the card), masks and read
+    seeds drawn from a generator seeded with policy.seed. input_ids:
+    [B, S] ints. Returns [B, S + max_new_tokens], or with
+    ``return_ecc_stats`` (tokens, {"errors_corrected": [B],
+    "errors_detected": [B]}), the decode steps' counts."""
     device = resolve_device(device)
     input_ids = torch.as_tensor(input_ids).to(device=device, dtype=torch.long)
     B, S = input_ids.shape
@@ -306,5 +357,11 @@ def generate(params, input_ids, cfg: ModelConfig, policy: KVCachePolicy,
         tokens.append(tok[:, None])
         if step == max_new_tokens - 1:
             break
-        logits, state = decode_step(params, tok, state, block_table, cfg, policy, generator)
-    return torch.cat(tokens, dim=1)
+        logits, state = decode_step(params, tok, state, block_table, cfg, policy, generator,
+                                    collect_ecc_stats=return_ecc_stats)
+    out = torch.cat(tokens, dim=1)
+    if return_ecc_stats:
+        zeros = torch.zeros((B,), dtype=torch.int32, device=device)
+        return out, {"errors_corrected": state.get("ecc_corrected", zeros),
+                     "errors_detected": state.get("ecc_detected", zeros)}
+    return out

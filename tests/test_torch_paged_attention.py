@@ -11,6 +11,8 @@ weight by one bf16 ulp (2^-8 relative) and the output by at most 2^-8 of the
 largest dequantized |V|, which is the tolerance.
 """
 
+import functools
+import inspect
 import os
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -81,7 +83,8 @@ def run_torch(case, codec, layer, window):
     out = tpa.paged_attention_ecc_write_attend(
         *(torch.from_numpy(case[n]) for n in ("q", "kn", "vn", "ksn", "vsn")),
         *(tt[n] for n in NAMES), torch.from_numpy(case["bt"]),
-        torch.from_numpy(case["ctx"]), layer, codec=codec, sliding_window=window)
+        torch.from_numpy(case["ctx"]), layer, scrub=True, codec=codec,
+        block_size=case["k_cache"].shape[-1], sliding_window=window)
     return [out.numpy()] + [tt[n].numpy() for n in NAMES]
 
 
@@ -154,16 +157,28 @@ def test_plain_is_close_to_reference():
 
 
 def test_wrapper_checks():
+    """The JAX wrapper's refusals (``_check_scrub_flags``, ``_read_threshold``,
+    the parity and width checks), all ValueError, and the port's data-word
+    check; the CPU never launches a kernel."""
     case = build_case("int4", 32, CTX_BEFORE)
     args = [torch.from_numpy(case[n]) for n in ("q", "kn", "vn", "ksn", "vsn", *NAMES, "bt", "ctx")]
-    # still to come: golay's correcting read (K2) and int4 read-time injection (K2r)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tpa.paged_attention_ecc_write_attend(*args, 0, codec="golay", scrub=False)
-    with pytest.raises(NotImplementedError, match="K2r"):
-        tpa.paged_attention_ecc_write_attend(*args, 0, codec="int4", read_inject_ber=1e-2)
+    call = functools.partial(tpa.paged_attention_ecc_write_attend, *args, 0, block_size=16)
+    with pytest.raises(ValueError, match="collect_stats"):
+        call(codec="int4", scrub=True, collect_stats=True)
+    with pytest.raises(ValueError, match="read-time injection"):
+        call(codec="int4", scrub=True, read_inject_ber=1e-2)
+    with pytest.raises(ValueError, match="interpolation"):
+        call(codec="hamming84", scrub=True, use_interpolation=True)
+    with pytest.raises(ValueError, match="only defined for the unprotected int4"):
+        call(codec="golay", read_inject_ber=1e-2)
+    with pytest.raises(ValueError, match="k_parity/v_parity"):
+        call(codec="golay")  # the correcting read needs the parity arrays
+    with pytest.raises(ValueError, match="block_size"):
+        tpa.paged_attention_ecc_write_attend(*args, 0, codec="int4", scrub=True)
     narrow = [a[:, :, :, :2] for a in args[5:7]]  # caches of 2 data words at head_dim 32
     with pytest.raises(ValueError, match="data words"):
-        tpa.paged_attention_ecc_write_attend(*args[:5], *narrow, *args[7:], 0, codec="int4")
+        tpa.paged_attention_ecc_write_attend(*args[:5], *narrow, *args[7:], 0, codec="int4",
+                                             scrub=True, block_size=16)
     assert tpa.paged_attention_ecc_write_attend.launches == 0  # the CPU never launches
     assert tpa.write_decode_attend.launches == 0
 
@@ -266,39 +281,57 @@ def build_h84_case(head_dim=16, hkv=2, group=2, pages=7, layers=2, seed=0):
     return {n: np.array(a) for n, a in case.items()}
 
 
-def run_jax_h84(case, layer, interp):
+def run_jax_read(case, codec, layer, **kw):
+    """The JAX kernel's unscrubbed read in interpret mode: (output, or
+    (output, stats), and the arrays after the write)."""
+    kw.setdefault("pages_per_chunk", H84_CHUNK_PAGES)
+    parity = "k_parity" in case
     outs = jpa.paged_attention_ecc_write_attend(
         *(jnp.asarray(case[n]) for n in ("q", "kn", "vn", "ksn", "vsn", "k_cache", "v_cache",
                                           "k_scales", "v_scales", "bt", "ctx")),
-        layer, jnp.asarray(case["k_parity"]), jnp.asarray(case["v_parity"]), scrub=False,
-        codec="hamming84", block_size=H84_BS, pages_per_chunk=H84_CHUNK_PAGES,
-        use_interpolation=interp)
-    out, kc, vc, kp, vp, ks, vs = (np.asarray(o) for o in outs)
-    return out, dict(k_cache=kc, v_cache=vc, k_parity=kp, v_parity=vp, k_scales=ks, v_scales=vs)
+        layer, *((jnp.asarray(case["k_parity"]), jnp.asarray(case["v_parity"])) if parity else ()),
+        scrub=False, codec=codec, block_size=case["k_cache"].shape[-1], **kw)
+    outs = [np.asarray(o) for o in outs]
+    names = H84_NAMES if parity else NAMES
+    state = dict(zip(("k_cache", "v_cache") + (("k_parity", "v_parity") if parity else ())
+                     + ("k_scales", "v_scales"), outs[1:1 + len(names)]))
+    out = (outs[0], outs[-1]) if kw.get("collect_stats") else outs[0]
+    return out, state
 
 
-def run_torch_h84(case, layer, interp, pages_per_chunk=H84_CHUNK_PAGES):
-    tt = {n: torch.from_numpy(case[n].copy()) for n in H84_NAMES}
+def run_torch_read(case, codec, layer, **kw):
+    """The port's unscrubbed read on copies of the case's arrays."""
+    kw.setdefault("pages_per_chunk", H84_CHUNK_PAGES)
+    parity = "k_parity" in case
+    tt = {n: torch.from_numpy(case[n].copy()) for n in (H84_NAMES if parity else NAMES)}
     out = tpa.paged_attention_ecc_write_attend(
         *(torch.from_numpy(case[n]) for n in ("q", "kn", "vn", "ksn", "vsn")),
         tt["k_cache"], tt["v_cache"], tt["k_scales"], tt["v_scales"],
         torch.from_numpy(case["bt"]), torch.from_numpy(case["ctx"]), layer,
-        tt["k_parity"], tt["v_parity"], codec="hamming84", scrub=False,
-        use_interpolation=interp, pages_per_chunk=pages_per_chunk)
-    return out.numpy(), {n: a.numpy() for n, a in tt.items()}
+        *((tt["k_parity"], tt["v_parity"]) if parity else ()), codec=codec, scrub=False,
+        block_size=case["k_cache"].shape[-1], **kw)
+    out = tuple(o.numpy() for o in out) if kw.get("collect_stats") else out.numpy()
+    return out, {n: a.numpy() for n, a in tt.items()}
 
 
+@pytest.mark.parametrize("stats", [False, True])
 @pytest.mark.parametrize("interp", [True, False])
-def test_write_decode_attend_matches_jax(interp):
+def test_write_decode_attend_matches_jax(interp, stats):
     """write_decode_attend_plain against the JAX kernel in interpret mode,
     bs 16, pages_per_chunk 2, contexts of 71-112 tokens (three to four
     chunks), doubles forced at token 0, at every seam token and the token
     after it, at ctx-2 and at ctx-1 (the new column). Caches, parity and
-    scales after the write are equal; outputs agree within 2^-8 of the
-    largest dequantized |V| (the module docstring's bound)."""
+    scales after the write are equal, and so are the singles and doubles
+    counted with ``collect_stats`` (exactly); outputs agree within 2^-8 of
+    the largest dequantized |V| (the module docstring's bound)."""
     case = build_h84_case(seed=1 if interp else 2)
-    want_out, want = run_jax_h84(case, 1, interp)
-    got_out, got = run_torch_h84(case, 1, interp)
+    kw = dict(use_interpolation=interp, collect_stats=stats)
+    want_out, want = run_jax_read(case, "hamming84", 1, **kw)
+    got_out, got = run_torch_read(case, "hamming84", 1, **kw)
+    if stats:
+        (want_out, want_stats), (got_out, got_stats) = want_out, got_out
+        np.testing.assert_array_equal(want_stats, got_stats)
+        assert (got_stats > 0).all()  # singles and doubles in every sequence
     for n in H84_NAMES:
         np.testing.assert_array_equal(want[n], got[n], err_msg=n)
     for n in ("k_cache", "k_parity"):  # the write landed in layer 1 only
@@ -316,7 +349,7 @@ def test_interpolation_sees_the_seams():
 
     case = build_h84_case(seed=1)
     bt, ctx = torch.from_numpy(case["bt"]), torch.from_numpy(case["ctx"])
-    out_c, state = run_torch_h84(case, 1, True)
+    out_c, state = run_torch_read(case, "hamming84", 1, use_interpolation=True)
     rows = tpa.gather_pages(torch.from_numpy(state["k_cache"]), bt, 1, bt.shape[1],
                             torch.from_numpy(state["k_parity"]))
     nib, dbl = tpa.h84_decode_rows(rows, case["k_cache"].shape[3])
@@ -331,7 +364,8 @@ def test_interpolation_sees_the_seams():
     # one chunk over the whole table is the oracle inside the context
     whole = tpa.interpolate_chunked(nib, dbl, ctx, 10 ** 6)
     np.testing.assert_array_equal(whole[b0, :c0].numpy(), oracle)
-    out_whole, _ = run_torch_h84(case, 1, True, pages_per_chunk=bt.shape[1])
+    out_whole, _ = run_torch_read(case, "hamming84", 1, use_interpolation=True,
+                                  pages_per_chunk=bt.shape[1])
     assert not np.array_equal(out_c[b0], out_whole[b0])
 
 
@@ -346,3 +380,211 @@ def test_h84_reference_matches_jax():
     got = tpa.paged_attention_ecc_reference(
         *(tt[a] for a in args), 0, tt["k_parity"], tt["v_parity"], codec="hamming84")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+# =============================================================================
+# The hamming74, golay and int4 correcting reads with statistics (K2), int4
+# read-time injection (K2r), and the repairs of F1 and F2
+# =============================================================================
+
+ECC_CTX = [112, 71, 33, 1]  # after the write: 1 to 4 chunks of 32 tokens
+
+
+def _errors(rng, codec, cw):
+    """XOR masks over logical codewords: golay gets 1-3 bit errors (2.5% of
+    codewords each) and 4-bit errors (2.5%, uncorrectable), every bit chosen
+    at random among the 24; hamming74 a single error in 10% of values, in
+    any of the 7 bits (so in every parity plane); int4 none."""
+    if codec == "golay":
+        weight = np.searchsorted([0.9, 0.925, 0.95, 0.975], rng.random(cw.shape), side="right")
+        ranks = rng.random(cw.shape + (24,)).argsort(-1).argsort(-1)
+        return ((ranks < weight[..., None]) << np.arange(24)).sum(-1).astype(np.int32)
+    if codec == "hamming74":
+        return np.where(rng.random(cw.shape) < 0.1, 1 << rng.integers(0, 7, cw.shape),
+                        0).astype(np.int32)
+    return np.zeros_like(cw)
+
+
+def build_ecc_case(codec, *, head_dim=16, hkv=2, group=2, pages=8, layers=2, seed=0,
+                   ctx=ECC_CTX):
+    """An unscrubbed cache of ``codec`` written through the JAX write chain
+    with the errors of ``_errors`` in every slot, new full rows (data ++
+    parity, errors included), a query - all as numpy. bs 16."""
+    rng = np.random.default_rng(seed)
+    batch, bs = len(ctx), H84_BS
+    cfg = ECCCacheConfig(num_blocks=batch * pages, block_size=bs, num_layers=layers,
+                         num_kv_heads=hkv, head_dim=head_dim, codec=codec)
+    pol = jp.policy_for_mode(MODES[codec])
+    state = allocate_ecc_kv_cache(cfg)
+    bt = jnp.arange(batch * pages, dtype=jnp.int32).reshape(batch, pages)
+    T = pages * bs
+    pos = jnp.broadcast_to(jnp.arange(T), (batch, T))
+
+    def rows(shape):
+        cw, sc, _ = jp.encode_kv(jnp.asarray(rng.normal(size=shape).astype(np.float32)), pol, None)
+        cw = np.asarray(cw) ^ _errors(rng, codec, np.asarray(cw))
+        return js.pack_codewords(codec, jnp.asarray(cw), head_dim), np.asarray(sc)
+
+    for layer in range(layers):
+        kc, ks = rows((batch, T, hkv, head_dim))
+        vc, vs = rows((batch, T, hkv, head_dim))
+        state = _write_tokens(state, layer, bt, pos, kc, vc, jnp.asarray(ks), jnp.asarray(vs))
+    kn, ksn = rows((batch, hkv, head_dim))
+    vn, vsn = rows((batch, hkv, head_dim))
+    case = dict(state, kn=kn, vn=vn, ksn=ksn, vsn=vsn, bt=bt, ctx=np.asarray(ctx, np.int32),
+                q=rng.normal(size=(batch, hkv * group, head_dim)).astype(np.float32))
+    return {n: np.array(a) for n, a in case.items()}
+
+
+def assert_reads_agree(case, want, got):
+    """Arrays after the write equal; stats (when returned) equal exactly;
+    outputs within ``tolerance`` (the module docstring's bound)."""
+    (want_out, want_state), (got_out, got_state) = want, got
+    for n in want_state:
+        np.testing.assert_array_equal(want_state[n], got_state[n], err_msg=n)
+    if isinstance(want_out, tuple):
+        (want_out, want_stats), (got_out, got_stats) = want_out, got_out
+        np.testing.assert_array_equal(want_stats, got_stats)
+    np.testing.assert_allclose(got_out, want_out, rtol=0, atol=tolerance(case))
+
+
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("codec", ["hamming74", "golay", "int4"])
+def test_correcting_read_matches_jax(codec, stats):
+    """The scrub=False read of hamming74 (single errors in data and in every
+    parity plane), golay (1-3-bit errors and uncorrectable 4-bit ones) and
+    int4 against the JAX kernel in interpret mode, bs 16, pages_per_chunk 2,
+    contexts of 1-112 tokens: arrays after the write equal, the per-sequence
+    (corrected, detected) counts equal exactly, outputs within tolerance()
+    (2^-8 of the largest dequantized |V|: one bf16 ulp of one weight)."""
+    case = build_ecc_case(codec, seed={"hamming74": 3, "golay": 4, "int4": 5}[codec])
+    want = run_jax_read(case, codec, 1, collect_stats=stats)
+    got = run_torch_read(case, codec, 1, collect_stats=stats)
+    assert_reads_agree(case, want, got)
+    if stats:
+        counts = got[0][1]
+        if codec == "int4":
+            assert not counts.any()
+        else:
+            assert (counts[:3, 0] > 0).all()  # corrections in every multi-chunk sequence
+            if codec == "golay":
+                assert counts[:, 1].sum() > 0  # uncorrectable codewords were read
+
+
+@pytest.mark.parametrize("stats", [False, True])
+@pytest.mark.parametrize("ber", [1e-2, 0.3])
+def test_read_injection_matches_jax(ber, stats):
+    """Mode int4's read: the raw words are XORed with the murmur hash flips
+    of (layer, batch, chunk, page, head, K/V) at every call, the cache keeps
+    its clean words. Against JAX in interpret mode: arrays after the write
+    equal (changed only in the new column), flipped read bits equal exactly,
+    outputs within tolerance(); another seed gives other outputs."""
+    case = build_ecc_case("int4", seed=6)
+    kw = dict(read_inject_ber=ber, read_inject_seed=-12345, collect_stats=stats)
+    want = run_jax_read(case, "int4", 1, **kw)
+    got = run_torch_read(case, "int4", 1, **kw)
+    assert_reads_agree(case, want, got)
+    clean = run_torch_read(case, "int4", 1, collect_stats=stats)
+    for n in NAMES:  # the flips never reach the cache
+        np.testing.assert_array_equal(got[1][n], clean[1][n], err_msg=n)
+    changed = np.nonzero((got[1]["k_cache"] != case["k_cache"]).any(axis=(2, 3)))
+    assert set(changed[0].tolist()) == {1}  # layer 1 only, one page per sequence
+    other = run_torch_read(case, "int4", 1, **dict(kw, read_inject_seed=777))
+    out, out_other = (got[0][0], other[0][0]) if stats else (got[0], other[0])
+    assert not np.array_equal(out, out_other)
+    if stats:
+        flips = got[0][1][:, 0]
+        bits = 2 * np.asarray(ECC_CTX) * 2 * case["k_cache"].shape[3] * 32
+        assert (flips > 0).all() and got[0][1][:, 1].sum() == 0
+        assert abs(flips.sum() / bits.sum() - ber) < 0.25 * ber
+
+
+def test_read_flip_mask_is_the_kernels_tile():
+    """One tile of read_flip_mask is swar.hash_flip_mask at the TPU
+    kernel's uid: (layer 3, batch 4, 5 pages in chunks of 2, page 4 = chunk
+    2 page 0, head 1, V)."""
+    m = tpa.read_flip_mask(99, 1 << 30, 3, 4, 5, 2, 2, 2, 16)
+    uid = ((((3 * 4 + 2) * 3 + 2) * 2 + 0) * 2 + 1) * 2 + 1
+    tile = np.asarray(js.hash_flip_mask(jnp.int32(99), jnp.int32(uid * 2 * 16), (2, 16), 1 << 30))
+    np.testing.assert_array_equal(m[1, 2, 64:80, 1].numpy(), tile.T)
+
+
+@pytest.mark.parametrize("scrub", [True, False])
+def test_negative_page_writes_page_zero(scrub):
+    """F1: a row whose new token's page is -1 (ctx 1) writes its column to
+    physical page 0, as the TPU kernel clamps it. Page 0 belongs to no other
+    row, so every output compares too (within tolerance())."""
+    case = build_ecc_case("golay", seed=7, pages=4, ctx=[40, 1, 17])
+    nb = case["k_cache"].shape[1]
+    for n in H84_NAMES:  # one more page: the trash page 0
+        case[n] = np.concatenate([case[n][:, :1], case[n]], axis=1)
+    case["bt"] = case["bt"] + 1
+    case["bt"][1] = -1
+    assert case["k_cache"].shape[1] == nb + 1
+    if scrub:
+        dw = case["k_cache"].shape[3]
+        case["kn"], case["vn"] = case["kn"][..., :dw].copy(), case["vn"][..., :dw].copy()
+        parity = {n: case.pop(n) for n in ("k_parity", "v_parity")}
+        kw = dict(scrub=True, codec="golay", block_size=H84_BS)
+        jargs = [jnp.asarray(case[n]) for n in ("q", "kn", "vn", "ksn", "vsn", *NAMES, "bt", "ctx")]
+        outs = jpa.paged_attention_ecc_write_attend(*jargs, 1, **kw)
+        want = (np.asarray(outs[0]), dict(zip(NAMES, (np.asarray(o) for o in outs[1:5]))))
+        tt = {n: torch.from_numpy(case[n].copy()) for n in NAMES}
+        out = tpa.paged_attention_ecc_write_attend(
+            *(torch.from_numpy(case[n]) for n in ("q", "kn", "vn", "ksn", "vsn")),
+            *(tt[n] for n in NAMES), torch.from_numpy(case["bt"]),
+            torch.from_numpy(case["ctx"]), 1, **kw)
+        got = (out.numpy(), {n: a.numpy() for n, a in tt.items()})
+        case.update(parity)
+    else:
+        want = run_jax_read(case, "golay", 1)
+        got = run_torch_read(case, "golay", 1)
+    assert_reads_agree(case, want, got)
+    assert not np.array_equal(got[1]["k_cache"][1, 0], case["k_cache"][1, 0])
+    np.testing.assert_array_equal(got[1]["k_cache"][1, 0, :, :, 0], case["kn"][1][..., :case["k_cache"].shape[3]])
+
+
+def test_signature_defaults_match_jax():
+    """F2: every parameter of the JAX wrapper, with its default."""
+    want = {k: v.default for k, v in
+            inspect.signature(jpa.paged_attention_ecc_write_attend).parameters.items()}
+    got = {k: v.default for k, v in
+           inspect.signature(tpa.paged_attention_ecc_write_attend).parameters.items()}
+    assert got == want
+
+
+@pytest.mark.parametrize("codec", ["golay", "hamming74"])
+def test_precision_highest_matches_jax(codec):
+    """precision="highest": fp32 query and fp32 softmax weights on both
+    sides (golay's scrubbed extract read, hamming74's correcting read), so
+    the outputs differ only by fp32 summation order and exp: within 1e-5 of
+    the largest dequantized |V|. The "fast" outputs differ from them by
+    more than that (the bf16 roundings)."""
+    if codec == "golay":
+        case = build_case("golay", 16, [0, 15, 16, 40], seed=9)
+        want = jpa.paged_attention_ecc_write_attend(
+            *(jnp.asarray(case[n]) for n in ("q", "kn", "vn", "ksn", "vsn", *NAMES, "bt", "ctx")),
+            1, scrub=True, codec="golay", block_size=16, precision="highest")[0]
+        run = functools.partial(
+            tpa.paged_attention_ecc_write_attend,
+            *(torch.from_numpy(case[n].copy()) for n in ("q", "kn", "vn", "ksn", "vsn", *NAMES, "bt", "ctx")),
+            1, scrub=True, codec="golay", block_size=16)
+        got, fast = run(precision="highest").numpy(), run().numpy()
+    else:
+        case = build_ecc_case(codec, seed=10)
+        want = run_jax_read(case, codec, 1, precision="highest")[0]
+        got = run_torch_read(case, codec, 1, precision="highest")[0]
+        fast = run_torch_read(case, codec, 1)[0]
+    atol = 1e-5 * 8.0 * float(np.abs(case["v_scales"]).max())
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=atol)
+    assert np.abs(fast - np.asarray(want)).max() > atol
+
+
+def test_num_pages_matches_jax():
+    """num_pages 5 of a table 8 pages wide: only those pages are attended
+    and written (contexts up to 80 tokens = 5 pages), as JAX's max_pages;
+    hamming74's correcting read with stats, chunks of 2 pages."""
+    case = build_ecc_case("hamming74", seed=11, ctx=[80, 71, 33, 1])
+    kw = dict(num_pages=5, collect_stats=True)
+    assert_reads_agree(case, run_jax_read(case, "hamming74", 0, **kw),
+                       run_torch_read(case, "hamming74", 0, **kw))

@@ -1,15 +1,21 @@
 """The port's decode slice (qkv_ecc_tpu_torch.models.runtime) against the JAX
-runtime on tiny-llama with the same weights (params_from_jax), in the five
-modes of bench.py and hamming84 without scrub: prefill at BER 0, then decode
-steps on the same numpy-made raw masks, passed as hoisted_masks - folded by
-each package in the scrubbed modes, raw in the others (BER 1e-2; 5e-2 for
-the hamming84 correcting reads, so that doubles reach the interpolation).
+runtime on tiny-llama with the same weights (params_from_jax), in every
+packed-int mode: the five of bench.py, mode int4 (read-time injection),
+the unscrubbed reads (scrub=False) of hamming84, golay, hamming74 and int4,
+and collect_ecc_stats in golay, hamming74, hamming84 (with and without
+interpolation) and int4. Prefill runs at BER 0 (int4: at the mode's BER,
+with the read flips JAX draws from its layer keys), then decode steps on the
+same masks: numpy-made raw masks passed as hoisted_masks - folded by each
+package in the scrubbed modes, raw in the others (BER 1e-2; 5e-2 for the
+correcting reads, so that doubles reach the interpolation) - or, where JAX
+draws per layer from its keys (golay unscrubbed, every step that collects
+statistics), those very masks; and JAX's per-step read seed for int4.
 
 Stored words (data nibbles and parity) must be equal after prefill and
-after every decode step: none differs on these inputs. They could, because
-the two frameworks' float32 matmuls differ by an ulp, and a K/V value on a
-quantization boundary would then land on the neighbouring nibble; the test
-would report the count.
+after every decode step, and so must the ECC counters: none differs on
+these inputs. Words could, because the two frameworks' float32 matmuls
+differ by an ulp, and a K/V value on a quantization boundary would then land
+on the neighbouring nibble; the test would report the count.
 
 Tolerances, with their reasons:
   * scales are absmax / 7 of the K/V projections, so those ulps show in them
@@ -34,6 +40,7 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
+from qkv_ecc_tpu.codecs.fault_injection import flip_mask_for  # noqa: E402
 from qkv_ecc_tpu.kernels import swar as js  # noqa: E402
 from qkv_ecc_tpu.models import runtime as jr  # noqa: E402
 from qkv_ecc_tpu.models.config import TINY_LLAMA as J_TINY  # noqa: E402
@@ -86,24 +93,52 @@ def test_config_copied():
 
 
 NO_SCRUB = "int4-hamming84/scrub=False"
+READ = 0x52454144  # JAX's "READ" stream: jax.random.fold_in(key, READ)
+SLICE_MODES = ["int4-write-inject", "int12-golay", "int4-hamming", "int4-hamming84",
+               "int4-hamming84-interp", NO_SCRUB, "int4", "int12-golay/scrub=False",
+               "int4-hamming/scrub=False", "int4-write-inject/scrub=False", "int12-golay/stats",
+               "int4-hamming/stats", "int4-hamming84/stats", "int4-hamming84-interp/stats",
+               "int4/stats"]
 
 
 def policies(mode, ber=0.0):
-    """(JAX policy, port policy) of a bench.py mode, or of NO_SCRUB."""
+    """(JAX policy, port policy) of a mode name, with "/scrub=False" for a
+    policy without scrub (a "/stats" suffix changes the run, not the
+    policy)."""
     base = mode.split("/")[0]
     jpol, tpol = j_policy(base, ber=ber), t_policy(base, ber=ber)
-    if mode == NO_SCRUB:
+    if mode.endswith("/scrub=False"):
         jpol, tpol = dataclasses.replace(jpol, scrub=False), dataclasses.replace(tpol, scrub=False)
     return jpol, tpol
 
 
-@pytest.mark.parametrize("mode", ["int4-write-inject", "int12-golay", "int4-hamming",
-                                  "int4-hamming84", "int4-hamming84-interp", NO_SCRUB])
+def key_masks(jpol, step_key, shape):
+    """The write masks JAX draws per layer from its keys when it hoists
+    none (golay unscrubbed, or collecting statistics): [L, 2, *shape]."""
+    kv_key = jax.random.fold_in(step_key, 1000000)
+    n_bits = N_BITS[jpol.codec]
+    return np.stack([np.stack([np.asarray(flip_mask_for(k, shape, jpol.ber, n_bits))
+                               for k in jr._layer_kv_key(jpol, i, kv_key)])
+                     for i in range(J_TINY.num_layers)]).astype(np.int32)
+
+
+def prefill_read_masks(jpol, key, shape):
+    """The read flips of JAX's int4 prefill: per layer, K and V, from the
+    layer keys folded with READ, [L, 2, *shape]."""
+    return np.stack([np.stack([np.asarray(flip_mask_for(jax.random.fold_in(k, READ), shape,
+                                                        jpol.ber, 4))
+                               for k in jr._layer_kv_key(jpol, i, key)])
+                     for i in range(J_TINY.num_layers)]).astype(np.int32)
+
+
+@pytest.mark.parametrize("mode", SLICE_MODES)
 def test_slice_matches_jax(weights, mode):
     jparams, tparams = weights
+    stats = mode.endswith("/stats")
     jpol0, tpol0 = policies(mode)
     codec = tpol0.codec
-    scrubbed = mode != NO_SCRUB and not tpol0.use_interpolation
+    read = tpol0.inject_at == "read"
+    scrubbed = tpol0.scrub and not tpol0.use_interpolation and not stats and not read
     ber = 1e-2 if scrubbed else 5e-2
     rng = np.random.default_rng(0)
     ids = rng.integers(0, J_TINY.vocab_size, (B, PROMPT))
@@ -113,18 +148,33 @@ def test_slice_matches_jax(weights, mode):
     tstate, tbt, _ = tr.init_generation_state(T_TINY, tpol0, B, T, block_size=BS, device="cpu")
     np.testing.assert_array_equal(np.asarray(jbt), tbt.numpy())
     key = jax.random.key(7)
-    jlogits, jstate = jr.prefill(jparams, jnp.asarray(ids), jstate, jbt, J_TINY, jpol0, key)
-    tlogits, tstate = tr.prefill(tparams, torch.from_numpy(ids), tstate, tbt, T_TINY, tpol0)
+    jpol, tpol = policies(mode, ber)
+    if read:  # the int4 arm reads its prompt through fresh flips
+        rm = prefill_read_masks(jpol, key, (B, PROMPT, T_TINY.num_kv_heads, T_TINY.head_dim))
+        jlogits, jstate = jr.prefill(jparams, jnp.asarray(ids), jstate, jbt, J_TINY, jpol, key)
+        tlogits, tstate = tr.prefill(tparams, torch.from_numpy(ids), tstate, tbt, T_TINY, tpol,
+                                     read_masks=torch.from_numpy(rm))
+        assert int(np.count_nonzero(rm)) > 0
+    else:
+        jlogits, jstate = jr.prefill(jparams, jnp.asarray(ids), jstate, jbt, J_TINY, jpol0, key)
+        tlogits, tstate = tr.prefill(tparams, torch.from_numpy(ids), tstate, tbt, T_TINY, tpol0)
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), rtol=1e-4, atol=1e-5)
     compare_caches(jstate, tstate, "prefill", 4.8e-7)
 
-    jpol, tpol = policies(mode, ber)
     shape = tr.write_mask_shape(tpol, B, T_TINY)
     assert shape == jr._write_mask_shape(jpol, B, J_TINY)
     launches = paged_attention_ecc_write_attend.launches, write_decode_attend.launches
     for step in range(STEPS):
+        step_key = jax.random.fold_in(key, step)
         raw = numpy_masks(rng, (T_TINY.num_layers, 2) + shape, ber, N_BITS[codec])
-        if scrubbed:
+        seed = None
+        if read:
+            jh = th = None
+            seed = int(np.asarray(jax.random.bits(jax.random.fold_in(step_key, READ), (),
+                                                  "uint32")).astype(np.int32))
+        elif stats or (codec == "golay" and not scrubbed):  # JAX draws per layer
+            jh, th = None, torch.from_numpy(key_masks(jpol, step_key, shape))
+        elif scrubbed:
             jh = js.scrub_fold_mask(codec, jnp.asarray(raw)).astype(jnp.uint8)
             th = hoisted_write_deltas(tpol, T_TINY.num_layers, shape,
                                       raw_masks=torch.from_numpy(raw))
@@ -133,25 +183,36 @@ def test_slice_matches_jax(weights, mode):
             jh, th = jnp.asarray(raw.astype(np.uint8)), torch.from_numpy(raw.astype(np.uint8))
         jtok, ttok = jnp.argmax(jlogits, axis=-1), torch.argmax(tlogits, dim=-1)
         np.testing.assert_array_equal(np.asarray(jtok), ttok.numpy(), err_msg=f"step {step}")
-        jlogits, jstate = jr.decode_step(jparams, jtok, jstate, jbt, J_TINY, jpol,
-                                         jax.random.fold_in(key, step), block_size=BS,
-                                         hoisted_masks=jh)
+        jlogits, jstate = jr.decode_step(jparams, jtok, jstate, jbt, J_TINY, jpol, step_key,
+                                         block_size=BS, hoisted_masks=jh,
+                                         collect_ecc_stats=stats)
         tlogits, tstate = tr.decode_step(tparams, ttok, tstate, tbt, T_TINY, tpol,
-                                         hoisted_masks=th)
+                                         hoisted_masks=th, collect_ecc_stats=stats,
+                                         read_inject_seed=seed)
         np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), rtol=0, atol=1e-3,
                                    err_msg=f"step {step}")
         compare_caches(jstate, tstate, f"step {step}", 1e-3)
+        if stats:
+            for n in ("ecc_corrected", "ecc_detected"):
+                assert tstate[n].dtype == torch.int32
+                np.testing.assert_array_equal(np.asarray(jstate[n]), tstate[n].numpy(),
+                                              err_msg=f"step {step}: {n}")
     np.testing.assert_array_equal(np.asarray(jstate["context_len"]), tstate["context_len"].numpy())
     # the CPU path never launches
     assert (paged_attention_ecc_write_attend.launches, write_decode_attend.launches) == launches
-    if not scrubbed:  # the cache holds doubles, which the correcting read decoded
+    if stats:
+        assert (tstate["ecc_corrected"] > 0).all()
+        if codec in ("golay", "hamming84"):
+            assert (tstate["ecc_detected"] > 0).all()
+    if codec == "hamming84" and not scrubbed:  # the cache holds doubles the read decoded
         rows = torch.cat([tstate["k_cache"], tstate["k_parity"]], dim=3).movedim(3, -1)
         _, et = hamming84_decode_i32(swar.unpack_codewords("hamming84", rows, 16))
         assert int((et == 2).sum()) > 0
 
 
 @pytest.mark.parametrize("mode", ["int4-write-inject", "int12-golay", "int4-hamming",
-                                  "int4-hamming84", "int4-hamming84-interp", NO_SCRUB])
+                                  "int4-hamming84", "int4-hamming84-interp", NO_SCRUB, "int4",
+                                  "int12-golay/scrub=False", "int4-hamming/scrub=False"])
 def test_decode_loop_and_generate(weights, mode):
     """decode_loop feeds argmax tokens step by step (same as decode_step in
     a loop); generate = prefill + greedy decode; both deterministic per
@@ -199,21 +260,72 @@ def test_negative_page_raises(weights):
 
 
 def test_unported_paths_raise(weights):
-    """What stays to come: int4 read-time injection (K2r), the golay and
-    hamming74 correcting reads and per-read statistics (K2)."""
+    """What stays to come raises: the float arms fp16 and fp8 (K2f, a later
+    slice) and architectures other than llama (gpt2)."""
     _, tparams = weights
     state, bt, _ = tr.init_generation_state(T_TINY, t_policy("int4-write-inject"), B, 40, BS,
                                             device="cpu")
     ids = torch.zeros((B, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="K2r"):
-        tr.prefill(tparams, ids, state, bt, T_TINY, t_policy("int4", ber=1e-2))
-    for mode in ("int12-golay", "int4-hamming"):
-        pol = dataclasses.replace(t_policy(mode, ber=1e-2), scrub=False)
-        with pytest.raises(NotImplementedError, match="K2"):
-            tr.prefill(tparams, ids, state, bt, T_TINY, pol)
-    pol = t_policy("int4-hamming84-interp", ber=1e-2)
-    with pytest.raises(NotImplementedError, match="K2"):
-        tr.decode_step(tparams, ids[:, 0], state, bt, T_TINY, pol, collect_ecc_stats=True)
+    for mode in ("fp16", "fp8"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            tr.prefill(tparams, ids, state, bt, T_TINY, t_policy(mode))
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            tr.decode_step(tparams, ids[:, 0], state, bt, T_TINY, t_policy(mode))
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            tr.init_generation_state(T_TINY, t_policy(mode), B, 40, BS, device="cpu")
+    gpt2 = dataclasses.replace(T_TINY, arch="gpt2")
+    with pytest.raises(NotImplementedError, match="gpt2"):
+        tr.prefill(tparams, ids, state, bt, gpt2, t_policy("int4-write-inject"))
+    with pytest.raises(NotImplementedError, match="gpt2"):
+        tr.decode_loop(tparams, torch.zeros((B, 256)), state, bt, gpt2,
+                       t_policy("int4-write-inject"), None, 1)
+
+
+STATS_MODES = ["int12-golay", "int4-hamming", "int4-hamming84", "int4-hamming84-interp", "int4"]
+
+
+@pytest.mark.parametrize("mode", STATS_MODES)
+def test_ecc_stats_add_up(weights, mode):
+    """decode_loop(collect_ecc_stats=True) starts the counters at 0 and adds
+    each step's counts: equal to decode_step run step by step from the same
+    generator, counter by counter after every step (which never decrease and
+    rise for the protected codecs at BER 5e-2); generate(return_ecc_stats=
+    True) is deterministic per seed and counts the same decode steps."""
+    _, tparams = weights
+    pol = policies(mode, 5e-2)[1].with_seed(4)
+    ids = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (B, PROMPT)))
+
+    def start():
+        state, bt, _ = tr.init_generation_state(T_TINY, pol, B, 40, BS, device="cpu")
+        g = torch.Generator().manual_seed(6)
+        logits, state = tr.prefill(tparams, ids, state, bt, T_TINY, pol, g)
+        return logits, state, bt, g
+
+    logits, state, bt, g = start()
+    _, loop_state, _ = tr.decode_loop(tparams, logits, state, bt, T_TINY, pol, g, 4,
+                                      collect_ecc_stats=True)
+    logits, state, bt, g = start()
+    assert "ecc_corrected" not in state
+    seen = [torch.zeros(B, dtype=torch.int32)] * 2
+    for _ in range(4):
+        logits, state = tr.decode_step(tparams, torch.argmax(logits, -1), state, bt, T_TINY,
+                                       pol, g, collect_ecc_stats=True)
+        now = [state["ecc_corrected"], state["ecc_detected"]]
+        assert all(bool((a >= b).all()) for a, b in zip(now, seen))
+        seen = now
+    for n, want in zip(("ecc_corrected", "ecc_detected"), seen):
+        assert torch.equal(loop_state[n], want), n
+    assert (seen[0] > 0).all()
+    out1, st1 = tr.generate(tparams, ids, T_TINY, pol, max_new_tokens=4, block_size=BS,
+                            device="cpu", return_ecc_stats=True)
+    out2, st2 = tr.generate(tparams, ids, T_TINY, pol, max_new_tokens=4, block_size=BS,
+                            device="cpu", return_ecc_stats=True)
+    assert torch.equal(out1, out2) and st1.keys() == {"errors_corrected", "errors_detected"}
+    for n in st1:
+        assert torch.equal(st1[n], st2[n]) and st1[n].shape == (B,), n
+    assert (st1["errors_corrected"] > 0).all()
+    assert torch.equal(out1, tr.generate(tparams, ids, T_TINY, pol, max_new_tokens=4,
+                                         block_size=BS, device="cpu"))
 
 
 @pytest.mark.parametrize("llama3", [False, True])

@@ -48,31 +48,57 @@ def test_word_counts(head_dim):
 
 @pytest.mark.parametrize("codec", ["hamming74", "hamming84", "fp16", "fp8"])
 def test_later_codecs_raise(codec):
-    """fp16 and fp8 are not ported. The Hamming codecs' row math is, and
-    what stays to come of them is a read the attention wrapper refuses:
-    hamming74's correcting read and hamming84's per-read statistics, both
-    kernel K2."""
+    """fp16 and fp8 are not ported: the row math and the attention wrapper
+    raise "not ported yet". The Hamming codecs' correcting reads run: a
+    zero cache of all-zero codewords reads as -8 and counts no error."""
+    from qkv_ecc_tpu_torch.kernels.paged_attention import paged_attention_ecc_write_attend
+
     if codec in ("fp16", "fp8"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             ts.padded_values(codec, 128)
         with pytest.raises(NotImplementedError):
             ts.scrub_fold_mask(codec, torch.zeros(4, dtype=torch.int32))
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            paged_attention_ecc_write_attend(*([None] * 12), codec=codec)
         return
-    from qkv_ecc_tpu_torch.kernels.paged_attention import paged_attention_ecc_write_attend
-
     D, bs = 32, 16
     dw, pw = ts.data_words(codec, D), ts.parity_words(codec, D)
     cache = torch.zeros((1, 2, 1, dw, bs), dtype=torch.int32)
     parity = torch.zeros((1, 2, 1, pw, bs), dtype=torch.int32)
     scales = torch.ones((1, 2, 1, bs))
     new = torch.zeros((1, 1, dw + pw), dtype=torch.int32)
-    args = (torch.zeros((1, 1, D)), new, new.clone(), torch.ones((1, 1)), torch.ones((1, 1)),
+    args = (torch.ones((1, 1, D)), new, new.clone(), torch.ones((1, 1)), torch.ones((1, 1)),
             cache, cache.clone(), scales, scales.clone(),
             torch.zeros((1, 2), dtype=torch.int32), torch.ones(1, dtype=torch.int32), 0,
             parity, parity.clone())
-    with pytest.raises(NotImplementedError, match="K2"):
-        paged_attention_ecc_write_attend(*args, scrub=False, codec=codec,
-                                         collect_stats=codec == "hamming84")
+    out, stats = paged_attention_ecc_write_attend(*args, scrub=False, codec=codec,
+                                                  block_size=bs, collect_stats=True)
+    # hamming codeword 0 is nibble 0: every value dequantizes to -8
+    torch.testing.assert_close(out, torch.full((1, 1, D), -8.0), rtol=0, atol=0)
+    assert stats.tolist() == [[0, 0]]
+
+
+SEEDS = [0, 1, -1, 7, -123456789, 2 ** 31 - 1, -2 ** 31]
+THRESHOLDS = [0, 0xFFFFFFFF, int(1e-2 * 2 ** 32), int(0.3 * 2 ** 32), 1 << 31]
+
+
+@pytest.mark.parametrize("shape", [(16, 128), (3, 5), (2, 3, 4)])
+@pytest.mark.parametrize("base", [0, 12345, -40, 2 ** 31 - 100])
+def test_hash_flip_mask_matches_jax(shape, base):
+    """swar.hash_flip_mask bit for bit against JAX's over seeds (negative
+    too) and thresholds 0, 2^32 - 1, 1e-2 and 0.3 of 2^32 and 2^31: the
+    int32 wrap of JAX's products and shifts reproduced in int64."""
+    for seed in SEEDS:
+        for th in THRESHOLDS:
+            want = js.hash_flip_mask(jnp.int32(seed), jnp.int32(base), shape, th)
+            got = ts.hash_flip_mask(seed, base, shape, th)
+            same(want, got)
+    assert not ts.hash_flip_mask(3, base, shape, 0).any()
+    assert (ts.hash_flip_mask(3, base, shape, THRESHOLDS[3]) != 0).any()
+    # a tensor seed and a tensor of bases give the same bits as ints
+    bases = torch.tensor([base, base + 7], dtype=torch.int64).reshape((2,) + (1,) * len(shape))
+    many = ts.hash_flip_mask(torch.tensor(-5, dtype=torch.int32), bases, shape, THRESHOLDS[3])
+    same(js.hash_flip_mask(jnp.int32(-5), jnp.int32(base + 7), shape, THRESHOLDS[3]), many[1])
 
 
 @pytest.mark.parametrize("axis", [-1, 1])
