@@ -5,22 +5,35 @@
 
 Builds the port's CUDA kernels from csrc/ with nvcc (one process per source,
 all at once), holds every kernel branch against its plain PyTorch version at
-the bench-0.9b shapes (the scrubbed extract read, int4's read-time
-injection, the hamming84 / hamming74 / golay correcting reads with and
-without ECC statistics, the -1 page clamp, precision "highest"), checks the
-card against the CPU on tiny-llama in every mode, then drives bench-0.9b
-(random bf16 weights from a seed, batch 8, prompt 1024) through the port's
-entry points on two paths: the decode slice - 32 greedy steps at BER 1e-2
-in the five arms of the JAX bench.py (int12-golay, int4-hamming84,
-int4-hamming, int4-hamming84-interp, int4-write-inject) and the unprotected
-read-inject arm int4, round-robin over two rounds - and the stats phase,
-decode_loop(collect_ecc_stats=True) for 8 steps in int4, int12-golay,
-int4-hamming, int4-hamming84 and int4-hamming84-interp (the protected ones
-without scrub), whose counts must show corrections, detections and int4's
-flip rate. Each path checks that every kernel branch it calls was launched
-exactly as often as it calls it. Then it times the kernels and traces the
-decode step of each arm. Every phase prints one line with its seconds; any
-failure exits non-zero. Without a CUDA device it fails.
+the bench-0.9b shapes - the write+attend kernels (the scrubbed extract read,
+int4's read-time injection, the hamming84 / hamming74 / golay correcting
+reads with and without ECC statistics, the -1 page clamp, precision
+"highest") and K4, the read alone (paged_attention_ecc: every branch with
+and without statistics, the softmax state with a sliding window, an empty
+row, a -1 page, and the chunk-clamped pages of F4 on all three kernels) -
+and checks the card against the CPU on tiny-llama in every mode. Then it
+drives bench-0.9b (random bf16 weights from a seed) through the port's entry
+points on four paths:
+  * the decode slice: batch 8, prompt 1024, 32 greedy steps at BER 1e-2 in
+    the five arms of the JAX bench.py (int12-golay, int4-hamming84,
+    int4-hamming, int4-hamming84-interp, int4-write-inject) and the
+    unprotected read-inject arm int4, round-robin over two rounds;
+  * the stats phase: decode_loop(collect_ecc_stats=True) for 8 steps in
+    int4, int12-golay, int4-hamming, int4-hamming84 and
+    int4-hamming84-interp (the protected ones without scrub), whose counts
+    must show corrections, detections and int4's flip rate;
+  * the engine phase: ECCEngine at bench-0.9b's attention width (24 layers,
+    16/8 heads), a 1024-token prompt and 32 decode steps per layer through
+    K4, in hamming84, hamming74, golay and int4 with write injection and the
+    UnprotectedBackend with read injection, BER 1e-2;
+  * the serve phase: ContinuousBatchingServer, 8 slots, 12 requests of
+    256-1024 prompt tokens and 32-64 new ones, in int4-write-inject,
+    int4-hamming84 and int12-golay at BER 1e-2, and a BER-0 check that
+    staggered requests give generate()'s tokens.
+Each path checks that every kernel branch it calls was launched exactly as
+often as it calls it. Then it times the kernels and traces the decode step
+of each arm. Every phase prints one line with its seconds; any failure exits
+non-zero. Without a CUDA device it fails.
 
 Output, last lines: the kernel table as one JSON object, the card's name and
 power limit from nvidia-smi, then {"ok": true, "device": {...}}.
@@ -35,6 +48,7 @@ T0 = time.perf_counter()
 BER = 1e-2
 BATCH, PROMPT, STEPS = 8, 1024, 32
 STATS_STEPS = 8
+ENGINE_STEPS = 32
 ROUNDS = 2
 # bench.py's arms, in its order, then the unprotected read-inject arm; the
 # fifth is the baseline of the ratios
@@ -324,6 +338,391 @@ def read_inject_check(torch, gen, device):
     return worst
 
 
+# K4's contexts at the check: 1 to 1152 tokens, row 3 (ctx 1) on a page of
+# -1 (it reads page 0), row 5 empty
+K4_CTX = [1152, 1024, 1025, 1, 512, 0, 778, 1101]
+# (cache mode, codec, options) of every K4 branch
+K4_BRANCHES = {
+    "read": ("int4", "int4", {}),
+    "read-inject": ("int4", "int4", {"read_inject_ber": BER}),
+    "extract": ("scrubbed", "golay", {"scrub": True}),
+    "hamming84-interp": ("int4-hamming84", "hamming84", {"use_interpolation": True}),
+    "hamming84": ("int4-hamming84", "hamming84", {}),
+    "hamming74": ("int4-hamming", "hamming74", {}),
+    "golay": ("int12-golay", "golay", {}),
+}
+
+
+def check_state(name, got, want):
+    """return_softmax_state: acc within output_tolerance of the plain
+    version's (weights are at most 1, so a rounding of one weight moves acc
+    no more than the output), m and l within 1e-5 relative (fp32 sums and
+    exp in another order); the empty row gives 0, -1e30 and 0."""
+    (acc, m, l), (acc_p, m_p, l_p) = got, want
+    tol = output_tolerance(acc_p)
+    err = (acc - acc_p).abs().max().item()
+    ok = bool(((acc - acc_p).abs() <= tol).all())
+    for a, b in ((m, m_p), (l, l_p)):
+        ok = ok and bool(((a - b).abs() <= 1e-5 * b.abs() + 1e-5).all())
+    empty = not acc[5].any() and bool((m[5] == -1e30).all()) and not l[5].any()
+    say(f"  {name}: softmax state, max |acc kernel - plain| = {err:.3e}, max |m - m plain| = "
+        f"{(m - m_p).abs().max().item():.3e}, max |l - l plain| / l = "
+        f"{((l - l_p).abs() / l_p.clamp(min=1e-30)).max().item():.3e}; empty row 0, -1e30, 0: "
+        f"{empty}")
+    if not ok or not empty:
+        fail(f"{name}: the softmax state differs from the plain version's")
+    return err
+
+
+def attend_check(torch, gen, device):
+    """K4 (paged_attention_ecc, the read without a write) against
+    attend_plain at bench-0.9b attention shapes (B 8, Hkv 8, group 2,
+    head_dim 128, contexts K4_CTX: 1 to 1152 tokens, a row whose page is -1,
+    an empty row; layer 1, 512-token chunks), every branch with and without
+    stats (the extract read refuses them), then each with
+    return_softmax_state and a sliding window of 256. Caches must be
+    unchanged, stats equal, outputs (and acc) within output_tolerance, m and
+    l within 1e-5 relative, the empty row 0. Then the F4 input: num_pages 5
+    of a 9-page table at 512-token chunks (the kernel visits 8 pages, pages
+    5-7 read page 4 again), K4, write_attend and decode_attend against their
+    plain versions. Returns the largest error of each K4 branch."""
+    import dataclasses
+    from qkv_ecc_tpu_torch.kernels.paged_attention import (
+        attend_plain, paged_attention_ecc, paged_attention_ecc_write_attend as write_attend,
+        write_attend_plain, write_decode_attend_plain)
+    from qkv_ecc_tpu_torch.models.config import BENCH_0_9B
+
+    cfg = dataclasses.replace(BENCH_0_9B, num_layers=2)
+    ctx_before = [c - 1 for c in K4_CTX]
+    B, Hq, D = len(K4_CTX), cfg.num_heads, cfg.head_dim
+    names = ("k_cache", "v_cache", "k_scales", "v_scales", "k_parity", "v_parity")
+    ctx = torch.tensor(K4_CTX, dtype=torch.int32, device=device)
+    caches, worst = {}, {}
+    for mode in ("int4", "scrubbed", "int4-hamming84", "int4-hamming", "int12-golay"):
+        if mode == "scrubbed":
+            state, bt, _ = encoded_cache(torch, cfg, "golay", [max(c, 0) for c in ctx_before],
+                                         128, gen, device)
+        else:
+            state, bt, _ = unscrubbed_cache(torch, cfg, mode, [max(c, 0) for c in ctx_before],
+                                            gen, device, ber=0.0 if mode == "int4" else 2e-2)
+        bt_k4 = bt.clone()
+        bt_k4[3] = -1
+        caches[mode] = (state, bt_k4, bt)
+
+    def run(branch, stats, window=None, state_out=False, num_pages=None):
+        mode, codec, kw = K4_BRANCHES[branch]
+        state, bt, _ = caches[mode]
+        q = torch.randn((B, Hq, D), generator=gen, device=device).to(torch.bfloat16)
+        before = {n: state[n].clone() for n in names if n in state}
+        parity = (state.get("k_parity"), state.get("v_parity"))
+        args = (q, state["k_cache"], state["v_cache"], state["k_scales"], state["v_scales"], bt,
+                ctx, 1)
+        kw = dict(kw)
+        seed = None
+        if "read_inject_ber" in kw:
+            seed = torch.randint(-2 ** 31, 2 ** 31, (), generator=gen, device=device).to(torch.int32)
+            kw["read_inject_seed"] = seed
+        out = paged_attention_ecc(*args, *parity, codec=codec, num_pages=num_pages,
+                                  collect_stats=stats, sliding_window=window,
+                                  return_softmax_state=state_out, **kw)
+        torch.cuda.synchronize()
+        extract = codec == "int4" or kw.get("scrub")
+        ref = attend_plain(*args, *(() if extract else parity), codec="int4" if extract else codec,
+                           sm_scale=D ** -0.5, num_pages=num_pages or bt.shape[1],
+                           pages_per_chunk=4, sliding_window=window,
+                           read_threshold=int(BER * 2 ** 32) if seed is not None else None,
+                           read_seed=seed if seed is not None else 0,
+                           interpolate=kw.get("use_interpolation", False), collect_stats=stats,
+                           return_softmax_state=state_out)
+        for n, a in before.items():
+            if not torch.equal(a, state[n]):
+                fail(f"K4 {branch}: the read changed {n}")
+        (out, st), (ref, ref_st) = (out, ref) if stats else ((out, None), (ref, None))
+        label = (f"paged_attention_ecc {branch} stats={stats}" + (f" window={window}" if window else "")
+                 + (f" num_pages={num_pages}" if num_pages else ""))
+        if state_out:
+            if stats and not torch.equal(st, ref_st):
+                fail(f"{label}: stats {st.tolist()} differ from the plain version's")
+            return check_state(label, out, ref)
+        err = check_outputs(label, out, ref, {}, {}, (), st, ref_st)
+        if out[5].any():
+            fail(f"{label}: the empty row did not read 0")
+        return err
+
+    for branch in K4_BRANCHES:
+        for stats in (False,) if branch == "extract" else (False, True):
+            worst[branch] = max(worst.get(branch, 0.0), run(branch, stats))
+        worst[branch] = max(worst[branch], run(branch, branch != "extract", window=256,
+                                               state_out=True))
+    # F4 on the card: K4 of int4 and hamming74 with stats, num_pages 5
+    for branch in ("read", "hamming74"):
+        worst[branch] = max(worst[branch], run(branch, True, num_pages=5))
+    # ... and the write+attend kernels on the same input, with row 3 on its
+    # own page (a row of -1 would write page 0, which row 0 reads)
+    for mode, codec in (("int4", "int4"), ("int4-hamming", "hamming74")):
+        state, _, bt = caches[mode]
+        parity = () if codec == "int4" else (state["k_parity"], state["v_parity"])
+        W = state["k_cache"].shape[3] + (parity[0].shape[3] if parity else 0)
+        new = [torch.randint(0, 2 ** 31, (B, cfg.num_kv_heads, W), generator=gen,
+                             device=device).to(torch.int32) for _ in range(2)]
+        sn = torch.rand((B, cfg.num_kv_heads), generator=gen, device=device)
+        q = torch.randn((B, Hq, D), generator=gen, device=device).to(torch.bfloat16)
+        a = {n: state[n].clone() for n in names if n in state}
+        p = {n: state[n].clone() for n in names if n in state}
+        out = write_attend(q, *new, sn, sn, a["k_cache"], a["v_cache"], a["k_scales"],
+                           a["v_scales"], bt, ctx, 1, *(() if codec == "int4" else
+                                                        (a["k_parity"], a["v_parity"])),
+                           codec=codec, num_pages=5, collect_stats=True)
+        torch.cuda.synchronize()
+        plain = write_attend_plain if codec == "int4" else write_decode_attend_plain
+        extra = {} if codec == "int4" else dict(codec=codec)
+        ref = plain(q, *new, sn, sn, p["k_cache"], p["v_cache"], p["k_scales"], p["v_scales"],
+                    bt, ctx, 1, *(() if codec == "int4" else (p["k_parity"], p["v_parity"])),
+                    sm_scale=D ** -0.5, num_pages=5, pages_per_chunk=4, collect_stats=True,
+                    **extra)
+        check_outputs(f"{'write_attend' if codec == 'int4' else 'decode_attend'} {codec} "
+                      "num_pages=5 (F4)", out[0], ref[0], a, p, tuple(a), out[1], ref[1])
+    return worst
+
+
+# the engine phase's arms: the write-injected codecs, and the unprotected
+# read-inject arm (UnprotectedBackend)
+ENGINE_ARMS = ("hamming84", "hamming74", "golay", "int4", "unprotected")
+
+
+def engine_phase(torch, gen, device, smi, steps):
+    """ECCEngine at bench-0.9b's attention width (24 layers, 16/8 heads,
+    head_dim 128, block 128), one sequence per arm: a 1024-token prompt
+    written and attended (causal, the general path) per layer, then `steps`
+    decode steps of write (1 token) and attend (S = 1: K4) per layer, q, k
+    and v from a seeded generator, BER 1e-2 (write injection; read
+    injection for the unprotected arm). Checks: K4 launched exactly steps x
+    24 times per arm, in the arm's branch; at the last step the K4 output
+    of layer 23 within 2e-2 of the general path on the same cache (the
+    unprotected arm: a clean K4 read), as tests/test_engine.py:110 - except
+    golay's, where the two paths differ by design (K4 reads an uncorrectable
+    codeword as 0, the general path keeps its data) and the output is held
+    to K4's plain version instead, within output_tolerance; corrections
+    (hamming84, golay: and detections) counted; the unprotected arm's
+    flipped / (BER x bits read) within 0.98-1.02. Returns K4's launches by
+    branch over the arms."""
+    from qkv_ecc_tpu_torch.cache.engine import ECCEngine, ECCEngineConfig, _attend_general
+    from qkv_ecc_tpu_torch.cache.unprotected import (
+        UnprotectedBackend, UnprotectedEngineConfig, get_unprotected_stats)
+    from qkv_ecc_tpu_torch.kernels.paged_attention import attend_plain, paged_attention_ecc
+    from qkv_ecc_tpu_torch.models.config import BENCH_0_9B as cfg
+
+    L, Hq, Hkv, D = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    launches = dict.fromkeys(paged_attention_ecc.launches_by, 0)
+    branch = {"hamming84": "hamming84", "hamming74": "hamming74", "golay": "golay",
+              "int4": "read", "unprotected": "read-inject"}
+    for arm in ENGINE_ARMS:
+        kw = dict(ber=BER, inject_errors=True, seed=42, block_size=128, num_blocks=16, max_seqs=1)
+        if arm == "unprotected":
+            eng = UnprotectedBackend(UnprotectedEngineConfig(**kw), L, Hq, Hkv, D, device=device)
+        else:
+            eng = ECCEngine(ECCEngineConfig(codec=arm, **kw), L, Hq, Hkv, D, device=device)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=device)
+
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for layer in range(L):
+            eng.write(randn(PROMPT, Hkv, D), randn(PROMPT, Hkv, D), layer)
+            out = eng.attend(randn(Hq, PROMPT, D), layer)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+        if out.shape != (Hq, PROMPT, D) or not torch.isfinite(out).all():
+            fail(f"engine {arm}: prefill attention not finite or of the wrong shape")
+        reset_counts(paged_attention_ecc)
+        t = time.perf_counter()
+        for step in range(steps):
+            for layer in range(L):
+                eng.write(randn(1, Hkv, D), randn(1, Hkv, D), layer, start_pos=PROMPT + step)
+                q1 = randn(Hq, 1, D)
+                out = eng.attend(q1, layer)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t) / steps
+        got = dict(paged_attention_ecc.launches_by)
+        for k, v in got.items():
+            launches[k] += v
+        check_launches(f"engine {arm}", {f"K4 {k}": (v, steps * L if k == branch[arm] else 0,
+                                                     f"{steps} steps x {L} layers" if
+                                                     k == branch[arm] else "none")
+                                         for k, v in got.items()})
+        ctx = PROMPT + steps
+        if arm == "golay":
+            c = eng.cache
+            general = attend_plain(
+                q1[:, 0][None], c["k_cache"], c["v_cache"], c["k_scales"], c["v_scales"],
+                eng.manager.block_table()[:1], torch.tensor([ctx], dtype=torch.int32,
+                                                            device=device), L - 1,
+                c["k_parity"], c["v_parity"], codec="golay", sm_scale=D ** -0.5,
+                num_pages=-(-ctx // 128), pages_per_chunk=4)[0][:, None]
+        else:
+            general, *_ = _attend_general(q1, eng.cache, eng.manager.block_table()[0], L - 1,
+                                          codec=eng.config.codec, use_interpolation=False,
+                                          head_dim=D, num_ctx=ctx, causal=False)
+        if arm == "unprotected":  # the read above flipped bits: compare a clean one
+            out = paged_attention_ecc(
+                q1[:, 0][None].contiguous(), eng.cache["k_cache"], eng.cache["v_cache"],
+                eng.cache["k_scales"], eng.cache["v_scales"], eng.manager.block_table()[:1],
+                torch.tensor([ctx], dtype=torch.int32, device=device), L - 1, codec="int4",
+                num_pages=-(-ctx // 128))[0][:, None]
+        err = (out.float() - general).abs().max().item()
+        close = (bool(((out - general).abs() <= output_tolerance(general)).all())
+                 if arm == "golay" else err <= 2e-2)
+        stats = eng.stats
+        line = (f"  engine {arm}: prefill {PROMPT} tokens x {L} layers in {prefill_s:.3f} s; "
+                f"{ms:.3f} ms per decode step ({L} layers of write + K4 attend); last step "
+                f"|K4 - {'plain K4' if arm == 'golay' else 'general path'}| = {err:.3e} "
+                f"({'output_tolerance' if arm == 'golay' else 'tolerance 2e-2'}); stats {stats}")
+        if arm == "unprotected":
+            ratio = stats["actual_ber"] / BER
+            line += f"; actual_ber / BER = {ratio:.6f} (band 0.98-1.02)"
+            ok = 0.98 <= ratio <= 1.02 and get_unprotected_stats(eng)["bits_flipped"] > 0
+        elif arm == "int4":
+            ok = stats["bits_flipped"] > 0
+        else:
+            ok = stats["errors_corrected"] > 0 and (arm == "hamming74" or stats["errors_detected"] > 0)
+        say(line + f" ({smi})")
+        if not ok or not close or not torch.isfinite(out).all():
+            fail(f"engine {arm}: the counts or the K4 output are off")
+        del eng
+    return launches
+
+
+# the serve phase's arms (scripts/serving_bench.py's MODES)
+SERVE_MODES = ("int4-write-inject", "int4-hamming84", "int12-golay")
+SERVE_REQUESTS, SERVE_BATCH = 12, 8
+
+
+def serve_phase(torch, params, device, smi):
+    """ContinuousBatchingServer on bench-0.9b (random bf16 weights from seed
+    0): max_batch 8, block 128, max_seq_len 1280, prefill_bucket 128, BER
+    1e-2, ECC statistics on (the server's default). 12 greedy requests, prompt
+    lengths 256-1024 and 32-64 new tokens drawn from a seed, in each arm of
+    SERVE_MODES, after a warm-up request. Checks: every request finishes
+    with its length; the write+attend kernels launched decode steps x 24
+    times; the arms that count have counted. Prints generated tokens/s over
+    the wall clock, the median decode-step ms with all slots busy and the
+    admission seconds. Returns the kernels' launches by branch."""
+    import statistics
+
+    from qkv_ecc_tpu_torch.kernels.paged_attention import (
+        paged_attention_ecc_write_attend as write_attend, write_decode_attend)
+    from qkv_ecc_tpu_torch.models.config import BENCH_0_9B as cfg
+    from qkv_ecc_tpu_torch.models.kv_policy import policy_for_mode
+    from qkv_ecc_tpu_torch.serving import ContinuousBatchingServer, Request
+
+    class TimedServer(ContinuousBatchingServer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.admission_s, self.decode = [], []  # decode: (active slots, s)
+
+        def _run_prefill(self, *a):
+            t = time.perf_counter()
+            logits = super()._run_prefill(*a)
+            torch.cuda.synchronize()
+            self.admission_s.append(time.perf_counter() - t)
+            return logits
+
+        def _run_decode(self, *a):
+            t = time.perf_counter()
+            logits = super()._run_decode(*a)  # ends in a host read of the counts
+            torch.cuda.synchronize()
+            self.decode.append((self.num_active, time.perf_counter() - t))
+            return logits
+
+    g = torch.Generator().manual_seed(0)
+    lens = torch.randint(256, 1025, (SERVE_REQUESTS,), generator=g).tolist()
+    news = torch.randint(32, 65, (SERVE_REQUESTS,), generator=g).tolist()
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).numpy() for n in lens]
+    launches = [dict.fromkeys(write_attend.launches_by, 0),
+                dict.fromkeys(write_decode_attend.launches_by, 0)]
+    for mode in SERVE_MODES:
+        server = TimedServer(params, cfg, policy_for_mode(mode, ber=BER, seed=42),
+                             max_batch=SERVE_BATCH, max_seq_len=1280, block_size=128,
+                             prefill_bucket=128, device=device)
+        server.add_request(Request(10_000, prompts[0][:128], max_new_tokens=2))  # warm-up
+        server.run()
+        server.finished.clear()
+        server.admission_s.clear()
+        server.decode.clear()
+        base = server.ecc_stats
+        reset_counts(write_attend, write_decode_attend)
+        for rid, (p, n) in enumerate(zip(prompts, news)):
+            server.add_request(Request(rid, p, max_new_tokens=n))
+        t = time.perf_counter()
+        outs = server.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        steps = len(server.decode)
+        got = write_attend.launches + write_decode_attend.launches
+        for w, acc in zip((write_attend, write_decode_attend), launches):
+            for k, v in w.launches_by.items():
+                acc[k] += v
+        by_id = {o.request_id: o for o in outs}
+        if sorted(by_id) != list(range(SERVE_REQUESTS)) or any(
+                len(by_id[i].token_ids) != news[i] for i in by_id):
+            fail(f"serve {mode}: not every request finished with its length")
+        if got != steps * cfg.num_layers:
+            fail(f"serve {mode}: the write+attend kernels launched {got} times for {steps} "
+                 f"decode steps x {cfg.num_layers} layers")
+        counts = {k: v - base[k] for k, v in server.ecc_stats.items()}
+        if mode != "int4-write-inject" and not counts["errors_corrected"] > 0:
+            fail(f"serve {mode}: no correction counted at BER {BER}")
+        tokens = sum(len(o.token_ids) for o in outs)
+        full = [dt for a, dt in server.decode if a == SERVE_BATCH] or [0.0]
+        say(f"  serve {mode}: {SERVE_REQUESTS} requests (prompts {min(lens)}-{max(lens)}, "
+            f"{sum(news)} new tokens) in {wall:.3f} s: {tokens / wall:.1f} generated tokens/s; "
+            f"{steps} decode steps, the kernels launched {got} = {steps} x {cfg.num_layers}; "
+            f"decode step with all {SERVE_BATCH} slots busy: median "
+            f"{1e3 * statistics.median(full):.3f} ms over {len(full)} steps; admission: median "
+            f"{statistics.median(server.admission_s):.3f} s, total "
+            f"{sum(server.admission_s):.3f} s over {len(server.admission_s)}; ECC counts "
+            f"{counts} (BER {BER}; {smi})")
+        del server
+    return launches
+
+
+def serve_ber0_check(torch, device):
+    """At BER 0 on the card, three requests admitted at different times
+    return exactly the tokens generate() gives each prompt alone
+    (int4-hamming84, bench-0.9b in float32 weights from seed 0, so that
+    batch 8 against batch 1 only reorders float32 sums; prompts of whole
+    buckets, 16 new tokens)."""
+    import dataclasses
+
+    from qkv_ecc_tpu_torch.models.config import BENCH_0_9B
+    from qkv_ecc_tpu_torch.models.kv_policy import policy_for_mode
+    from qkv_ecc_tpu_torch.models.registry import init_params
+    from qkv_ecc_tpu_torch.models.runtime import generate
+    from qkv_ecc_tpu_torch.serving import ContinuousBatchingServer, Request
+
+    cfg = dataclasses.replace(BENCH_0_9B, dtype="float32")
+    params = init_params(cfg, seed=0, device=device)
+    pol = policy_for_mode("int4-hamming84", ber=0.0, seed=42)
+    g = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g) for n in (384, 128, 256)]
+    want = [generate(params, p[None].to(device), cfg, pol, max_new_tokens=16,
+                     device=device)[0, len(p):].tolist() for p in prompts]
+    server = ContinuousBatchingServer(params, cfg, pol, max_batch=SERVE_BATCH, max_seq_len=1280,
+                                      block_size=128, prefill_bucket=128, device=device)
+    server.add_request(Request(0, prompts[0].numpy(), max_new_tokens=16))
+    server.add_request(Request(1, prompts[1].numpy(), max_new_tokens=16))
+    for _ in range(3):
+        server.step()
+    server.add_request(Request(2, prompts[2].numpy(), max_new_tokens=16))
+    got = {o.request_id: o.token_ids for o in server.run()}
+    same = all(got[i] == want[i] for i in range(3))
+    say(f"  serve BER 0: 3 staggered requests against generate() of each alone: tokens "
+        f"{'identical' if same else 'DIFFER'}")
+    if not same:
+        fail(f"serve BER 0: {got} != {want}")
+
+
 def output_tolerance(ref):
     """Per element of the [B, Hq, D] output: 2^-7 |ref| is one bf16 ulp of
     the element (the last rounding, which both sides make), and 2^-8 of the
@@ -519,8 +918,8 @@ def main():
         fail(f"the port package is missing ({e}): run from the repository root")
     from qkv_ecc_tpu_torch.kernels import _build
     from qkv_ecc_tpu_torch.kernels.paged_attention import (
-        paged_attention_ecc_write_attend as write_attend, write_attend_plain,
-        write_decode_attend, write_decode_attend_plain)
+        attend_plain, paged_attention_ecc, paged_attention_ecc_write_attend as write_attend,
+        write_attend_plain, write_decode_attend, write_decode_attend_plain)
     from qkv_ecc_tpu_torch.models.config import BENCH_0_9B as cfg
     from qkv_ecc_tpu_torch.models.kv_policy import policy_for_mode
     from qkv_ecc_tpu_torch.models.registry import init_params
@@ -548,6 +947,7 @@ def main():
         max_err = kernel_check(torch, gen, device)
         max_err_decode = decode_kernel_check(torch, gen, device)
         max_err_inject = read_inject_check(torch, gen, device)
+        max_err_k4 = attend_check(torch, gen, device)
 
     with Phase("tiny agreement"):
         tiny_agreement(torch, device)
@@ -668,6 +1068,13 @@ def main():
             for k in stats_launches[0]} | {
             f"decode_attend {k}": (v, per_stats_arm, how) for k, v in stats_launches[1].items()})
 
+    with Phase("engine"):
+        k4_launches = engine_phase(torch, gen, device, smi, ENGINE_STEPS)
+
+    with Phase("serve"):
+        serve_launches = serve_phase(torch, params, device, smi)
+        serve_ber0_check(torch, device)
+
     with Phase("kernel timing"):
         group = cfg.num_heads // cfg.num_kv_heads
         q = torch.randn((BATCH, cfg.num_heads, cfg.head_dim), generator=gen,
@@ -679,7 +1086,9 @@ def main():
 
         def time_kernel(key, label, call, plain, wrapper, state, bt, words_read, int_ops, row_w):
             """Device time (behind a sleep), back-to-back time, the plain
-            version's time and the bound of one call on `state`'s caches."""
+            version's time and the bound of one call on `state`'s caches;
+            row_w words of a new row per (sequence, KV head) are written
+            (0: a read, K4)."""
             L = state["k_cache"].shape[0]
             ms = device_ms(torch, call, 240, L, wrapper)
             call_ms = timed(torch, call, 240, L)
@@ -693,7 +1102,8 @@ def main():
             # multiply-add each per (token, KV head, group head, value), in
             # fp32, and the integer operations counted from the source
             nbytes = (tokens * Hkv * (2 * words_read * 4 + 2 * 4) + 2 * q.numel() * q.element_size()
-                      + 2 * BATCH * Hkv * (row_w * 4 + 4) + bt.numel() * 4 + BATCH * 4)
+                      + (2 * BATCH * Hkv * (row_w * 4 + 4) if row_w else 0) + bt.numel() * 4
+                      + BATCH * 4)
             flops = 2 * 2 * tokens * Hkv * group * cfg.head_dim
             ops = int_ops(tokens, Hkv)
             b_ms, b_by, bytes_ms, ops_ms = bound(nbytes, flops, ops)
@@ -765,6 +1175,46 @@ def main():
             time_kernel(key, f"decode_attend {key}", call_d, plain_d, write_decode_attend, state,
                         bt, Wd + Pw, lambda tok, h, f=per_row, p=Pw: tok * h * 2 * f(Wd, p), Wd + Pw)
 
+        # K4, the read alone, on the same caches: each branch as above
+        for key, codec, src, kw, per_row in (
+                ("read", "golay", runs["int12-golay"][-1], dict(scrub=True), lambda w, p: 0),
+                ("read-inject", "int4", stats_runs["int4"], dict(read_inject_ber=BER),
+                 lambda w, p: w * INJECT_OPS_PER_WORD),
+                ("hamming84-interp", "hamming84", runs["int4-hamming84-interp"][-1],
+                 dict(use_interpolation=True),
+                 lambda w, p: w * (DECODE_OPS_PER_WORD + INTERP_OPS_PER_WORD)),
+                ("hamming84", "hamming84", runs["int4-hamming84-interp"][-1], {},
+                 lambda w, p: w * DECODE_OPS_PER_WORD),
+                ("hamming74", "hamming74", stats_runs["int4-hamming"], {},
+                 lambda w, p: w * H74_OPS_PER_WORD),
+                ("golay", "golay", stats_runs["int12-golay"], {},
+                 lambda w, p: 4 * (w + p) // 3 * GOLAY_OPS_PER_CODEWORD)):
+            state, bt = src["state"], src["bt"]
+            ctx = state["context_len"].clone()
+            extract = codec == "int4" or kw.get("scrub")
+            parity = () if extract else (state["k_parity"], state["v_parity"])
+            Pw = 0 if extract else state["k_parity"].shape[3]
+            if "read_inject_ber" in kw:
+                kw = dict(kw, read_inject_seed=seed)
+
+            def call_k4(layer, state=state, bt=bt, ctx=ctx, parity=parity, codec=codec, kw=kw):
+                return paged_attention_ecc(q, *(state[n] for n in names), bt, ctx, layer, *parity,
+                                           codec=codec, **kw)
+
+            def plain_k4(layer, state=state, bt=bt, ctx=ctx, parity=parity, codec=codec, kw=kw,
+                         extract=extract):
+                return attend_plain(
+                    q, *(state[n] for n in names), bt, ctx, layer, *parity,
+                    codec="int4" if extract else codec, sm_scale=sm,
+                    num_pages=bt.shape[1], pages_per_chunk=4,
+                    read_threshold=int(BER * 2 ** 32) if "read_inject_ber" in kw else None,
+                    read_seed=kw.get("read_inject_seed", 0),
+                    interpolate=kw.get("use_interpolation", False))
+
+            time_kernel("k4-" + key, f"paged_attention_ecc {key} (K4)", call_k4, plain_k4,
+                        paged_attention_ecc, state, bt, Wd + Pw,
+                        lambda tok, h, f=per_row, p=Pw: tok * h * 2 * f(Wd, p), 0)
+
     with Phase("trace"):
         trace_decode(torch, params, ids, gen, device, smi)
 
@@ -773,24 +1223,32 @@ def main():
                     replaces=f"qkv_ecc_tpu/kernels/{replaces}", launches=launches,
                     max_abs_err=err, **timings[key], library_ms=None)
 
-    sl, st = slice_launches, stats_launches
+    # the write+attend kernels' launches over the decode slice, the stats
+    # phase and the serve phase; K4's over the engine phase
+    sl, st, sv, k4 = slice_launches, stats_launches, serve_launches, k4_launches
+
+    def wa(i, k):
+        return sl[i][k] + st[i][k] + sv[i][k]
+
     table = {"kernels": [
         entry("write_attend", "read", "write_attend.cu", "paged_attention.py:1056",
-              sl[0]["read"] + st[0]["read"], max_err),
+              wa(0, "read"), max_err),
         entry("write_attend read-inject (K2r)", "read-inject", "write_attend.cu",
-              "paged_attention.py:352", sl[0]["read-inject"] + st[0]["read-inject"],
-              max_err_inject),
+              "paged_attention.py:352", wa(0, "read-inject"), max_err_inject),
         entry("decode_attend", "hamming84-interp", "decode_attend.cu", "paged_attention.py:677",
-              sl[1]["hamming84-interp"] + st[1]["hamming84-interp"],
-              max_err_decode["hamming84-interp"]),
+              wa(1, "hamming84-interp"), max_err_decode["hamming84-interp"]),
         entry("decode_attend hamming84 (K2)", "hamming84", "decode_attend.cu",
-              "paged_attention.py:135", sl[1]["hamming84"] + st[1]["hamming84"],
-              max_err_decode["hamming84"]),
+              "paged_attention.py:135", wa(1, "hamming84"), max_err_decode["hamming84"]),
         entry("decode_attend hamming74 (K2)", "hamming74", "decode_attend.cu",
-              "paged_attention.py:143", sl[1]["hamming74"] + st[1]["hamming74"],
-              max_err_decode["hamming74"]),
+              "paged_attention.py:143", wa(1, "hamming74"), max_err_decode["hamming74"]),
         entry("decode_attend golay (K2)", "golay", "decode_attend.cu", "paged_attention.py:154",
-              sl[1]["golay"] + st[1]["golay"], max_err_decode["golay"]),
+              wa(1, "golay"), max_err_decode["golay"]),
+    ] + [
+        entry(f"paged_attention_ecc {k} (K4)", "k4-" + k,
+              "write_attend.cu" if k in ("read", "read-inject") else "decode_attend.cu",
+              "paged_attention.py:828", k4[k],
+              max(max_err_k4[k], max_err_k4["extract"]) if k == "read" else max_err_k4[k])
+        for k in ("read", "read-inject", "hamming84", "hamming84-interp", "hamming74", "golay")
     ]}
     say(f"total {time.perf_counter() - T0:.1f} s")
     say(json.dumps(table))

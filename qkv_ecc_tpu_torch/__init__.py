@@ -1,13 +1,16 @@
-"""PyTorch/CUDA port of qkv_ecc_tpu: ECC-protected INT4 KV-cache decode on an
-NVIDIA H100.
+"""PyTorch/CUDA port of qkv_ecc_tpu: ECC-protected INT4 KV-cache decode and
+serving on an NVIDIA H100.
 
 The layout mirrors the JAX package (``codecs/``, ``kernels/``, ``cache/``,
-``models/``) so each module's counterpart is found by name. Storage formats
-are kept bit for bit: a cache written here compares with ``torch.equal``
-against a JAX cache converted through numpy.
+``models/``, ``serving/``) so each module's counterpart is found by name.
+Storage formats are kept bit for bit: a cache written here compares with
+``torch.equal`` against a JAX cache converted through numpy.
 
-This slice covers the scrubbed decode path of the ``int4-write-inject`` and
-``int12-golay`` modes on the llama architecture. The one kernel on that path
-is the fused write+attend kernel (``kernels/paged_attention.py``,
-``csrc/write_attend.cu``).
+Ported so far: the llama decode runtime in every packed-int mode
+(``models/runtime.py``), the cache engine and block manager (``cache/``)
+and the continuous-batching server (``serving/``). Three kernels carry
+them, written by hand in CUDA C++ (``kernels/paged_attention.py``): the
+fused write+attend read of data words (``csrc/write_attend.cu``), the
+correcting read of the parity codecs (``csrc/decode_attend.cu``), and K4,
+either source's read without a write (``paged_attention_ecc``).
 """

@@ -1,12 +1,15 @@
 """Physical layout of the paged ECC KV cache (counterpart of
-``qkv_ecc_tpu/cache/layout.py``, the packed-int codecs).
+``qkv_ecc_tpu/cache/layout.py``).
 
 The JAX package's format, kept so that caches compare bit for bit:
   * data arrays k_cache/v_cache [layers, blocks, kv_heads, data_words,
-    block_size] int32, tokens on the minor axis;
+    block_size], tokens on the minor axis: int32 words of the packed-int
+    codecs, raw values of the float codecs (fp16: torch.float16, fp8:
+    torch.float8_e4m3fn; the JAX package keeps fp16 as the TPU's bfloat16);
   * parity arrays k_parity/v_parity [layers, blocks, kv_heads, parity_words,
     block_size] int32 (hamming74, hamming84 and golay);
-  * scales k_scales/v_scales [layers, blocks, kv_heads, block_size] float32.
+  * scales k_scales/v_scales [layers, blocks, kv_heads, block_size] float32
+    (allocated for every codec; the float codecs never read them).
 """
 
 from __future__ import annotations
@@ -18,7 +21,24 @@ import torch
 from ..device import resolve_device
 from ..kernels import swar
 
-CODEC_CHOICES = ("int4", "hamming74", "hamming84", "golay")
+CODEC_CHOICES = ("fp16", "fp8", "int4", "hamming74", "hamming84", "golay")
+_FLOAT = ("fp16", "fp8")
+
+
+def cache_dtype_for(codec: str) -> torch.dtype:
+    if codec in ("int4", "hamming74", "hamming84", "golay"):
+        return torch.int32  # bit-packed storage words
+    if codec == "fp16":
+        return torch.float16
+    if codec == "fp8":
+        return torch.float8_e4m3fn
+    raise ValueError(f"Unknown codec: {codec}")
+
+
+def storage_bits_per_value(codec: str) -> float:
+    """Physical bits per protected value in the packed layout."""
+    return {"fp16": 16.0, "fp8": 8.0, "int4": 4.0, "hamming74": 7.0, "hamming84": 8.0,
+            "golay": 8.0}[codec]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,28 +50,40 @@ class ECCCacheConfig:
     num_layers: int = 12
     num_kv_heads: int = 12
     head_dim: int = 64
-    codec: str = "golay"
+    codec: str = "hamming84"
     max_seqs: int = 32
 
     def __post_init__(self):
         if self.codec not in CODEC_CHOICES:
-            swar.unsupported(self.codec)
+            raise ValueError(f"Unsupported codec '{self.codec}'; choose from {CODEC_CHOICES}")
 
     @property
     def row_words(self) -> int:
-        return swar.row_words(self.codec, self.head_dim)
+        """Storage elements per (token, head) row: packed int32 words, or
+        raw values of the float codecs."""
+        return self.head_dim if self.codec in _FLOAT else swar.row_words(self.codec, self.head_dim)
 
     @property
     def data_words(self) -> int:
-        return swar.data_words(self.codec, self.head_dim)
+        return self.head_dim if self.codec in _FLOAT else swar.data_words(self.codec, self.head_dim)
 
     @property
     def parity_words(self) -> int:
-        return swar.parity_words(self.codec, self.head_dim)
+        return 0 if self.codec in _FLOAT else swar.parity_words(self.codec, self.head_dim)
 
     @property
     def padded_head_dim(self) -> int:
+        if self.codec in _FLOAT:
+            return self.head_dim
         return swar.padded_values(self.codec, self.head_dim)
+
+    @property
+    def cache_dtype(self) -> torch.dtype:
+        return cache_dtype_for(self.codec)
+
+    @property
+    def needs_scales(self) -> bool:
+        return self.codec not in _FLOAT
 
     def cache_shape(self):
         return (self.num_layers, self.num_blocks, self.num_kv_heads,
@@ -79,8 +111,8 @@ def allocate_ecc_kv_cache(config: ECCCacheConfig, device=None) -> dict:
         return torch.zeros(shape, dtype=dtype, device=device)
 
     out = {
-        "k_cache": zeros(config.cache_shape(), torch.int32),
-        "v_cache": zeros(config.cache_shape(), torch.int32),
+        "k_cache": zeros(config.cache_shape(), config.cache_dtype),
+        "v_cache": zeros(config.cache_shape(), config.cache_dtype),
         "k_scales": zeros(config.scales_shape(), torch.float32),
         "v_scales": zeros(config.scales_shape(), torch.float32),
     }
@@ -89,3 +121,16 @@ def allocate_ecc_kv_cache(config: ECCCacheConfig, device=None) -> dict:
         out["k_parity"] = zeros(pshape, torch.int32)
         out["v_parity"] = zeros(pshape, torch.int32)
     return out
+
+
+def create_block_table(max_seqs: int, max_blocks_per_seq: int, device=None) -> torch.Tensor:
+    """Logical -> physical block table, -1 for unallocated, on ``device``
+    (None: the card)."""
+    return torch.full((max_seqs, max_blocks_per_seq), -1, dtype=torch.int32,
+                      device=resolve_device(device))
+
+
+def compute_slot_mapping(positions, block_size: int):
+    """Token position -> (logical block, slot)."""
+    positions = torch.as_tensor(positions)
+    return positions // block_size, positions % block_size

@@ -8,16 +8,21 @@
 // fused_write=True, scrub=False: _decode_kt_tile's hamming84, hamming74 and
 // golay branches (kernel K2), hamming84 with use_interpolation (the SECDED
 // decode to nibbles and a doubles mask, interp_pages and the edge_scr
-// chunk-seam column; kernel K3), and collect_stats (_count_errors).
+// chunk-seam column; kernel K3), and collect_stats (_count_errors); and the
+// same reads without a write, paged_attention_ecc with fused_write=False
+// (kernel K4, has_new = 0), optionally returning the softmax state.
 //
 // What it computes, per sequence b and KV head h:
-//   1. writes the new token's full row - data words k_new[b, h, :WD] into
-//      the data cache, parity words k_new[b, h, WD:] into the parity cache
-//      (v_new likewise) - and its scales into slot ctx-1 of its page, in
-//      place; a page entry of -1 is clamped to physical page 0 and written
-//      there, as on the TPU; a token at or beyond page num_pages is not
-//      written;
-//   2. decodes every attended token's row into int4-packed data words, so
+//   1. with has_new, writes the new token's full row - data words k_new[b,
+//      h, :WD] into the data cache, parity words k_new[b, h, WD:] into the
+//      parity cache (v_new likewise) - and its scales into slot ctx-1 of its
+//      page, in place; a page entry of -1 is clamped to physical page 0 and
+//      written there, as on the TPU; a token at or beyond page num_pages is
+//      not written, and is then read from the cache like the others;
+//   2. visits the pages the TPU kernel visits - num_pages rounded up to
+//      whole chunks of chunk_tokens / bs pages, page pg read at table entry
+//      min(pg, num_pages - 1) as the TPU's chunk copy clamps it - and
+//      decodes every attended token's row into int4-packed data words, so
 //      that paged_attend.cuh's attention reads them unchanged (decode_row):
 //      - hamming84: the byte-slot codewords of the values [0, D/2) and
 //        [D/2, D) are rebuilt from the data and parity words
@@ -42,7 +47,8 @@
 //      starts a chunk of chunk_tokens tokens (the TPU kernel had not decoded
 //      the next chunk yet); every other neighbour is the true one, across
 //      pages and across chunk seams on the left;
-//   4. attends as write_attend.cu does (paged_attend.cuh);
+//   4. attends as write_attend.cu does (paged_attend.cuh): output acc / l,
+//      or (m_out not null) acc in fp32 with m and l per query head;
 //   5. with stats, adds into row b of the [B, 2] stats what _count_errors
 //      counts over every valid token (t < ctx, the new one included, also
 //      before a sliding window): hamming84 singles and doubles; hamming74
@@ -73,7 +79,10 @@
 // 4*WD threads; a barrier, then phase A interpolates each token from its
 // neighbours' words. Without INTERP a thread's own decoded words go straight
 // into its scores. The new token is decoded from the row passed in, never
-// read back from the cache, also where it is a neighbour. Counts stay in
+// read back from the cache, also where it is a neighbour; a read without a
+// new row (K4) decodes every token from the cache, so the seams come out as
+// in K3 without the overlay. Writing and the softmax state are runtime
+// flags outside the unrolled decode. Counts stay in
 // registers and reach the stats by one integer atomicAdd per warp (exact in
 // any order). At the bench shapes: 64 blocks on 132 SMs; 43.8 KB of shared
 // memory with INTERP, 10.8 KB otherwise.
@@ -369,8 +378,10 @@ __global__ void __launch_bounds__(kThreads) decode_attend_kernel(
     const int32_t* __restrict__ context_lens,  // [B]
     void* out,                                 // [B, Hq, HD] fp32 or bf16
     int* stats,                                // [B, 2] int32, or null
+    float* m_out,                              // [B, Hq] softmax state, or null
+    float* l_out,
     int Hkv, int bs, int NB, int P, int num_pages, int layer, float sm_scale, int window,
-    int out_bf16, int exact, int chunk_tokens) {
+    int out_bf16, int exact, int chunk_tokens, int has_new) {
   constexpr int D = 8 * WD;  // values per row (head_dim HD plus padding)
   constexpr int RW = WD + PW;
   const int h = blockIdx.x;
@@ -391,19 +402,27 @@ __global__ void __launch_bounds__(kThreads) decode_attend_kernel(
 
   const int Hq = Hkv * GROUP;
   const int ctx = context_lens[b];
-  const int tok_new = ctx - 1;
+  // the new token is written, and decoded from the row passed in, when its
+  // page is one of the first num_pages; else (or in a read without a new
+  // row) every token is read from the cache
+  const bool writes = has_new && ctx > 0 && (ctx - 1) / bs < num_pages;
+  const int tok_new = writes ? ctx - 1 : -1;
   const size_t head_page = (size_t)layer * NB * Hkv;  // page index base of this layer
   const size_t row0 = (size_t)b * Hq + (size_t)h * GROUP;
+  // the pages of whole chunks, each past num_pages read as page num_pages - 1
+  const int ppc = chunk_tokens / bs;
+  const int loop_pages = (num_pages + ppc - 1) / ppc * ppc;
 
   stage_queries<WD, GROUP, HD>((const char*)q + row0 * HD * (exact ? 4 : 2), exact, q_s, st);
 
-  const int32_t* kn = k_new + ((size_t)b * Hkv + h) * RW;
-  const int32_t* vn = v_new + ((size_t)b * Hkv + h) * RW;
-  const float ksn = ks_new[(size_t)b * Hkv + h];
-  const float vsn = vs_new[(size_t)b * Hkv + h];
+  const size_t new_row = (size_t)b * Hkv + h;
+  const int32_t* kn = writes ? k_new + new_row * RW : nullptr;
+  const int32_t* vn = writes ? v_new + new_row * RW : nullptr;
+  const float ksn = writes ? ks_new[new_row] : 0.f;
+  const float vsn = writes ? vs_new[new_row] : 0.f;
 
   // 1. the in-place write of the new token's data and parity columns and scales
-  if (ctx > 0 && tok_new / bs < num_pages) {
+  if (writes) {
     const int phys = max(block_table[(size_t)b * P + tok_new / bs], 0);
     const size_t page = head_page + (size_t)phys * Hkv + h;
     const int slot = tok_new % bs;
@@ -427,8 +446,8 @@ __global__ void __launch_bounds__(kThreads) decode_attend_kernel(
       vr = Row{vn, vn + WD, 1};
       return;
     }
-    const size_t page =
-        head_page + (size_t)max(block_table[(size_t)b * P + tok / bs], 0) * Hkv + h;
+    const int pidx = min(tok / bs, num_pages - 1);
+    const size_t page = head_page + (size_t)max(block_table[(size_t)b * P + pidx], 0) * Hkv + h;
     const int slot = tok % bs;
     kr = Row{k_cache + page * WD * bs + slot, k_parity + page * PW * bs + slot, bs};
     vr = Row{v_cache + page * WD * bs + slot, v_parity + page * PW * bs + slot, bs};
@@ -440,14 +459,15 @@ __global__ void __launch_bounds__(kThreads) decode_attend_kernel(
   Counts cnt;  // this thread's valid tokens
 
   const int first_tok = window > 0 ? max(0, ctx - window) : 0;
-  const int npages = min((ctx + bs - 1) / bs, num_pages);
+  const int npages = min((ctx + bs - 1) / bs, loop_pages);
   // pages before the window are decoded for the counts only, never attended
   const int count_from = stats ? 0 : first_tok / bs;
   __syncthreads();
 
   for (int pg = count_from; pg < npages; ++pg) {
     const int page_tok = pg * bs;
-    const size_t page = head_page + (size_t)max(block_table[(size_t)b * P + pg], 0) * Hkv + h;
+    const int pidx = min(pg, num_pages - 1);
+    const size_t page = head_page + (size_t)max(block_table[(size_t)b * P + pidx], 0) * Hkv + h;
     const float* ksp = k_scales + page * bs;
     const float* vsp = v_scales + page * bs;
 
@@ -486,7 +506,7 @@ __global__ void __launch_bounds__(kThreads) decode_attend_kernel(
       }
       const int next_tok = page_tok + bs;
       const bool need_left = pg > 0;
-      const bool need_right = next_tok < ctx && pg + 1 < num_pages && next_tok % chunk_tokens != 0;
+      const bool need_right = next_tok < ctx && pg + 1 < loop_pages && next_tok % chunk_tokens != 0;
       if (tid < 4 * WD) {
         const bool right = tid >= 2 * WD;
         const bool is_v = (tid / WD) % 2 == 1;
@@ -553,7 +573,7 @@ __global__ void __launch_bounds__(kThreads) decode_attend_kernel(
                            exact != 0);
   }
 
-  store_output<GROUP, HD>(acc, st, out, row0, out_bf16);
+  store_output<GROUP, HD>(acc, st, out, row0, out_bf16, m_out, l_out);
   if (stats) flush_stats(stats, b, cnt.corrected, cnt.detected);
 }
 
@@ -562,22 +582,23 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    const void* ks_new, const void* vs_new, void* k_cache,
                    void* v_cache, void* k_parity, void* v_parity, void* k_scales,
                    void* v_scales, const void* block_table, const void* context_lens,
-                   void* out, void* stats, int B, int Hkv, int bs, int NB, int P, int num_pages,
-                   int layer, int window, float sm_scale, int out_bf16, int exact,
-                   int chunk_tokens, cudaStream_t stream) {
+                   void* out, void* stats, void* m_out, void* l_out, int B, int Hkv, int bs,
+                   int NB, int P, int num_pages, int layer, int window, float sm_scale,
+                   int out_bf16, int exact, int chunk_tokens, int has_new, cudaStream_t stream) {
   constexpr int D = 8 * WD;
   size_t smem = (size_t)(GROUP * D + GROUP * bs + bs) * sizeof(float) +
                 (size_t)WD * (bs + 1) * sizeof(int32_t);
   if (INTERP) smem += (size_t)WD * (2 * (bs + 2) + 2 * bs) * sizeof(int32_t);
-  if (smem > 48 * 1024 || chunk_tokens <= 0 || num_pages < 1 || num_pages > P)
+  if (smem > 48 * 1024 || chunk_tokens <= 0 || chunk_tokens % bs != 0 || num_pages < 1 ||
+      num_pages > P)
     return cudaErrorInvalidValue;
   dim3 grid(Hkv, B);
   decode_attend_kernel<CODEC, WD, PW, GROUP, HD, INTERP><<<grid, kThreads, smem, stream>>>(
       q, (const int32_t*)k_new, (const int32_t*)v_new, (const float*)ks_new,
       (const float*)vs_new, (int32_t*)k_cache, (int32_t*)v_cache, (int32_t*)k_parity,
       (int32_t*)v_parity, (float*)k_scales, (float*)v_scales, (const int32_t*)block_table,
-      (const int32_t*)context_lens, out, (int*)stats, Hkv, bs, NB, P, num_pages, layer,
-      sm_scale, window, out_bf16, exact, chunk_tokens);
+      (const int32_t*)context_lens, out, (int*)stats, (float*)m_out, (float*)l_out, Hkv, bs,
+      NB, P, num_pages, layer, sm_scale, window, out_bf16, exact, chunk_tokens, has_new);
   return cudaGetLastError();
 }
 
@@ -593,21 +614,24 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
 // shape returns cudaErrorInvalidValue. All tensors contiguous; q bf16
 // (exact = 0) or fp32 (exact = 1); out fp32 (out_bf16 = 0) or bf16
 // (out_bf16 = 1); window <= 0 means no window; P is the block table's row
-// stride and num_pages <= P the pages attended; chunk_tokens =
-// pages_per_chunk * bs sets the interpolation's seams; stats (null when
-// collect_stats is 0) must be zeroed by the caller.
+// stride and num_pages <= P the pages of the table; chunk_tokens =
+// pages_per_chunk * bs sets the interpolation's seams and the pages
+// visited; stats (null when collect_stats is 0) must be zeroed by the
+// caller; has_new = 0 reads without a new row (k_new, v_new, ks_new,
+// vs_new may be null); m_out and l_out (both null, or both [B, Hq] fp32
+// with out fp32) take the softmax state.
 extern "C" int decode_attend_launch(
     const void* q, const void* k_new, const void* v_new, const void* ks_new,
     const void* vs_new, void* k_cache, void* v_cache, void* k_parity, void* v_parity,
     void* k_scales, void* v_scales, const void* block_table, const void* context_lens,
-    void* out, void* stats, int B, int Hkv, int group, int codec, int wd, int pw,
-    int head_dim, int bs, int NB, int P, int num_pages, int layer, int window,
+    void* out, void* stats, void* m_out, void* l_out, int B, int Hkv, int group, int codec,
+    int wd, int pw, int head_dim, int bs, int NB, int P, int num_pages, int layer, int window,
     float sm_scale, int out_bf16, int exact, int chunk_tokens, int interpolate,
-    int collect_stats, void* stream) {
+    int collect_stats, int has_new, void* stream) {
 #define DA_ARGS q, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_parity, v_parity,     \
     k_scales, v_scales, block_table, context_lens, out, collect_stats ? stats : nullptr, \
-    B, Hkv, bs, NB, P, num_pages, layer, window, sm_scale, out_bf16, exact, chunk_tokens, \
-    (cudaStream_t)stream
+    m_out, l_out, B, Hkv, bs, NB, P, num_pages, layer, window, sm_scale, out_bf16, exact, \
+    chunk_tokens, has_new, (cudaStream_t)stream
   cudaError_t err = cudaErrorInvalidValue;
   if (group != 2) return (int)err;
   if (codec == kH84 && wd == 2 && pw == 2 && head_dim == 16) {

@@ -167,17 +167,25 @@ __device__ __forceinline__ void stage_queries(const void* q, bool q_f32, float* 
   }
 }
 
-// out[g][d] = acc / l for the head-dim value d = tid < HD.
+// out[g][d] = acc / l for the head-dim value d = tid < HD. With m_out (the
+// softmax state of a read, kernel K4), out holds acc itself in fp32 and
+// m_out / l_out [B * Hq] the running maximum and the sum of weights: an
+// empty row gives 0, -1e30 and 0.
 template <int GROUP, int HD>
 __device__ __forceinline__ void store_output(const float (&acc)[GROUP],
                                              const SoftmaxState<GROUP>& st, void* out,
-                                             size_t row0, int out_bf16) {
+                                             size_t row0, int out_bf16, float* m_out,
+                                             float* l_out) {
   const int tid = threadIdx.x;
+  if (m_out && tid < GROUP) {
+    m_out[row0 + tid] = st.m[tid];
+    l_out[row0 + tid] = st.l[tid];
+  }
   if (tid >= HD) return;
 #pragma unroll
   for (int g = 0; g < GROUP; ++g) {
     const float l = st.l[g];
-    const float o = l > 0.f ? acc[g] / l : 0.f;
+    const float o = m_out ? acc[g] : l > 0.f ? acc[g] / l : 0.f;
     const size_t idx = (row0 + g) * HD + tid;
     if (out_bf16)
       ((__nv_bfloat16*)out)[idx] = __float2bfloat16(o);

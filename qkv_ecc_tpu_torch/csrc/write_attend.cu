@@ -1,9 +1,12 @@
 // Fused decode-step cache write + paged attention over int4-packed nibbles,
-// for Hopper (sm_90a).
+// and the same read without a write, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel qkv_ecc_tpu/kernels/paged_attention.py
 // paged_attention_ecc_write_attend -> _paged_attn_kernel with
-// fused_write=True in its two reads of int4-packed data words alone:
+// fused_write=True (has_new = 1), and paged_attention_ecc (kernel K4: the
+// same body with fused_write=False, has_new = 0, optionally returning the
+// unnormalised softmax state), in its two reads of int4-packed data words
+// alone:
 //   * scrub=True, the scrub-extract branch (_extract_kt_tile, kernel K1):
 //     every scrubbed codec - int4, and golay / hamming whose rows keep their
 //     data nibbles int4-packed in the data arrays. Parity is never read
@@ -14,15 +17,19 @@
 //     read bits (slot 0 of the [B, 2] stats).
 //
 // What it computes, per sequence b and KV head h:
-//   1. writes the new token's packed data column k_new[b, h, :] (v_new) and
-//      its scales into slot ctx-1 of its page, in place; a page entry of -1
-//      is clamped to physical page 0 and written there, as on the TPU; a
-//      token at or beyond page num_pages is not written;
+//   1. with has_new, writes the new token's packed data column k_new[b, h,
+//      :] (v_new) and its scales into slot ctx-1 of its page, in place; a
+//      page entry of -1 is clamped to physical page 0 and written there, as
+//      on the TPU; a token at or beyond page num_pages is not written, and
+//      is then read from the cache like the others;
 //   2. attends the group = Hq / Hkv query heads of h over tokens [0, ctx)
-//      (or the last `window` of them) of the first num_pages pages: K
-//      nibbles minus the zero point 8, scores scaled by the per-token K scale
-//      and sm_scale, online softmax over pages, V scale folded into the
-//      softmax weights, V nibbles minus 8, output acc / l;
+//      (or the last `window` of them: the query sits at ctx - 1) of the
+//      pages the TPU kernel visits - num_chunks * ppc pages, page pg read
+//      at table entry min(pg, num_pages - 1) as the TPU's chunk copy clamps
+//      it: K nibbles minus the zero point 8, scores scaled by the per-token
+//      K scale and sm_scale, online softmax over pages, V scale folded into
+//      the softmax weights, V nibbles minus 8, output acc / l, or (m_out
+//      not null) acc in fp32 with m and l per query head;
 //   3. with read_inject, every raw K and V word read - the new column too,
 //      which the TPU kernel overlays before it reads - is XORed with the
 //      murmur-hash Bernoulli mask of its position: bit `bit` of word j of
@@ -30,7 +37,8 @@
 //      K/V t) flips when
 //        fmix32(((base + j * bs + s) * 32 + bit) * 0x9E3779B9 + seed) < thr
 //      with base = uid * WD * bs and uid = ((((layer * B + b) * num_chunks +
-//      c) * ppc + i) * Hkv + h) * 2 + t, all mod 2^32 (the TPU's int32
+//      c) * ppc + i) * Hkv + h) * 2 + t, all mod 2^32 (B is the call's
+//      batch, a page past num_pages keeps its own chunk and index) (the TPU's int32
 //      arithmetic, done here in uint32: signed overflow is undefined in C++).
 //      The cache keeps its clean words. With stats, slot 0 of row b adds the
 //      flipped bits of every valid token (t < ctx: the whole context, also
@@ -67,8 +75,9 @@
 // (in registers), not read back from the cache, so the in-place write needs
 // no fence. Each block writes only its own head's column and scale, so
 // blocks never race, except rows whose page is -1: several such rows write
-// page 0 in no fixed order, as the TPU leaves undefined. The kernel
-// allocates nothing; the wrapper zeroes the stats.
+// page 0 in no fixed order, as the TPU leaves undefined. Writing and the
+// softmax state are runtime flags outside the unrolled token loop. The
+// kernel allocates nothing; the wrapper zeroes the stats.
 
 #include "paged_attend.cuh"
 
@@ -128,8 +137,11 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
     void* out,                                 // [B, Hq, HD] fp32 or bf16
     int* stats,                                // [B, 2] int32, or null
     const int32_t* __restrict__ seed_ptr,      // the read seed on the device, or null
+    float* m_out,                              // [B, Hq] softmax state, or null
+    float* l_out,
     int Hkv, int bs, int NB, int P, int num_pages, int layer, float sm_scale, int window,
-    int out_bf16, int exact, uint32_t thr, uint32_t seed_val, int num_chunks, int ppc) {
+    int out_bf16, int exact, uint32_t thr, uint32_t seed_val, int num_chunks, int ppc,
+    int has_new) {
   constexpr int DP = 8 * WD;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -144,16 +156,21 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
 
   const int Hq = Hkv * GROUP;
   const int ctx = context_lens[b];
-  const int tok_new = ctx - 1;
+  // the new token is written, and attended from the column passed in, when
+  // its page is one of the first num_pages; else (or in a read without a
+  // new column) every token is read from the cache
+  const bool writes = has_new && ctx > 0 && (ctx - 1) / bs < num_pages;
+  const int tok_new = writes ? ctx - 1 : -1;
   const size_t head_page = (size_t)layer * NB * Hkv;  // page index base of this layer
   const size_t row0 = (size_t)b * Hq + (size_t)h * GROUP;
 
   stage_queries<WD, GROUP, HD>((const char*)q + row0 * HD * (exact ? 4 : 2), exact, q_s, st);
 
-  const int32_t* kn = k_new + ((size_t)b * Hkv + h) * WD;
-  const int32_t* vn = v_new + ((size_t)b * Hkv + h) * WD;
-  const float ksn = ks_new[(size_t)b * Hkv + h];
-  const float vsn = vs_new[(size_t)b * Hkv + h];
+  const size_t new_row = (size_t)b * Hkv + h;
+  const int32_t* kn = writes ? k_new + new_row * WD : nullptr;
+  const int32_t* vn = writes ? v_new + new_row * WD : nullptr;
+  const float ksn = writes ? ks_new[new_row] : 0.f;
+  const float vsn = writes ? vs_new[new_row] : 0.f;
 
   ReadInject ri;
   ri.thr = thr;
@@ -167,7 +184,7 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
   int flipped = 0;  // read bits flipped over this thread's valid tokens
 
   // 1. the in-place write of the new token's column and scales
-  if (ctx > 0 && tok_new / bs < num_pages) {
+  if (writes) {
     const int phys = max(block_table[(size_t)b * P + tok_new / bs], 0);
     const size_t page = head_page + (size_t)phys * Hkv + h;
     const int slot = tok_new % bs;
@@ -186,13 +203,15 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
   for (int g = 0; g < GROUP; ++g) acc[g] = 0.f;
 
   const int first_tok = window > 0 ? max(0, ctx - window) : 0;
-  const int npages = min((ctx + bs - 1) / bs, num_pages);
+  // the pages of whole chunks, each past num_pages read as page num_pages - 1
+  const int npages = min((ctx + bs - 1) / bs, num_chunks * ppc);
   // the flips of pages before the window are counted, never attended
   const int count_from = stats && INJECT ? 0 : first_tok / bs;
   __syncthreads();
 
   for (int pg = count_from; pg < npages; ++pg) {
-    const size_t page = head_page + (size_t)max(block_table[(size_t)b * P + pg], 0) * Hkv + h;
+    const int pidx = min(pg, num_pages - 1);
+    const size_t page = head_page + (size_t)max(block_table[(size_t)b * P + pidx], 0) * Hkv + h;
     const int32_t* kp = k_cache + page * WD * bs;
     const int32_t* vp = v_cache + page * WD * bs;
     const float* ksp = k_scales + page * bs;
@@ -252,7 +271,7 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
                            exact != 0);
   }
 
-  store_output<GROUP, HD>(acc, st, out, row0, out_bf16);
+  store_output<GROUP, HD>(acc, st, out, row0, out_bf16, m_out, l_out);
   if (stats) flush_stats(stats, b, flipped, 0);
 }
 
@@ -261,22 +280,24 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    const void* ks_new, const void* vs_new, void* k_cache,
                    void* v_cache, void* k_scales, void* v_scales,
                    const void* block_table, const void* context_lens, void* out, void* stats,
-                   const void* seed_ptr, int B, int Hkv, int bs, int NB, int P, int num_pages,
-                   int layer, float sm_scale, int window, int out_bf16, int exact,
-                   uint32_t thr, uint32_t seed_val, int num_chunks, int ppc,
-                   cudaStream_t stream) {
+                   const void* seed_ptr, void* m_out, void* l_out, int B, int Hkv, int bs,
+                   int NB, int P, int num_pages, int layer, float sm_scale, int window,
+                   int out_bf16, int exact, uint32_t thr, uint32_t seed_val, int num_chunks,
+                   int ppc, int has_new, cudaStream_t stream) {
   constexpr int DP = 8 * WD;
   const size_t smem = (size_t)(GROUP * DP + GROUP * bs + bs) * sizeof(float) +
                       (size_t)WD * (bs + 1) * sizeof(int32_t);
-  if (smem > 48 * 1024 || num_pages < 1 || num_pages > P || ppc < 1 || num_chunks < 1)
+  if (smem > 48 * 1024 || num_pages < 1 || num_pages > P || ppc < 1 || num_chunks < 1 ||
+      (long)num_chunks * ppc < num_pages)
     return cudaErrorInvalidValue;
   dim3 grid(Hkv, B);
   write_attend_kernel<WD, GROUP, HD, INJECT><<<grid, kThreads, smem, stream>>>(
       q, (const int32_t*)k_new, (const int32_t*)v_new, (const float*)ks_new,
       (const float*)vs_new, (int32_t*)k_cache, (int32_t*)v_cache, (float*)k_scales,
       (float*)v_scales, (const int32_t*)block_table, (const int32_t*)context_lens, out,
-      (int*)stats, (const int32_t*)seed_ptr, Hkv, bs, NB, P, num_pages, layer, sm_scale,
-      window, out_bf16, exact, thr, seed_val, num_chunks, ppc);
+      (int*)stats, (const int32_t*)seed_ptr, (float*)m_out, (float*)l_out, Hkv, bs, NB, P,
+      num_pages, layer, sm_scale, window, out_bf16, exact, thr, seed_val, num_chunks, ppc,
+      has_new);
   return cudaGetLastError();
 }
 
@@ -291,21 +312,25 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
 // any other triple returns cudaErrorInvalidValue. All tensors contiguous;
 // q bf16 (exact = 0) or fp32 (exact = 1); out fp32 (out_bf16 = 0) or bf16
 // (out_bf16 = 1); window <= 0 means no window; P is the block table's row
-// stride and num_pages <= P the pages attended; stats (null: not counted)
-// must be zeroed by the caller; the read seed is *seed_ptr when seed_ptr is
-// not null, else seed_val; thr and seed_val carry uint32 bits in an int.
+// stride, num_pages <= P the pages of the table and num_chunks * ppc >=
+// num_pages the pages visited; stats (null: not counted) must be zeroed by
+// the caller; the read seed is *seed_ptr when seed_ptr is not null, else
+// seed_val; thr and seed_val carry uint32 bits in an int; has_new = 0 reads
+// without a new column (k_new, v_new, ks_new, vs_new may be null); m_out
+// and l_out (both null, or both [B, Hq] fp32 with out fp32) take the
+// softmax state.
 extern "C" int write_attend_launch(
     const void* q, const void* k_new, const void* v_new, const void* ks_new,
     const void* vs_new, void* k_cache, void* v_cache, void* k_scales,
     void* v_scales, const void* block_table, const void* context_lens,
-    void* out, void* stats, const void* seed_ptr, int B, int Hkv, int group, int wd,
-    int head_dim, int bs, int NB, int P, int num_pages, int layer, float sm_scale,
-    int window, int out_bf16, int exact, int read_inject, int thr, int seed_val,
-    int num_chunks, int ppc, void* stream) {
-#define WA_ARGS q, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales, v_scales,    \
-    block_table, context_lens, out, stats, seed_ptr, B, Hkv, bs, NB, P, num_pages, layer, \
-    sm_scale, window, out_bf16, exact, (uint32_t)thr, (uint32_t)seed_val, num_chunks, ppc, \
-    (cudaStream_t)stream
+    void* out, void* stats, const void* seed_ptr, void* m_out, void* l_out, int B, int Hkv,
+    int group, int wd, int head_dim, int bs, int NB, int P, int num_pages, int layer,
+    float sm_scale, int window, int out_bf16, int exact, int read_inject, int thr,
+    int seed_val, int num_chunks, int ppc, int has_new, void* stream) {
+#define WA_ARGS q, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales, v_scales,      \
+    block_table, context_lens, out, stats, seed_ptr, m_out, l_out, B, Hkv, bs, NB, P,      \
+    num_pages, layer, sm_scale, window, out_bf16, exact, (uint32_t)thr, (uint32_t)seed_val, \
+    num_chunks, ppc, has_new, (cudaStream_t)stream
 #define WA_LAUNCH(W, G, H) \
   err = read_inject ? launch<W, G, H, true>(WA_ARGS) : launch<W, G, H, false>(WA_ARGS)
   cudaError_t err = cudaErrorInvalidValue;

@@ -1,24 +1,38 @@
-"""Fused decode-step cache write + paged attention (counterpart of
-``qkv_ecc_tpu/kernels/paged_attention.py``: ``paged_attention_ecc_write_attend``
-for the packed-int codecs, ``gather_pages``, ``gather_scales`` and
-``paged_attention_ecc_reference``).
+"""Paged attention over the packed ECC cache (counterpart of
+``qkv_ecc_tpu/kernels/paged_attention.py``, the packed-int codecs): the
+fused decode-step write+attend ``paged_attention_ecc_write_attend``, the
+read-only ``paged_attention_ecc``, ``gather_pages``, ``gather_scales`` and
+``paged_attention_ecc_reference``.
 
-Two hand-written CUDA kernels serve ``paged_attention_ecc_write_attend``:
+Two hand-written CUDA kernels serve both wrappers; each reads the context
+with or without writing a new column first (a runtime flag), and the read
+can return the unnormalised softmax state:
 
-  * ``csrc/write_attend.cu`` (K1, K2r): reads int4-packed data words only -
-    the scrub-extract read of every packed codec, and int4's general read
-    (``scrub=False``), with the read-time injection of mode ``int4`` and its
-    flipped-bit count; launches counted in
-    ``paged_attention_ecc_write_attend.launches``;
-  * ``csrc/decode_attend.cu`` (K2, K3): the correcting read of the parity
-    codecs - hamming84 (optionally interpolating double errors), hamming74
-    and golay - with the per-read ECC statistics; launches counted in
-    ``write_decode_attend.launches``.
+  * ``csrc/write_attend.cu`` (K1, K2r and K4's reads of data words): reads
+    int4-packed data words only - the scrub-extract read of every packed
+    codec, and int4's general read (``scrub=False``), with the read-time
+    injection of mode ``int4`` and its flipped-bit count;
+  * ``csrc/decode_attend.cu`` (K2, K3 and K4's correcting reads): the
+    correcting read of the parity codecs - hamming84 (optionally
+    interpolating double errors), hamming74 and golay - with the per-read
+    ECC statistics.
 
-For tensors on the card the wrapper launches the kernel or raises; for
-tensors on the CPU it runs the kernel's plain PyTorch version
-(``write_attend_plain``, ``write_decode_attend_plain``). The caches are
+Launches are counted on the wrapper that made them:
+``paged_attention_ecc_write_attend.launches`` (write_attend.cu),
+``write_decode_attend.launches`` (decode_attend.cu) and
+``paged_attention_ecc.launches`` (either source, for K4), each with
+``launches_by`` per branch.
+
+For tensors on the card a wrapper launches the kernel or raises; for tensors
+on the CPU it runs the kernel's plain PyTorch version (``write_attend_plain``,
+``write_decode_attend_plain``, ``attend_plain``). The write+attend caches are
 updated in place (the JAX version returns updated copies).
+
+Like the TPU kernel, every read visits ``num_pages`` rounded up to whole
+chunks of ``pages_per_chunk`` pages and reads a page past ``num_pages`` as
+page ``num_pages - 1`` (the TPU's chunk copy clamps the page index): when
+``num_pages`` is not a multiple of the chunk, tokens after page
+``num_pages`` up to the context length attend that page's slots again.
 """
 
 from __future__ import annotations
@@ -50,12 +64,33 @@ DECODE_KERNEL_SHAPES = (
 _CODEC_IDS = {"hamming84": 0, "hamming74": 1, "golay": 2}
 
 
-def gather_pages(cache, block_table, layer_idx, num_pages, parity=None):
-    """[batch, num_pages*block_size, kv_heads, words] token-major rows from
-    the token-minor paged cache (invalid pages clamp to block 0). With
-    ``parity`` the parity words are appended on the word axis."""
+def visited_pages(num_pages: int, pages_per_chunk: int) -> int:
+    """The pages a kernel's loop visits: ``num_pages`` rounded up to whole
+    chunks."""
+    return C.cdiv(num_pages, pages_per_chunk) * pages_per_chunk
+
+
+def _page_table(block_table, num_pages, pages_per_chunk):
+    """[batch, pages] physical pages (-1 clamped to 0): the first
+    ``num_pages`` entries, or with ``pages_per_chunk`` the pages a kernel
+    visits, each index clamped to ``num_pages - 1``."""
+    if pages_per_chunk is None:
+        table = block_table[:, :num_pages]
+    else:
+        idx = torch.arange(visited_pages(num_pages, pages_per_chunk),
+                           device=block_table.device).clamp(max=num_pages - 1)
+        table = block_table[:, idx]
+    return table.clamp(min=0).long()
+
+
+def gather_pages(cache, block_table, layer_idx, num_pages, parity=None, pages_per_chunk=None):
+    """[batch, pages*block_size, kv_heads, words] token-major rows from the
+    token-minor paged cache (invalid pages clamp to block 0); the pages are
+    those of ``_page_table``. With ``parity`` the parity words are appended
+    on the word axis."""
+    table = _page_table(block_table, num_pages, pages_per_chunk)
+
     def one(arr):
-        table = block_table[:, :num_pages].clamp(min=0).long()
         g = arr[layer_idx][table]  # [batch, pages, heads, w, bs]
         b, p, h, w, bs = g.shape
         return g.permute(0, 1, 4, 2, 3).reshape(b, p * bs, h, w)
@@ -66,11 +101,11 @@ def gather_pages(cache, block_table, layer_idx, num_pages, parity=None):
     return rows
 
 
-def gather_scales(scales, block_table, layer_idx, num_pages):
-    """[batch, tokens, kv_heads] scales from [layers, blocks, heads, bs]."""
-    table = block_table[:, :num_pages].clamp(min=0).long()
-    g = scales[layer_idx][table]  # [batch, pages, heads, bs]
-    b, p, h, bs = g.shape
+def gather_scales(scales, block_table, layer_idx, num_pages, pages_per_chunk=None):
+    """[batch, tokens, kv_heads] scales from [layers, blocks, heads, bs],
+    over the pages of ``_page_table``."""
+    g = scales[layer_idx][_page_table(block_table, num_pages, pages_per_chunk)]
+    b, p, h, bs = g.shape  # [batch, pages, heads, bs]
     return g.permute(0, 1, 3, 2).reshape(b, p * bs, h)
 
 
@@ -131,7 +166,9 @@ def _online_attend(query, kn, vn, ks, vs, context_lens, bs, *, sm_scale,
     [B, Hkv, tokens, D] nibbles minus 8 (float32), ks / vs [B, Hkv, tokens]
     scales. A masked softmax taken online page by page with the kernels'
     precision: "fast" (``exact`` False) rounds q and p * v_scale to bf16,
-    "highest" keeps both in float32; sums in float32."""
+    "highest" keeps both in float32; sums in float32. Returns the
+    unnormalised state: acc [B, Hq, D], the running maximum m and the sum of
+    weights l [B, Hq], float32 (an empty row: 0, -1e30, 0)."""
     batch, num_q_heads, head_dim = query.shape
     num_kv_heads, tokens = kn.shape[1], kn.shape[2]
     group = num_q_heads // num_kv_heads
@@ -153,42 +190,51 @@ def _online_attend(query, kn, vn, ks, vs, context_lens, bs, *, sm_scale,
         s = torch.where(live[..., t], s, torch.full_like(s, _NEG_INF))
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new)
+        # a row with no live token yet keeps l at 0 (exp(s - m_new) would
+        # be 1 there); once one is live, the others' weights are 0 anyway
+        p = torch.where(live[..., t], torch.exp(s - m_new), torch.zeros_like(s))
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        pv = torch.where(live[..., t], p * vs[:, :, None, t], torch.zeros_like(p))
+        pv = p * vs[:, :, None, t]
         if not exact:
             pv = pv.to(torch.bfloat16).to(torch.float32)
         acc = acc * alpha + torch.einsum("bhgt,bhtd->bhgd", pv, vn[:, :, t])
         m = m_new
-    out = torch.where(l > 0, acc / torch.where(l > 0, l, torch.ones_like(l)),
-                      torch.zeros_like(acc))
-    return out.reshape(batch, num_q_heads, head_dim).to(query.dtype)
+    return (acc.reshape(batch, num_q_heads, head_dim), m.reshape(batch, num_q_heads),
+            l.reshape(batch, num_q_heads))
+
+
+def _normalise(acc, l, dtype):
+    """acc / l, 0 where l is 0 (an empty row), in the query's dtype."""
+    l = l[..., None]
+    return torch.where(l > 0, acc / torch.where(l > 0, l, torch.ones_like(l)),
+                       torch.zeros_like(acc)).to(dtype)
 
 
 def read_flip_mask(seed, threshold: int, layer_idx: int, batch: int, num_pages: int,
                    pages_per_chunk: int, num_kv_heads: int, data_words: int,
                    block_size: int, device=None) -> torch.Tensor:
     """The read-time flips of mode ``int4`` (the TPU kernel's
-    ``_read_flip_mask``): [2 (K, V), batch, num_pages * block_size,
-    num_kv_heads, data_words] int32, in gather_pages' token-major layout.
-    The tile of (sequence b, page p = c * pages_per_chunk + i of chunk c,
-    head h, K/V t) is ``swar.hash_flip_mask(seed, uid * data_words *
-    block_size, (data_words, block_size))`` with uid = ((((layer * batch +
-    b) * num_chunks + c) * pages_per_chunk + i) * num_kv_heads + h) * 2 + t
-    and num_chunks = cdiv(num_pages, pages_per_chunk): the flips depend on
-    the batch size and the chunking."""
-    num_chunks = C.cdiv(num_pages, pages_per_chunk)
+    ``_read_flip_mask``): [2 (K, V), batch, P * block_size, num_kv_heads,
+    data_words] int32 over the P = ``visited_pages`` pages a kernel visits,
+    in gather_pages' token-major layout. The tile of (sequence b, page p = c
+    * pages_per_chunk + i of chunk c, head h, K/V t) is
+    ``swar.hash_flip_mask(seed, uid * data_words * block_size, (data_words,
+    block_size))`` with uid = ((((layer * batch + b) * num_chunks + c) *
+    pages_per_chunk + i) * num_kv_heads + h) * 2 + t and num_chunks =
+    cdiv(num_pages, pages_per_chunk): the flips depend on the batch size and
+    the chunking, and a page past num_pages gets its own."""
+    pages = visited_pages(num_pages, pages_per_chunk)
     ar = functools.partial(torch.arange, dtype=torch.int64, device=device)
     b = ar(batch).reshape(batch, 1, 1, 1)
-    p = ar(num_pages).reshape(1, num_pages, 1, 1)
+    p = ar(pages).reshape(1, pages, 1, 1)
     h = ar(num_kv_heads).reshape(1, 1, num_kv_heads, 1)
     t = ar(2).reshape(1, 1, 1, 2)
-    uid = (((layer_idx * batch + b) * num_chunks * pages_per_chunk + p) * num_kv_heads + h) * 2 + t
+    uid = (((layer_idx * batch + b) * pages + p) * num_kv_heads + h) * 2 + t
     base = (uid * (data_words * block_size)) & 0xFFFFFFFF
     m = swar.hash_flip_mask(seed, base[..., None, None], (data_words, block_size), threshold)
     # [B, P, H, 2, W, bs] -> [2, B, P * bs, H, W]
     return m.permute(3, 0, 1, 5, 2, 4).reshape(
-        2, batch, num_pages * block_size, num_kv_heads, data_words)
+        2, batch, pages * block_size, num_kv_heads, data_words)
 
 
 def decode_rows(codec: str, rows: torch.Tensor, data_words: int, head_dim: int):
@@ -255,48 +301,6 @@ def _valid_tokens(context_lens, tokens):
     return torch.arange(tokens, device=context_lens.device)[None, :] < context_lens.long()[:, None]
 
 
-def write_attend_plain(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales,
-                       v_scales, block_table, context_lens, layer_idx, *, sm_scale,
-                       num_pages=None, precision="fast", sliding_window=None,
-                       read_threshold=None, read_seed=0, pages_per_chunk=1,
-                       collect_stats=False):
-    """K1's function in plain PyTorch: the in-place column write, then
-    gather the data words (with ``read_threshold``, XORed with
-    ``read_flip_mask``; the cache keeps its clean words), split the nibbles
-    (padding values dropped) and attend as ``_online_attend``. Returns the
-    output, or (output, stats [B, 2] int32) with ``collect_stats``: slot 0
-    counts the flipped read bits over the valid tokens."""
-    num_pages = block_table.shape[1] if num_pages is None else num_pages
-    _write_column((k_new, v_new), (k_cache, v_cache), (ks_new, vs_new),
-                  (k_scales, v_scales), block_table, context_lens, layer_idx, num_pages)
-    batch, head_dim = query.shape[0], query.shape[-1]
-    _, _, Hkv, Wd, bs = k_cache.shape
-    flips = None
-    if read_threshold is not None:
-        flips = read_flip_mask(read_seed, read_threshold, layer_idx, batch, num_pages,
-                               pages_per_chunk, Hkv, Wd, bs, device=query.device)
-
-    def nibbles(cache, t):
-        rows = gather_pages(cache, block_table, layer_idx, num_pages)
-        if flips is not None:
-            rows = rows ^ flips[t]
-        nib = swar.unpack_int4(rows)[..., :head_dim].to(torch.float32) - 8.0
-        return nib.movedim(1, 2)  # [batch, kv_heads, tokens, D]
-
-    ks = gather_scales(k_scales, block_table, layer_idx, num_pages).movedim(1, 2)
-    vs = gather_scales(v_scales, block_table, layer_idx, num_pages).movedim(1, 2)
-    out = _online_attend(query, nibbles(k_cache, 0), nibbles(v_cache, 1), ks, vs, context_lens,
-                         bs, sm_scale=sm_scale, sliding_window=sliding_window,
-                         exact=precision == "highest")
-    if not collect_stats:
-        return out
-    stats = torch.zeros((batch, 2), dtype=torch.int32, device=query.device)
-    if flips is not None:
-        valid = _valid_tokens(context_lens, num_pages * bs)[None, :, :, None, None]
-        stats[:, 0] = torch.where(valid, C.popcount(flips), 0).sum((0, 2, 3, 4), dtype=torch.int32)
-    return out, stats
-
-
 def h84_decode_rows(rows, data_words: int):
     """Full hamming84 rows [..., 2 * data_words] (data ++ parity) -> (the
     corrected nibbles [..., pv], the doubles mask [..., pv] bool), in value
@@ -325,43 +329,126 @@ def interpolate_chunked(nib, dbl, context_lens, chunk_tokens: int):
     return torch.where(dbl, (left + right + 1) >> 1, nib)
 
 
+def _read(query, k_cache, v_cache, k_scales, v_scales, block_table, context_lens, layer_idx,
+          k_parity=None, v_parity=None, *, codec, sm_scale, num_pages, pages_per_chunk,
+          precision="fast", sliding_window=None, read_threshold=None, read_seed=0,
+          interpolate=False, collect_stats=False):
+    """What every kernel reads, in plain PyTorch: the pages the kernel
+    visits (``visited_pages``, F4's clamp included), then
+
+      * codec "int4" (the data words alone: int4, and the scrub-extract read
+        of every packed codec): the nibbles, XORed first with
+        ``read_flip_mask`` when ``read_threshold`` is set;
+      * the parity codecs: full rows decoded by ``decode_rows``, hamming84's
+        doubles interpolated chunk by chunk (``interpolate_chunked``) when
+        ``interpolate``;
+
+    attended as ``_online_attend``. Returns (acc, m, l) and the stats [B, 2]
+    int32 over the valid tokens (zeros without ``collect_stats``): the
+    flipped read bits in slot 0 with read injection, else
+    ``count_errors``."""
+    batch, head_dim = query.shape[0], query.shape[-1]
+    _, _, Hkv, dw, bs = k_cache.shape
+    pages = visited_pages(num_pages, pages_per_chunk)
+    valid = _valid_tokens(context_lens, pages * bs)
+    stats = torch.zeros((batch, 2), dtype=torch.int32, device=query.device)
+    flips = None
+    if read_threshold is not None:
+        flips = read_flip_mask(read_seed, read_threshold, layer_idx, batch, num_pages,
+                               pages_per_chunk, Hkv, dw, bs, device=query.device)
+        if collect_stats:
+            v = valid[None, :, :, None, None]
+            stats[:, 0] = torch.where(v, C.popcount(flips), 0).sum((0, 2, 3, 4),
+                                                                   dtype=torch.int32)
+
+    def codes(cache, parity, t):
+        nonlocal stats
+        rows = gather_pages(cache, block_table, layer_idx, num_pages,
+                            None if codec == "int4" else parity, pages_per_chunk)
+        if codec == "int4":
+            nib = swar.unpack_int4(rows if flips is None else rows ^ flips[t])
+        else:
+            if collect_stats:
+                stats = stats + count_errors(codec, rows, valid, dw, head_dim)
+            nib, dbl = decode_rows(codec, rows, dw, head_dim)
+            if interpolate and codec == "hamming84":
+                nib = interpolate_chunked(nib, dbl, context_lens, pages_per_chunk * bs)
+        return (nib[..., :head_dim].to(torch.float32) - 8.0).movedim(1, 2)
+
+    def scales(s):
+        return gather_scales(s, block_table, layer_idx, num_pages, pages_per_chunk).movedim(1, 2)
+
+    state = _online_attend(query, codes(k_cache, k_parity, 0), codes(v_cache, v_parity, 1),
+                           scales(k_scales), scales(v_scales), context_lens, bs,
+                           sm_scale=sm_scale, sliding_window=sliding_window,
+                           exact=precision == "highest")
+    return state, stats
+
+
+def write_attend_plain(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales,
+                       v_scales, block_table, context_lens, layer_idx, *, sm_scale,
+                       num_pages=None, precision="fast", sliding_window=None,
+                       read_threshold=None, read_seed=0, pages_per_chunk=1,
+                       collect_stats=False):
+    """K1's function in plain PyTorch: the in-place column write, then
+    ``_read`` of the data words (with ``read_threshold``, XORed with
+    ``read_flip_mask``; the cache keeps its clean words). Returns the
+    output, or (output, stats [B, 2] int32) with ``collect_stats``: slot 0
+    counts the flipped read bits over the valid tokens."""
+    num_pages = block_table.shape[1] if num_pages is None else num_pages
+    _write_column((k_new, v_new), (k_cache, v_cache), (ks_new, vs_new),
+                  (k_scales, v_scales), block_table, context_lens, layer_idx, num_pages)
+    (acc, _, l), stats = _read(
+        query, k_cache, v_cache, k_scales, v_scales, block_table, context_lens, layer_idx,
+        codec="int4", sm_scale=sm_scale, num_pages=num_pages, pages_per_chunk=pages_per_chunk,
+        precision=precision, sliding_window=sliding_window, read_threshold=read_threshold,
+        read_seed=read_seed, collect_stats=collect_stats)
+    out = _normalise(acc, l, query.dtype)
+    return (out, stats) if collect_stats else out
+
+
 def write_decode_attend_plain(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache,
                               k_scales, v_scales, block_table, context_lens, layer_idx,
                               k_parity, v_parity, *, codec, sm_scale, pages_per_chunk,
                               interpolate=False, num_pages=None, precision="fast",
                               sliding_window=None, collect_stats=False):
     """The decode_attend kernel's function in plain PyTorch: write the new
-    full rows (data and parity columns) and scales in place, gather every
-    page of data ++ parity, decode it (``decode_rows``), interpolate
-    hamming84's doubles chunk by chunk (``interpolate_chunked``) when asked,
-    then attend as ``_online_attend``. Returns the output, or (output,
-    stats [B, 2] int32 of ``count_errors`` over K and V) with
+    full rows (data and parity columns) and scales in place, then ``_read``
+    the full rows through the codec's correcting decode. Returns the output,
+    or (output, stats [B, 2] int32 of ``count_errors`` over K and V) with
     ``collect_stats``."""
     num_pages = block_table.shape[1] if num_pages is None else num_pages
     dw = k_cache.shape[3]
     _write_column((k_new[..., :dw], v_new[..., :dw], k_new[..., dw:], v_new[..., dw:]),
                   (k_cache, v_cache, k_parity, v_parity), (ks_new, vs_new),
                   (k_scales, v_scales), block_table, context_lens, layer_idx, num_pages)
-    head_dim = query.shape[-1]
-    bs = k_cache.shape[4]
-    valid = _valid_tokens(context_lens, num_pages * bs)
-    stats = torch.zeros((query.shape[0], 2), dtype=torch.int32, device=query.device)
+    (acc, _, l), stats = _read(
+        query, k_cache, v_cache, k_scales, v_scales, block_table, context_lens, layer_idx,
+        k_parity, v_parity, codec=codec, sm_scale=sm_scale, num_pages=num_pages,
+        pages_per_chunk=pages_per_chunk, precision=precision, sliding_window=sliding_window,
+        interpolate=interpolate, collect_stats=collect_stats)
+    out = _normalise(acc, l, query.dtype)
+    return (out, stats) if collect_stats else out
 
-    def codes(cache, parity):
-        nonlocal stats
-        rows = gather_pages(cache, block_table, layer_idx, num_pages, parity)
-        if collect_stats:
-            stats = stats + count_errors(codec, rows, valid, dw, head_dim)
-        nib, dbl = decode_rows(codec, rows, dw, head_dim)
-        if interpolate and codec == "hamming84":
-            nib = interpolate_chunked(nib, dbl, context_lens, pages_per_chunk * bs)
-        return (nib[..., :head_dim].to(torch.float32) - 8.0).movedim(1, 2)
 
-    ks = gather_scales(k_scales, block_table, layer_idx, num_pages).movedim(1, 2)
-    vs = gather_scales(v_scales, block_table, layer_idx, num_pages).movedim(1, 2)
-    out = _online_attend(query, codes(k_cache, k_parity), codes(v_cache, v_parity), ks, vs,
-                         context_lens, bs, sm_scale=sm_scale, sliding_window=sliding_window,
-                         exact=precision == "highest")
+def attend_plain(query, k_cache, v_cache, k_scales, v_scales, block_table, context_lens,
+                 layer_idx, k_parity=None, v_parity=None, *, codec, sm_scale, num_pages,
+                 pages_per_chunk, precision="fast", sliding_window=None, read_threshold=None,
+                 read_seed=0, interpolate=False, collect_stats=False,
+                 return_softmax_state=False):
+    """K4's function in plain PyTorch: ``_read`` without a write (codec
+    "int4" reads the data words alone: int4 and the scrub-extract read).
+    Returns the output in the query's dtype, or with
+    ``return_softmax_state`` (acc [B, Hq, D], m [B, Hq], l [B, Hq]) float32
+    unnormalised; then stats [B, 2] int32 after either with
+    ``collect_stats``."""
+    (acc, m, l), stats = _read(
+        query, k_cache, v_cache, k_scales, v_scales, block_table, context_lens, layer_idx,
+        k_parity, v_parity, codec=codec, sm_scale=sm_scale, num_pages=num_pages,
+        pages_per_chunk=pages_per_chunk, precision=precision, sliding_window=sliding_window,
+        read_threshold=read_threshold, read_seed=read_seed, interpolate=interpolate,
+        collect_stats=collect_stats)
+    out = (acc, m, l) if return_softmax_state else _normalise(acc, l, query.dtype)
     return (out, stats) if collect_stats else out
 
 
@@ -373,7 +460,8 @@ def _check(name, problems):
 
 def _common_problems(query, new, scales_new, caches, scales, block_table, context_lens,
                      layer_idx):
-    """What both kernels check: devices, contiguity, dtypes, shapes."""
+    """What both kernels check: devices, contiguity, dtypes, shapes (``new``
+    and ``scales_new`` are empty for a read without a write)."""
     batch = query.shape[0]
     L, NB, Hkv, _, bs = caches[0].shape
     ints = (*new, *caches, block_table, context_lens)
@@ -386,8 +474,9 @@ def _common_problems(query, new, scales_new, caches, scales, block_table, contex
         (query.dtype in (torch.bfloat16, torch.float32), "query must be bf16 or float32"),
         (all(c.shape[:3] + c.shape[4:] == (L, NB, Hkv, bs) for c in caches)
          and all(s.shape == (L, NB, Hkv, bs) for s in scales), "cache or scale shapes"),
-        (new[0].shape == new[1].shape and new[0].shape[:2] == (batch, Hkv)
-         and all(s.shape == (batch, Hkv) for s in scales_new), "new column or new scale shapes"),
+        (not new or (new[0].shape == new[1].shape and new[0].shape[:2] == (batch, Hkv)
+                     and all(s.shape == (batch, Hkv) for s in scales_new)),
+         "new column or new scale shapes"),
         (block_table.dim() == 2 and block_table.shape[0] == batch and context_lens.shape == (batch,),
          "block table or context length shapes"),
         (0 <= layer_idx < L, "layer out of range"),
@@ -433,42 +522,68 @@ def _seed_args(seed):
     return None, _i32(int(seed))
 
 
+def _outputs(query, collect_stats, return_softmax_state):
+    """The kernels' outputs: out (fp32 holding acc with the softmax state,
+    else the query's dtype), stats, m and l (or None)."""
+    batch, num_q_heads = query.shape[:2]
+    dev = query.device
+    out = torch.empty(query.shape, device=dev,
+                      dtype=torch.float32 if return_softmax_state else query.dtype)
+    stats = torch.zeros((batch, 2), dtype=torch.int32, device=dev) if collect_stats else None
+    m = l = None
+    if return_softmax_state:
+        m = torch.empty((batch, num_q_heads), dtype=torch.float32, device=dev)
+        l = torch.empty((batch, num_q_heads), dtype=torch.float32, device=dev)
+    return out, stats, m, l
+
+
+def _returns(out, stats, m, l):
+    res = out if m is None else (out, m, l)
+    return res if stats is None else (res, stats)
+
+
+def _count(wrapper, branch):
+    wrapper.launches += 1
+    wrapper.launches_by[branch] += 1
+
+
 def _launch(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales,
             v_scales, block_table, context_lens, layer_idx, *, sm_scale, num_pages,
             precision, sliding_window, read_threshold, read_seed, pages_per_chunk,
-            collect_stats):
-    """Check what K1 takes, allocate the output (and the stats) and launch
-    csrc/write_attend.cu on the current stream."""
+            collect_stats, return_softmax_state=False, counter=None):
+    """Check what csrc/write_attend.cu takes, allocate the outputs and
+    launch it on the current stream; ``k_new`` None reads without writing.
+    The launch counts on ``counter`` (default:
+    paged_attention_ecc_write_attend)."""
     batch, num_q_heads, head_dim = query.shape
     L, NB, Hkv, Wd, bs = k_cache.shape
     group = num_q_heads // Hkv
+    new = () if k_new is None else (k_new, v_new)
     _check("write_attend", _common_problems(
-        query, (k_new, v_new), (ks_new, vs_new), (k_cache, v_cache), (k_scales, v_scales),
-        block_table, context_lens, layer_idx) + [
-        (k_new.shape[2] == Wd, "new column width"),
+        query, new, () if k_new is None else (ks_new, vs_new), (k_cache, v_cache),
+        (k_scales, v_scales), block_table, context_lens, layer_idx) + [
+        (not new or k_new.shape[2] == Wd, "new column width"),
         (group * Hkv == num_q_heads and (Wd, group, head_dim) in KERNEL_SHAPES,
          f"(data words, GQA group, head_dim) = {(Wd, group, head_dim)} has no kernel "
          f"instance; built: {KERNEL_SHAPES}"),
     ])
     q = _kernel_query(query, precision)
-    out = torch.empty(query.shape, dtype=query.dtype, device=query.device)
-    stats = torch.zeros((batch, 2), dtype=torch.int32, device=query.device) if collect_stats else None
+    out, stats, m, l = _outputs(query, collect_stats, return_softmax_state)
     seed_t, seed_v = _seed_args(read_seed)
     ptrs = (q, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales, v_scales,
-            block_table, context_lens, out, stats, seed_t)
-    rc = _launcher("write_attend", "p" * 14 + "i" * 10 + "f" + "i" * 8 + "p")(
+            block_table, context_lens, out, stats, seed_t, m, l)
+    rc = _launcher("write_attend", "p" * 16 + "i" * 10 + "f" + "i" * 9 + "p")(
         *(0 if t is None else t.data_ptr() for t in ptrs), batch, Hkv, group, Wd, head_dim,
         bs, NB, block_table.shape[1], num_pages, int(layer_idx), float(sm_scale),
-        int(sliding_window or 0), int(query.dtype == torch.bfloat16),
+        int(sliding_window or 0), int(out.dtype == torch.bfloat16),
         int(precision == "highest"), int(read_threshold is not None),
         _i32(read_threshold or 0), seed_v, C.cdiv(num_pages, pages_per_chunk),
-        pages_per_chunk, _stream(query))
+        pages_per_chunk, int(bool(new)), _stream(query))
     if rc != 0:
         raise RuntimeError(f"write_attend kernel launch failed: cudaError {rc}")
-    paged_attention_ecc_write_attend.launches += 1
-    paged_attention_ecc_write_attend.launches_by[
-        "read" if read_threshold is None else "read-inject"] += 1
-    return (out, stats) if collect_stats else out
+    _count(counter or paged_attention_ecc_write_attend,
+           "read" if read_threshold is None else "read-inject")
+    return _returns(out, stats, m, l)
 
 
 def write_attend(*args, **kw):
@@ -485,18 +600,21 @@ def write_attend(*args, **kw):
 def _launch_decode(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales,
                    v_scales, block_table, context_lens, layer_idx, k_parity, v_parity, *,
                    codec, sm_scale, pages_per_chunk, interpolate, num_pages, precision,
-                   sliding_window, collect_stats):
-    """Check what csrc/decode_attend.cu takes, allocate the output (and the
-    stats) and launch it on the current stream."""
+                   sliding_window, collect_stats, return_softmax_state=False, counter=None):
+    """Check what csrc/decode_attend.cu takes, allocate the outputs and
+    launch it on the current stream; ``k_new`` None reads without writing.
+    The launch counts on ``counter`` (default: write_decode_attend)."""
     batch, num_q_heads, head_dim = query.shape
     L, NB, Hkv, Wd, bs = k_cache.shape
     Pw = k_parity.shape[3]
     group = num_q_heads // Hkv
     shape = (codec, Wd, Pw, group, head_dim)
+    new = () if k_new is None else (k_new, v_new)
     _check("decode_attend", _common_problems(
-        query, (k_new, v_new), (ks_new, vs_new), (k_cache, v_cache, k_parity, v_parity),
-        (k_scales, v_scales), block_table, context_lens, layer_idx) + [
-        (v_parity.shape[3] == Pw and k_new.shape[2] == Wd + Pw,
+        query, new, () if k_new is None else (ks_new, vs_new),
+        (k_cache, v_cache, k_parity, v_parity), (k_scales, v_scales), block_table,
+        context_lens, layer_idx) + [
+        (v_parity.shape[3] == Pw and (not new or k_new.shape[2] == Wd + Pw),
          "new rows hold the data and parity words"),
         (group * Hkv == num_q_heads and shape in DECODE_KERNEL_SHAPES,
          f"(codec, data words, parity words, GQA group, head_dim) = {shape} has no kernel "
@@ -504,23 +622,21 @@ def _launch_decode(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scal
         (pages_per_chunk >= 1, "pages_per_chunk must be positive"),
     ])
     q = _kernel_query(query, precision)
-    out = torch.empty(query.shape, dtype=query.dtype, device=query.device)
-    stats = torch.zeros((batch, 2), dtype=torch.int32, device=query.device) if collect_stats else None
+    out, stats, m, l = _outputs(query, collect_stats, return_softmax_state)
     ptrs = (q, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_parity, v_parity,
-            k_scales, v_scales, block_table, context_lens, out, stats)
-    rc = _launcher("decode_attend", "p" * 15 + "i" * 13 + "f" + "i" * 5 + "p")(
+            k_scales, v_scales, block_table, context_lens, out, stats, m, l)
+    interp = bool(interpolate and codec == "hamming84")
+    rc = _launcher("decode_attend", "p" * 17 + "i" * 13 + "f" + "i" * 6 + "p")(
         *(0 if t is None else t.data_ptr() for t in ptrs), batch, Hkv, group,
         _CODEC_IDS[codec], Wd, Pw, head_dim, bs, NB, block_table.shape[1], num_pages,
         int(layer_idx), int(sliding_window or 0), float(sm_scale),
-        int(query.dtype == torch.bfloat16), int(precision == "highest"),
-        int(pages_per_chunk * bs), int(bool(interpolate and codec == "hamming84")),
-        int(collect_stats), _stream(query))
+        int(out.dtype == torch.bfloat16), int(precision == "highest"),
+        int(pages_per_chunk * bs), int(interp), int(collect_stats), int(bool(new)),
+        _stream(query))
     if rc != 0:
         raise RuntimeError(f"decode_attend kernel launch failed: cudaError {rc}")
-    write_decode_attend.launches += 1
-    write_decode_attend.launches_by[
-        codec + ("-interp" if interpolate and codec == "hamming84" else "")] += 1
-    return (out, stats) if collect_stats else out
+    _count(counter or write_decode_attend, codec + ("-interp" if interp else ""))
+    return _returns(out, stats, m, l)
 
 
 def write_decode_attend(*args, **kw):
@@ -570,6 +686,32 @@ def _read_threshold(read_inject_ber: float, codec: str):
     return min(int(float(read_inject_ber) * (2.0 ** 32)), 0xFFFFFFFF)
 
 
+def _common_setup(query, k_cache, block_table, codec, block_size, num_pages, sm_scale,
+                  pages_per_chunk, precision):
+    """What both wrappers resolve first (the JAX wrapper's ``_common_setup``):
+    (num_pages, sm_scale, pages per chunk capped at num_pages, data words),
+    raising on an unknown codec, block size, precision or num_pages."""
+    if codec not in _PACKED:
+        swar.unsupported(codec)
+    head_dim = query.shape[-1]
+    bs = k_cache.shape[4]
+    if bs != block_size:
+        raise ValueError(f"block_size {block_size} != the cache's {bs}")
+    if precision not in ("fast", "highest"):
+        raise ValueError(f"precision must be 'fast' or 'highest', got '{precision}'")
+    num_pages = block_table.shape[1] if num_pages is None else int(num_pages)
+    if not 1 <= num_pages <= block_table.shape[1]:
+        raise ValueError(f"num_pages {num_pages} outside [1, {block_table.shape[1]}]")
+    sm_scale = float(head_dim) ** -0.5 if sm_scale is None else sm_scale
+    if pages_per_chunk is None:  # the TPU kernel's chunk: 512 tokens of pages
+        pages_per_chunk = max(1, 512 // bs)
+    dw = swar.data_words(codec, head_dim)
+    if k_cache.shape[3] != dw:
+        raise ValueError(f"cache has {k_cache.shape[3]} data words, "
+                         f"{codec} at head_dim {head_dim} has {dw}")
+    return num_pages, sm_scale, min(pages_per_chunk, num_pages), dw
+
+
 def paged_attention_ecc_write_attend(query, k_new, v_new, ks_new, vs_new,
                                      k_cache, v_cache, k_scales, v_scales,
                                      block_table, context_lens, layer_idx,
@@ -583,11 +725,11 @@ def paged_attention_ecc_write_attend(query, k_new, v_new, ks_new, vs_new,
                                      read_inject_ber: float = 0.0, read_inject_seed=0,
                                      sliding_window=None):
     """Write the new token's packed column and scales at slot ctx-1 (in
-    place), then attend over the first ``num_pages`` pages of the table.
-    Returns the attention output [B, Hq, D] in query's dtype, or (output,
-    stats [B, 2] int32) with ``collect_stats``. Signature, defaults and
-    errors are the JAX function's; the caches are updated in place instead
-    of returned.
+    place), then attend over the pages of the table that the kernel visits
+    (``num_pages`` rounded up to whole chunks, F4). Returns the attention
+    output [B, Hq, D] in query's dtype, or (output, stats [B, 2] int32) with
+    ``collect_stats``. Signature, defaults and errors are the JAX
+    function's; the caches are updated in place instead of returned.
 
     query [B, Hq, D] (bf16 or fp32); ks_new/vs_new [B, Hkv] fp32; caches
     [L, NB, Hkv, data_words, block_size] int32; scales [L, NB, Hkv, bs] fp32;
@@ -612,31 +754,15 @@ def paged_attention_ecc_write_attend(query, k_new, v_new, ks_new, vs_new,
     capped at num_pages) sets where the interpolation's chunk seams fall and
     the read flips' counters, as on the TPU. ``precision`` "fast" rounds q
     and p * v_scale to bf16, "highest" keeps them in fp32."""
-    if codec not in _PACKED:
-        swar.unsupported(codec)
+    num_pages, sm_scale, cp, dw = _common_setup(query, k_cache, block_table, codec, block_size,
+                                                num_pages, sm_scale, pages_per_chunk, precision)
     head_dim = query.shape[-1]
-    bs = k_cache.shape[4]
-    if bs != block_size:
-        raise ValueError(f"block_size {block_size} != the cache's {bs}")
-    if precision not in ("fast", "highest"):
-        raise ValueError(f"precision must be 'fast' or 'highest', got '{precision}'")
-    num_pages = block_table.shape[1] if num_pages is None else int(num_pages)
-    if not 1 <= num_pages <= block_table.shape[1]:
-        raise ValueError(f"num_pages {num_pages} outside [1, {block_table.shape[1]}]")
-    sm_scale = float(head_dim) ** -0.5 if sm_scale is None else sm_scale
-    if pages_per_chunk is None:  # the TPU kernel's chunk: 512 tokens of pages
-        pages_per_chunk = max(1, 512 // bs)
-    cp = min(pages_per_chunk, num_pages)
     _check_scrub_flags(scrub, codec, use_interpolation, collect_stats, read_inject_ber)
     extract = scrub and swar.scrub_extract_ok(codec, head_dim)
     if extract and (k_parity is not None or v_parity is not None):
         raise ValueError("scrub-extract write_attend must not receive the parity arrays: "
                          "the caller stores the new parity column")
     threshold = _read_threshold(read_inject_ber, codec)
-    dw = swar.data_words(codec, head_dim)
-    if k_cache.shape[3] != dw:
-        raise ValueError(f"cache has {k_cache.shape[3]} data words, "
-                         f"{codec} at head_dim {head_dim} has {dw}")
     common = dict(sm_scale=sm_scale, num_pages=num_pages, precision=precision,
                   sliding_window=sliding_window, collect_stats=collect_stats)
     args = (query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales, v_scales,
@@ -663,3 +789,70 @@ paged_attention_ecc_write_attend.launches = 0  # csrc/write_attend.cu
 # its launches by branch: the reads of clean words (the scrub extract, int4
 # without injection) and mode int4's read-time injection
 paged_attention_ecc_write_attend.launches_by = {"read": 0, "read-inject": 0}
+
+
+def paged_attention_ecc(query, k_cache, v_cache, k_scales, v_scales, block_table,
+                        context_lens, layer_idx, k_parity=None, v_parity=None, *,
+                        codec: str = "hamming84", block_size: int = 128, num_pages=None,
+                        sm_scale=None, pages_per_chunk=None, precision: str = "fast",
+                        use_interpolation: bool = False, collect_stats: bool = False,
+                        read_inject_ber: float = 0.0, read_inject_seed=0,
+                        sliding_window=None, return_softmax_state: bool = False,
+                        scrub: bool = False):
+    """K4: the decode-phase paged attention over the cache as it stands (no
+    write). Arguments, defaults, returns and errors are the JAX function's
+    (``qkv_ecc_tpu/kernels/paged_attention.py:828``): query [B, Hq, D] (one
+    decode token per sequence) attends tokens [0, context_lens) - the query
+    position is ctx - 1, so ``sliding_window`` keeps the last that many -
+    of the pages the kernel visits (``num_pages``, default the table's
+    width, rounded up to whole chunks of ``pages_per_chunk``; F4).
+
+    Reads as the write+attend wrapper's: scrub=True takes the data words
+    alone (the extract read; parity arrays, when given, are not read);
+    scrub=False decodes full rows of hamming84 (``use_interpolation``),
+    hamming74 and golay from k_parity/v_parity, and reads int4 with
+    ``read_inject_ber`` flips from ``read_inject_seed``.
+
+    Returns the output [B, Hq, D] in the query's dtype; with
+    ``return_softmax_state`` (acc [B, Hq, D], m [B, Hq], l [B, Hq]) float32,
+    the unnormalised online-softmax state (an empty row: 0, -1e30, 0); with
+    ``collect_stats`` (that, stats [B, 2] int32). On the card it launches
+    csrc/write_attend.cu or csrc/decode_attend.cu without a new column (or
+    raises); on the CPU it runs ``attend_plain``. Launches count in
+    ``paged_attention_ecc.launches`` and ``.launches_by`` per branch. The
+    float codecs fp16 and fp8 raise "not ported yet"."""
+    num_pages, sm_scale, cp, dw = _common_setup(query, k_cache, block_table, codec, block_size,
+                                                num_pages, sm_scale, pages_per_chunk, precision)
+    head_dim = query.shape[-1]
+    _check_scrub_flags(scrub, codec, use_interpolation, collect_stats, read_inject_ber)
+    threshold = _read_threshold(read_inject_ber, codec)
+    extract = codec == "int4" or (scrub and swar.scrub_extract_ok(codec, head_dim))
+    if not extract and (k_parity is None or v_parity is None):
+        raise ValueError(f"codec '{codec}' needs k_parity/v_parity operands for correcting "
+                         "reads (split cache layout); only the scrub extract path runs "
+                         "without them")
+    args = (query, k_cache, v_cache, k_scales, v_scales, block_table, context_lens, layer_idx)
+    common = dict(sm_scale=sm_scale, num_pages=num_pages, pages_per_chunk=cp,
+                  precision=precision, sliding_window=sliding_window,
+                  collect_stats=collect_stats, return_softmax_state=return_softmax_state)
+    parity = () if extract else (k_parity, v_parity)
+    if query.device.type == "cpu":
+        return attend_plain(*args, *parity, codec="int4" if extract else codec,
+                            read_threshold=threshold, read_seed=read_inject_seed,
+                            interpolate=use_interpolation, **common)
+    if query.device.type != "cuda":
+        raise ValueError(f"paged_attention_ecc: no kernel for device {query.device}")
+    none = (None,) * 4  # no new column, no new scales
+    if extract:
+        return _launch(query, *none, *args[1:], read_threshold=threshold,
+                       read_seed=read_inject_seed, counter=paged_attention_ecc, **common)
+    return _launch_decode(query, *none, *args[1:], *parity, codec=codec,
+                          interpolate=use_interpolation, counter=paged_attention_ecc, **common)
+
+
+paged_attention_ecc.launches = 0  # K4, either source
+# its launches by branch: write_attend.cu's clean read (the extract, int4)
+# and read-inject; decode_attend.cu's codecs, hamming84 with interpolation
+# apart
+paged_attention_ecc.launches_by = dict.fromkeys(
+    ("read", "read-inject", "hamming84", "hamming84-interp", "hamming74", "golay"), 0)

@@ -19,7 +19,10 @@ the write chain, and the fused write+attend kernel
   * mode ``int4``: a clean write and K1's general read, which flips the raw
     words it reads from a per-step seed (K2r).
 
-Block allocation is static: sequence b owns pages [b*P, (b+1)*P).
+``init_generation_state`` allocates statically (sequence b owns pages
+[b*P, (b+1)*P)); the serving layer (``serving/scheduler.py``) hands out
+pages through ``cache/block_manager.py`` and decodes inactive slots, whose
+block-table rows are -1, into the trash page 0.
 """
 
 from __future__ import annotations
@@ -75,6 +78,7 @@ def init_generation_state(cfg: ModelConfig, policy: KVCachePolicy, batch: int,
                           max_tokens: int, block_size: int = 128, device=None):
     """Allocate the paged cache and the static sequential block table on
     ``device`` (None: the card). Returns (state, block_table, cache_cfg)."""
+    _check_slice(cfg, policy)
     device = resolve_device(device)
     pages_per_seq = -(-max_tokens // block_size)
     cache_cfg = ECCCacheConfig(
@@ -95,11 +99,27 @@ def init_generation_state(cfg: ModelConfig, policy: KVCachePolicy, batch: int,
 
 def _physical_pages(block_table, positions, bs):
     """Physical page of each position [B, S]; raises on a page of -1 (an
-    index_put_ would wrap it to the last page)."""
+    index_put_ would wrap it to the last page): a prompt is never written
+    to an unallocated row."""
     phys = torch.gather(block_table.long(), 1, (positions // bs).long())
     if bool((phys < 0).any()):
         raise ValueError("write to a sequence with no page (block table entry -1)")
     return phys
+
+
+def _trash_routed_slots(block_table, pos, bs):
+    """(physical page, slot) [B] of each row's token at ``pos``, for the
+    parity scatter of a decode step without a host sync: a row whose page is
+    -1 (an inactive serving slot) goes to slot b % block_size of the trash
+    page 0, distinct per row, where the kernels clamp its data column too.
+    Needs B <= block_size."""
+    B = pos.shape[0]
+    if B > bs:
+        raise ValueError(f"batch {B} > block_size {bs}: rows of -1 would share trash slots")
+    page = torch.gather(block_table.long(), 1, (pos // bs).long()[:, None])[:, 0]
+    rows = torch.arange(B, device=pos.device)
+    slots = torch.where(page < 0, rows % bs, (pos % bs).long())
+    return page.clamp(min=0), slots
 
 
 def _write_tokens(state, layer_idx, block_table, positions, kc, vc, ks, vs):
@@ -155,9 +175,13 @@ def _inv_freq(cfg: ModelConfig, device):
 
 @torch.no_grad()
 def prefill(params, input_ids, state, block_table, cfg: ModelConfig,
-            policy: KVCachePolicy, generator=None, read_masks=None):
+            policy: KVCachePolicy, generator=None, read_masks=None, logit_pos=None,
+            true_len=None):
     """Process the prompt [B, S]: write the cache and return the last
-    token's logits [B, V] float32. Attention reads the codec round trip of
+    token's logits [B, V] float32 (with ``logit_pos`` [B], those at each
+    row's position; ``true_len`` [B] is stored as the context length: a
+    bucket-padded prompt's pad tail is written but never attended, and
+    decode overwrites it). Attention reads the codec round trip of
     what was written. With write injection on, masks come from
     ``generator``. Scrubbed modes store scrubbed codewords; the others store
     the raw ones and attend through the decode (with interpolation along the
@@ -192,8 +216,14 @@ def prefill(params, input_ids, state, block_table, cfg: ModelConfig,
         attn = causal_attention(q, k_dec.to(x.dtype), v_dec.to(x.dtype),
                                 cfg.num_kv_groups, sliding_window=cfg.sliding_window)
         x = _attn_out_mlp(x, attn, lp, cfg)
-    logits = _lm_head(params, x[:, -1:, :], cfg)[:, 0]
-    state["context_len"] = torch.full((B,), S, dtype=torch.int32, device=device)
+    if logit_pos is None:
+        x_last = x[:, -1:, :]
+    else:
+        x_last = torch.take_along_dim(x, logit_pos.long().to(device)[:, None, None], dim=1)
+    logits = _lm_head(params, x_last, cfg)[:, 0]
+    state["context_len"] = (torch.full((B,), S, dtype=torch.int32, device=device)
+                            if true_len is None
+                            else torch.as_tensor(true_len, dtype=torch.int32).to(device))
     return logits, state
 
 
@@ -215,7 +245,9 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
                 policy: KVCachePolicy, generator=None, hoisted_masks=None,
                 collect_ecc_stats: bool = False, read_inject_seed=None):
     """One decode step: token_ids [B] -> logits [B, V] float32; the caches
-    advance in place.
+    advance in place. A row whose block-table page is -1 (an inactive
+    serving slot, context 0) writes into the trash page 0: its data column
+    where the kernels clamp it, its parity column at slot b % block_size.
 
     hoisted_masks: every layer's write masks for this step, [L, 2, *shape] -
     folded deltas (kv_policy.hoisted_write_deltas, uint8) in the scrubbed
@@ -239,7 +271,6 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
     bs = state["k_cache"].shape[4]
     dw = state["k_cache"].shape[3]
     inv_freq = _inv_freq(cfg, token_ids.device)
-    phys = _physical_pages(block_table, positions, bs)[:, 0]
     scrub = _use_scrub(policy) and not collect_ecc_stats
     ri_ber = policy.ber if _read_inject(policy) else 0.0
     if ri_ber and read_inject_seed is None:
@@ -294,7 +325,7 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
         x = _attn_out_mlp(x, attn[:, None], lp, cfg)
     if k_par:
         # parity[l, phys[b], h, :, slot[b]] = col[b, l, h, :], all layers at once
-        slots = (pos % bs).long()
+        phys, slots = _trash_routed_slots(block_table, pos, bs)
         layers = torch.arange(L, device=phys.device)[None, :]
         kp = torch.stack(k_par, dim=1)  # [B, L, Hkv, pw]
         vp = torch.stack(v_par, dim=1)

@@ -588,3 +588,186 @@ def test_num_pages_matches_jax():
     kw = dict(num_pages=5, collect_stats=True)
     assert_reads_agree(case, run_jax_read(case, "hamming74", 0, **kw),
                        run_torch_read(case, "hamming74", 0, **kw))
+
+
+# =============================================================================
+# F4: the pages a read visits (num_pages rounded up to whole chunks, each
+# page past num_pages read as page num_pages - 1), and K4, the read without a
+# write (paged_attention_ecc)
+# =============================================================================
+
+F4_CTX = [90, 80, 50, 1]  # row 0 reads past num_pages * bs = 80 tokens
+
+
+@pytest.mark.parametrize("ppc", [2, 5])
+@pytest.mark.parametrize("codec", ["int4", "hamming74"])
+@pytest.mark.parametrize("read", ["write_attend", "paged_attention_ecc"])
+def test_visited_pages_match_jax(read, codec, ppc):
+    """F4 on its smallest input: a table 8 pages wide, num_pages 5, block
+    16, a row at ctx 90 (past 5 x 16 = 80). With pages_per_chunk 2 the
+    kernel visits 6 pages and reads page 4 again as tokens 80-95, attending
+    and counting tokens 80-89; with 5 it visits 5 and never reads tokens
+    80-89. The new column of that row (token 89, page 5) is not written, so
+    its read comes from the cache. Outputs within tolerance(), stats and
+    arrays exactly, against JAX in interpret mode."""
+    case = build_ecc_case(codec, seed=12, ctx=F4_CTX)
+    kw = dict(num_pages=5, pages_per_chunk=ppc, collect_stats=True)
+    if read == "write_attend":
+        want = run_jax_read(case, codec, 1, **kw)
+        got = run_torch_read(case, codec, 1, **kw)
+    else:
+        want, got = run_jax_k4(case, codec, 1, **kw), run_torch_k4(case, codec, 1, **kw)
+    assert_reads_agree(case, want, got)
+    if codec == "hamming74":
+        assert (got[0][1][:3, 0] > 0).all()
+
+
+def run_jax_k4(case, codec, layer, **kw):
+    """JAX's paged_attention_ecc in interpret mode: (its returns, the
+    arrays, which a read leaves as they were)."""
+    kw.setdefault("pages_per_chunk", H84_CHUNK_PAGES)
+    parity = "k_parity" in case
+    out = jpa.paged_attention_ecc(
+        *(jnp.asarray(case[n]) for n in ("q", "k_cache", "v_cache", "k_scales", "v_scales",
+                                          "bt", "ctx")),
+        layer, *((jnp.asarray(case["k_parity"]), jnp.asarray(case["v_parity"])) if parity
+                 else ()), codec=codec, block_size=case["k_cache"].shape[-1], **kw)
+    return jax.tree.map(np.asarray, out), {n: case[n] for n in
+                                          (H84_NAMES if parity else NAMES)}
+
+
+def run_torch_k4(case, codec, layer, **kw):
+    """The port's paged_attention_ecc (its plain version on the CPU) on
+    copies of the case's arrays: (its returns as numpy, the arrays after)."""
+    kw.setdefault("pages_per_chunk", H84_CHUNK_PAGES)
+    parity = "k_parity" in case
+    tt = {n: torch.from_numpy(case[n].copy()) for n in (H84_NAMES if parity else NAMES)}
+    out = tpa.paged_attention_ecc(
+        torch.from_numpy(case["q"]), tt["k_cache"], tt["v_cache"], tt["k_scales"],
+        tt["v_scales"], torch.from_numpy(case["bt"]), torch.from_numpy(case["ctx"]), layer,
+        *((tt["k_parity"], tt["v_parity"]) if parity else ()), codec=codec,
+        block_size=case["k_cache"].shape[-1], **kw)
+    return jax.tree.map(lambda t: t.numpy(), out), {n: a.numpy() for n, a in tt.items()}
+
+
+# (cache kind, codec, options) of every K4 branch: int4 clean and with
+# read injection, the scrub-extract read (golay's scrubbed cache), hamming84
+# with and without interpolation, hamming74, golay
+K4_BRANCHES = {
+    "int4": ("ecc", "int4", {}),
+    "int4-read-inject": ("ecc", "int4", dict(read_inject_ber=1e-2, read_inject_seed=-12345)),
+    "extract": ("scrubbed", "golay", dict(scrub=True)),
+    "hamming84-interp": ("h84", "hamming84", dict(use_interpolation=True)),
+    "hamming84": ("h84", "hamming84", {}),
+    "hamming74": ("ecc", "hamming74", {}),
+    "golay": ("ecc", "golay", {}),
+}
+
+
+K4_CTX = [112, 71, 33, 1, 0]
+
+
+def k4_case(branch, seed):
+    """The branch's cache, read by five rows: three of 1-4 chunks, one of
+    ctx 1 whose page is -1 (it reads page 0, another row's page) and an
+    empty one (ctx 0)."""
+    kind, codec, _ = K4_BRANCHES[branch]
+    if kind == "h84":  # three rows of H84_CTX; two more on row 0's pages
+        case = build_h84_case(seed=seed)
+        for n in ("bt", "q"):
+            case[n] = np.concatenate([case[n], case[n][:1].repeat(2, 0)])
+        case["ctx"] = np.asarray(H84_CTX + [1, 0], np.int32)
+    elif kind == "scrubbed":  # build_case's contexts count the new token
+        case = build_case(codec, 32, [c - 1 for c in K4_CTX], batch=5, pages=8, seed=seed)
+    else:
+        case = build_ecc_case(codec, seed=seed, ctx=K4_CTX)
+    case["bt"][3] = -1
+    return case
+
+
+@pytest.mark.parametrize("branch,stats", [(b, s) for b in K4_BRANCHES for s in (False, True)
+                                           if not (s and b == "extract")])
+def test_attend_matches_jax(branch, stats):
+    """K4's plain version against JAX's paged_attention_ecc in interpret
+    mode, every branch with and without collect_stats (the extract read
+    refuses stats: test_attend_signature_and_checks), bs 16,
+    pages_per_chunk 2, five rows including a -1 page and an empty one:
+    outputs within tolerance() (the module docstring's bound), stats
+    exactly, the arrays untouched; the empty row reads 0."""
+    _, codec, kw = K4_BRANCHES[branch]
+    case = k4_case(branch, seed=20 + list(K4_BRANCHES).index(branch))
+    want = run_jax_k4(case, codec, 1, collect_stats=stats, **kw)
+    got = run_torch_k4(case, codec, 1, collect_stats=stats, **kw)
+    assert_reads_agree(case, want, got)
+    for n, a in got[1].items():
+        np.testing.assert_array_equal(a, case[n], err_msg=n)
+    out = got[0][0] if stats else got[0]
+    assert not out[4].any()
+    if stats and (codec != "int4" or "inject" in branch):
+        assert (got[0][1][:3, 0] > 0).all()
+
+
+@pytest.mark.parametrize("branch", list(K4_BRANCHES))
+def test_attend_softmax_state_matches_jax(branch):
+    """return_softmax_state with a sliding window of 8 (the query at ctx-1
+    attends tokens ctx-8 .. ctx-1): acc within tolerance() (weights are at
+    most 1, so one bf16 ulp of one weight moves acc as much as the output),
+    m and l within 1e-5 relative (float32 sums and exp), stats exactly; the
+    empty row gives acc 0, m -1e30 and l 0; acc / l is the plain output."""
+    _, codec, kw = K4_BRANCHES[branch]
+    stats = branch != "extract"
+    case = k4_case(branch, seed=40 + list(K4_BRANCHES).index(branch))
+    kw = dict(kw, sliding_window=8, collect_stats=stats)
+    jout = run_jax_k4(case, codec, 0, return_softmax_state=True, **kw)[0]
+    tout = run_torch_k4(case, codec, 0, return_softmax_state=True, **kw)[0]
+    (jst, jstats), (tst, tstats) = (jout, tout) if stats else ((jout, None), (tout, None))
+    (jacc, jm, jl), (tacc, tm, tl) = jst, tst
+    assert tacc.dtype == tm.dtype == tl.dtype == np.float32
+    assert tacc.shape == case["q"].shape and tm.shape == tl.shape == case["q"].shape[:2]
+    np.testing.assert_allclose(tacc, jacc, rtol=0, atol=tolerance(case))
+    np.testing.assert_allclose(tm, jm, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=0)
+    if stats:
+        np.testing.assert_array_equal(tstats, jstats)
+    assert not tacc[4].any() and (tm[4] == -1e30).all() and not tl[4].any()
+    out = run_torch_k4(case, codec, 0, **kw)[0]
+    out = out[0] if stats else out
+    safe = np.where(tl > 0, tl, 1)[..., None]
+    np.testing.assert_allclose(out, np.where(tl[..., None] > 0, tacc / safe, 0), rtol=1e-6,
+                               atol=1e-7)
+
+
+def test_attend_signature_and_checks():
+    """K4's signature and defaults are JAX's; its refusals are JAX's
+    ValueErrors (scrub with interpolation, stats or read injection; read
+    injection outside int4; a parity codec's correcting read without parity
+    arrays) and the port's (block size); fp16 and fp8 are not ported yet;
+    the CPU never launches a kernel."""
+    want = {k: v.default for k, v in inspect.signature(jpa.paged_attention_ecc).parameters.items()}
+    got = {k: v.default for k, v in inspect.signature(tpa.paged_attention_ecc).parameters.items()}
+    assert got == want
+    case = build_ecc_case("golay", seed=13, ctx=[40, 3])
+    args = [torch.from_numpy(case[n]) for n in ("q", "k_cache", "v_cache", "k_scales",
+                                                "v_scales", "bt", "ctx")]
+    parity = [torch.from_numpy(case[n]) for n in ("k_parity", "v_parity")]
+    call = functools.partial(tpa.paged_attention_ecc, *args, 0, *parity, block_size=16)
+    with pytest.raises(ValueError, match="interpolation"):
+        call(codec="hamming84", scrub=True, use_interpolation=True)
+    with pytest.raises(ValueError, match="collect_stats"):
+        call(codec="golay", scrub=True, collect_stats=True)
+    with pytest.raises(ValueError, match="read-time injection"):
+        call(codec="golay", scrub=True, read_inject_ber=1e-2)
+    with pytest.raises(ValueError, match="only defined for the unprotected int4"):
+        call(codec="golay", read_inject_ber=1e-2)
+    with pytest.raises(ValueError, match="k_parity/v_parity"):
+        tpa.paged_attention_ecc(*args, 0, codec="golay", block_size=16)
+    with pytest.raises(ValueError, match="block_size"):
+        tpa.paged_attention_ecc(*args, 0, *parity, codec="golay")
+    for codec in ("fp16", "fp8"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            tpa.paged_attention_ecc(*args, 0, codec=codec, block_size=16)
+    # scrub reads golay's data words alone: the parity arrays are not needed
+    out = tpa.paged_attention_ecc(*args, 0, codec="golay", scrub=True, block_size=16)
+    assert out.shape == case["q"].shape
+    assert tpa.paged_attention_ecc.launches == 0
+    assert all(v == 0 for v in tpa.paged_attention_ecc.launches_by.values())

@@ -245,18 +245,102 @@ def test_decode_loop_and_generate(weights, mode):
 
 
 def test_negative_page_raises(weights):
-    _, tparams = weights
-    pol = t_policy("int12-golay", ber=1e-2)
-    state, bt, _ = tr.init_generation_state(T_TINY, pol, B, 40, BS, device="cpu")
-    g = torch.Generator().manual_seed(0)
-    logits, state = tr.prefill(tparams, torch.zeros((B, 4), dtype=torch.long), state, bt,
-                               T_TINY, pol, g)
-    bt[1] = -1  # an inactive slot, as serving will have
-    before = {n: state[n].clone() for n in CACHE_NAMES}
-    with pytest.raises(ValueError, match="no page"):
-        tr.decode_step(tparams, torch.argmax(logits, -1), state, bt, T_TINY, pol, g)
-    for n in CACHE_NAMES:
-        assert torch.equal(before[n], state[n]), n
+    """F5 (the name is the test's from before the repair, when such a step
+    raised): a decode step with an inactive row - block-table row -1,
+    context 0, as the server leaves a free slot - decodes into the trash
+    page 0 instead of raising, in int12-golay and int4-hamming84-interp."""
+    for mode in ("int12-golay", "int4-hamming84-interp"):
+        decode_with_inactive_row(weights, mode)
+
+
+def decode_with_inactive_row(weights, mode):
+    """Decode with row 1 inactive against JAX's decode_step on the same inputs (BER
+    1e-2, numpy-made masks): int12-golay scatters its parity columns at the
+    end of the step (the -1 row's to slot b % block_size of page 0),
+    interp's kernel writes them. The table's pages start at 1, and the last
+    physical page belongs to no row. Logits within atol 1e-3 (the module
+    docstring's bound), pages 1 .. NB-2 bit-equal to JAX's after each of two
+    steps, page 0 is trash, and the last page stays as it was (a torch index
+    of -1 would wrap to it)."""
+    jparams, tparams = weights
+    jpol, tpol = policies(mode, 1e-2)
+    jpol0, tpol0 = policies(mode)
+    codec = tpol.codec
+    scrubbed = tpol.scrub and not tpol.use_interpolation
+    Bn, P = 3, 3
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, J_TINY.vocab_size, (Bn, PROMPT))
+    from qkv_ecc_tpu.cache.layout import ECCCacheConfig as JCfg, allocate_ecc_kv_cache as jalloc
+    from qkv_ecc_tpu_torch.cache.layout import ECCCacheConfig as TCfg, allocate_ecc_kv_cache as talloc
+
+    dims = dict(num_blocks=Bn * P + 2, block_size=BS, num_layers=J_TINY.num_layers,
+                num_kv_heads=J_TINY.num_kv_heads, head_dim=J_TINY.head_dim, codec=codec)
+    jstate, tstate = jalloc(JCfg(**dims)), talloc(TCfg(**dims), device="cpu")
+    bt = (np.arange(Bn * P, dtype=np.int32) + 1).reshape(Bn, P)
+    key = jax.random.key(5)
+    jlogits, jstate = jr.prefill(jparams, jnp.asarray(ids), jstate, jnp.asarray(bt), J_TINY,
+                                 jpol0, key)
+    tlogits, tstate = tr.prefill(tparams, torch.from_numpy(ids), tstate, torch.from_numpy(bt),
+                                 T_TINY, tpol0)
+    bt[1] = -1  # row 1 retired: no pages, context 0
+    ctx = np.asarray(jstate["context_len"]).copy()
+    ctx[1] = 0
+    jstate["context_len"] = jnp.asarray(ctx)
+    tstate["context_len"] = torch.from_numpy(ctx)
+    last = {n: tstate[n][:, -1].clone() for n in CACHE_NAMES if n in tstate}
+    shape = tr.write_mask_shape(tpol, Bn, T_TINY)
+    for step in range(2):
+        raw = numpy_masks(rng, (T_TINY.num_layers, 2) + shape, 1e-2, N_BITS[codec])
+        if scrubbed:
+            jh = js.scrub_fold_mask(codec, jnp.asarray(raw)).astype(jnp.uint8)
+            th = hoisted_write_deltas(tpol, T_TINY.num_layers, shape,
+                                      raw_masks=torch.from_numpy(raw))
+        else:
+            jh, th = jnp.asarray(raw.astype(np.uint8)), torch.from_numpy(raw.astype(np.uint8))
+        jtok, ttok = jnp.argmax(jlogits, axis=-1), torch.argmax(tlogits, dim=-1)
+        np.testing.assert_array_equal(np.asarray(jtok), ttok.numpy(), err_msg=f"step {step}")
+        jlogits, jstate = jr.decode_step(jparams, jtok, jstate, jnp.asarray(bt), J_TINY, jpol,
+                                         jax.random.fold_in(key, step), block_size=BS,
+                                         hoisted_masks=jh)
+        tlogits, tstate = tr.decode_step(tparams, ttok, tstate, torch.from_numpy(bt), T_TINY,
+                                         tpol, hoisted_masks=th)
+        np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), rtol=0, atol=1e-3,
+                                   err_msg=f"step {step}")
+        live = {n: jstate[n] for n in jstate if n in CACHE_NAMES}
+        compare_caches({n: np.asarray(a)[:, 1:-1] for n, a in live.items()},
+                       {n: tstate[n][:, 1:-1] for n in live}, f"step {step}", 1e-3)
+        for n, before in last.items():
+            assert torch.equal(tstate[n][:, -1], before), f"step {step}: {n} of the last page"
+    # the -1 row's token went to page 0: its data column at slot 0 (ctx 1)
+    assert tstate["k_cache"][:, 0, :, :, 0].any()
+    np.testing.assert_array_equal(tstate["context_len"].numpy(), ctx + 2)
+
+
+def test_prefill_logit_pos_true_len(weights):
+    """prefill(logit_pos, true_len) against JAX: a bucket-padded prompt
+    gives the logits at each row's true last position (rtol 1e-4, atol
+    1e-5, as test_slice_matches_jax) and stores true_len as the context
+    length; the stored words are equal, pad tail included, and the scales
+    within 8 float32 ulps (rtol 9.6e-7: at this 32-token prompt the two
+    frameworks' K/V projections differ by up to 5.9e-7 relative)."""
+    jparams, tparams = weights
+    jpol, tpol = policies("int4-hamming84")
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, J_TINY.vocab_size, (B, 32))
+    pos = np.asarray([10, 20], np.int32)
+    jstate, jbt, _ = jr.init_generation_state(J_TINY, jpol, B, 40, block_size=BS)
+    tstate, tbt, _ = tr.init_generation_state(T_TINY, tpol, B, 40, block_size=BS, device="cpu")
+    jlogits, jstate = jr.prefill(jparams, jnp.asarray(ids), jstate, jbt, J_TINY, jpol,
+                                 jax.random.key(0), logit_pos=jnp.asarray(pos),
+                                 true_len=jnp.asarray(pos + 1))
+    tlogits, tstate = tr.prefill(tparams, torch.from_numpy(ids), tstate, tbt, T_TINY, tpol,
+                                 logit_pos=torch.from_numpy(pos),
+                                 true_len=torch.from_numpy(pos + 1))
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(tstate["context_len"].numpy(), pos + 1)
+    compare_caches(jstate, tstate, "prefill", 9.6e-7)
+    full, _ = tr.prefill(tparams, torch.from_numpy(ids), tstate, tbt, T_TINY, tpol)
+    assert not torch.equal(full, tlogits)  # the last position's logits differ
 
 
 def test_unported_paths_raise(weights):
