@@ -5,19 +5,27 @@
 
 Builds the port's CUDA kernels from csrc/ with nvcc (one process per source,
 all at once), holds every kernel branch against its plain PyTorch version at
-the bench-0.9b shapes - the write+attend kernels (the scrubbed extract read,
-int4's read-time injection, the hamming84 / hamming74 / golay correcting
-reads with and without ECC statistics, the -1 page clamp, precision
-"highest") and K4, the read alone (paged_attention_ecc: every branch with
-and without statistics, the softmax state with a sliding window, an empty
-row, a -1 page, and the chunk-clamped pages of F4 on all three kernels) -
-and checks the card against the CPU on tiny-llama in every mode. Then it
-drives bench-0.9b (random bf16 weights from a seed) through the port's entry
-points on four paths:
+the bench-0.9b shapes - the float codecs' read K2f (float_attend: fp16's
+bfloat16 and fp8's e4m3 pages, the write+attend with bf16 and fp32 queries
+at precision "fast" and "highest", a -1 page, F4, and the read alone with
+an empty row, the softmax state with a sliding window, and NaN pages: a NaN
+in a live K slot, a live V slot, a dead V slot of the last page and a page
+past the context in the last chunk, NaN where the plain version has it),
+the packed write+attend kernels (the scrubbed extract read, int4's
+read-time injection, the hamming84 / hamming74 / golay correcting reads
+with and without ECC statistics, the -1 page clamp, precision "highest")
+and K4, the read alone (paged_attention_ecc: every branch with and without
+statistics, the softmax state with a sliding window, an empty row, a -1
+page, and the chunk-clamped pages of F4 on all three kernels) - and checks
+the card against the CPU on tiny-llama in every mode, fp16 and fp8
+included. Then it drives bench-0.9b (random bf16 weights from a seed)
+through the port's entry points on four paths:
   * the decode slice: batch 8, prompt 1024, 32 greedy steps at BER 1e-2 in
     the five arms of the JAX bench.py (int12-golay, int4-hamming84,
-    int4-hamming, int4-hamming84-interp, int4-write-inject) and the
-    unprotected read-inject arm int4, round-robin over two rounds;
+    int4-hamming, int4-hamming84-interp, int4-write-inject), the
+    unprotected read-inject arm int4 and the float arms fp16 (the default
+    KVCachePolicy(), never injected) and fp8 (write injection of its
+    bytes), round-robin over two rounds;
   * the stats phase: decode_loop(collect_ecc_stats=True) for 8 steps in
     int4, int12-golay, int4-hamming, int4-hamming84 and
     int4-hamming84-interp (the protected ones without scrub), whose counts
@@ -28,11 +36,12 @@ points on four paths:
     UnprotectedBackend with read injection, BER 1e-2;
   * the serve phase: ContinuousBatchingServer, 8 slots, 12 requests of
     256-1024 prompt tokens and 32-64 new ones, in int4-write-inject,
-    int4-hamming84 and int12-golay at BER 1e-2, and a BER-0 check that
+    int4-hamming84, int12-golay (BER 1e-2) and fp16, and a BER-0 check that
     staggered requests give generate()'s tokens.
 Each path checks that every kernel branch it calls was launched exactly as
-often as it calls it. Then it times the kernels and traces the decode step
-of each arm. Every phase prints one line with its seconds; any failure exits
+often as it calls it. Then it times the kernels (K2f beside
+scaled_dot_product_attention over the same context stored dense, fp16's
+yardstick) and traces the decode step of each arm. Every phase prints one line with its seconds; any failure exits
 non-zero. Without a CUDA device it fails.
 
 Output, last lines: the kernel table as one JSON object, the card's name and
@@ -50,10 +59,11 @@ BATCH, PROMPT, STEPS = 8, 1024, 32
 STATS_STEPS = 8
 ENGINE_STEPS = 32
 ROUNDS = 2
-# bench.py's arms, in its order, then the unprotected read-inject arm; the
-# fifth is the baseline of the ratios
+# bench.py's arms, in its order, then the unprotected read-inject arm and the
+# float arms (fp16, the default KVCachePolicy(), and fp8); the fifth is the
+# baseline of the ratios
 MODES = ("int12-golay", "int4-hamming84", "int4-hamming", "int4-hamming84-interp",
-         "int4-write-inject", "int4")
+         "int4-write-inject", "int4", "fp16", "fp8")
 BASELINE = "int4-write-inject"
 # the stats phase's arms (the protected ones without scrub)
 STATS_MODES = ("int4", "int12-golay", "int4-hamming", "int4-hamming84", "int4-hamming84-interp")
@@ -485,9 +495,219 @@ def attend_check(torch, gen, device):
     return worst
 
 
-# the engine phase's arms: the write-injected codecs, and the unprotected
-# read-inject arm (UnprotectedBackend)
-ENGINE_ARMS = ("hamming84", "hamming74", "golay", "int4", "unprotected")
+# the float checks' contexts after the write: 1 to 1152 tokens
+FLOAT_CTX = [1152, 1024, 1025, 1, 512, 130, 778, 1101]
+NAN_BITS = {"fp16": 0x7FC0, "fp8": 0x7F}
+
+
+def float_cache(torch, cfg, codec, gen, device, tokens=1152):
+    """A float cache of every layer of cfg with a value in every slot (a
+    recycled page keeps old values in its dead slots): normals, a tenth of
+    them times 30, stored as the codec stores them; random scales arrays
+    (a float read must leave them as they are); the sequential table."""
+    from qkv_ecc_tpu_torch.kernels.common import to_float_storage
+    from qkv_ecc_tpu_torch.models.kv_policy import KVCachePolicy
+    from qkv_ecc_tpu_torch.models.runtime import init_generation_state
+
+    state, bt, _ = init_generation_state(cfg, KVCachePolicy(codec=codec), len(FLOAT_CTX),
+                                         tokens, 128, device=device)
+    for n in ("k_cache", "v_cache"):
+        x = torch.randn(state[n].shape, generator=gen, device=device)
+        x = torch.where(torch.rand(x.shape, generator=gen, device=device) < 0.1, 30 * x, x)
+        state[n].copy_(to_float_storage(codec, x))
+    for n in ("k_scales", "v_scales"):
+        state[n].copy_(torch.rand(state[n].shape, generator=gen, device=device))
+    return state, bt
+
+
+def raw_bits(t):
+    """A cache array as integers of its width (NaN compares by its bits)."""
+    import torch
+
+    return t.view({torch.bfloat16: torch.int16, torch.float8_e4m3fn: torch.uint8}.get(
+        t.dtype, t.dtype))
+
+
+def check_float(name, out, ref, a=None, p=None):
+    """Float reads: arrays after the write equal bit for bit (e4m3 through
+    its bytes), NaN where the plain version has NaN and nowhere else, the
+    rest within output_tolerance; returns the largest |kernel - plain| of
+    the finite elements."""
+    import torch
+
+    for n in a or {}:
+        if not torch.equal(raw_bits(a[n]), raw_bits(p[n])):
+            fail(f"{name}: {n} after the write differs from the plain version")
+    out, ref = out.float(), ref.float()
+    nan = torch.isnan(ref)
+    if not torch.equal(torch.isnan(out), nan):
+        fail(f"{name}: NaN at {int(torch.isnan(out).sum())} elements of the output, the plain "
+             f"version at {int(nan.sum())}")
+    ref0, out0 = torch.where(nan, 0.0, ref), torch.where(nan, 0.0, out)
+    diff = (out0 - ref0).abs()
+    tol = output_tolerance(ref0)
+    err = diff.max().item()
+    say(f"  {name}: max |kernel - plain| = {err:.3e}, largest share of its tolerance "
+        f"{(diff / tol.clamp(min=1e-30)).max().item():.3e}; NaN at the plain version's "
+        f"{int(nan.sum())} elements" + ("; arrays after the write equal" if a else ""))
+    if not bool((diff <= tol).all()) or not bool(torch.isfinite(out0).all()):
+        fail(f"{name}: output differs beyond tolerance")
+    return err
+
+
+def float_kernel_check(torch, gen, device):
+    """K2f (write_attend.cu's float_attend) against its plain versions at
+    bench-0.9b attention shapes (B 8, Hkv 8, group 2, head_dim 128, block
+    128, 512-token chunks, layer 1, contexts FLOAT_CTX), in fp16 (bfloat16
+    pages) and fp8 (e4m3): the write+attend with bf16 and fp32 queries, at
+    precision "fast" and "highest"; the same with row 3 on a page of -1
+    (written to page 0, which row 0, now empty, does not read); K4, the read
+    alone, with an empty row (5) and a -1 page, as the output and as the
+    softmax state with a sliding window of 256; F4: num_pages 5 of the
+    10-page table (the kernel visits 8, reading page 4 again) for both; and
+    a cache with NaN (e4m3 0x7f, bfloat16 0x7fc0) in a live K slot (row 1,
+    token 100), a live V slot (row 2, token 7), a dead V slot of the last
+    page (row 6, token 800) and a V slot of a page past the context in the
+    last chunk (row 5, token 300): NaN where the plain version has NaN.
+    Arrays after the write equal, the scales arrays unchanged. Last, the
+    widening alone: one-token contexts whose V values are all 256 e4m3
+    codes (every 8th bfloat16 code) read out exactly torch's conversion.
+    Returns the largest error of each (codec, write or read)."""
+    import dataclasses
+    from qkv_ecc_tpu_torch.kernels.common import to_float_storage
+    from qkv_ecc_tpu_torch.kernels.paged_attention import (
+        attend_plain, paged_attention_ecc, paged_attention_ecc_write_attend as write_attend,
+        write_attend_plain)
+    from qkv_ecc_tpu_torch.models.config import BENCH_0_9B
+
+    cfg = dataclasses.replace(BENCH_0_9B, num_layers=2)
+    B, Hq, Hkv, D = len(FLOAT_CTX), cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    names = ("k_cache", "v_cache", "k_scales", "v_scales")
+    worst = {}
+    for codec in ("fp16", "fp8"):
+        state, bt = float_cache(torch, cfg, codec, gen, device)
+        scales = {n: state[n].clone() for n in ("k_scales", "v_scales")}
+        ctx = torch.tensor(FLOAT_CTX, dtype=torch.int32, device=device)
+
+        def new():
+            return [to_float_storage(codec, torch.randn((B, Hkv, D), generator=gen,
+                                                        device=device)) for _ in range(2)]
+
+        def write(label, qdtype=torch.bfloat16, precision="fast", bt=bt, ctx=ctx, num_pages=None,
+                  st=state):
+            q = torch.randn((B, Hq, D), generator=gen, device=device).to(qdtype)
+            kn, vn = new()
+            sn = torch.ones((B, Hkv), device=device)
+            a = {n: st[n].clone() for n in names}
+            p = {n: st[n].clone() for n in names}
+            out = write_attend(q, kn, vn, sn, sn, *(a[n] for n in names), bt, ctx, 1, codec=codec,
+                               precision=precision, num_pages=num_pages)
+            torch.cuda.synchronize()
+            ref = write_attend_plain(q, kn, vn, sn, sn, *(p[n] for n in names), bt, ctx, 1,
+                                     sm_scale=D ** -0.5, precision=precision, codec=codec,
+                                     num_pages=num_pages, pages_per_chunk=4)
+            for n in ("k_scales", "v_scales"):
+                if not torch.equal(a[n], scales[n]):
+                    fail(f"K2f {codec} {label}: the write changed {n}")
+            key = (codec, "write")
+            worst[key] = max(worst.get(key, 0.0),
+                             check_float(f"float_attend {codec} write+attend {label}", out, ref, a, p))
+
+        def read(label, bt=bt, ctx=ctx, num_pages=None, window=None, state_out=False, st=state):
+            q = torch.randn((B, Hq, D), generator=gen, device=device).to(torch.bfloat16)
+            args = (q, *(st[n] for n in names), bt, ctx, 1)
+            before = {n: st[n].clone() for n in names}
+            out = paged_attention_ecc(*args, codec=codec, num_pages=num_pages,
+                                      sliding_window=window, return_softmax_state=state_out,
+                                      collect_stats=True)
+            torch.cuda.synchronize()
+            ref = attend_plain(*args, codec=codec, sm_scale=D ** -0.5,
+                               num_pages=num_pages or bt.shape[1], pages_per_chunk=4,
+                               sliding_window=window, return_softmax_state=state_out)
+            (out, stats) = out
+            if stats.any():
+                fail(f"K2f {codec} read {label}: stats {stats.tolist()} are not zeros")
+            for n in names:
+                if not torch.equal(raw_bits(before[n]), raw_bits(st[n])):
+                    fail(f"K2f {codec} read {label}: the read changed {n}")
+            key = (codec, "read")
+            if state_out:
+                err = check_float(f"paged_attention_ecc {codec} {label} acc", out[0], ref[0])
+                for x, y, what in ((out[1], ref[1], "m"), (out[2], ref[2], "l")):
+                    if not bool((((x - y).abs() <= 1e-5 * y.abs() + 1e-5) | (x.isnan() & y.isnan())
+                                 ).all()):
+                        fail(f"K2f {codec} read {label}: {what} differs from the plain version's")
+            else:
+                err = check_float(f"paged_attention_ecc {codec} {label}", out, ref)
+            worst[key] = max(worst.get(key, 0.0), err)
+            return out
+
+        write("q=bf16")
+        write("q=fp32", qdtype=torch.float32)
+        write("q=fp32 precision=highest", qdtype=torch.float32, precision="highest")
+        bt_neg, ctx_neg = bt.clone(), ctx.clone()
+        bt_neg[3] = -1
+        ctx_neg[0] = 0
+        write("row 3 on page -1, row 0 empty", bt=bt_neg, ctx=ctx_neg)
+        write("num_pages=5 (F4)", num_pages=5)
+        ctx_k4 = ctx.clone()
+        ctx_k4[5] = 0
+        out = read("empty row 5, row 3 on page -1", bt=bt_neg, ctx=ctx_k4)
+        if out[5].any():
+            fail(f"K2f {codec}: the empty row did not read 0")
+        acc = read("softmax state, window 256", ctx=ctx_k4, window=256, state_out=True)
+        if acc[0][5].any() or not bool((acc[1][5] == -1e30).all()) or acc[2][5].any():
+            fail(f"K2f {codec}: the empty row's softmax state is not 0, -1e30, 0")
+        read("num_pages=5 (F4)", num_pages=5)
+        # NaN pages (row, token, K or V): a live K slot, a live V slot, a dead
+        # V slot of the last page, a V slot of a page past the context that
+        # the last 512-token chunk holds
+        poisoned = {n: state[n].clone() for n in names}
+        for row, tok, n in ((1, 100, "k_cache"), (2, 7, "v_cache"), (6, 800, "v_cache"),
+                            (5, 300, "v_cache")):
+            page = int(bt[row, tok // 128])
+            raw = poisoned[n].view(torch.uint8 if codec == "fp8" else torch.int16)
+            raw[1, page, 0, 5, tok % 128] = NAN_BITS[codec]
+        write("NaN pages", st=poisoned)
+        out = read("NaN pages", st=poisoned)
+        nan = torch.isnan(out.float())
+        if not (nan[2, :2, 5].all() and nan[6, :2, 5].all() and nan[5, :2, 5].all()
+                and not out[1, :2].any()):
+            fail(f"K2f {codec}: the NaN pages did not reach the output as on the TPU")
+        read("NaN pages, softmax state", st=poisoned, state_out=True)
+        # the widening, exactly: a context of one token (each row's new
+        # column) at precision "highest" reads out its V values unchanged, so
+        # the fp32 output holds the kernel's widening of every code written:
+        # all 256 e4m3 codes, every 8th bfloat16 code (each exponent, the
+        # subnormals, +-inf and NaN among them)
+        bits = torch.uint8 if codec == "fp8" else torch.int16
+        n = B * Hkv * D
+        codes = (torch.arange(n, device=device) % 256 if codec == "fp8" else
+                 torch.arange(n, device=device) * 8 - 2 ** 15).to(bits)
+        vn = codes.reshape(B, Hkv, D).view(state["v_cache"].dtype)
+        kn = new()[0]
+        one = torch.ones_like(ctx)
+        q = torch.randn((B, Hq, D), generator=gen, device=device)
+        sn = torch.ones((B, Hkv), device=device)
+        a = {n: state[n].clone() for n in names}
+        out = write_attend(q, kn, vn, sn, sn, *(a[n] for n in names), bt, one, 1, codec=codec,
+                           precision="highest")
+        torch.cuda.synchronize()
+        want = vn.to(torch.float32).repeat_interleave(Hq // Hkv, dim=1)
+        same = torch.equal(torch.isnan(out), torch.isnan(want)) and torch.equal(
+            torch.nan_to_num(out, posinf=1e38, neginf=-1e38),
+            torch.nan_to_num(want, posinf=1e38, neginf=-1e38))
+        say(f"  float_attend {codec} widening of {len(torch.unique(codes))} codes, against "
+            f"torch's: {'equal' if same else 'DIFFERENT'}")
+        if not same:
+            fail(f"K2f {codec}: the kernel widens stored values otherwise than torch")
+    return worst
+
+
+# the engine phase's arms: the write-injected codecs, the unprotected
+# read-inject arm (UnprotectedBackend) and the float codecs (their reads take
+# the general path, as in the JAX engine)
+ENGINE_ARMS = ("hamming84", "hamming74", "golay", "int4", "unprotected", "fp16", "fp8")
 
 
 def engine_phase(torch, gen, device, smi, steps):
@@ -496,16 +716,18 @@ def engine_phase(torch, gen, device, smi, steps):
     written and attended (causal, the general path) per layer, then `steps`
     decode steps of write (1 token) and attend (S = 1: K4) per layer, q, k
     and v from a seeded generator, BER 1e-2 (write injection; read
-    injection for the unprotected arm). Checks: K4 launched exactly steps x
-    24 times per arm, in the arm's branch; at the last step the K4 output
+    injection for the unprotected arm). The float arms fp16 and fp8 read
+    through the general path at every step, as the JAX engine does. Checks:
+    K4 launched exactly steps x 24 times per arm, in the arm's branch (the
+    float arms: never); at the last step the K4 output
     of layer 23 within 2e-2 of the general path on the same cache (the
     unprotected arm: a clean K4 read), as tests/test_engine.py:110 - except
     golay's, where the two paths differ by design (K4 reads an uncorrectable
     codeword as 0, the general path keeps its data) and the output is held
     to K4's plain version instead, within output_tolerance; corrections
-    (hamming84, golay: and detections) counted; the unprotected arm's
-    flipped / (BER x bits read) within 0.98-1.02. Returns K4's launches by
-    branch over the arms."""
+    (hamming84, golay: and detections) counted; fp8's flipped bits counted,
+    fp16's none; the unprotected arm's flipped / (BER x bits read) within
+    0.98-1.02. Returns K4's launches by branch over the arms."""
     from qkv_ecc_tpu_torch.cache.engine import ECCEngine, ECCEngineConfig, _attend_general
     from qkv_ecc_tpu_torch.cache.unprotected import (
         UnprotectedBackend, UnprotectedEngineConfig, get_unprotected_stats)
@@ -515,7 +737,7 @@ def engine_phase(torch, gen, device, smi, steps):
     L, Hq, Hkv, D = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     launches = dict.fromkeys(paged_attention_ecc.launches_by, 0)
     branch = {"hamming84": "hamming84", "hamming74": "hamming74", "golay": "golay",
-              "int4": "read", "unprotected": "read-inject"}
+              "int4": "read", "unprotected": "read-inject", "fp16": None, "fp8": None}
     for arm in ENGINE_ARMS:
         kw = dict(ber=BER, inject_errors=True, seed=42, block_size=128, num_blocks=16, max_seqs=1)
         if arm == "unprotected":
@@ -533,7 +755,9 @@ def engine_phase(torch, gen, device, smi, steps):
             out = eng.attend(randn(Hq, PROMPT, D), layer)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t
-        if out.shape != (Hq, PROMPT, D) or not torch.isfinite(out).all():
+        # fp8's injected bytes may be NaN (0x7f, 0xff), as in the JAX engine
+        nan_ok = arm == "fp8"
+        if out.shape != (Hq, PROMPT, D) or not (nan_ok or torch.isfinite(out).all()):
             fail(f"engine {arm}: prefill attention not finite or of the wrong shape")
         reset_counts(paged_attention_ecc)
         t = time.perf_counter()
@@ -570,31 +794,41 @@ def engine_phase(torch, gen, device, smi, steps):
                 eng.cache["k_scales"], eng.cache["v_scales"], eng.manager.block_table()[:1],
                 torch.tensor([ctx], dtype=torch.int32, device=device), L - 1, codec="int4",
                 num_pages=-(-ctx // 128))[0][:, None]
-        err = (out.float() - general).abs().max().item()
-        close = (bool(((out - general).abs() <= output_tolerance(general)).all())
-                 if arm == "golay" else err <= 2e-2)
+        nan = torch.isnan(general)
+        diff = (torch.where(nan, 0.0, out.float()) - torch.where(nan, 0.0, general)).abs()
+        err = diff.max().item()
+        close = torch.equal(torch.isnan(out.float()), nan) and (
+            bool((diff <= output_tolerance(torch.where(nan, 0.0, general))).all())
+            if arm == "golay" else err <= 2e-2)
         stats = eng.stats
         line = (f"  engine {arm}: prefill {PROMPT} tokens x {L} layers in {prefill_s:.3f} s; "
-                f"{ms:.3f} ms per decode step ({L} layers of write + K4 attend); last step "
-                f"|K4 - {'plain K4' if arm == 'golay' else 'general path'}| = {err:.3e} "
-                f"({'output_tolerance' if arm == 'golay' else 'tolerance 2e-2'}); stats {stats}")
+                f"{ms:.3f} ms per decode step ({L} layers of write + "
+                f"{'K4' if branch[arm] else 'general'} attend); last step "
+                f"|{'K4' if branch[arm] else 'general path'} - "
+                f"{'plain K4' if arm == 'golay' else 'general path'}| = {err:.3e} "
+                f"({'output_tolerance' if arm == 'golay' else 'tolerance 2e-2'}"
+                + (f"; NaN at the same {int(nan.sum())} elements" if nan_ok else "")
+                + f"); stats {stats}")
         if arm == "unprotected":
             ratio = stats["actual_ber"] / BER
             line += f"; actual_ber / BER = {ratio:.6f} (band 0.98-1.02)"
             ok = 0.98 <= ratio <= 1.02 and get_unprotected_stats(eng)["bits_flipped"] > 0
-        elif arm == "int4":
+        elif arm in ("int4", "fp8"):
             ok = stats["bits_flipped"] > 0
+        elif arm == "fp16":
+            ok = stats["bits_flipped"] == 0
         else:
             ok = stats["errors_corrected"] > 0 and (arm == "hamming74" or stats["errors_detected"] > 0)
         say(line + f" ({smi})")
-        if not ok or not close or not torch.isfinite(out).all():
+        if not ok or not close or not (nan_ok or torch.isfinite(out).all()):
             fail(f"engine {arm}: the counts or the K4 output are off")
         del eng
     return launches
 
 
-# the serve phase's arms (scripts/serving_bench.py's MODES)
-SERVE_MODES = ("int4-write-inject", "int4-hamming84", "int12-golay")
+# the serve phase's arms (scripts/serving_bench.py's MODES) and fp16, the
+# default KVCachePolicy()
+SERVE_MODES = ("int4-write-inject", "int4-hamming84", "int12-golay", "fp16")
 SERVE_REQUESTS, SERVE_BATCH = 12, 8
 
 
@@ -671,8 +905,10 @@ def serve_phase(torch, params, device, smi):
             fail(f"serve {mode}: the write+attend kernels launched {got} times for {steps} "
                  f"decode steps x {cfg.num_layers} layers")
         counts = {k: v - base[k] for k, v in server.ecc_stats.items()}
-        if mode != "int4-write-inject" and not counts["errors_corrected"] > 0:
+        if mode in ("int4-hamming84", "int12-golay") and not counts["errors_corrected"] > 0:
             fail(f"serve {mode}: no correction counted at BER {BER}")
+        if mode == "fp16" and any(counts.values()):
+            fail(f"serve {mode}: a float read counted ECC errors {counts}")
         tokens = sum(len(o.token_ids) for o in outs)
         full = [dt for a, dt in server.decode if a == SERVE_BATCH] or [0.0]
         say(f"  serve {mode}: {SERVE_REQUESTS} requests (prompts {min(lens)}-{max(lens)}, "
@@ -744,7 +980,8 @@ TINY_MODES = MODES + ("int12-golay/scrub=False", "int4-hamming/scrub=False",
 
 def tiny_agreement(torch, device):
     """tiny-llama prefill + 6 decode steps at BER 1e-2 in every mode (the
-    arms, the unscrubbed reads, collect_ecc_stats), on the card (kernels)
+    arms, the float arms fp16 and fp8, the unscrubbed reads,
+    collect_ecc_stats), on the card (kernels)
     and on the CPU (plain versions), same weights, write masks, prefill read
     flips and read seeds: logits within 1e-2, the same greedy tokens and the
     same ECC counts."""
@@ -752,7 +989,7 @@ def tiny_agreement(torch, device):
     from qkv_ecc_tpu_torch.codecs.fault_injection import flip_mask
     from qkv_ecc_tpu_torch.models.config import TINY_LLAMA as cfg
     from qkv_ecc_tpu_torch.models.kv_policy import (
-        hoisted_logical_masks, hoisted_write_deltas, policy_for_mode)
+        hoisted_logical_masks, hoisted_write_deltas, policy_for_mode, write_inject)
     from qkv_ecc_tpu_torch.models.registry import init_params
     from qkv_ecc_tpu_torch.models.runtime import (
         _use_scrub, decode_step, init_generation_state, prefill, write_mask_shape)
@@ -770,7 +1007,7 @@ def tiny_agreement(torch, device):
         gen = torch.Generator().manual_seed(2)
         hoist = hoisted_write_deltas if _use_scrub(pol) and not stats else hoisted_logical_masks
         masks = [hoist(pol, cfg.num_layers, write_mask_shape(pol, 2, cfg), generator=gen)
-                 for _ in range(6)]
+                 if write_inject(pol) else None for _ in range(6)]
         read_masks = flip_mask((cfg.num_layers, 2, 2, 21, cfg.num_kv_heads, cfg.head_dim), BER,
                                4, gen) if read else None
         seeds = torch.randint(-2 ** 31, 2 ** 31, (6,), generator=gen).tolist()
@@ -785,19 +1022,25 @@ def tiny_agreement(torch, device):
             for m, seed in zip(masks, seeds):
                 toks.append(torch.argmax(logits, -1).cpu())
                 logits, state = decode_step(params, torch.argmax(logits, -1), state, bt, cfg, pol,
-                                            hoisted_masks=m.to(dev), collect_ecc_stats=stats,
+                                            hoisted_masks=None if m is None else m.to(dev),
+                                            collect_ecc_stats=stats,
                                             read_inject_seed=seed if read else None)
                 seq.append(logits.cpu())
             counts = [state[n].cpu() for n in ("ecc_corrected", "ecc_detected")] if stats else []
             runs[str(dev)] = (torch.stack(seq), torch.stack(toks), counts)
         (lc, tc, cc), (lg, tg, cg) = runs["cpu"], runs[str(device)]
-        err = (lc - lg).abs().max().item()
+        # fp8's injected bytes may be NaN (0x7f, 0xff): NaN logits must
+        # stand at the same places on both
+        nan = torch.isnan(lc)
+        same_nan = torch.equal(nan, torch.isnan(lg))
+        err = (torch.where(nan, 0.0, lc) - torch.where(nan, 0.0, lg)).abs().max().item()
         same_counts = all(torch.equal(x, y) for x, y in zip(cc, cg))
         say(f"  tiny-llama {mode}: max |logits card - logits cpu| = {err:.3e} (tolerance 1e-2); "
+            f"NaN logits {int(nan.sum())} on the cpu, at the same places on the card: {same_nan}; "
             f"tokens {'identical' if torch.equal(tc, tg) else 'DIFFER'}"
             + (f"; ECC counts card {[c.tolist() for c in cg]}, cpu {[c.tolist() for c in cc]}"
                if stats else ""))
-        if not err <= 1e-2 or not torch.equal(tc, tg) or not same_counts:
+        if not err <= 1e-2 or not same_nan or not torch.equal(tc, tg) or not same_counts:
             fail(f"tiny-llama {mode}: the card disagrees with the CPU")
 
 
@@ -824,7 +1067,8 @@ def trace_decode(torch, params, ids, gen, device, smi):
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         busy = sum(e.time_range.elapsed_us() for e in kernels)
         attend = {name: sum(e.time_range.elapsed_us() for e in kernels if name in e.name)
-                  for name in ("write_attend_kernel", "decode_attend_kernel")}
+                  for name in ("write_attend_kernel", "decode_attend_kernel",
+                               "float_attend_kernel")}
         if not kernels or busy <= 0:
             say(f"  {mode}: device time not measured (the profiler recorded no device events)")
             continue
@@ -832,7 +1076,8 @@ def trace_decode(torch, params, ids, gen, device, smi):
             f"{len(kernels) / 4:.0f} device kernels/step, device busy {busy / 4e3:.3f} ms/step "
             f"({100 * busy / wall_us:.1f}% of wall, idle {100 - 100 * busy / wall_us:.1f}%), "
             f"write_attend {attend['write_attend_kernel'] / 4e3:.3f} ms/step, decode_attend "
-            f"{attend['decode_attend_kernel'] / 4e3:.3f} ms/step ({smi})")
+            f"{attend['decode_attend_kernel'] / 4e3:.3f} ms/step, float_attend "
+            f"{attend['float_attend_kernel'] / 4e3:.3f} ms/step ({smi})")
 
 
 def device_ms(torch, fn, n, layers, wrapper):
@@ -842,7 +1087,8 @@ def device_ms(torch, fn, n, layers, wrapper):
     so the events time the device alone, without the host's time per call,
     which is longer than the kernel's (timed includes it). If the sleep ended
     before the last call was queued, the run is repeated with a longer one.
-    The wrapper's counter must show exactly n launches."""
+    The wrapper's counter (None: a library call, not counted) must show
+    exactly n launches."""
     for i in range(3):
         fn(i % layers)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -850,13 +1096,13 @@ def device_ms(torch, fn, n, layers, wrapper):
         torch.cuda.synchronize()
         torch.cuda._sleep(cycles)
         start.record()
-        before = wrapper.launches
+        before = wrapper.launches if wrapper else 0
         for i in range(n):
             fn(i % layers)
         end.record()
         queued_in_time = not start.query()  # the device was still asleep
         torch.cuda.synchronize()
-        launched = wrapper.launches - before
+        launched = wrapper.launches - before if wrapper else n
         if launched != n:
             fail(f"{n} timed calls launched their kernel {launched} times")
         if queued_in_time:
@@ -944,6 +1190,7 @@ def main():
 
     gen = torch.Generator(device=device).manual_seed(0)
     with Phase("kernel check"):
+        max_err_float = float_kernel_check(torch, gen, device)
         max_err = kernel_check(torch, gen, device)
         max_err_decode = decode_kernel_check(torch, gen, device)
         max_err_inject = read_inject_check(torch, gen, device)
@@ -977,7 +1224,11 @@ def main():
                 logits, state, toks = decode_loop(params, logits, state, bt, cfg, pol, g, STEPS)
                 torch.cuda.synchronize()
                 t_decode = time.perf_counter() - t
-                if logits.shape != (BATCH, cfg.vocab_size) or not torch.isfinite(logits).all():
+                # fp8 at BER 1e-2 stores NaN wherever a flip makes a byte 0x7f or
+                # 0xff, and NaN V values reach the logits, as in the JAX package
+                finite_rows = int(torch.isfinite(logits).all(dim=-1).sum())
+                if logits.shape != (BATCH, cfg.vocab_size) or (finite_rows < BATCH
+                                                               and mode != "fp8"):
                     fail(f"{mode}: logits not finite or of the wrong shape")
                 if toks.shape != (STEPS, BATCH) or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
                     fail(f"{mode}: tokens out of range")
@@ -986,7 +1237,7 @@ def main():
                 last = rnd + 1 == ROUNDS  # the kernel timing reads the last round's caches
                 runs[mode].append(dict(state=state if last else None, bt=bt, prefill_s=t_prefill,
                                        ms_step=1e3 * t_decode / STEPS,
-                                       tok_s=BATCH * STEPS / t_decode))
+                                       tok_s=BATCH * STEPS / t_decode, finite_rows=finite_rows))
                 del state
         slice_launches = (dict(write_attend.launches_by), dict(write_decode_attend.launches_by))
         how = f"{cfg.num_layers} layers x {STEPS} steps x {ROUNDS} rounds x"
@@ -995,6 +1246,8 @@ def main():
                                   f"{how} 4 arms (the scrubbed ones)"),
             "write_attend read-inject": (slice_launches[0]["read-inject"], per_arm,
                                          f"{how} 1 arm (int4)"),
+            "write_attend fp16 (K2f)": (slice_launches[0]["fp16"], per_arm, f"{how} 1 arm (fp16)"),
+            "write_attend fp8 (K2f)": (slice_launches[0]["fp8"], per_arm, f"{how} 1 arm (fp8)"),
             "decode_attend hamming84-interp": (slice_launches[1]["hamming84-interp"], per_arm,
                                                f"{how} 1 arm (int4-hamming84-interp)"),
             "decode_attend other branches": (write_decode_attend.launches
@@ -1006,7 +1259,8 @@ def main():
                 say(f"  round {rnd} {mode}: prefill {r['prefill_s']:.3f} s, decode "
                     f"{r['ms_step']:.3f} ms/step, {r['tok_s']:.1f} tokens/s, "
                     f"{r['tok_s'] / base['tok_s']:.4f} x int4-write-inject's tokens/s "
-                    f"(batch {BATCH}, ctx {PROMPT}+{STEPS}, BER {BER}; {smi})")
+                    f"(batch {BATCH}, ctx {PROMPT}+{STEPS}, BER {BER}; last logits finite in "
+                    f"{r['finite_rows']} of {BATCH} rows; {smi})")
         for mode, rs in runs.items():
             mean_tok = sum(r["tok_s"] for r in rs) / len(rs)
             base_tok = sum(r["tok_s"] for r in runs[BASELINE]) / ROUNDS
@@ -1084,16 +1338,20 @@ def main():
         sn = torch.ones((BATCH, cfg.num_kv_heads), dtype=torch.float32, device=device)
         timings = {}
 
-        def time_kernel(key, label, call, plain, wrapper, state, bt, words_read, int_ops, row_w):
+        def time_kernel(key, label, call, plain, wrapper, state, bt, words_read, int_ops, row_w,
+                        word_bytes=4, scale_bytes=4, library=None):
             """Device time (behind a sleep), back-to-back time, the plain
-            version's time and the bound of one call on `state`'s caches;
-            row_w words of a new row per (sequence, KV head) are written
-            (0: a read, K4)."""
+            version's time, the library call's (when one computes the same
+            function) and the bound of one call on `state`'s caches; row_w
+            words of a new row per (sequence, KV head) are written (0: a
+            read, K4). A float cache reads values of word_bytes and no
+            scales (scale_bytes 0)."""
             L = state["k_cache"].shape[0]
             ms = device_ms(torch, call, 240, L, wrapper)
             call_ms = timed(torch, call, 240, L)
             plain_ms = timed(torch, plain, 24, L)
             ms = min(ms, device_ms(torch, call, 240, L, wrapper))
+            library_ms = None if library is None else device_ms(torch, library, 240, L, None)
             tokens = int(state["context_len"].sum())
             Hkv = state["k_cache"].shape[2]
             # least work of one call: read each live token's K and V words
@@ -1101,9 +1359,10 @@ def main():
             # new rows, scales and the output. Operations: QK and PV, one
             # multiply-add each per (token, KV head, group head, value), in
             # fp32, and the integer operations counted from the source
-            nbytes = (tokens * Hkv * (2 * words_read * 4 + 2 * 4) + 2 * q.numel() * q.element_size()
-                      + (2 * BATCH * Hkv * (row_w * 4 + 4) if row_w else 0) + bt.numel() * 4
-                      + BATCH * 4)
+            nbytes = (tokens * Hkv * 2 * (words_read * word_bytes + scale_bytes)
+                      + 2 * q.numel() * q.element_size()
+                      + (2 * BATCH * Hkv * (row_w * word_bytes + scale_bytes) if row_w else 0)
+                      + bt.numel() * 4 + BATCH * 4)
             flops = 2 * 2 * tokens * Hkv * group * cfg.head_dim
             ops = int_ops(tokens, Hkv)
             b_ms, b_by, bytes_ms, ops_ms = bound(nbytes, flops, ops)
@@ -1113,8 +1372,12 @@ def main():
                 f"({nbytes / 1e6:.2f} MB at 3.35 TB/s = {bytes_ms * 1e3:.2f} us; "
                 f"{flops / 1e6:.1f} MFLOP fp32 + {ops / 1e6:.1f} M int32 ops at 67 T/s = "
                 f"{ops_ms * 1e3:.2f} us); share of bound {b_ms / ms:.3f}; plain version "
-                f"{plain_ms * 1e3:.1f} us; library call: none ({smi})")
-            timings[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+                f"{plain_ms * 1e3:.1f} us; library call: "
+                + ("none" if library_ms is None else
+                   f"{library_ms * 1e3:.2f} us (scaled_dot_product_attention, dense bf16 K/V)")
+                + f" ({smi})")
+            timings[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                library_ms=library_ms)
 
         # K1 on the golay arm's cache (the column at ctx-1 is rewritten)
         state, bt = runs["int12-golay"][-1]["state"], runs["int12-golay"][-1]["bt"]
@@ -1215,13 +1478,62 @@ def main():
                         paged_attention_ecc, state, bt, Wd + Pw,
                         lambda tok, h, f=per_row, p=Pw: tok * h * 2 * f(Wd, p), 0)
 
+        # K2f on the float arms' caches of the slice, the write+attend and
+        # the read; fp16's yardstick: scaled_dot_product_attention over the
+        # same context stored dense ([B, Hkv, ctx, D] bf16, GQA), not paged
+        from qkv_ecc_tpu_torch.kernels.paged_attention import gather_pages
+
+        for codec in ("fp16", "fp8"):
+            state, bt = runs[codec][-1]["state"], runs[codec][-1]["bt"]
+            ctx = state["context_len"].clone()
+            D = cfg.head_dim
+            kn = torch.zeros((BATCH, cfg.num_kv_heads, D), dtype=state["k_cache"].dtype,
+                             device=device)
+            elem = state["k_cache"].element_size()
+            library = None
+            if codec == "fp16":
+                T = int(ctx.max())
+                dense = [[gather_pages(state[n], bt, layer, bt.shape[1])[:, :T].transpose(1, 2)
+                          .contiguous() for n in ("k_cache", "v_cache")]
+                         for layer in range(cfg.num_layers)]
+                q4 = q[:, :, None]
+
+                def library(layer, dense=dense, q4=q4):
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        q4, *dense[layer], enable_gqa=True)
+
+            def call_w(layer, state=state, bt=bt, ctx=ctx, kn=kn, codec=codec):
+                return write_attend(q, kn, kn, sn, sn, *(state[n] for n in names), bt, ctx,
+                                    layer, codec=codec)
+
+            def plain_w(layer, state=state, bt=bt, ctx=ctx, kn=kn, codec=codec):
+                return write_attend_plain(q, kn, kn, sn, sn, *(state[n] for n in names), bt, ctx,
+                                          layer, sm_scale=sm, codec=codec, pages_per_chunk=4)
+
+            def call_r(layer, state=state, bt=bt, ctx=ctx, codec=codec):
+                return paged_attention_ecc(q, *(state[n] for n in names), bt, ctx, layer,
+                                           codec=codec)
+
+            def plain_r(layer, state=state, bt=bt, ctx=ctx, codec=codec):
+                return attend_plain(q, *(state[n] for n in names), bt, ctx, layer, codec=codec,
+                                    sm_scale=sm, num_pages=bt.shape[1], pages_per_chunk=4)
+
+            no_ops = lambda tok, h: 0  # noqa: E731
+            time_kernel(codec, f"float_attend {codec} write+attend (K2f)", call_w, plain_w,
+                        write_attend, state, bt, D, no_ops, D, word_bytes=elem, scale_bytes=0,
+                        library=library)
+            time_kernel("k4-" + codec, f"paged_attention_ecc {codec} (K2f read)", call_r,
+                        plain_r, paged_attention_ecc, state, bt, D, no_ops, 0, word_bytes=elem,
+                        scale_bytes=0, library=library)
+            del library
+
     with Phase("trace"):
         trace_decode(torch, params, ids, gen, device, smi)
 
     def entry(name, key, source, replaces, launches, err):
         return dict(name=name, route="cuda", source=f"qkv_ecc_tpu_torch/csrc/{source}",
                     replaces=f"qkv_ecc_tpu/kernels/{replaces}", launches=launches,
-                    max_abs_err=err, **timings[key], library_ms=None)
+                    max_abs_err=err, **timings[key])
 
     # the write+attend kernels' launches over the decode slice, the stats
     # phase and the serve phase; K4's over the engine phase
@@ -1249,6 +1561,14 @@ def main():
               "paged_attention.py:828", k4[k],
               max(max_err_k4[k], max_err_k4["extract"]) if k == "read" else max_err_k4[k])
         for k in ("read", "read-inject", "hamming84", "hamming84-interp", "hamming74", "golay")
+    ] + [
+        entry(f"float_attend {c} write+attend (K2f)", c, "write_attend.cu",
+              "paged_attention.py:300", wa(0, c), max_err_float[(c, "write")])
+        for c in ("fp16", "fp8")
+    ] + [
+        entry(f"paged_attention_ecc {c} (K2f read)", "k4-" + c, "write_attend.cu",
+              "paged_attention.py:300", k4[c], max_err_float[(c, "read")])
+        for c in ("fp16", "fp8")
     ]}
     say(f"total {time.perf_counter() - T0:.1f} s")
     say(json.dumps(table))

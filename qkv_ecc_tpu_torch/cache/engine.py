@@ -45,7 +45,7 @@ from .layout import ECCCacheConfig, allocate_ecc_kv_cache
 
 CODEC_N_BITS = {"int4": 4, "hamming74": 7, "hamming84": 8, "golay": 24, "fp8": 8}
 _PACKED = ("int4", "hamming74", "hamming84", "golay")
-_FLOAT = ("fp16", "fp8")
+_FLOAT = swar.FLOAT_CODECS
 
 
 @dataclasses.dataclass
@@ -120,19 +120,19 @@ def _write_step(cache, k, v, layer_idx, phys, slots, masks, *, codec, head_dim):
     return flips
 
 
-def _write_step_float(cache, k, v, layer_idx, phys, slots, masks):
-    """fp16 / fp8: store the raw values; fp8's bytes XORed with ``masks``
+def _write_step_float(cache, k, v, layer_idx, phys, slots, masks, *, codec):
+    """fp16 / fp8: store the values as JAX rounds them (bfloat16; e4m3 with
+    NaN past +-464, ``C.to_fp8_e4m3``); fp8's bytes XORed with ``masks``
     when given. Returns the flipped bit count."""
-    dtype = cache["k_cache"].dtype
-    kc, vc = k.to(dtype), v.to(dtype)
+    kc, vc = C.to_float_storage(codec, k), C.to_float_storage(codec, v)
     flips = torch.zeros((), dtype=torch.int32, device=k.device)
     if masks is not None:
         km, vm = (m.to(device=k.device, dtype=torch.uint8) for m in masks)
         flips = _popsum(km) + _popsum(vm)
-        kc = (kc.view(torch.uint8) ^ km).view(dtype)
-        vc = (vc.view(torch.uint8) ^ vm).view(dtype)
-    cache["k_cache"][layer_idx, phys, :, :, slots] = kc
-    cache["v_cache"][layer_idx, phys, :, :, slots] = vc
+        kc = (kc.view(torch.uint8) ^ km).view(kc.dtype)
+        vc = (vc.view(torch.uint8) ^ vm).view(vc.dtype)
+    for name, x in (("k_cache", kc), ("v_cache", vc)):
+        C.fp8_as_bytes(cache[name])[layer_idx, phys, :, :, slots] = C.fp8_as_bytes(x)
     return flips
 
 
@@ -147,8 +147,9 @@ def _attend_general(q, cache, table_row, layer_idx, *, codec, use_interpolation,
     table = table_row[:n_pages].clamp(min=0).long()
 
     def gather(arr):
-        g = arr[layer_idx][table]  # [pages, H, w, bs]
-        return g.permute(0, 3, 1, 2).reshape(n_pages * bs, g.shape[1], -1)[:num_ctx]
+        g = C.fp8_as_bytes(arr)[layer_idx][table]  # [pages, H, w, bs]
+        g = g.permute(0, 3, 1, 2).reshape(n_pages * bs, g.shape[1], -1)[:num_ctx]
+        return g.view(arr.dtype)
 
     def gather_scales(arr):
         g = arr[layer_idx][table]  # [pages, H, bs]
@@ -311,7 +312,8 @@ class ECCEngine:
         else:
             masks = None
         if codec in _FLOAT:
-            flips = _write_step_float(self.cache, k, v, layer_idx, phys, slots, masks)
+            flips = _write_step_float(self.cache, k, v, layer_idx, phys, slots, masks,
+                                      codec=codec)
         else:
             flips = _write_step(self.cache, k, v, layer_idx, phys, slots, masks, codec=codec,
                                 head_dim=self.head_dim)

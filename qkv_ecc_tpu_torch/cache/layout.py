@@ -4,8 +4,8 @@
 The JAX package's format, kept so that caches compare bit for bit:
   * data arrays k_cache/v_cache [layers, blocks, kv_heads, data_words,
     block_size], tokens on the minor axis: int32 words of the packed-int
-    codecs, raw values of the float codecs (fp16: torch.float16, fp8:
-    torch.float8_e4m3fn; the JAX package keeps fp16 as the TPU's bfloat16);
+    codecs, raw values of the float codecs (fp16: torch.bfloat16, as the
+    JAX package stores it; fp8: torch.float8_e4m3fn);
   * parity arrays k_parity/v_parity [layers, blocks, kv_heads, parity_words,
     block_size] int32 (hamming74, hamming84 and golay);
   * scales k_scales/v_scales [layers, blocks, kv_heads, block_size] float32
@@ -20,18 +20,16 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import swar
+from ..kernels.common import FLOAT_STORAGE_DTYPES
 
 CODEC_CHOICES = ("fp16", "fp8", "int4", "hamming74", "hamming84", "golay")
-_FLOAT = ("fp16", "fp8")
 
 
 def cache_dtype_for(codec: str) -> torch.dtype:
     if codec in ("int4", "hamming74", "hamming84", "golay"):
         return torch.int32  # bit-packed storage words
-    if codec == "fp16":
-        return torch.float16
-    if codec == "fp8":
-        return torch.float8_e4m3fn
+    if codec in FLOAT_STORAGE_DTYPES:
+        return FLOAT_STORAGE_DTYPES[codec]
     raise ValueError(f"Unknown codec: {codec}")
 
 
@@ -61,20 +59,18 @@ class ECCCacheConfig:
     def row_words(self) -> int:
         """Storage elements per (token, head) row: packed int32 words, or
         raw values of the float codecs."""
-        return self.head_dim if self.codec in _FLOAT else swar.row_words(self.codec, self.head_dim)
+        return swar.row_words(self.codec, self.head_dim)
 
     @property
     def data_words(self) -> int:
-        return self.head_dim if self.codec in _FLOAT else swar.data_words(self.codec, self.head_dim)
+        return swar.data_words(self.codec, self.head_dim)
 
     @property
     def parity_words(self) -> int:
-        return 0 if self.codec in _FLOAT else swar.parity_words(self.codec, self.head_dim)
+        return swar.parity_words(self.codec, self.head_dim)
 
     @property
     def padded_head_dim(self) -> int:
-        if self.codec in _FLOAT:
-            return self.head_dim
         return swar.padded_values(self.codec, self.head_dim)
 
     @property
@@ -83,7 +79,7 @@ class ECCCacheConfig:
 
     @property
     def needs_scales(self) -> bool:
-        return self.codec not in _FLOAT
+        return self.codec not in swar.FLOAT_CODECS
 
     def cache_shape(self):
         return (self.num_layers, self.num_blocks, self.num_kv_heads,

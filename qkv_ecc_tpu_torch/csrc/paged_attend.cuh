@@ -1,14 +1,18 @@
-// Online-softmax paged attention over int4-packed nibble words, shared by
-// the port's write+attend kernels (write_attend.cu, decode_attend.cu).
+// Online-softmax paged attention, shared by the port's write+attend kernels
+// (write_attend.cu, decode_attend.cu): over int4-packed nibble words, and
+// (page_weights alone) over the float codecs' raw values.
 //
 // A block of kThreads threads attends the GROUP query heads of one KV head
 // of one sequence, page by page:
 //   phase A (the caller): thread per token - the token's K words into
 //     qk_dot, the scores into p_s and the running lmax; the token's V words
 //     and V scale staged in v_s / vs_s;
-//   phases B and C (attend_page): the page's softmax weights, V scale folded
-//     in and rounded to bf16, against the running maximum, then thread per
+//   phase B (page_weights): the page's softmax weights, V scale folded in
+//     and rounded to bf16, against the running maximum;
+//   phase C (attend_page; the float kernel has its own): thread per
 //     head-dim value - the staged V page contracted into acc.
+// Maxima carry NaN as jnp.max and jnp.maximum do (max_nan, not fmaxf): a
+// NaN score makes the row's m, l and acc NaN, as on the TPU.
 // Precision follows the TPU kernel's: "fast" rounds q to bf16 (the caller
 // passes it so) and p * v_scale to bf16; "highest" (exact) reads an fp32 q
 // and keeps p * v_scale in fp32; sums in fp32.
@@ -29,9 +33,12 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;
 
+// max(a, b), NaN when either is NaN
+__device__ __forceinline__ float max_nan(float a, float b) { return (a > b || a != a) ? a : b; }
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = max_nan(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -72,19 +79,17 @@ struct SoftmaxState {
   float m[GROUP], l[GROUP], alpha[GROUP];
 };
 
-// Phases B and C of one page whose scores (kNegInf where not live) are in
-// p_s [GROUP][bs], whose per-thread score maxima are lmax, and whose V words
-// and scales are staged in v_s [WD][bs + 1] and vs_s [bs]. Thread tid owns
-// head-dim value tid (when owns_d) and accumulates it in acc. Ends with a
-// block barrier, after which the staging buffers may be refilled.
-template <int WD, int GROUP>
-__device__ __forceinline__ void attend_page(const float (&lmax)[GROUP], float* p_s,
-                                            const float* vs_s, const int32_t* v_s,
-                                            SoftmaxState<GROUP>& st, float (&acc)[GROUP],
-                                            int page_tok, int ctx, int first_tok, int bs,
-                                            bool exact) {
-  constexpr int DP = 8 * WD;
-  constexpr int HALF = DP / 2;
+// Phase B of one page whose scores (kNegInf where not live) are in p_s
+// [GROUP][bs], whose per-thread score maxima are lmax, and whose V scales
+// are staged in vs_s [bs] (null: scales of 1, the float codecs): the new
+// running maximum, st.alpha, st.l, and in p_s the weights p * v_scale of
+// the live tokens (0 elsewhere). Every thread reads p_s and st.alpha after
+// it returns.
+template <int GROUP>
+__device__ __forceinline__ void page_weights(const float (&lmax)[GROUP], float* p_s,
+                                             const float* vs_s, SoftmaxState<GROUP>& st,
+                                             int page_tok, int ctx, int first_tok, int bs,
+                                             bool exact) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -96,9 +101,9 @@ __device__ __forceinline__ void attend_page(const float (&lmax)[GROUP], float* p
   __syncthreads();
   if (tid < GROUP) {
     float mp = st.red[tid][0];
-    for (int w = 1; w < kWarps; ++w) mp = fmaxf(mp, st.red[tid][w]);
+    for (int w = 1; w < kWarps; ++w) mp = max_nan(mp, st.red[tid][w]);
     const float m_old = st.m[tid];
-    const float m_new = fmaxf(m_old, mp);
+    const float m_new = max_nan(m_old, mp);
     st.alpha[tid] = expf(m_old - m_new);
     st.m[tid] = m_new;
   }
@@ -111,7 +116,7 @@ __device__ __forceinline__ void attend_page(const float (&lmax)[GROUP], float* p
   for (int t = tid; t < bs; t += kThreads) {
     const int tok = page_tok + t;
     const bool live = tok < ctx && tok >= first_tok;
-    const float vs = vs_s[t];
+    const float vs = vs_s ? vs_s[t] : 1.f;
 #pragma unroll
     for (int g = 0; g < GROUP; ++g) {
       const float p = expf(p_s[g * bs + t] - st.m[g]);
@@ -131,6 +136,22 @@ __device__ __forceinline__ void attend_page(const float (&lmax)[GROUP], float* p
     for (int w = 0; w < kWarps; ++w) sum += st.red[tid][w];
     st.l[tid] = st.l[tid] * st.alpha[tid] + sum;
   }
+}
+
+// Phases B and C of one nibble page whose V words are staged in v_s
+// [WD][bs + 1] (and as page_weights). Thread tid owns head-dim value tid
+// and accumulates it in acc. Ends with a block barrier, after which the
+// staging buffers may be refilled.
+template <int WD, int GROUP>
+__device__ __forceinline__ void attend_page(const float (&lmax)[GROUP], float* p_s,
+                                            const float* vs_s, const int32_t* v_s,
+                                            SoftmaxState<GROUP>& st, float (&acc)[GROUP],
+                                            int page_tok, int ctx, int first_tok, int bs,
+                                            bool exact) {
+  constexpr int DP = 8 * WD;
+  constexpr int HALF = DP / 2;
+  const int tid = threadIdx.x;
+  page_weights<GROUP>(lmax, p_s, vs_s, st, page_tok, ctx, first_tok, bs, exact);
 
   // phase C: thread per head-dim value - contract the staged V page
   if (tid < DP) {

@@ -1,5 +1,7 @@
-// Fused decode-step cache write + paged attention over int4-packed nibbles,
-// and the same read without a write, for Hopper (sm_90a).
+// Fused decode-step cache write + paged attention over int4-packed nibbles
+// (write_attend_kernel) and over the float codecs' raw values
+// (float_attend_kernel, K2f, described after it), and the same reads
+// without a write, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel qkv_ecc_tpu/kernels/paged_attention.py
 // paged_attention_ecc_write_attend -> _paged_attn_kernel with
@@ -301,6 +303,199 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K2f: the float codecs. Replaces the same TPU kernel's float branch
+// (qkv_ecc_tpu/kernels/paged_attention.py _paged_attn_kernel with
+// is_float_codec: codec fp16 or fp8), in paged_attention_ecc_write_attend
+// (has_new = 1) and paged_attention_ecc (has_new = 0, optionally returning
+// the softmax state). Pages hold raw values, one element per value: fp16 as
+// bfloat16 (T = uint16_t, its bits) and fp8 as e4m3 (T = uint8_t), in
+// [L, NB, Hkv, HD, bs], token-minor. There are no scales (the scales arrays
+// are not operands: they stay as they are) and no zero point.
+//
+// What it computes, per sequence b and KV head h:
+//   1. with has_new, writes the new token's values k_new[b, h, :] (v_new)
+//      into slot ctx-1 of its page, in place (the -1 page clamp and the
+//      num_pages rule of write_attend_kernel);
+//   2. attends the group's query heads: s = q . k * sm_scale over the live
+//      tokens (t < ctx, and t >= ctx - window), online softmax page by page,
+//      acc += p * v. As on the TPU, every slot of every page of each chunk
+//      that starts before ctx reaches acc with its weight (0 for a dead
+//      slot, before the window or past ctx): 0 * NaN is NaN, so an e4m3
+//      NaN (0x7f, 0xff) or a bfloat16 NaN or inf in any of those V slots
+//      makes that head-dim value NaN. A NaN in a live K slot makes the
+//      scores, m, l and acc NaN (max_nan), and the normalised output 0.
+// Precision: "fast" rounds q (passed as bf16) and p to bf16; "highest"
+// keeps both in fp32. K and V widen exactly to fp32.
+//
+// Bound on this card: bytes. Per call it must read each live token's K and
+// V values once: 2 * B * ctx * Hkv * HD elements, 17.3 M at the bench-0.9b
+// step (B 8, Hkv 8, HD 128, ctx 1056): 34.6 MB in bf16, 10.3 us at 3.35
+// TB/s; 17.3 MB in e4m3, 5.2 us. The arithmetic, 34.6 M multiply-adds, is
+// under 1 us at 67 T/s.
+//
+// Design: write_attend_kernel's, with element loads. One block of 128
+// threads per (KV head, sequence), looping over the pages. Phase A, thread
+// per token: the K column of a live token (HD coalesced element loads:
+// thread t reads element d of token t at d * bs + t), widened to fp32 and
+// dotted with the staged query; a dead token's K is not read. The V column
+// of every slot is staged raw in shared memory (rows padded by one 32-bit
+// word). Phase B is paged_attend.cuh's page_weights with scales of 1;
+// phase C maps threads to head-dim values. The new token is read from the
+// column passed in. Speed (vector loads across tokens, several blocks per
+// sequence, TMA) is later work.
+
+// bfloat16 bits -> fp32 (exact)
+__device__ __forceinline__ float widen(uint16_t bits) {
+  return __uint_as_float((uint32_t)bits << 16);
+}
+
+// e4m3 (fn: no infinities; 0x7f and 0xff are NaN) -> fp32 (exact)
+__device__ __forceinline__ float widen(uint8_t code) {
+  const uint32_t em = code & 0x7Fu;
+  const uint32_t sign = (uint32_t)(code & 0x80u) << 24;
+  // normal: exponent e - 7 + 127, mantissa bits on top; subnormal: m * 2^-9
+  const float mag = em == 0x7Fu ? __uint_as_float(0x7FC00000u)
+                    : em >= 8u  ? __uint_as_float((em << 20) + (120u << 23))
+                                : (float)em * 0.001953125f;
+  return __uint_as_float(__float_as_uint(mag) | sign);
+}
+
+template <typename T, int GROUP, int HD>
+__global__ void __launch_bounds__(kThreads) float_attend_kernel(
+    const void* __restrict__ q,           // [B, Hq, HD] bf16, or fp32 when exact
+    const T* __restrict__ k_new,          // [B, Hkv, HD]
+    const T* __restrict__ v_new,
+    T* k_cache,                           // [L, NB, Hkv, HD, bs]
+    T* v_cache,
+    const int32_t* __restrict__ block_table,   // [B, P]
+    const int32_t* __restrict__ context_lens,  // [B]
+    void* out,                                 // [B, Hq, HD] fp32 or bf16
+    float* m_out,                              // [B, Hq] softmax state, or null
+    float* l_out,
+    int Hkv, int bs, int NB, int P, int num_pages, int layer, float sm_scale, int window,
+    int out_bf16, int exact, int num_chunks, int ppc, int has_new) {
+  static_assert(HD % 8 == 0 && HD <= kThreads, "a thread per head-dim value");
+  constexpr int VPAD = 4 / sizeof(T);  // one 32-bit word of padding per V row
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int vstride = bs + VPAD;
+
+  extern __shared__ float smem[];
+  float* q_s = smem;                 // [GROUP][HD]
+  float* p_s = q_s + GROUP * HD;     // [GROUP][bs] scores, then weights
+  T* v_s = (T*)(p_s + GROUP * bs);   // [HD][vstride] V values, raw
+  __shared__ SoftmaxState<GROUP> st;
+
+  const int Hq = Hkv * GROUP;
+  const int ctx = context_lens[b];
+  const bool writes = has_new && ctx > 0 && (ctx - 1) / bs < num_pages;
+  const int tok_new = writes ? ctx - 1 : -1;
+  const size_t head_page = (size_t)layer * NB * Hkv;
+  const size_t row0 = (size_t)b * Hq + (size_t)h * GROUP;
+
+  stage_queries<HD / 8, GROUP, HD>((const char*)q + row0 * HD * (exact ? 4 : 2), exact, q_s, st);
+
+  const size_t new_row = (size_t)b * Hkv + h;
+  const T* kn = writes ? k_new + new_row * HD : nullptr;
+  const T* vn = writes ? v_new + new_row * HD : nullptr;
+
+  // 1. the in-place write of the new token's values
+  if (writes) {
+    const int phys = max(block_table[(size_t)b * P + tok_new / bs], 0);
+    const size_t page = head_page + (size_t)phys * Hkv + h;
+    const int slot = tok_new % bs;
+    for (int d = tid; d < HD; d += kThreads) {
+      k_cache[(page * HD + d) * bs + slot] = kn[d];
+      v_cache[(page * HD + d) * bs + slot] = vn[d];
+    }
+  }
+
+  float acc[GROUP];
+#pragma unroll
+  for (int g = 0; g < GROUP; ++g) acc[g] = 0.f;
+
+  const int first_tok = window > 0 ? max(0, ctx - window) : 0;
+  // every page of the chunks the TPU kernel processes: those starting before ctx
+  const int tpc = ppc * bs;
+  const int npages = min((ctx + tpc - 1) / tpc, num_chunks) * ppc;
+  __syncthreads();
+
+  for (int pg = 0; pg < npages; ++pg) {
+    const int pidx = min(pg, num_pages - 1);
+    const size_t page = head_page + (size_t)max(block_table[(size_t)b * P + pidx], 0) * Hkv + h;
+    const T* kp = k_cache + page * HD * bs;
+    const T* vp = v_cache + page * HD * bs;
+
+    // phase A: thread per token - scores of the live tokens, V into shared memory
+    float lmax[GROUP];
+#pragma unroll
+    for (int g = 0; g < GROUP; ++g) lmax[g] = kNegInf;
+    for (int t = tid; t < bs; t += kThreads) {
+      const int tok = pg * bs + t;
+      const bool is_new = tok == tok_new;
+      const bool live = tok < ctx && tok >= first_tok;
+#pragma unroll 8
+      for (int d = 0; d < HD; ++d) v_s[d * vstride + t] = is_new ? vn[d] : vp[d * bs + t];
+      float dot[GROUP];
+#pragma unroll
+      for (int g = 0; g < GROUP; ++g) dot[g] = 0.f;
+      if (live) {
+#pragma unroll 8
+        for (int d = 0; d < HD; ++d) {
+          const float kv = widen(is_new ? kn[d] : kp[d * bs + t]);
+#pragma unroll
+          for (int g = 0; g < GROUP; ++g) dot[g] = fmaf(q_s[g * HD + d], kv, dot[g]);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < GROUP; ++g) {
+        const float s = live ? dot[g] * sm_scale : kNegInf;
+        p_s[g * bs + t] = s;
+        lmax[g] = max_nan(lmax[g], s);
+      }
+    }
+    page_weights<GROUP>(lmax, p_s, nullptr, st, pg * bs, ctx, first_tok, bs, exact != 0);
+
+    // phase C: thread per head-dim value - contract the staged V page
+    if (tid < HD) {
+      const T* vrow = v_s + tid * vstride;
+#pragma unroll
+      for (int g = 0; g < GROUP; ++g) acc[g] *= st.alpha[g];
+      for (int t = 0; t < bs; ++t) {
+        const float vv = widen(vrow[t]);
+#pragma unroll
+        for (int g = 0; g < GROUP; ++g) acc[g] = fmaf(p_s[g * bs + t], vv, acc[g]);
+      }
+    }
+    __syncthreads();
+  }
+
+  store_output<GROUP, HD>(acc, st, out, row0, out_bf16, m_out, l_out);
+}
+
+template <typename T, int GROUP, int HD>
+cudaError_t launch_float(const void* q, const void* k_new, const void* v_new, void* k_cache,
+                         void* v_cache, const void* block_table, const void* context_lens,
+                         void* out, void* m_out, void* l_out, int B, int Hkv, int bs, int NB,
+                         int P, int num_pages, int layer, float sm_scale, int window,
+                         int out_bf16, int exact, int num_chunks, int ppc, int has_new,
+                         cudaStream_t stream) {
+  const size_t smem = (size_t)(GROUP * HD + GROUP * bs) * sizeof(float) +
+                      (size_t)HD * (bs + 4 / sizeof(T)) * sizeof(T);
+  if (smem > 48 * 1024 || num_pages < 1 || num_pages > P || ppc < 1 || num_chunks < 1 ||
+      (long)num_chunks * ppc < num_pages)
+    return cudaErrorInvalidValue;
+  dim3 grid(Hkv, B);
+  float_attend_kernel<T, GROUP, HD><<<grid, kThreads, smem, stream>>>(
+      q, (const T*)k_new, (const T*)v_new, (T*)k_cache, (T*)v_cache,
+      (const int32_t*)block_table, (const int32_t*)context_lens, out, (float*)m_out,
+      (float*)l_out, Hkv, bs, NB, P, num_pages, layer, sm_scale, window, out_bf16, exact,
+      num_chunks, ppc, has_new);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
@@ -339,5 +534,31 @@ extern "C" int write_attend_launch(
   if (wd == 16 && group == 2 && head_dim == 128) WA_LAUNCH(16, 2, 128);
 #undef WA_LAUNCH
 #undef WA_ARGS
+  return (int)err;
+}
+
+// Launches K2f (float_attend_kernel) on `stream` and returns
+// cudaGetLastError() (0 on success). fp8 = 0: bfloat16 caches (codec fp16),
+// fp8 = 1: e4m3. Instances for (group, head_dim) = (2, 16) (tiny-llama)
+// and (2, 128) (bench-0.9b); any other pair returns cudaErrorInvalidValue.
+// Tensors contiguous; q, out, window, P, num_pages, num_chunks, ppc,
+// has_new, m_out and l_out as in write_attend_launch (k_new and v_new may
+// be null when has_new = 0).
+extern "C" int float_attend_launch(
+    const void* q, const void* k_new, const void* v_new, void* k_cache, void* v_cache,
+    const void* block_table, const void* context_lens, void* out, void* m_out, void* l_out,
+    int B, int Hkv, int group, int head_dim, int fp8, int bs, int NB, int P, int num_pages,
+    int layer, float sm_scale, int window, int out_bf16, int exact, int num_chunks, int ppc,
+    int has_new, void* stream) {
+#define FA_ARGS q, k_new, v_new, k_cache, v_cache, block_table, context_lens, out, m_out,  \
+    l_out, B, Hkv, bs, NB, P, num_pages, layer, sm_scale, window, out_bf16, exact,       \
+    num_chunks, ppc, has_new, (cudaStream_t)stream
+#define FA_LAUNCH(G, H) \
+  err = fp8 ? launch_float<uint8_t, G, H>(FA_ARGS) : launch_float<uint16_t, G, H>(FA_ARGS)
+  cudaError_t err = cudaErrorInvalidValue;
+  if (group == 2 && head_dim == 16) FA_LAUNCH(2, 16);
+  if (group == 2 && head_dim == 128) FA_LAUNCH(2, 128);
+#undef FA_LAUNCH
+#undef FA_ARGS
   return (int)err;
 }

@@ -221,3 +221,43 @@ def golay_correct_data_i32(cw: torch.Tensor, b_masks) -> torch.Tensor:
     ed = torch.where(ok1, zero, torch.where(ok2, e2, torch.where(ok3, q, e4)))
     correctable = ok1 | ok2 | ok3 | ok4
     return torch.where(correctable, d ^ ed, zero)
+
+
+# =============================================================================
+# The float codecs' storage types, rounded as JAX's astype rounds
+# =============================================================================
+
+FP8_E4M3_OVERFLOW = 464.0  # the midpoint of 448 (the largest finite value) and 480
+# the float codecs' storage types (the JAX package's)
+FLOAT_STORAGE_DTYPES = {"fp16": torch.bfloat16, "fp8": torch.float8_e4m3fn}
+
+
+def to_bf16(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> bfloat16 (the fp16 codec's storage): round to nearest
+    even, NaN stored as JAX stores it (0x7fc0, with the sign kept)."""
+    x = x.to(torch.float32)
+    bits = x.to(torch.bfloat16).view(torch.int16)
+    nan = torch.where(torch.signbit(x), -0x40, 0x7FC0).to(torch.int16)  # -0x40 is 0xffc0
+    return torch.where(torch.isnan(x), nan, bits).view(torch.bfloat16)
+
+
+def to_fp8_e4m3(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> float8_e4m3fn (the fp8 codec's storage) as JAX's astype:
+    round to nearest even for |x| <= 464; NaN (0x7f, 0xff with the sign
+    kept) for larger |x| and for +-inf, where torch's conversion saturates
+    to +-448."""
+    x = x.to(torch.float32)
+    bits = x.to(torch.float8_e4m3fn).view(torch.uint8)
+    nan = torch.where(torch.signbit(x), 0xFF, 0x7F).to(torch.uint8)
+    return torch.where(x.abs() > FP8_E4M3_OVERFLOW, nan, bits).view(torch.float8_e4m3fn)
+
+
+def fp8_as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """An e4m3 tensor as a view of its bytes, for gathers and index_put_
+    (which do not take float8 types on every build); others as they are."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def to_float_storage(codec: str, x: torch.Tensor) -> torch.Tensor:
+    """The stored values of a float codec: fp16 -> bfloat16, fp8 -> e4m3."""
+    return to_bf16(x) if codec == "fp16" else to_fp8_e4m3(x)

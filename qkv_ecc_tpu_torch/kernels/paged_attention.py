@@ -1,12 +1,12 @@
-"""Paged attention over the packed ECC cache (counterpart of
-``qkv_ecc_tpu/kernels/paged_attention.py``, the packed-int codecs): the
-fused decode-step write+attend ``paged_attention_ecc_write_attend``, the
-read-only ``paged_attention_ecc``, ``gather_pages``, ``gather_scales`` and
+"""Paged attention over the ECC cache (counterpart of
+``qkv_ecc_tpu/kernels/paged_attention.py``): the fused decode-step
+write+attend ``paged_attention_ecc_write_attend``, the read-only
+``paged_attention_ecc``, ``gather_pages``, ``gather_scales`` and
 ``paged_attention_ecc_reference``.
 
-Two hand-written CUDA kernels serve both wrappers; each reads the context
-with or without writing a new column first (a runtime flag), and the read
-can return the unnormalised softmax state:
+Hand-written CUDA kernels serve both wrappers; each reads the context with
+or without writing a new column first (a runtime flag), and the read can
+return the unnormalised softmax state:
 
   * ``csrc/write_attend.cu`` (K1, K2r and K4's reads of data words): reads
     int4-packed data words only - the scrub-extract read of every packed
@@ -15,13 +15,17 @@ can return the unnormalised softmax state:
   * ``csrc/decode_attend.cu`` (K2, K3 and K4's correcting reads): the
     correcting read of the parity codecs - hamming84 (optionally
     interpolating double errors), hamming74 and golay - with the per-read
-    ECC statistics.
+    ECC statistics;
+  * ``float_attend`` in ``csrc/write_attend.cu`` (K2f, and K4's reads of
+    the float codecs): the raw values of fp16 (stored as bfloat16) and fp8
+    (e4m3), widened to float32, with no scales, no zero point and no
+    statistics (a float read that collects them returns zeros).
 
 Launches are counted on the wrapper that made them:
 ``paged_attention_ecc_write_attend.launches`` (write_attend.cu),
 ``write_decode_attend.launches`` (decode_attend.cu) and
-``paged_attention_ecc.launches`` (either source, for K4), each with
-``launches_by`` per branch.
+``paged_attention_ecc.launches`` (any kernel, for K4), each with
+``launches_by`` per branch (the float branches: "fp16", "fp8").
 
 For tensors on the card a wrapper launches the kernel or raises; for tensors
 on the CPU it runs the kernel's plain PyTorch version (``write_attend_plain``,
@@ -33,6 +37,13 @@ chunks of ``pages_per_chunk`` pages and reads a page past ``num_pages`` as
 page ``num_pages - 1`` (the TPU's chunk copy clamps the page index): when
 ``num_pages`` is not a multiple of the chunk, tokens after page
 ``num_pages`` up to the context length attend that page's slots again.
+
+A float read also takes from the TPU kernel which slots reach the output:
+every slot of every page of each chunk that starts before the context
+length, dead slots and pages before a sliding window included, with weight
+0. So a NaN stored there (an fp8 byte 0x7f or 0xff) makes its head-dim
+value of the output NaN, as on the TPU; a NaN in a live K slot makes the
+whole row's weights NaN, and its normalised output 0 (acc / l where l > 0).
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from ._build import load
 
 _NEG_INF = -1e30
 _PACKED = ("int4", "hamming74", "hamming84", "golay")
+_FLOAT = swar.FLOAT_CODECS
 # (data words per row, GQA group, head_dim) instantiated in
 # csrc/write_attend.cu, each with and without read injection: those of the
 # registered models, tiny-llama (int4, golay, hamming84: 2 words; hamming74
@@ -62,6 +74,9 @@ DECODE_KERNEL_SHAPES = (
     ("golay", 2, 4, 2, 16), ("golay", 16, 17, 2, 128),
 )
 _CODEC_IDS = {"hamming84": 0, "hamming74": 1, "golay": 2}
+# (GQA group, head_dim) instantiated in csrc/write_attend.cu's float_attend,
+# for bfloat16 (fp16) and e4m3 (fp8): tiny-llama and bench-0.9b
+FLOAT_KERNEL_SHAPES = ((2, 16), (2, 128))
 
 
 def visited_pages(num_pages: int, pages_per_chunk: int) -> int:
@@ -91,9 +106,9 @@ def gather_pages(cache, block_table, layer_idx, num_pages, parity=None, pages_pe
     table = _page_table(block_table, num_pages, pages_per_chunk)
 
     def one(arr):
-        g = arr[layer_idx][table]  # [batch, pages, heads, w, bs]
+        g = C.fp8_as_bytes(arr)[layer_idx][table]  # [batch, pages, heads, w, bs]
         b, p, h, w, bs = g.shape
-        return g.permute(0, 1, 4, 2, 3).reshape(b, p * bs, h, w)
+        return g.permute(0, 1, 4, 2, 3).reshape(b, p * bs, h, w).view(arr.dtype)
 
     rows = one(cache)
     if parity is not None:
@@ -115,7 +130,8 @@ def paged_attention_ecc_reference(query, k_cache, v_cache, k_scales, v_scales,
                                   num_pages=None, sm_scale=None):
     """Plain paged attention with explicit unpack + decode of full rows, in
     float32 (golay zeroes uncorrectable codewords, hamming84 doubles keep
-    their data; no interpolation)."""
+    their data; no interpolation; fp16 / fp8 widen their raw values, with
+    no scales)."""
     batch, num_q_heads, head_dim = query.shape
     num_kv_heads = k_cache.shape[2]
     group = num_q_heads // num_kv_heads
@@ -124,6 +140,8 @@ def paged_attention_ecc_reference(query, k_cache, v_cache, k_scales, v_scales,
 
     def decode(cache, parity, scales):
         raw = gather_pages(cache, block_table, layer_idx, num_pages, parity)
+        if codec in _FLOAT:
+            return raw.to(torch.float32).movedim(1, 2)
         cw = swar.unpack_codewords(codec, raw, head_dim)
         nib = swar.decode_values(codec, cw, head_dim, zero_uncorrectable=True)
         s = gather_scales(scales, block_table, layer_idx, num_pages)
@@ -155,7 +173,7 @@ def _write_column(cols, arrays, scale_cols, scale_arrays, block_table, context_l
     phys = block_table.long()[rows, pidx[rows]].clamp(min=0)
     slot = tok[rows] % bs
     for col, arr in zip(cols, arrays):
-        arr[layer_idx][phys, :, :, slot] = col[rows]
+        C.fp8_as_bytes(arr)[layer_idx][phys, :, :, slot] = C.fp8_as_bytes(col)[rows]
     for col, arr in zip(scale_cols, scale_arrays):
         arr[layer_idx][phys, :, slot] = col[rows].to(arr.dtype)
 
@@ -342,16 +360,24 @@ def _read(query, k_cache, v_cache, k_scales, v_scales, block_table, context_lens
       * the parity codecs: full rows decoded by ``decode_rows``, hamming84's
         doubles interpolated chunk by chunk (``interpolate_chunked``) when
         ``interpolate``;
+      * fp16 / fp8: ``_float_values``, with scales of 1;
 
     attended as ``_online_attend``. Returns (acc, m, l) and the stats [B, 2]
-    int32 over the valid tokens (zeros without ``collect_stats``): the
-    flipped read bits in slot 0 with read injection, else
-    ``count_errors``."""
+    int32 over the valid tokens (zeros without ``collect_stats``, and for
+    the float codecs): the flipped read bits in slot 0 with read injection,
+    else ``count_errors``."""
     batch, head_dim = query.shape[0], query.shape[-1]
     _, _, Hkv, dw, bs = k_cache.shape
     pages = visited_pages(num_pages, pages_per_chunk)
     valid = _valid_tokens(context_lens, pages * bs)
     stats = torch.zeros((batch, 2), dtype=torch.int32, device=query.device)
+    if codec in _FLOAT:
+        k, v = _float_values(k_cache, v_cache, block_table, context_lens, layer_idx, num_pages,
+                             pages_per_chunk)
+        ones = torch.ones(k.shape[:3], device=query.device)
+        state = _online_attend(query, k, v, ones, ones, context_lens, bs, sm_scale=sm_scale,
+                               sliding_window=sliding_window, exact=precision == "highest")
+        return state, stats
     flips = None
     if read_threshold is not None:
         flips = read_flip_mask(read_seed, read_threshold, layer_idx, batch, num_pages,
@@ -385,22 +411,44 @@ def _read(query, k_cache, v_cache, k_scales, v_scales, block_table, context_lens
     return state, stats
 
 
+def _float_values(k_cache, v_cache, block_table, context_lens, layer_idx, num_pages,
+                  pages_per_chunk):
+    """K and V of a float cache as the TPU kernel attends them: [B, Hkv,
+    tokens, D] float32 over the pages a kernel visits; V is 0 past the
+    chunks the TPU kernel processes (those that start before the context
+    length), so that only the slots it reads can carry a NaN into the
+    output (module docstring)."""
+    def vals(cache):
+        return gather_pages(cache, block_table, layer_idx, num_pages,
+                            pages_per_chunk=pages_per_chunk).to(torch.float32).movedim(1, 2)
+
+    k, v = vals(k_cache), vals(v_cache)
+    tpc = pages_per_chunk * k_cache.shape[4]
+    processed = -(-context_lens.long() // tpc) * tpc
+    seen = torch.arange(k.shape[2], device=k.device)[None, :] < processed[:, None]
+    return k, torch.where(seen[:, None, :, None], v, torch.zeros_like(v))
+
+
 def write_attend_plain(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales,
                        v_scales, block_table, context_lens, layer_idx, *, sm_scale,
                        num_pages=None, precision="fast", sliding_window=None,
                        read_threshold=None, read_seed=0, pages_per_chunk=1,
-                       collect_stats=False):
+                       collect_stats=False, codec="int4"):
     """K1's function in plain PyTorch: the in-place column write, then
     ``_read`` of the data words (with ``read_threshold``, XORed with
     ``read_flip_mask``; the cache keeps its clean words). Returns the
     output, or (output, stats [B, 2] int32) with ``collect_stats``: slot 0
-    counts the flipped read bits over the valid tokens."""
+    counts the flipped read bits over the valid tokens. With codec "fp16"
+    or "fp8", K2f's: the new values are written and read raw, the scales
+    are left as they are, and the stats are zeros."""
     num_pages = block_table.shape[1] if num_pages is None else num_pages
-    _write_column((k_new, v_new), (k_cache, v_cache), (ks_new, vs_new),
-                  (k_scales, v_scales), block_table, context_lens, layer_idx, num_pages)
+    scaled = codec not in _FLOAT
+    _write_column((k_new, v_new), (k_cache, v_cache), (ks_new, vs_new) if scaled else (),
+                  (k_scales, v_scales) if scaled else (), block_table, context_lens, layer_idx,
+                  num_pages)
     (acc, _, l), stats = _read(
         query, k_cache, v_cache, k_scales, v_scales, block_table, context_lens, layer_idx,
-        codec="int4", sm_scale=sm_scale, num_pages=num_pages, pages_per_chunk=pages_per_chunk,
+        codec=codec, sm_scale=sm_scale, num_pages=num_pages, pages_per_chunk=pages_per_chunk,
         precision=precision, sliding_window=sliding_window, read_threshold=read_threshold,
         read_seed=read_seed, collect_stats=collect_stats)
     out = _normalise(acc, l, query.dtype)
@@ -491,11 +539,12 @@ _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher(name: str, signature: str):
-    """The C launcher ``<name>_launch`` of csrc/<name>.cu, built and loaded
-    at first use; ``signature`` spells its arguments, p for a pointer (the
-    stream last), i for an int, f for a float. Returns a cudaError_t."""
-    fn = getattr(load(name), f"{name}_launch")
+def _launcher(name: str, signature: str, symbol=None):
+    """The C launcher ``symbol`` (default ``<name>_launch``) of
+    csrc/<name>.cu, built and loaded at first use; ``signature`` spells its
+    arguments, p for a pointer (the stream last), i for an int, f for a
+    float. Returns a cudaError_t."""
+    fn = getattr(load(name), symbol or f"{name}_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = [_CTYPES[c] for c in signature]
     return fn
@@ -549,12 +598,19 @@ def _count(wrapper, branch):
 
 def _launch(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales,
             v_scales, block_table, context_lens, layer_idx, *, sm_scale, num_pages,
-            precision, sliding_window, read_threshold, read_seed, pages_per_chunk,
-            collect_stats, return_softmax_state=False, counter=None):
+            precision, sliding_window, read_threshold=None, read_seed=0, pages_per_chunk,
+            collect_stats, return_softmax_state=False, counter=None, codec="int4"):
     """Check what csrc/write_attend.cu takes, allocate the outputs and
     launch it on the current stream; ``k_new`` None reads without writing.
     The launch counts on ``counter`` (default:
-    paged_attention_ecc_write_attend)."""
+    paged_attention_ecc_write_attend). Codec "fp16" or "fp8" launches its
+    float_attend (``_launch_float``)."""
+    if codec in _FLOAT:
+        return _launch_float(query, k_new, v_new, k_cache, v_cache, block_table, context_lens,
+                             layer_idx, codec=codec, sm_scale=sm_scale, num_pages=num_pages,
+                             precision=precision, sliding_window=sliding_window,
+                             pages_per_chunk=pages_per_chunk, collect_stats=collect_stats,
+                             return_softmax_state=return_softmax_state, counter=counter)
     batch, num_q_heads, head_dim = query.shape
     L, NB, Hkv, Wd, bs = k_cache.shape
     group = num_q_heads // Hkv
@@ -586,9 +642,58 @@ def _launch(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales,
     return _returns(out, stats, m, l)
 
 
+def _launch_float(query, k_new, v_new, k_cache, v_cache, block_table, context_lens,
+                  layer_idx, *, codec, sm_scale, num_pages, precision, sliding_window,
+                  pages_per_chunk, collect_stats, return_softmax_state, counter):
+    """Check what csrc/write_attend.cu's float_attend takes (K2f), allocate
+    the outputs and launch it on the current stream; ``k_new`` None reads
+    without writing. The stats of ``collect_stats`` stay zero. The launch
+    counts on ``counter`` (default: paged_attention_ecc_write_attend) under
+    the codec's name."""
+    batch, num_q_heads, head_dim = query.shape
+    L, NB, Hkv, D, bs = k_cache.shape
+    group = num_q_heads // Hkv
+    new = () if k_new is None else (k_new, v_new)
+    dtype = C.FLOAT_STORAGE_DTYPES[codec]
+    ints = (block_table, context_lens)
+    _check("float_attend", [
+        (all(t.device == query.device and t.is_contiguous()
+             for t in (query, k_cache, v_cache, *new, *ints)),
+         "every tensor must be contiguous and on the query's device"),
+        (all(t.dtype == dtype for t in (k_cache, v_cache, *new)),
+         f"{codec} caches and new columns must be {dtype}"),
+        (all(t.dtype == torch.int32 for t in ints), "block table and lengths must be int32"),
+        (query.dtype in (torch.bfloat16, torch.float32), "query must be bf16 or float32"),
+        (v_cache.shape == k_cache.shape and D == head_dim, "cache shapes"),
+        (not new or new[0].shape == new[1].shape == (batch, Hkv, D), "new column shapes"),
+        (block_table.dim() == 2 and block_table.shape[0] == batch and context_lens.shape == (batch,),
+         "block table or context length shapes"),
+        (0 <= layer_idx < L, "layer out of range"),
+        (pages_per_chunk >= 1, "pages_per_chunk must be positive"),
+        (group * Hkv == num_q_heads and (group, head_dim) in FLOAT_KERNEL_SHAPES,
+         f"(GQA group, head_dim) = {(group, head_dim)} has no kernel instance; built: "
+         f"{FLOAT_KERNEL_SHAPES}"),
+    ])
+    q = _kernel_query(query, precision)
+    out, stats, m, l = _outputs(query, collect_stats, return_softmax_state)
+    ptrs = (q, k_new, v_new, k_cache, v_cache, block_table, context_lens, out, m, l)
+    rc = _launcher("write_attend", "p" * 10 + "i" * 10 + "f" + "i" * 6 + "p",
+                   symbol="float_attend_launch")(
+        *(0 if t is None else t.data_ptr() for t in ptrs), batch, Hkv, group, head_dim,
+        int(codec == "fp8"), bs, NB, block_table.shape[1], num_pages, int(layer_idx),
+        float(sm_scale), int(sliding_window or 0), int(out.dtype == torch.bfloat16),
+        int(precision == "highest"), C.cdiv(num_pages, pages_per_chunk), pages_per_chunk,
+        int(bool(new)), _stream(query))
+    if rc != 0:
+        raise RuntimeError(f"float_attend kernel launch failed: cudaError {rc}")
+    _count(counter or paged_attention_ecc_write_attend, codec)
+    return _returns(out, stats, m, l)
+
+
 def write_attend(*args, **kw):
-    """K1 (and K2r): on the card csrc/write_attend.cu (or raise), on the CPU
-    write_attend_plain. Arguments as write_attend_plain."""
+    """K1 (and K2r, and K2f with codec "fp16" / "fp8"): on the card
+    csrc/write_attend.cu (or raise), on the CPU write_attend_plain.
+    Arguments as write_attend_plain."""
     query = args[0]
     if query.device.type == "cuda":
         return _launch(*args, **kw)
@@ -689,9 +794,10 @@ def _read_threshold(read_inject_ber: float, codec: str):
 def _common_setup(query, k_cache, block_table, codec, block_size, num_pages, sm_scale,
                   pages_per_chunk, precision):
     """What both wrappers resolve first (the JAX wrapper's ``_common_setup``):
-    (num_pages, sm_scale, pages per chunk capped at num_pages, data words),
-    raising on an unknown codec, block size, precision or num_pages."""
-    if codec not in _PACKED:
+    (num_pages, sm_scale, pages per chunk capped at num_pages, data words -
+    values per row for fp16 / fp8), raising on an unknown codec, block
+    size, precision, num_pages or a cache whose rows do not fit head_dim."""
+    if codec not in _PACKED + _FLOAT:
         swar.unsupported(codec)
     head_dim = query.shape[-1]
     bs = k_cache.shape[4]
@@ -709,6 +815,8 @@ def _common_setup(query, k_cache, block_table, codec, block_size, num_pages, sm_
     if k_cache.shape[3] != dw:
         raise ValueError(f"cache has {k_cache.shape[3]} data words, "
                          f"{codec} at head_dim {head_dim} has {dw}")
+    if codec in _FLOAT and k_cache.dtype != C.FLOAT_STORAGE_DTYPES[codec]:
+        raise ValueError(f"a {codec} cache is {C.FLOAT_STORAGE_DTYPES[codec]}, got {k_cache.dtype}")
     return num_pages, sm_scale, min(pages_per_chunk, num_pages), dw
 
 
@@ -726,7 +834,8 @@ def paged_attention_ecc_write_attend(query, k_new, v_new, ks_new, vs_new,
                                      sliding_window=None):
     """Write the new token's packed column and scales at slot ctx-1 (in
     place), then attend over the pages of the table that the kernel visits
-    (``num_pages`` rounded up to whole chunks, F4). Returns the attention
+    (``num_pages`` rounded up to whole chunks, F4). The float codecs write
+    their raw values and no scales (module docstring). Returns the attention
     output [B, Hq, D] in query's dtype, or (output, stats [B, 2] int32) with
     ``collect_stats``. Signature, defaults and errors are the JAX
     function's; the caches are updated in place instead of returned.
@@ -753,7 +862,13 @@ def paged_attention_ecc_write_attend(query, k_new, v_new, ks_new, vs_new,
     for read injection. ``pages_per_chunk`` (default: 512 tokens of pages,
     capped at num_pages) sets where the interpolation's chunk seams fall and
     the read flips' counters, as on the TPU. ``precision`` "fast" rounds q
-    and p * v_scale to bf16, "highest" keeps them in fp32."""
+    and p * v_scale to bf16, "highest" keeps them in fp32.
+
+    codec "fp16" / "fp8" (kernel K2f): caches [L, NB, Hkv, head_dim, bs]
+    of bfloat16 / e4m3; k_new/v_new [B, Hkv, head_dim] (converted to the
+    cache's type as JAX's astype converts, when they are not of it);
+    ks_new/vs_new and the scales arrays are not touched; stats, when
+    collected, are zeros."""
     num_pages, sm_scale, cp, dw = _common_setup(query, k_cache, block_table, codec, block_size,
                                                 num_pages, sm_scale, pages_per_chunk, precision)
     head_dim = query.shape[-1]
@@ -765,6 +880,14 @@ def paged_attention_ecc_write_attend(query, k_new, v_new, ks_new, vs_new,
     threshold = _read_threshold(read_inject_ber, codec)
     common = dict(sm_scale=sm_scale, num_pages=num_pages, precision=precision,
                   sliding_window=sliding_window, collect_stats=collect_stats)
+    if codec in _FLOAT:  # K2f: parity arrays, when given, are not read (as in JAX)
+        if k_new.shape[-1] != dw:
+            raise ValueError(f"k_new last dim {k_new.shape[-1]} != expected {dw} (values)")
+        kn, vn = (x if x.dtype == k_cache.dtype else C.to_float_storage(codec, x)
+                  for x in (k_new, v_new))
+        return write_attend(query, kn, vn, ks_new, vs_new, k_cache, v_cache, k_scales,
+                            v_scales, block_table, context_lens, layer_idx, codec=codec,
+                            pages_per_chunk=cp, **common)
     args = (query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales, v_scales,
             block_table, context_lens, layer_idx)
     if extract or codec == "int4":
@@ -787,8 +910,9 @@ def paged_attention_ecc_write_attend(query, k_new, v_new, ks_new, vs_new,
 
 paged_attention_ecc_write_attend.launches = 0  # csrc/write_attend.cu
 # its launches by branch: the reads of clean words (the scrub extract, int4
-# without injection) and mode int4's read-time injection
-paged_attention_ecc_write_attend.launches_by = {"read": 0, "read-inject": 0}
+# without injection), mode int4's read-time injection and the float codecs
+paged_attention_ecc_write_attend.launches_by = dict.fromkeys(
+    ("read", "read-inject", "fp16", "fp8"), 0)
 
 
 def paged_attention_ecc(query, k_cache, v_cache, k_scales, v_scales, block_table,
@@ -820,13 +944,14 @@ def paged_attention_ecc(query, k_cache, v_cache, k_scales, v_scales, block_table
     csrc/write_attend.cu or csrc/decode_attend.cu without a new column (or
     raises); on the CPU it runs ``attend_plain``. Launches count in
     ``paged_attention_ecc.launches`` and ``.launches_by`` per branch. The
-    float codecs fp16 and fp8 raise "not ported yet"."""
+    float codecs fp16 and fp8 read their raw values through float_attend
+    (K2f's read; their stats are zeros)."""
     num_pages, sm_scale, cp, dw = _common_setup(query, k_cache, block_table, codec, block_size,
                                                 num_pages, sm_scale, pages_per_chunk, precision)
     head_dim = query.shape[-1]
     _check_scrub_flags(scrub, codec, use_interpolation, collect_stats, read_inject_ber)
     threshold = _read_threshold(read_inject_ber, codec)
-    extract = codec == "int4" or (scrub and swar.scrub_extract_ok(codec, head_dim))
+    extract = codec in ("int4",) + _FLOAT or (scrub and swar.scrub_extract_ok(codec, head_dim))
     if not extract and (k_parity is None or v_parity is None):
         raise ValueError(f"codec '{codec}' needs k_parity/v_parity operands for correcting "
                          "reads (split cache layout); only the scrub extract path runs "
@@ -836,23 +961,25 @@ def paged_attention_ecc(query, k_cache, v_cache, k_scales, v_scales, block_table
                   precision=precision, sliding_window=sliding_window,
                   collect_stats=collect_stats, return_softmax_state=return_softmax_state)
     parity = () if extract else (k_parity, v_parity)
+    read_codec = codec if codec in _FLOAT else "int4" if extract else codec
     if query.device.type == "cpu":
-        return attend_plain(*args, *parity, codec="int4" if extract else codec,
-                            read_threshold=threshold, read_seed=read_inject_seed,
-                            interpolate=use_interpolation, **common)
+        return attend_plain(*args, *parity, codec=read_codec, read_threshold=threshold,
+                            read_seed=read_inject_seed, interpolate=use_interpolation, **common)
     if query.device.type != "cuda":
         raise ValueError(f"paged_attention_ecc: no kernel for device {query.device}")
     none = (None,) * 4  # no new column, no new scales
     if extract:
         return _launch(query, *none, *args[1:], read_threshold=threshold,
-                       read_seed=read_inject_seed, counter=paged_attention_ecc, **common)
+                       read_seed=read_inject_seed, counter=paged_attention_ecc,
+                       codec=read_codec, **common)
     return _launch_decode(query, *none, *args[1:], *parity, codec=codec,
                           interpolate=use_interpolation, counter=paged_attention_ecc, **common)
 
 
-paged_attention_ecc.launches = 0  # K4, either source
-# its launches by branch: write_attend.cu's clean read (the extract, int4)
-# and read-inject; decode_attend.cu's codecs, hamming84 with interpolation
-# apart
+paged_attention_ecc.launches = 0  # K4, any kernel
+# its launches by branch: write_attend.cu's clean read (the extract, int4),
+# read-inject and float reads; decode_attend.cu's codecs, hamming84 with
+# interpolation apart
 paged_attention_ecc.launches_by = dict.fromkeys(
-    ("read", "read-inject", "hamming84", "hamming84-interp", "hamming74", "golay"), 0)
+    ("read", "read-inject", "hamming84", "hamming84-interp", "hamming74", "golay", "fp16", "fp8"),
+    0)

@@ -36,20 +36,14 @@ from . import common as C
 _B_MASKS = tuple(int(m) for m in GOLAY_B_ROW_MASKS)
 M1 = 0x01010101  # bit 0 of each byte
 
-# Codecs of the JAX package that later slices bring, and which slice.
-_LATER = {
-    "fp16": "the float cache arms (a later slice)",
-    "fp8": "the float cache arms (a later slice)",
-}
+FLOAT_CODECS = ("fp16", "fp8")  # raw values, one element per value: no packing
 
 
 def unsupported(codec: str):
-    """Raise for a codec the port does not carry yet."""
-    if codec in _LATER:
-        raise NotImplementedError(
-            f"codec '{codec}' is not ported yet: it comes with {_LATER[codec]}"
-        )
-    raise ValueError(f"unknown codec '{codec}'")
+    """Raise ValueError for a codec that has no branch here: an unknown one,
+    or a float codec in the packed-int codec math."""
+    what = "a float codec: its values are not packed" if codec in FLOAT_CODECS else "unknown"
+    raise ValueError(f"codec '{codec}': {what}")
 
 
 round_up = C.round_up
@@ -473,12 +467,16 @@ def padded_values(codec: str, head_dim: int) -> int:
         return round_up(head_dim, 32)
     if codec == "golay":
         return 3 * round_up(-(-head_dim // 3), 4)
+    if codec in FLOAT_CODECS:
+        return head_dim
     unsupported(codec)
 
 
 def row_words(codec: str, head_dim: int) -> int:
-    """int32 storage words per (token, head) row."""
+    """int32 storage words per (token, head) row (fp16 / fp8: elements)."""
     pv = padded_values(codec, head_dim)
+    if codec in FLOAT_CODECS:
+        return head_dim
     if codec == "int4":
         return pv // 8
     if codec == "hamming74":
@@ -495,11 +493,13 @@ def data_words(codec: str, head_dim: int) -> int:
         return golay_data_nibbles(head_dim) // 8
     if codec in ("int4", "hamming74", "hamming84"):
         return padded_values(codec, head_dim) // 8
+    if codec in FLOAT_CODECS:
+        return head_dim  # the whole row is data
     unsupported(codec)
 
 
 def parity_words(codec: str, head_dim: int) -> int:
-    """int32 words of the row's parity suffix (0 for int4)."""
+    """int32 words of the row's parity suffix (0 for int4, fp16, fp8)."""
     return row_words(codec, head_dim) - data_words(codec, head_dim)
 
 
@@ -526,7 +526,7 @@ def scrub_extract_ok(codec: str, head_dim: int) -> bool:
     prefix, so a scrubbed read extracts nibbles without decoding."""
     if codec == "golay":
         return golay_prefix_covers_values(head_dim)
-    if codec in ("int4", "hamming74", "hamming84"):
+    if codec in ("int4", "hamming74", "hamming84") or codec in FLOAT_CODECS:
         return True
     unsupported(codec)
 

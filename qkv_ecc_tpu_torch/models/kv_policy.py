@@ -1,5 +1,5 @@
 """KV-cache protection policy and the write chain (counterpart of
-``qkv_ecc_tpu/models/kv_policy.py``, the packed-int codecs).
+``qkv_ecc_tpu/models/kv_policy.py``).
 
 The scrubbed write chain of a decode step is quantize -> XOR the folded
 scrub delta -> encode -> pack; the unscrubbed one (interpolation, a policy
@@ -8,6 +8,10 @@ without scrub, or a step that collects ECC statistics) is quantize -> encode
 or are passed in as tensors (``mask=`` raw logical-codeword masks,
 ``folded=`` deltas already folded by ``swar.scrub_fold_mask``,
 ``read_mask=`` the read-time flips of the unprotected ``int4`` arm).
+
+The float codecs store raw values and no scales: fp16 as bfloat16, fp8 as
+e4m3 (rounded as JAX rounds, ``kernels/common.to_float_storage``), whose
+bytes write injection XORs with an 8-bit mask; fp16 is never injected.
 """
 
 from __future__ import annotations
@@ -32,8 +36,9 @@ class KVCachePolicy:
     "read" re-corrupts raw INT4 nibbles at every attend (the unprotected
     ``int4`` arm): the cache stays clean and each read draws fresh flips.
     scrub: correct at write time so reads only extract data nibbles;
-    interpolation, read injection and per-read statistics turn it off. The
-    default codec is JAX's, "fp16", which the port does not carry yet."""
+    interpolation, read injection and per-read statistics turn it off; the
+    float codecs have nothing to scrub. The default codec is JAX's,
+    "fp16"."""
 
     codec: str = "fp16"
     ber: float = 0.0
@@ -80,7 +85,9 @@ def policy_for_mode(mode: str, ber: float = 0.0, seed: int = 42) -> KVCachePolic
 
 
 def write_inject(policy: KVCachePolicy) -> bool:
-    return policy.inject_errors and policy.ber > 0 and policy.inject_at == "write"
+    """Whether a write draws flips: fp16 is the uncorrupted oracle."""
+    return (policy.inject_errors and policy.ber > 0 and policy.inject_at == "write"
+            and policy.codec != "fp16")
 
 
 def _quantize(x: torch.Tensor):
@@ -103,9 +110,19 @@ def _draw(mask, generator, shape, policy):
 def encode_kv(x, policy: KVCachePolicy, generator=None, mask=None):
     """Quantize + encode + (inject) one K or V tensor [..., D].
 
-    Returns (logical codewords int32, scales float32, flipped bit count)."""
+    Returns (logical codewords int32, scales float32, flipped bit count);
+    the float codecs return their stored values (bfloat16, e4m3) and no
+    scales (None)."""
     codec = policy.codec
     x = x.to(torch.float32)
+    if codec in swar.FLOAT_CODECS:
+        enc = C.to_float_storage(codec, x)
+        flips = torch.zeros((), dtype=torch.int32, device=x.device)
+        if write_inject(policy):  # fp8: flip bits of the stored bytes
+            m = _draw(mask, generator, x.shape, policy).to(torch.uint8)
+            flips = C.popcount(m.to(torch.int32)).sum(dtype=torch.int32)
+            enc = (enc.view(torch.uint8) ^ m).view(enc.dtype)
+        return enc, None, flips
     q, scale = _quantize(x)
     enc = swar.encode_codewords(codec, q, x.shape[-1])
     flips = torch.zeros((), dtype=torch.int32, device=x.device)
@@ -140,8 +157,11 @@ def encode_kv_scrubbed(x, policy: KVCachePolicy, generator=None, mask=None,
     """Quantize + encode with the write-path scrub folded into the mask:
     scrub_codewords(encode(q) ^ mask) == encode(q ^ fold(mask)).
 
-    Returns (scrubbed logical codewords, scales)."""
+    Returns (scrubbed logical codewords, scales); the float codecs have
+    nothing to scrub and return encode_kv's values and None."""
     codec = policy.codec
+    if codec in swar.FLOAT_CODECS:
+        return encode_kv(x, policy, generator, mask=mask)[:2]
     x = x.to(torch.float32)
     head_dim = x.shape[-1]
     pv = swar.padded_values(codec, head_dim)
@@ -206,7 +226,10 @@ def hoisted_logical_masks(policy: KVCachePolicy, num_layers: int, enc_shape,
 
 
 def pack_kv(enc, policy: KVCachePolicy, head_dim: int):
-    """Logical codewords -> packed int32 storage words."""
+    """Logical codewords -> packed int32 storage words; the float codecs'
+    values pass through."""
+    if policy.codec in swar.FLOAT_CODECS:
+        return enc
     return swar.pack_codewords(policy.codec, enc, head_dim)
 
 
@@ -226,6 +249,9 @@ def decode_kv(enc, scale, policy: KVCachePolicy, *, head_dim: int, seq_axis: int
     read_inject = (policy.inject_at == "read" and policy.inject_errors and policy.ber > 0
                    and read_mask is not None)
     read_flips = zero
+    if codec in swar.FLOAT_CODECS:
+        out = enc.to(torch.float32), zero, zero
+        return out + (read_flips,) if read_mask is not None else out
     if codec == "int4":
         enc = enc.to(torch.int32)
         if read_inject:

@@ -1,8 +1,8 @@
 """Generation runtime over the paged ECC cache (counterpart of
-``qkv_ecc_tpu/models/runtime.py``; the llama architecture in every
-packed-int mode: int4 (read-time injection), int4-write-inject,
-int4-hamming, int4-hamming84, int4-hamming84-interp and int12-golay, with
-or without scrub, and with per-read ECC statistics).
+``qkv_ecc_tpu/models/runtime.py``; the llama architecture in every mode:
+int4 (read-time injection), int4-write-inject, int4-hamming,
+int4-hamming84, int4-hamming84-interp and int12-golay, with or without
+scrub, and with per-read ECC statistics; and the float arms fp16 and fp8).
 
 Prefill writes whole pages with an indexed store and attends through the
 codec round trip. Each decode step runs, per layer, the projections and RoPE,
@@ -17,7 +17,10 @@ the write chain, and the fused write+attend kernel
     correcting read (K2, K3), which streams parity and writes the data and
     parity columns itself;
   * mode ``int4``: a clean write and K1's general read, which flips the raw
-    words it reads from a per-step seed (K2r).
+    words it reads from a per-step seed (K2r);
+  * fp16 / fp8: the raw values (bfloat16; e4m3, whose bytes fp8's write
+    injection flips) and the float read (K2f), with scales of 1 passed as
+    JAX passes them and never stored.
 
 ``init_generation_state`` allocates statically (sequence b owns pages
 [b*P, (b+1)*P)); the serving layer (``serving/scheduler.py``) hands out
@@ -31,6 +34,7 @@ import torch
 
 from ..cache.layout import ECCCacheConfig, allocate_ecc_kv_cache
 from ..device import resolve_device
+from ..kernels import common as C
 from ..kernels import swar
 from ..kernels.paged_attention import paged_attention_ecc_write_attend
 from .config import ModelConfig
@@ -60,13 +64,16 @@ def _use_scrub(policy: KVCachePolicy) -> bool:
     )
 
 
+FUSED_CODECS = ("int4", "hamming74", "hamming84", "golay", "fp16", "fp8")
+
+
 def _check_slice(cfg: ModelConfig, policy: KVCachePolicy):
-    """Raise for what the port does not carry yet: other architectures and
-    the float codecs."""
+    """Raise for what the port does not carry yet (other architectures) and
+    for a codec the runtime has no kernel for, as JAX's generate does."""
     if cfg.arch != "llama":
         raise NotImplementedError(f"architecture '{cfg.arch}' is a later slice")
-    if policy.codec not in ("int4", "hamming74", "hamming84", "golay"):
-        swar.unsupported(policy.codec)
+    if policy.codec not in FUSED_CODECS:
+        raise NotImplementedError(f"the runtime supports {FUSED_CODECS}, got '{policy.codec}'")
 
 
 def _read_inject(policy: KVCachePolicy) -> bool:
@@ -125,18 +132,21 @@ def _trash_routed_slots(block_table, pos, bs):
 def _write_tokens(state, layer_idx, block_table, positions, kc, vc, ks, vs):
     """Store S packed tokens of every sequence: cache[layer, phys, h, :, slot]
     = rows[b, s, h, :]. kc/vc: [B, S, H, row_words] full rows, split here at
-    the data/parity boundary; ks/vs: [B, S, H]; positions: [B, S]."""
+    the data/parity boundary, or the float codecs' values (e4m3 stored
+    through its bytes); ks/vs: [B, S, H], or None (float codecs: no
+    scales); positions: [B, S]."""
     bs = state["k_cache"].shape[4]
     dw = state["k_cache"].shape[3]
     phys = _physical_pages(block_table, positions, bs)
     slots = (positions % bs).long()
-    state["k_cache"][layer_idx][phys, :, :, slots] = kc[..., :dw]
-    state["v_cache"][layer_idx][phys, :, :, slots] = vc[..., :dw]
+    for name, rows in (("k_cache", kc), ("v_cache", vc)):
+        C.fp8_as_bytes(state[name])[layer_idx][phys, :, :, slots] = C.fp8_as_bytes(rows[..., :dw])
     if "k_parity" in state:
         state["k_parity"][layer_idx][phys, :, :, slots] = kc[..., dw:]
         state["v_parity"][layer_idx][phys, :, :, slots] = vc[..., dw:]
-    state["k_scales"][layer_idx][phys, :, slots] = ks
-    state["v_scales"][layer_idx][phys, :, slots] = vs
+    if ks is not None:
+        state["k_scales"][layer_idx][phys, :, slots] = ks
+        state["v_scales"][layer_idx][phys, :, slots] = vs
     return state
 
 
@@ -235,7 +245,8 @@ def _draw_read(shape, policy: KVCachePolicy, generator):
 
 def write_mask_shape(policy: KVCachePolicy, batch: int, cfg: ModelConfig):
     """Logical injection-mask shape of one decode token's K or V write: the
-    d12 codeword array for golay, padded nibbles otherwise."""
+    d12 codeword array for golay, padded nibbles otherwise (fp8: its bytes,
+    one a value)."""
     pv = swar.padded_values(policy.codec, cfg.head_dim)
     return (batch, 1, cfg.num_kv_heads, pv // 3 if policy.codec == "golay" else pv)
 
@@ -252,8 +263,9 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
     hoisted_masks: every layer's write masks for this step, [L, 2, *shape] -
     folded deltas (kv_policy.hoisted_write_deltas, uint8) in the scrubbed
     modes, raw logical masks (kv_policy.hoisted_logical_masks: uint8, int32
-    for golay) otherwise. Drawn here from ``generator`` in one chain when
-    write injection is on and none are given.
+    for golay; fp8: its bytes' masks) otherwise. Drawn here from
+    ``generator`` in one chain when write injection is on and none are
+    given.
 
     collect_ecc_stats: turn scrub off (the correcting read counts per read)
     and add the kernels' per-sequence counts of every layer into
@@ -302,6 +314,8 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
             vc, vs, _ = encode_kv(v, policy, mask=masks[1])
             kc, vc = pack_kv(kc, policy, cfg.head_dim), pack_kv(vc, policy, cfg.head_dim)
         kc, vc = kc[:, 0], vc[:, 0]  # [B, Hkv, row_words]
+        if ks is None:  # float codecs carry no scales: ones, as JAX passes
+            ks = vs = torch.ones((B, 1, cfg.num_kv_heads), device=kc.device)
         if extract:
             k_par.append(kc[..., dw:])
             v_par.append(vc[..., dw:])

@@ -150,11 +150,11 @@ def test_layout_helpers_match_jax():
             tc.cache_shape(), tc.parity_shape(), tc.scales_shape())
         cache = tl.allocate_ecc_kv_cache(tc, device="cpu")
         assert cache["k_cache"].dtype == tl.cache_dtype_for(codec)
-    # the float codecs: fp8 is JAX's type; fp16 is float16 here, the TPU's
-    # bfloat16 there
+    # the float codecs store JAX's types: fp8 e4m3, fp16 bfloat16 (F6)
     assert np.dtype(jl.cache_dtype_for("fp8")).name == "float8_e4m3fn"
     assert tl.cache_dtype_for("fp8") == torch.float8_e4m3fn
-    assert tl.cache_dtype_for("fp16") == torch.float16
+    assert np.dtype(jl.cache_dtype_for("fp16")).name == "bfloat16"
+    assert tl.cache_dtype_for("fp16") == torch.bfloat16
     with pytest.raises(ValueError):
         tl.ECCCacheConfig(codec="int3")
     with pytest.raises(ValueError):

@@ -7,9 +7,8 @@ draws from its keys (ECCEngine._injection_key) and the read flips and seed
 of the read-inject arm (its "READ" key), fed to the port's
 ``write(masks=)`` and ``attend(read_masks=, read_inject_seed=)``.
 
-Stored words and scales must be equal, and so must every statistic. fp16
-stores float16 here and the TPU's bfloat16 in JAX, so its stored values are
-held to float16's rounding of the inputs instead. Outputs:
+Stored words, values and scales must be equal, and so must every statistic:
+fp16 stores bfloat16 and fp8 e4m3 in both packages, bit for bit. Outputs:
   * prefill (S = 24, causal) and the float codecs' decode queries take the
     general path on both sides, float32 attention over the same decoded
     values: within 1e-5 (summation order);
@@ -17,8 +16,7 @@ held to float16's rounding of the inputs instead. Outputs:
     Pallas kernel in interpret mode and the port's plain version, which
     round q and p * v_scale to bf16 alike: within 2^-8 of the largest
     dequantized |V| (one bf16 ulp of one weight, as
-    tests/test_torch_paged_attention.py states), and for fp16 (bf16 values
-    in JAX) within 2^-7 of the largest |V|.
+    tests/test_torch_paged_attention.py states).
 """
 
 import os
@@ -71,22 +69,20 @@ def write_both(jeng, teng, k, v, layer, start):
                masks=None if masks is None else [torch.from_numpy(m) for m in masks])
 
 
-def same_cache(jeng, teng, k_all, v_all):
-    codec = jeng.config.codec
+def bits(a):
+    """The stored bits of a JAX or torch array, as numpy: bfloat16 and
+    float8_e4m3fn as unsigned ints of their width."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.bfloat16:
+            return a.view(torch.int16).numpy().view(np.uint16)
+        return (a.view(torch.uint8) if a.dtype == torch.float8_e4m3fn else a).numpy()
+    a = np.asarray(a)
+    return a.view(f"u{a.itemsize}") if a.dtype.name in ("bfloat16", "float8_e4m3fn") else a
+
+
+def same_cache(jeng, teng):
     for n, arr in teng.cache.items():
-        want = np.asarray(jeng.cache[n])
-        got = arr.numpy() if arr.dtype != torch.float8_e4m3fn else arr.view(torch.uint8).numpy()
-        if codec == "fp8" and n in ("k_cache", "v_cache"):
-            want = want.view(np.uint8)
-        if codec == "fp16" and n in ("k_cache", "v_cache"):
-            continue
-        np.testing.assert_array_equal(want, got, err_msg=n)
-    if codec == "fp16":  # float16's rounding of what was written
-        bt = teng.manager.block_table()[0]
-        for name, x in (("k_cache", k_all), ("v_cache", v_all)):
-            pos = torch.arange(x.shape[0])
-            stored = teng.cache[name][:, bt[pos // 16].long(), :, :, pos % 16]  # [T, L, H, D]
-            np.testing.assert_array_equal(stored.numpy(), np.stack([x.astype(np.float16)] * 2, 1))
+        np.testing.assert_array_equal(bits(jeng.cache[n]), bits(arr), err_msg=n)
 
 
 GENERAL = dict(rtol=1e-5, atol=1e-5)  # float32 attention over equal values
@@ -94,9 +90,7 @@ GENERAL = dict(rtol=1e-5, atol=1e-5)  # float32 attention over equal values
 
 def close(teng, decode):
     """assert_allclose's bounds for a query (module docstring)."""
-    if teng.config.codec == "fp16":
-        return dict(rtol=0, atol=2.0 ** -7 * float(teng.cache["v_cache"].float().abs().max()))
-    if not decode or teng.config.codec == "fp8":
+    if not decode or teng.config.codec in ("fp16", "fp8"):
         return GENERAL
     return dict(rtol=0, atol=2.0 ** -8 * 8.0 * float(teng.cache["v_scales"].abs().max()))
 
@@ -119,7 +113,7 @@ def test_engine_matches_jax(codec, ber):
     v_all = rng.normal(size=(T, H, D)).astype(np.float32)
     for layer in range(2):
         write_both(jeng, teng, k_all[:S], v_all[:S], layer, 0)
-    same_cache(jeng, teng, k_all[:S], v_all[:S])
+    same_cache(jeng, teng)
     q = rng.normal(size=(HQ, S, D)).astype(np.float32)
     want = np.asarray(jeng.attend(jnp.asarray(q), 0))
     got = teng.attend(torch.from_numpy(q), 0)
@@ -128,7 +122,7 @@ def test_engine_matches_jax(codec, ber):
     for t in range(S, T):
         for layer in range(2):
             write_both(jeng, teng, k_all[t:t + 1], v_all[t:t + 1], layer, t)
-    same_cache(jeng, teng, k_all, v_all)
+    same_cache(jeng, teng)
     for layer in range(2):
         q1 = rng.normal(size=(1, HQ, 1, D)).astype(np.float32)
         want = np.asarray(jeng.attend(jnp.asarray(q1), layer))
@@ -142,6 +136,32 @@ def test_engine_matches_jax(codec, ber):
             assert teng.stats["errors_corrected"] > 0
 
 
+SPECIAL = [500.0, -500.0, 1e4, -1e4, np.inf, -np.inf, np.nan, 464.0, -464.0, 465.0, 448.0,
+           2.0 ** -10, 0.0, -0.0]
+
+
+@pytest.mark.parametrize("codec", ["fp16", "fp8"])
+def test_float_write_rounds_as_jax(codec):
+    """F6 and F7: one write of the float codecs stores JAX's bits. fp16 is
+    bfloat16 (the port stored float16 before), also for NaN; fp8 past
+    +-464 and at +-inf is NaN, 0x7f / 0xff (torch's own conversion
+    saturates to 0x7e / 0xfe). The values: SPECIAL, then normals at scales
+    1e-3 to 1e3."""
+    jeng, teng = engines(codec)
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(S, H, D)) * 10.0 ** rng.integers(-3, 4, (S, H, 1))
+    x = x.astype(np.float32)
+    x.reshape(-1)[:len(SPECIAL)] = SPECIAL
+    write_both(jeng, teng, x, -x, 0, 0)
+    same_cache(jeng, teng)
+    page = int(teng.manager.block_table()[0, 0])
+    stored = bits(teng.cache["k_cache"])[0, page, 0, :11, 0]  # token 0, head 0: SPECIAL
+    want = ([0x7F, 0xFF] * 3 + [0x7F, 0x7E, 0xFE, 0x7F, 0x7E] if codec == "fp8" else
+            [0x43FA, 0xC3FA, 0x461C, 0xC61C, 0x7F80, 0xFF80, 0x7FC0, 0x43E8, 0xC3E8, 0x43E8,
+             0x43E0])
+    assert stored.tolist() == want
+
+
 def test_unprotected_matches_jax():
     """The read-inject arm with JAX's read flips (a causal prefill read, the
     general path) and read seeds (two decode reads through K4): outputs
@@ -153,7 +173,7 @@ def test_unprotected_matches_jax():
     k = rng.normal(size=(S, H, D)).astype(np.float32)
     v = rng.normal(size=(S, H, D)).astype(np.float32)
     write_both(jeng, teng, k, v, 0, 0)
-    same_cache(jeng, teng, k, v)
+    same_cache(jeng, teng)
 
     def read_key(layer):
         key = jax.random.fold_in(jax.random.key(jeng.config.seed ^ READ), jeng._read_count + 1)
@@ -174,7 +194,7 @@ def test_unprotected_matches_jax():
         np.testing.assert_allclose(got.numpy(), want, **close(teng, True))
     assert teng.stats == jeng.stats and teng.stats["bits_flipped"] > 0
     assert tu.get_unprotected_stats(teng) == ju.get_unprotected_stats(jeng)
-    same_cache(jeng, teng, k, v)  # reads never touch the cache
+    same_cache(jeng, teng)  # reads never touch the cache
 
 
 def test_engine_own_draws():

@@ -163,15 +163,17 @@ def test_read_injection_not_ported(ber):
 
 
 def test_policy_defaults_match_jax():
-    """F3: the default codec is JAX's "fp16", which the port does not carry
-    yet (using it raises "not ported yet"); with_seed; decode_kv's counts
-    are int32."""
+    """F3: the default codec is JAX's "fp16", and its write stores JAX's
+    bfloat16 bits; with_seed; decode_kv's counts are int32."""
     assert tp.KVCachePolicy() == tp.KVCachePolicy(codec="fp16")
     assert tp.KVCachePolicy().codec == jp.KVCachePolicy().codec == "fp16"
     for f in ("ber", "inject_errors", "seed", "use_interpolation", "inject_at", "scrub"):
         assert getattr(tp.KVCachePolicy(), f) == getattr(jp.KVCachePolicy(), f), f
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tp.encode_kv(torch.zeros((1, 8)), tp.KVCachePolicy())
+    _, x = inputs(8)
+    enc, scale, _ = tp.encode_kv(torch.from_numpy(x), tp.KVCachePolicy())
+    want = jp.encode_kv(jnp.asarray(x), jp.KVCachePolicy(), None)[0]
+    assert enc.dtype == torch.bfloat16 and scale is None
+    same(np.asarray(want).view(np.uint16), enc.view(torch.int16).view(torch.uint16))
     pol = tp.policy_for_mode("int12-golay", ber=1e-2, seed=3)
     assert pol.with_seed(9) == tp.policy_for_mode("int12-golay", ber=1e-2, seed=9)
     assert pol.with_seed(9).seed == jp.policy_for_mode("int12-golay", seed=3).with_seed(9).seed
@@ -235,3 +237,44 @@ def test_hoisted_logical_masks(codec):
     golay = tp.hoisted_logical_masks(tp.policy_for_mode("int12-golay", ber=5e-2), 1,
                                      (2, 1, 3, 8), generator=torch.Generator().manual_seed(2))
     assert golay.dtype == torch.int32 and int(golay.max()) >= 256 and int(golay.max()) < 1 << 24
+
+
+def float_bits(a):
+    """bfloat16 / e4m3 values (JAX or torch) as their unsigned bits."""
+    if isinstance(a, torch.Tensor):
+        return (a.view(torch.int16).numpy().view(np.uint16) if a.dtype == torch.bfloat16
+                else a.view(torch.uint8).numpy())
+    a = np.asarray(a)
+    return a.view(f"u{a.itemsize}")
+
+
+@pytest.mark.parametrize("mode", ["fp16", "fp8"])
+@pytest.mark.parametrize("ber", [0.0, 1e-2])
+def test_float_write_chain(mode, ber):
+    """encode_kv, encode_kv_scrubbed, encode_pack_kv_scrubbed, pack_kv and
+    decode_kv of the float codecs against JAX's, with one numpy-made mask
+    (8 bits a byte) for fp8's bytes: stored bits, flip counts and decoded
+    values equal; no scales; fp16 is never injected. Inputs include values
+    past fp8's range (NaN there, F7)."""
+    rng, x = inputs(16, seed=5)
+    x[0, 1, 0, :4] = [500.0, -1e4, np.inf, -np.inf]
+    jpol, tpol = jp.policy_for_mode(mode, ber=ber), tp.policy_for_mode(mode, ber=ber)
+    mask = numpy_mask(rng, x.shape, 5e-2, 8).astype(np.uint8)
+    jx, tx = jnp.asarray(x), torch.from_numpy(x)
+    jm, tm = jnp.asarray(mask), torch.from_numpy(mask)
+    jenc, jsc, jfl = jp.encode_kv(jx, jpol, None, mask=jm)
+    tenc, tsc, tfl = tp.encode_kv(tx, tpol, mask=tm)
+    np.testing.assert_array_equal(float_bits(jenc), float_bits(tenc))
+    assert jsc is None and tsc is None and int(jfl) == int(tfl) and tfl.dtype == torch.int32
+    assert (int(tfl) > 0) == (mode == "fp8" and ber > 0)
+    assert tp.write_inject(tpol) == (mode == "fp8" and ber > 0)
+    for fn in ("encode_kv_scrubbed", "encode_pack_kv_scrubbed"):
+        jw, jws = getattr(jp, fn)(jx, jpol, None, mask=jm)
+        tw, tws = getattr(tp, fn)(tx, tpol, mask=tm)
+        np.testing.assert_array_equal(float_bits(jw), float_bits(tw), err_msg=fn)
+        assert jws is None and tws is None
+    assert tp.pack_kv(tenc, tpol, 16) is tenc
+    jdec = jp.decode_kv(jenc, None, jpol, head_dim=16)
+    tdec = tp.decode_kv(tenc, None, tpol, head_dim=16)
+    np.testing.assert_array_equal(np.asarray(jdec[0]), tdec[0].numpy())
+    assert all(int(c) == 0 and c.dtype == torch.int32 for c in tdec[1:])

@@ -741,8 +741,10 @@ def test_attend_signature_and_checks():
     """K4's signature and defaults are JAX's; its refusals are JAX's
     ValueErrors (scrub with interpolation, stats or read injection; read
     injection outside int4; a parity codec's correcting read without parity
-    arrays) and the port's (block size); fp16 and fp8 are not ported yet;
-    the CPU never launches a kernel."""
+    arrays) and the port's (block size; a float codec's read of a packed
+    cache, whose rows are not head_dim values - the float reads themselves
+    are tests/test_torch_float_attention.py's); the CPU never launches a
+    kernel."""
     want = {k: v.default for k, v in inspect.signature(jpa.paged_attention_ecc).parameters.items()}
     got = {k: v.default for k, v in inspect.signature(tpa.paged_attention_ecc).parameters.items()}
     assert got == want
@@ -764,7 +766,7 @@ def test_attend_signature_and_checks():
     with pytest.raises(ValueError, match="block_size"):
         tpa.paged_attention_ecc(*args, 0, *parity, codec="golay")
     for codec in ("fp16", "fp8"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+        with pytest.raises(ValueError, match="data words"):
             tpa.paged_attention_ecc(*args, 0, codec=codec, block_size=16)
     # scrub reads golay's data words alone: the parity arrays are not needed
     out = tpa.paged_attention_ecc(*args, 0, codec="golay", scrub=True, block_size=16)

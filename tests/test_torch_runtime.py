@@ -1,21 +1,30 @@
 """The port's decode slice (qkv_ecc_tpu_torch.models.runtime) against the JAX
 runtime on tiny-llama with the same weights (params_from_jax), in every
-packed-int mode: the five of bench.py, mode int4 (read-time injection),
-the unscrubbed reads (scrub=False) of hamming84, golay, hamming74 and int4,
-and collect_ecc_stats in golay, hamming74, hamming84 (with and without
-interpolation) and int4. Prefill runs at BER 0 (int4: at the mode's BER,
+mode: the five of bench.py, mode int4 (read-time injection), the float arms
+fp16 (bfloat16 values, never injected) and fp8 (e4m3, write injection of
+its bytes), the unscrubbed reads (scrub=False) of hamming84, golay,
+hamming74 and int4, and collect_ecc_stats in golay, hamming74, hamming84
+(with and without interpolation) and int4. Prefill runs at BER 0 (int4: at the mode's BER,
 with the read flips JAX draws from its layer keys), then decode steps on the
 same masks: numpy-made raw masks passed as hoisted_masks - folded by each
 package in the scrubbed modes, raw in the others (BER 1e-2; 5e-2 for the
 correcting reads, so that doubles reach the interpolation) - or, where JAX
 draws per layer from its keys (golay unscrubbed, every step that collects
-statistics), those very masks; and JAX's per-step read seed for int4.
+statistics, and fp8, whose masks JAX never hoists), those very masks; and
+JAX's per-step read seed for int4.
 
-Stored words (data nibbles and parity) must be equal after prefill and
-after every decode step, and so must the ECC counters: none differs on
-these inputs. Words could, because the two frameworks' float32 matmuls
-differ by an ulp, and a K/V value on a quantization boundary would then land
-on the neighbouring nibble; the test would report the count.
+Stored words (data nibbles and parity; the float codecs' values, bit for
+bit) must be equal after prefill and after every decode step, and so must
+the ECC counters: none differs on these inputs. Words could, because the
+two frameworks' float32 matmuls differ by an ulp, and a K/V value on a
+quantization (or bfloat16, e4m3 rounding) boundary would then land on the
+neighbouring code; the test would report the count. That happens to fp16,
+whose bfloat16 values have 2^8 times more rounding boundaries than the
+int4 codes: one K value of prefill and one V value of step 4 (of 4096 each)
+come out one bfloat16 ulp apart, so fp16's stored values are held to at
+most 2 values per array one ulp apart and the rest bit for bit (and
+test_float_write_tokens_matches_jax holds the same write chain bit for bit
+on equal K/V).
 
 Tolerances, with their reasons:
   * scales are absmax / 7 of the K/V projections, so those ulps show in them
@@ -74,11 +83,31 @@ def numpy_masks(rng, shape, ber, n_bits):
             ).sum(0).astype(np.int32)
 
 
+def stored_bits(a):
+    """Stored words as integers: the float codecs' bfloat16 / e4m3 values
+    as their bits (JAX and torch arrays alike)."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype in (torch.bfloat16, torch.float8_e4m3fn):
+            a = a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.uint8)
+        return a.numpy()
+    a = np.asarray(a)
+    return a.view({2: np.int16, 1: np.uint8}[a.itemsize]) if a.dtype.name in (
+        "bfloat16", "float8_e4m3fn") else a
+
+
 def compare_caches(jstate, tstate, where, scale_rtol):
-    """Stored words equal, reporting how many differ; scales within
-    scale_rtol (see the module docstring)."""
-    words = {n: int((np.asarray(jstate[n]) != tstate[n].numpy()).sum())
-             for n in ("k_cache", "v_cache", "k_parity", "v_parity") if n in tstate}
+    """Stored words equal, reporting how many differ (bfloat16 values: at
+    most 2 per array, each one ulp apart); scales within scale_rtol (see the
+    module docstring)."""
+    words = {}
+    for n in ("k_cache", "v_cache", "k_parity", "v_parity"):
+        if n not in tstate:
+            continue
+        a, b = stored_bits(jstate[n]).astype(np.int32), stored_bits(tstate[n]).astype(np.int32)
+        if tstate[n].dtype == torch.bfloat16 and (a != b).sum() <= 2 and (
+                np.abs(a - b) <= 1).all():
+            continue
+        words[n] = int((a != b).sum())
     assert sum(words.values()) == 0, f"{where}: differing stored words {words}"
     for n in ("k_scales", "v_scales"):
         np.testing.assert_allclose(tstate[n].numpy(), np.asarray(jstate[n]), rtol=scale_rtol,
@@ -95,7 +124,7 @@ def test_config_copied():
 NO_SCRUB = "int4-hamming84/scrub=False"
 READ = 0x52454144  # JAX's "READ" stream: jax.random.fold_in(key, READ)
 SLICE_MODES = ["int4-write-inject", "int12-golay", "int4-hamming", "int4-hamming84",
-               "int4-hamming84-interp", NO_SCRUB, "int4", "int12-golay/scrub=False",
+               "int4-hamming84-interp", NO_SCRUB, "int4", "fp16", "fp8", "int12-golay/scrub=False",
                "int4-hamming/scrub=False", "int4-write-inject/scrub=False", "int12-golay/stats",
                "int4-hamming/stats", "int4-hamming84/stats", "int4-hamming84-interp/stats",
                "int4/stats"]
@@ -138,8 +167,10 @@ def test_slice_matches_jax(weights, mode):
     jpol0, tpol0 = policies(mode)
     codec = tpol0.codec
     read = tpol0.inject_at == "read"
-    scrubbed = tpol0.scrub and not tpol0.use_interpolation and not stats and not read
-    ber = 1e-2 if scrubbed else 5e-2
+    floats = codec in ("fp16", "fp8")
+    scrubbed = (tpol0.scrub and not tpol0.use_interpolation and not stats and not read
+                and not floats)
+    ber = 1e-2 if scrubbed or floats else 5e-2
     rng = np.random.default_rng(0)
     ids = rng.integers(0, J_TINY.vocab_size, (B, PROMPT))
     T = PROMPT + STEPS + 2
@@ -166,13 +197,15 @@ def test_slice_matches_jax(weights, mode):
     launches = paged_attention_ecc_write_attend.launches, write_decode_attend.launches
     for step in range(STEPS):
         step_key = jax.random.fold_in(key, step)
-        raw = numpy_masks(rng, (T_TINY.num_layers, 2) + shape, ber, N_BITS[codec])
+        raw = numpy_masks(rng, (T_TINY.num_layers, 2) + shape, ber, N_BITS.get(codec, 8))
         seed = None
         if read:
             jh = th = None
             seed = int(np.asarray(jax.random.bits(jax.random.fold_in(step_key, READ), (),
                                                   "uint32")).astype(np.int32))
-        elif stats or (codec == "golay" and not scrubbed):  # JAX draws per layer
+        elif codec == "fp16":  # never injected
+            jh = th = None
+        elif stats or codec == "fp8" or (codec == "golay" and not scrubbed):  # JAX draws per layer
             jh, th = None, torch.from_numpy(key_masks(jpol, step_key, shape))
         elif scrubbed:
             jh = js.scrub_fold_mask(codec, jnp.asarray(raw)).astype(jnp.uint8)
@@ -212,7 +245,8 @@ def test_slice_matches_jax(weights, mode):
 
 @pytest.mark.parametrize("mode", ["int4-write-inject", "int12-golay", "int4-hamming",
                                   "int4-hamming84", "int4-hamming84-interp", NO_SCRUB, "int4",
-                                  "int12-golay/scrub=False", "int4-hamming/scrub=False"])
+                                  "int12-golay/scrub=False", "int4-hamming/scrub=False", "fp16",
+                                  "fp8"])
 def test_decode_loop_and_generate(weights, mode):
     """decode_loop feeds argmax tokens step by step (same as decode_step in
     a loop); generate = prefill + greedy decode; both deterministic per
@@ -344,25 +378,74 @@ def test_prefill_logit_pos_true_len(weights):
 
 
 def test_unported_paths_raise(weights):
-    """What stays to come raises: the float arms fp16 and fp8 (K2f, a later
-    slice) and architectures other than llama (gpt2)."""
+    """What stays to come raises: architectures other than llama (gpt2). (The
+    name is from before the float arms were ported, when fp16 and fp8 raised
+    here too.) The float arms now run: init_generation_state, prefill and
+    decode_step of the default KVCachePolicy() (fp16) and of fp8 take a
+    step; a codec outside JAX's FUSED_CODECS raises NotImplementedError, as
+    JAX's generate does."""
     _, tparams = weights
     state, bt, _ = tr.init_generation_state(T_TINY, t_policy("int4-write-inject"), B, 40, BS,
                                             device="cpu")
     ids = torch.zeros((B, 4), dtype=torch.long)
-    for mode in ("fp16", "fp8"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tr.prefill(tparams, ids, state, bt, T_TINY, t_policy(mode))
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tr.decode_step(tparams, ids[:, 0], state, bt, T_TINY, t_policy(mode))
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tr.init_generation_state(T_TINY, t_policy(mode), B, 40, BS, device="cpu")
+    assert tr.FUSED_CODECS == jr.FUSED_CODECS
+    for pol in (tr.KVCachePolicy(), t_policy("fp8", ber=1e-2)):
+        fstate, fbt, _ = tr.init_generation_state(T_TINY, pol, B, 40, BS, device="cpu")
+        g = torch.Generator().manual_seed(0)
+        logits, fstate = tr.prefill(tparams, ids, fstate, fbt, T_TINY, pol, g)
+        logits, fstate = tr.decode_step(tparams, logits.argmax(-1), fstate, fbt, T_TINY, pol, g)
+        assert logits.shape == (B, T_TINY.vocab_size) and fstate["context_len"].tolist() == [5, 5]
+    with pytest.raises(NotImplementedError, match="the runtime supports"):
+        tr.prefill(tparams, ids, state, bt, T_TINY, dataclasses.replace(t_policy("fp16"),
+                                                                          codec="int3"))
     gpt2 = dataclasses.replace(T_TINY, arch="gpt2")
     with pytest.raises(NotImplementedError, match="gpt2"):
         tr.prefill(tparams, ids, state, bt, gpt2, t_policy("int4-write-inject"))
     with pytest.raises(NotImplementedError, match="gpt2"):
         tr.decode_loop(tparams, torch.zeros((B, 256)), state, bt, gpt2,
                        t_policy("int4-write-inject"), None, 1)
+
+
+@pytest.mark.parametrize("mode", ["fp16", "fp8"])
+def test_float_generate_matches_jax(weights, mode):
+    """generate() of the default KVCachePolicy() (fp16) and of fp8 at BER 0
+    against JAX's generate: the same greedy tokens (prompt 21, 6 new)."""
+    jparams, tparams = weights
+    ids = np.random.default_rng(9).integers(0, J_TINY.vocab_size, (B, PROMPT))
+    tpol = tr.KVCachePolicy() if mode == "fp16" else t_policy("fp8")
+    jpol = jr.KVCachePolicy() if mode == "fp16" else j_policy("fp8")
+    want = np.asarray(jr.generate(jparams, ids, J_TINY, jpol, max_new_tokens=6, block_size=BS))
+    got = tr.generate(tparams, torch.from_numpy(ids), T_TINY, tpol, max_new_tokens=6,
+                      block_size=BS, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("mode", ["fp16", "fp8"])
+def test_float_write_tokens_matches_jax(mode):
+    """The runtime's write of the float codecs (encode_kv, pack_kv and
+    _write_tokens, as prefill runs them) against JAX's on the same K/V,
+    values past fp8's range and +-inf among them: stored bits equal, the
+    scales arrays untouched (zeros)."""
+    from qkv_ecc_tpu.models import kv_policy as jkv
+    from qkv_ecc_tpu_torch.models import kv_policy as tkv
+
+    rng = np.random.default_rng(10)
+    x = (rng.normal(size=(2, B, PROMPT, 2, 16)) * 10.0 ** rng.integers(-2, 3, (2, B, PROMPT, 2, 1))
+         ).astype(np.float32)
+    x[0, 0, 0, 0, :6] = [500.0, -500.0, 1e4, np.inf, -np.inf, 464.0]
+    jpol, tpol = j_policy(mode), t_policy(mode)
+    jstate, jbt, _ = jr.init_generation_state(J_TINY, jpol, B, 40, block_size=BS)
+    tstate, tbt, _ = tr.init_generation_state(T_TINY, tpol, B, 40, block_size=BS, device="cpu")
+    pos = np.broadcast_to(np.arange(PROMPT), (B, PROMPT))
+    jk, jv = (jkv.encode_kv(jnp.asarray(a), jpol, None)[0] for a in x)
+    (tk, ks, _), (tv, vs, _) = (tkv.encode_kv(torch.from_numpy(a), tpol) for a in x)
+    assert ks is None and vs is None
+    jstate = jr._write_tokens(jstate, 1, jbt, jnp.asarray(pos), jk, jv, None, None)
+    tr._write_tokens(tstate, 1, tbt, torch.from_numpy(pos.copy()), tkv.pack_kv(tk, tpol, 16),
+                     tkv.pack_kv(tv, tpol, 16), None, None)
+    for n in ("k_cache", "v_cache", "k_scales", "v_scales"):
+        np.testing.assert_array_equal(stored_bits(jstate[n]), stored_bits(tstate[n]), err_msg=n)
+    assert not tstate["k_scales"].any()
 
 
 STATS_MODES = ["int12-golay", "int4-hamming", "int4-hamming84", "int4-hamming84-interp", "int4"]

@@ -136,8 +136,9 @@ def test_oversized_request_rejected(weights):
     small = make_server(params, max_seq_len=64, num_blocks=3)
     with pytest.raises(ValueError, match="allocatable blocks"):
         small.add_request(Request(1, rng.integers(0, CFG.vocab_size, (40,)), max_new_tokens=1))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_server(params, mode="fp16")
+    with pytest.raises(NotImplementedError, match="the runtime supports"):
+        ContinuousBatchingServer(params, CFG, dataclasses.replace(policy_for_mode("fp16"),
+                                                                  codec="int3"), device="cpu")
 
 
 def test_admission_reserves_generation_pages(weights):
@@ -195,6 +196,30 @@ def test_server_matches_jax(weights):
                      for o in server.run()})
     assert outs[0] == outs[1]
     assert tserver.ecc_stats == jserver.ecc_stats
+
+
+@pytest.mark.parametrize("mode", ["fp16", "fp8"])
+def test_float_server_matches_jax(weights, mode):
+    """The float arms served: fp16 (the default codec) and fp8 at BER 0, the
+    same stream as test_server_matches_jax on both servers: identical tokens
+    and finish reasons; a float read counts no ECC errors."""
+    jparams, tparams = weights
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(0, CFG.vocab_size, (n,)) for n in (9, 14, 5)]
+    jserver = JServer(jparams, J_TINY, j_policy(mode, ber=0.0, seed=42), max_batch=3,
+                      max_seq_len=96, block_size=16, prefill_bucket=32)
+    tserver = make_server(tparams, mode=mode, prefill_bucket=32)
+    outs = []
+    for server, req in ((jserver, JRequest), (tserver, Request)):
+        server.add_request(req(0, prompts[0], max_new_tokens=6))
+        server.add_request(req(1, prompts[1], max_new_tokens=6))
+        server.step()
+        server.add_request(req(2, prompts[2], max_new_tokens=6))
+        outs.append({o.request_id: ([int(t) for t in o.token_ids], o.finish_reason)
+                     for o in server.run()})
+    assert outs[0] == outs[1]
+    assert tserver.ecc_stats == jserver.ecc_stats == {"errors_corrected": 0,
+                                                       "errors_detected": 0}
 
 
 def test_request_dataclasses_match_jax():

@@ -38,7 +38,7 @@ def test_b_masks_copied():
 
 @pytest.mark.parametrize("head_dim", list(range(8, 257, 8)) + [33, 60, 100])
 def test_word_counts(head_dim):
-    for codec in ("int4", "golay"):
+    for codec in ("int4", "golay", "fp16", "fp8"):
         for fn in ("padded_values", "row_words", "data_words", "parity_words",
                    "scrub_extract_ok"):
             assert getattr(ts, fn)(codec, head_dim) == getattr(js, fn)(codec, head_dim), fn
@@ -48,18 +48,37 @@ def test_word_counts(head_dim):
 
 @pytest.mark.parametrize("codec", ["hamming74", "hamming84", "fp16", "fp8"])
 def test_later_codecs_raise(codec):
-    """fp16 and fp8 are not ported: the row math and the attention wrapper
-    raise "not ported yet". The Hamming codecs' correcting reads run: a
-    zero cache of all-zero codewords reads as -8 and counts no error."""
+    """(The name is from before the float codecs were ported, when they
+    raised "not ported yet".) The row math of fp16 and fp8 is JAX's: one
+    element per value, no parity, the scrub extract allowed; their masks are
+    not folded (ValueError, as in JAX); an unknown codec raises ValueError.
+    Every correcting read runs: a zero cache reads as -8 for the Hamming
+    codecs (their codeword 0 is nibble 0) and as 0 for the float codecs,
+    with no error counted."""
     from qkv_ecc_tpu_torch.kernels.paged_attention import paged_attention_ecc_write_attend
 
+    for hd in (16, 33, 128):
+        for fn in ("padded_values", "row_words", "data_words", "parity_words",
+                   "scrub_extract_ok"):
+            assert getattr(ts, fn)(codec, hd) == getattr(js, fn)(codec, hd), (fn, hd)
+    with pytest.raises(ValueError, match="unknown"):
+        ts.padded_values("int3", 128)
     if codec in ("fp16", "fp8"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            ts.padded_values(codec, 128)
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="float codec"):
             ts.scrub_fold_mask(codec, torch.zeros(4, dtype=torch.int32))
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            paged_attention_ecc_write_attend(*([None] * 12), codec=codec)
+        with pytest.raises(ValueError):
+            js.scrub_fold_mask(codec, jnp.zeros(4, dtype=jnp.int32))
+        D, bs = 32, 16
+        dtype = torch.bfloat16 if codec == "fp16" else torch.float8_e4m3fn
+        cache = torch.zeros((1, 2, 1, D, bs), dtype=dtype)
+        scales = torch.ones((1, 2, 1, bs))
+        new = torch.zeros((1, 1, D), dtype=dtype)
+        out, stats = paged_attention_ecc_write_attend(
+            torch.ones((1, 1, D)), new, new.clone(), torch.ones((1, 1)), torch.ones((1, 1)),
+            cache, cache.clone(), scales, scales.clone(), torch.zeros((1, 2), dtype=torch.int32),
+            torch.ones(1, dtype=torch.int32), 0, codec=codec, block_size=bs, collect_stats=True)
+        torch.testing.assert_close(out, torch.zeros((1, 1, D)), rtol=0, atol=0)
+        assert stats.tolist() == [[0, 0]]
         return
     D, bs = 32, 16
     dw, pw = ts.data_words(codec, D), ts.parity_words(codec, D)
