@@ -38,11 +38,25 @@ through the port's entry points on four paths:
     256-1024 prompt tokens and 32-64 new ones, in int4-write-inject,
     int4-hamming84, int12-golay (BER 1e-2) and fp16, and a BER-0 check that
     staggered requests give generate()'s tokens.
+Then the codec kernels K5-K9 (csrc/codec_kernels.cu) are held equal to
+their plain versions (every byte, every Golay data word, every error
+pattern of weight 0-3 on a sample of codewords, wide masks, 16M and 4M
+injected elements with the flip rate and determinism), K4 at GQA group 4
+against its plain version in every codec, and two more paths run:
+  * the kernel benchmark: benchmarks.harness.run_full_benchmark() at the
+    JAX defaults (8M values through K5-K7 and K9, the plain pipeline, the
+    card against the CPU, K4 hamming84 at 32/8 heads against
+    scaled_dot_product_attention at batch 1 and 8, context 512 and 2048),
+    whose JSON is printed;
+  * the scaling row: benchmarks.scaling.measure_single_device on bench-0.9b
+    in int12-golay, batch 4, prompt 64, 20 steps, block 128.
 Each path checks that every kernel branch it calls was launched exactly as
 often as it calls it. Then it times the kernels (K2f beside
 scaled_dot_product_attention over the same context stored dense, fp16's
-yardstick) and traces the decode step of each arm. Every phase prints one line with its seconds; any failure exits
-non-zero. Without a CUDA device it fails.
+yardstick; the Golay and Hamming encodes beside a gather from the table of
+all codewords) and traces the decode step of each arm. Every phase prints
+one line with its seconds; any failure exits non-zero. Without a CUDA
+device it fails.
 
 Output, last lines: the kernel table as one JSON object, the card's name and
 power limit from nvidia-smi, then {"ok": true, "device": {...}}.
@@ -1044,6 +1058,362 @@ def tiny_agreement(torch, device):
             fail(f"tiny-llama {mode}: the card disagrees with the CPU")
 
 
+# the kernel benchmark's shapes (benchmarks/harness.py run_full_benchmark's
+# defaults): n values through K5, K6 and K9, n // 3 Golay words through K7;
+# its time_fn_chained makes 3 warm-up and 20 timed calls of each function
+HARNESS_N = 8 * 1024 * 1024
+CHAINED_CALLS = 3 + 20
+# 32-bit integer operations per element counted from csrc/codec_kernels.cu
+# and golay.cuh: hamming74 encode (mask, 4 bit extractions 7, three parities
+# of 2 XORs, 2 shifts and 3 ORs) and decode (mask, 7 bit extractions 13,
+# syndrome 13, correction 5, XOR and mask 2, flag 1); hamming84 adds the
+# parity bit (popcount, mask, shift, OR) to the encode and the parity check
+# and type selects (10) to the decode; golay encode (a product by B of 60,
+# mask, shift, OR) and decode (the IMLD of 298, as in GOLAY_OPS_PER_CODEWORD
+# without the rebuild and repack); the write scrub (encode, XOR, IMLD,
+# encode); one flip decision of K9 (counter, multiply, add, fmix32 8,
+# compare, shift, OR)
+CODEC_OPS = {"hamming74_encode": 19, "hamming74_decode": 35, "hamming84_encode": 23,
+             "hamming84_decode": 45, "golay_encode": 63, "golay_decode": 298,
+             "golay_write_scrub": 425}
+INJECT_OPS_PER_BIT = 12.5
+# (JSON name, wrapper, the TPU function it replaces) of K5-K9
+CODEC_KERNELS = (
+    ("hamming74_encode (K5)", "hamming74_encode", "codec_kernels.py:99"),
+    ("hamming74_decode (K5)", "hamming74_decode", "codec_kernels.py:105"),
+    ("hamming84_encode (K6)", "hamming84_encode", "codec_kernels.py:130"),
+    ("hamming84_decode (K6)", "hamming84_decode", "codec_kernels.py:136"),
+    ("golay_encode (K7)", "golay_encode_packed", "codec_kernels.py:159"),
+    ("golay_decode (K7)", "golay_decode_packed", "codec_kernels.py:168"),
+    ("golay_write_scrub (K8)", "golay_write_scrub", "codec_kernels.py:191"),
+    ("inject_bit_errors (K9)", "inject_bit_errors", "codec_kernels.py:251"),
+)
+
+
+def golay_error_patterns(torch, gen, device):
+    """Every 24-bit error pattern of weight 0-3 (2325), 4000 of weight 4,
+    and 256 random words with bits 24-31 set, as int32 on the card."""
+    from itertools import combinations
+
+    pats = [0] + [sum(1 << b for b in bits) for w in (1, 2, 3)
+                  for bits in combinations(range(24), w)]
+    pats = torch.tensor(pats, dtype=torch.int64, device=device)
+    w4 = torch.rand((4000, 24), generator=gen, device=device).argsort(dim=1)[:, :4]
+    w4 = (torch.ones_like(w4) << w4).sum(dim=1)
+    wide = torch.randint(1 << 24, 1 << 32, (256,), generator=gen, device=device,
+                         dtype=torch.int64)
+    pats = torch.cat([pats, w4, wide])
+    return (pats - ((pats >> 31) << 32)).to(torch.int32)
+
+
+def codec_kernel_check(torch, gen, device):
+    """K5-K9 against their plain versions with torch.equal on the card,
+    dtypes included: every byte through K5 and K6 (and random bytes in an
+    odd shape), all 4096 Golay data words and random int32 words through
+    K7's encode, 256 codewords under every error pattern of weight 0-3, 4000
+    of weight 4 and 256 words with bits 24-31 set through its decode, K8 on
+    random int32 words with random masks (BER 0.12 over 32 bits, and every
+    bit random), K9 on 16M uint8 values (n_bits 8) and 4M int32 words
+    (n_bits 24) at BER 1e-2: equal to the plain version, its flip rate
+    within 1% of the BER, the same flips for the same seed and others for
+    the next. Each wrapper's launches must equal the calls made."""
+    from qkv_ecc_tpu_torch.kernels import codec_kernels as ck
+    from qkv_ecc_tpu_torch.kernels.common import popcount
+
+    reset_counts(*ck.WRAPPERS)
+    calls = {w: 0 for w in ck.WRAPPERS}
+
+    def check(name, wrapper, *args):
+        got = wrapper(*args)
+        calls[wrapper] += 1
+        torch.cuda.synchronize()
+        want = getattr(ck, name + "_plain")(*(a.to(dt) for a, dt in zip(args, DTYPES[name])))
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
+                fail(f"{name}: the kernel differs from its plain version")
+        return got
+
+    u8, i32 = torch.uint8, torch.int32
+    DTYPES = dict.fromkeys(("hamming74_encode", "hamming74_decode", "hamming84_encode",
+                            "hamming84_decode"), (u8,))
+    DTYPES.update(golay_encode=(i32,), golay_decode=(i32,), golay_write_scrub=(i32, i32))
+    every_byte = torch.arange(256, dtype=i32, device=device).to(u8)
+    odd = torch.randint(0, 256, (3, 1001, 7), generator=gen, device=device, dtype=u8)
+    for name in ("hamming74_encode", "hamming74_decode", "hamming84_encode", "hamming84_decode"):
+        for x in (every_byte, odd):
+            check(name, getattr(ck, name + "_cuda"), x)
+    say("  K5, K6: every byte and 21021 random bytes equal to the plain versions")
+
+    words = torch.cat([torch.arange(4096, dtype=i32, device=device),
+                       torch.randint(-2 ** 31, 2 ** 31, (4096,), generator=gen, device=device,
+                                     dtype=torch.int64).to(i32)])
+    cw = check("golay_encode", ck.golay_encode_packed_cuda, words)[0][:4096]
+    pats = golay_error_patterns(torch, gen, device)
+    sample = cw[torch.randperm(4096, generator=gen, device=device)[:256]]
+    rx = sample[:, None] ^ pats[None, :]  # [256, 6581]
+    _, count = check("golay_decode", ck.golay_decode_packed_cuda, rx)
+    hist = torch.bincount(count.reshape(-1), minlength=5).tolist()
+    if any(h == 0 for h in hist):
+        fail(f"golay decode: error counts {hist} miss a weight")
+    say(f"  K7: 8192 words encoded, {rx.numel()} received words decoded equal to the plain "
+        f"version (error counts 0-4: {hist})")
+
+    data = torch.randint(-2 ** 31, 2 ** 31, (1 << 20,), generator=gen, device=device,
+                         dtype=torch.int64).to(i32)
+    sparse = (torch.rand((1 << 20, 32), generator=gen, device=device) < 0.12).to(torch.int64)
+    sparse = (sparse << torch.arange(32, device=device)).sum(dim=1)
+    sparse = (sparse - ((sparse >> 31) << 32)).to(i32)
+    dense = torch.randint(-2 ** 31, 2 ** 31, (1 << 20,), generator=gen, device=device,
+                          dtype=torch.int64).to(i32)
+    for mask in (sparse, dense):
+        check("golay_write_scrub", ck.golay_write_scrub_cuda, data, mask)
+    say("  K8: 2 x 1048576 words scrubbed equal to the plain version (masks over 32 bits)")
+
+    for dtype, n, n_bits in ((u8, 16 << 20, 8), (i32, 4 << 20, 24)):
+        hi = 256 if dtype == u8 else 1 << 24
+        x = torch.randint(0, hi, (n,), generator=gen, device=device, dtype=torch.int64).to(dtype)
+        out = ck.inject_bit_errors_cuda(x, BER, n_bits, 42)
+        again = ck.inject_bit_errors_cuda(x, BER, n_bits, 42)
+        other = ck.inject_bit_errors_cuda(x, BER, n_bits, 43)
+        calls[ck.inject_bit_errors_cuda] += 3
+        torch.cuda.synchronize()
+        want = ck.inject_bit_errors_plain(x, min(int(BER * 2 ** 32), 0xFFFFFFFF), n_bits, 42)
+        if out.dtype != dtype or not torch.equal(out, want):
+            fail(f"inject_bit_errors {dtype}: the kernel differs from its plain version")
+        diff = out.to(i32) ^ x.to(i32)
+        flips = int(popcount(diff).sum())
+        rate = flips / (n * n_bits)
+        if abs(rate - BER) > 0.01 * BER or int((diff >> n_bits).abs().sum()) != 0:
+            fail(f"inject_bit_errors {dtype}: flip rate {rate} not within 1% of {BER}, or "
+                 "flips above n_bits")
+        if not torch.equal(out, again) or torch.equal(out, other):
+            fail(f"inject_bit_errors {dtype}: not deterministic per seed")
+        say(f"  K9 {str(dtype)[6:]} n={n} n_bits={n_bits}: equal to the plain version; "
+            f"{flips} flips, rate {rate:.6f} (BER {BER}, band 1%); seed 42 twice equal, "
+            "seed 43 differs")
+
+    for w, n in calls.items():
+        say(f"  {w.__name__}: launches {w.launches} (expected {n}, one per call)")
+        if w.launches != n:
+            fail(f"{w.__name__}: {w.launches} launches for {n} calls")
+
+
+def group4_check(torch, gen):
+    """K4 at the kernel benchmark's GQA group 4 (32 query heads over 8 KV
+    heads, head_dim 128: new instances in all three kernels) on
+    harness.build_decode_attention_case's random caches (batch 8 at context
+    2048, batch 1 at 512) in every codec - hamming84 with and without
+    interpolation, hamming74 and golay with ECC statistics, int4, fp16 and
+    fp8 - against attend_plain on the same inputs (a query in bf16 and in
+    fp32). Returns the largest error."""
+    from qkv_ecc_tpu_torch.benchmarks.harness import build_decode_attention_case
+    from qkv_ecc_tpu_torch.kernels.paged_attention import attend_plain, paged_attention_ecc
+
+    worst = 0.0
+    names = ("k_cache", "v_cache", "k_scales", "v_scales")
+    for codec, interp in (("hamming84", False), ("hamming84", True), ("hamming74", False),
+                          ("golay", False), ("int4", False), ("fp16", False), ("fp8", False)):
+        for batch, ctx_len, qdtype in ((8, 2048, torch.bfloat16), (1, 512, torch.float32)):
+            q, cache, bt, ctx, _ = build_decode_attention_case(batch=batch, context_len=ctx_len,
+                                                               codec=codec)
+            q = q.to(qdtype)
+            parity = () if "k_parity" not in cache else (cache["k_parity"], cache["v_parity"])
+            stats = bool(parity)
+            out = paged_attention_ecc(q, *(cache[n] for n in names), bt, ctx, 0, *parity,
+                                      codec=codec, use_interpolation=interp,
+                                      collect_stats=stats)
+            torch.cuda.synchronize()
+            ref = attend_plain(q, *(cache[n] for n in names), bt, ctx, 0, *parity, codec=codec,
+                               sm_scale=128 ** -0.5, num_pages=bt.shape[1],
+                               pages_per_chunk=min(4, bt.shape[1]), interpolate=interp,
+                               collect_stats=stats)
+            label = (f"paged_attention_ecc group 4 {codec}{' interp' if interp else ''} "
+                     f"batch {batch} ctx {ctx_len} q={str(qdtype)[6:]}")
+            if codec in ("fp16", "fp8"):
+                worst = max(worst, check_float(label, out, ref))
+            elif stats:
+                worst = max(worst, check_outputs(label, out[0], ref[0], {}, {}, (), out[1],
+                                                 ref[1]))
+            else:
+                worst = max(worst, check_outputs(label, out, ref, {}, {}, ()))
+    return worst
+
+
+def harness_phase(torch, smi):
+    """benchmarks.harness.run_full_benchmark() at the JAX defaults on the
+    card (n = 8M; the attention suite: K4 hamming84 at 32 query heads over 8
+    KV heads, head_dim 128, batch 1 and 8, context 512 and 2048); prints its
+    JSON and checks its rows and every kernel's launches. Returns the
+    launches by (wrapper, branch)."""
+    from qkv_ecc_tpu_torch.benchmarks import harness
+    from qkv_ecc_tpu_torch.evaluation.constants import compute_bandwidth_efficiency
+    from qkv_ecc_tpu_torch.kernels import codec_kernels as ck
+    from qkv_ecc_tpu_torch.kernels.paged_attention import (
+        paged_attention_ecc, paged_attention_ecc_write_attend, write_decode_attend)
+
+    reset_counts(*ck.WRAPPERS, paged_attention_ecc, paged_attention_ecc_write_attend,
+                 write_decode_attend)
+    res = harness.run_full_benchmark()
+    torch.cuda.synchronize()
+    say("  run_full_benchmark(): " + json.dumps(res))
+    for r in res["kernels"]:
+        if not (r["time_ms"] > 0 and r["mvalues_per_sec"] > 0):
+            fail(f"harness row {r['name']}: no time")
+        eff = compute_bandwidth_efficiency(r["mvalues_per_sec"], r["bytes_per_value"])
+        say(f"  {r['name']}: {r['time_ms'] * 1e3:.2f} us per chained call, "
+            f"{r['mvalues_per_sec']:.1f} Mvalues/s, {r['gb_per_sec']:.1f} GB/s, {eff:.1f}% of "
+            f"the H100's 3352 GB/s ({smi})")
+    cpu = res["cpu_vs_accelerator"]
+    if cpu["accel_platform"] != "cuda" or not cpu.get("speedup", 0) > 0:
+        fail("harness: no card-against-CPU hamming84 decode row")
+    say(f"  hamming84 decode of {cpu['n_values']} values: card {cpu['accel_ms']:.3f} ms, "
+        f"CPU {cpu['cpu_ms']:.1f} ms, {cpu['speedup']:.1f}x ({smi})")
+    if len(res["attention"]) != 4:
+        fail("harness: the attention suite did not give 4 rows")
+    for r in res["attention"]:
+        if not (r["ecc_attention_ms"] > 0 and r["sdpa_baseline_ms"] > 0):
+            fail("harness: an attention row has no time")
+        say(f"  attention {r['codec']} batch {r['batch']} ctx {r['context_len']}: K4 "
+            f"{r['ecc_attention_ms'] * 1e3:.2f} us, SDPA {r['sdpa_baseline_ms'] * 1e3:.2f} us, "
+            f"overhead {r['overhead_ratio']:.2f}x, {r['decode_tokens_per_sec']:.0f} tokens/s "
+            f"({smi})")
+    per = CHAINED_CALLS
+    expected = {
+        # an encode before the decode's timing, the chained calls of each
+        ("hamming84_encode_cuda", "hamming84_encode"): 1 + per,
+        # and the card-against-CPU row's 3 + 10 chained decodes
+        ("hamming84_decode_cuda", "hamming84_decode"): per + 3 + 10,
+        ("hamming74_encode_cuda", "hamming74_encode"): 1 + per,
+        ("hamming74_decode_cuda", "hamming74_decode"): per,
+        ("golay_encode_packed_cuda", "golay_encode"): 1 + per,
+        ("golay_decode_packed_cuda", "golay_decode"): per,
+        ("golay_write_scrub_cuda", "golay_write_scrub"): 0,
+        ("inject_bit_errors_cuda", "uint8"): per,
+        ("inject_bit_errors_cuda", "int32"): 0,
+        ("paged_attention_ecc", "hamming84"): 4 * per,
+    }
+    got = {}
+    for w in (*ck.WRAPPERS, paged_attention_ecc):
+        for branch, n in w.launches_by.items():
+            got[(w.__name__, branch)] = n
+    for w in (paged_attention_ecc_write_attend, write_decode_attend):
+        got[(w.__name__, "any")] = w.launches
+    check_launches("harness", {
+        f"{name} {branch}": (n, expected.get((name, branch), 0),
+                             "calls made" if (name, branch) in expected else "none")
+        for (name, branch), n in got.items()})
+    return got
+
+
+def scaling_phase(torch, smi):
+    """benchmarks.scaling.measure_single_device on bench-0.9b in
+    int12-golay (BER 1e-2): batch 4, prompt 64, 20 steps after 5 warm-up
+    steps, block 128, on the card; K1's read must launch once per layer and
+    step. Returns the row and the launches."""
+    from qkv_ecc_tpu_torch.benchmarks.scaling import measure_single_device
+    from qkv_ecc_tpu_torch.kernels.paged_attention import (
+        paged_attention_ecc_write_attend as write_attend, write_decode_attend)
+    from qkv_ecc_tpu_torch.models.config import BENCH_0_9B as cfg
+    from qkv_ecc_tpu_torch.models.kv_policy import policy_for_mode
+
+    reset_counts(write_attend, write_decode_attend)
+    pol = policy_for_mode("int12-golay", ber=BER, seed=42)
+    row = measure_single_device(cfg, pol, batch=4, prompt_len=64, steps=20, block_size=128)
+    if not (row["ms_per_step"] > 0 and row["tokens_per_s"] > 0):
+        fail("scaling: no time")
+    say(f"  measure_single_device(bench-0.9b, int12-golay, BER {BER}, batch 4, prompt 64, 20 "
+        f"steps, block 128): {json.dumps(row)} ({smi})")
+    steps = cfg.num_layers * (5 + 20)
+    check_launches("scaling", {
+        "write_attend read": (write_attend.launches_by["read"], steps,
+                              f"{cfg.num_layers} layers x (5 + 20) steps"),
+        "write_attend other branches": (write_attend.launches - write_attend.launches_by["read"],
+                                        0, "none"),
+        "decode_attend": (write_decode_attend.launches, 0, "none")})
+    return row, write_attend.launches_by["read"]
+
+
+def codec_timing(torch, gen, device, smi):
+    """K5-K9 at the kernel benchmark's shapes (8M values, 8M / 3 Golay
+    words; K8, which has no caller there, on the Golay words with masks of
+    BER 1e-2 over 24 bits), each cycling 8 inputs (64-270 MB, beyond the 50
+    MB L2): device time behind a sleep (device_ms), the plain version's
+    time, the bound (bytes at 3.35 TB/s, integer operations counted from the
+    source at 67 T/s) and, for the encodes, one library call computing the
+    same function: index_select from the table of all 256 (Hamming, indices
+    held as int32) or 4096 (Golay) codewords. Returns the timings by
+    wrapper name."""
+    from qkv_ecc_tpu_torch.kernels import codec_kernels as ck
+
+    n, m, copies = HARNESS_N, HARNESS_N // 3, 8
+    u8, i32 = torch.uint8, torch.int32
+    vals = [torch.randint(0, 16, (n,), generator=gen, device=device, dtype=u8)
+            for _ in range(copies)]
+    idx = [v.to(i32) for v in vals]
+    bytes_ = [torch.randint(0, 256, (n,), generator=gen, device=device, dtype=u8)
+              for _ in range(copies)]
+    words = [torch.randint(0, 4096, (m,), generator=gen, device=device, dtype=i32)
+             for _ in range(copies)]
+    zeros = torch.zeros((m,), dtype=i32, device=device)
+    masks = [ck.inject_bit_errors_plain(zeros, int(BER * 2 ** 32), 24, s) for s in range(copies)]
+    cws = [ck.golay_encode_plain(w) ^ k for w, k in zip(words, masks)]
+    every = torch.arange(4096, dtype=i32, device=device)
+    lut_g = ck.golay_encode_plain(every)
+    lut_h = {name: getattr(ck, name + "_plain")(every[:256].to(u8))
+             for name in ("hamming74_encode", "hamming84_encode")}
+    thr = min(int(BER * 2 ** 32), 0xFFFFFFFF)
+    # (wrapper name, inputs per copy, bytes moved, int ops, library call)
+    cases = [
+        ("hamming74_encode", [(v,) for v in vals], 2 * n, CODEC_OPS["hamming74_encode"] * n,
+         lambda i: torch.index_select(lut_h["hamming74_encode"], 0, idx[i])),
+        ("hamming74_decode", [(b,) for b in bytes_], 3 * n, CODEC_OPS["hamming74_decode"] * n,
+         None),
+        ("hamming84_encode", [(v,) for v in vals], 2 * n, CODEC_OPS["hamming84_encode"] * n,
+         lambda i: torch.index_select(lut_h["hamming84_encode"], 0, idx[i])),
+        ("hamming84_decode", [(b,) for b in bytes_], 3 * n, CODEC_OPS["hamming84_decode"] * n,
+         None),
+        ("golay_encode_packed", [(w,) for w in words], 8 * m, CODEC_OPS["golay_encode"] * m,
+         lambda i: torch.index_select(lut_g, 0, words[i])),
+        ("golay_decode_packed", [(c,) for c in cws], 12 * m, CODEC_OPS["golay_decode"] * m,
+         None),
+        ("golay_write_scrub", list(zip(words, masks)), 12 * m,
+         CODEC_OPS["golay_write_scrub"] * m, None),
+    ]
+    plains = {"golay_encode_packed": ck.golay_encode_plain,
+              "golay_decode_packed": ck.golay_decode_plain}
+    timings = {}
+    for name, inputs, nbytes, ops, library in cases:
+        wrapper = getattr(ck, name + "_cuda")
+        plain = plains.get(name) or getattr(ck, name + "_plain")
+        timings[name] = time_codec(torch, name, lambda i, w=wrapper, a=inputs: w(*a[i]),
+                                   lambda i, p=plain, a=inputs: p(*a[i]), wrapper, copies,
+                                   nbytes, ops, library, smi)
+    timings["inject_bit_errors"] = time_codec(
+        torch, "inject_bit_errors uint8 n_bits 8",
+        lambda i: ck.inject_bit_errors_cuda(vals[i], BER, 8, 42),
+        lambda i: ck.inject_bit_errors_plain(vals[i], thr, 8, 42), ck.inject_bit_errors_cuda,
+        copies, 2 * n, INJECT_OPS_PER_BIT * 8 * n, None, smi)
+    return timings
+
+
+def time_codec(torch, label, call, plain, wrapper, copies, nbytes, ops, library, smi):
+    ms = min(device_ms(torch, call, 240, copies, wrapper),
+             device_ms(torch, call, 240, copies, wrapper))
+    plain_ms = timed(torch, plain, 24, copies)
+    library_ms = None if library is None else device_ms(torch, library, 240, copies, None)
+    b_ms, b_by, bytes_ms, ops_ms = bound(nbytes, 0, ops)
+    say(f"  {label}: {ms * 1e3:.2f} us/launch on the device (CUDA events, calls queued behind a "
+        f"sleep); bound {b_ms * 1e3:.2f} us by {b_by} ({nbytes / 1e6:.2f} MB at 3.35 TB/s = "
+        f"{bytes_ms * 1e3:.2f} us; {ops / 1e6:.1f} M int32 ops at 67 T/s = {ops_ms * 1e3:.2f} "
+        f"us); share of bound {b_ms / ms:.3f}; plain version {plain_ms * 1e3:.1f} us; library "
+        "call: " + ("none" if library_ms is None else
+                    f"{library_ms * 1e3:.2f} us (index_select from the codeword table)")
+        + f" ({smi})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
 def trace_decode(torch, params, ids, gen, device, smi):
     """Device busy share of the decode step: torch.profiler over 4 steps of
     each arm, kernel time summed over the window's wall time."""
@@ -1329,6 +1699,16 @@ def main():
         serve_launches = serve_phase(torch, params, device, smi)
         serve_ber0_check(torch, device)
 
+    with Phase("codec kernels"):
+        codec_kernel_check(torch, gen, device)
+
+    with Phase("harness"):
+        max_err_g4 = group4_check(torch, gen)
+        harness_launches = harness_phase(torch, smi)
+
+    with Phase("scaling"):
+        _, scaling_launches = scaling_phase(torch, smi)
+
     with Phase("kernel timing"):
         group = cfg.num_heads // cfg.num_kv_heads
         q = torch.randn((BATCH, cfg.num_heads, cfg.head_dim), generator=gen,
@@ -1527,6 +1907,8 @@ def main():
                         scale_bytes=0, library=library)
             del library
 
+        timings.update(codec_timing(torch, gen, device, smi))
+
     with Phase("trace"):
         trace_decode(torch, params, ids, gen, device, smi)
 
@@ -1542,9 +1924,17 @@ def main():
     def wa(i, k):
         return sl[i][k] + st[i][k] + sv[i][k]
 
+    # the kernel benchmark's launches of K4 (group 4) and of K5-K9, and the
+    # scaling row's of K1
+    k4 = dict(k4, hamming84=k4["hamming84"] + harness_launches[("paged_attention_ecc",
+                                                                 "hamming84")])
+
+    def hv(key):
+        return sum(n for (name, _), n in harness_launches.items() if name == key + "_cuda")
+
     table = {"kernels": [
         entry("write_attend", "read", "write_attend.cu", "paged_attention.py:1056",
-              wa(0, "read"), max_err),
+              wa(0, "read") + scaling_launches, max_err),
         entry("write_attend read-inject (K2r)", "read-inject", "write_attend.cu",
               "paged_attention.py:352", wa(0, "read-inject"), max_err_inject),
         entry("decode_attend", "hamming84-interp", "decode_attend.cu", "paged_attention.py:677",
@@ -1553,13 +1943,15 @@ def main():
               "paged_attention.py:135", wa(1, "hamming84"), max_err_decode["hamming84"]),
         entry("decode_attend hamming74 (K2)", "hamming74", "decode_attend.cu",
               "paged_attention.py:143", wa(1, "hamming74"), max_err_decode["hamming74"]),
-        entry("decode_attend golay (K2)", "golay", "decode_attend.cu", "paged_attention.py:154",
+        entry("decode_attend golay (K2)", "golay", "golay_attend.cu", "paged_attention.py:154",
               wa(1, "golay"), max_err_decode["golay"]),
     ] + [
         entry(f"paged_attention_ecc {k} (K4)", "k4-" + k,
-              "write_attend.cu" if k in ("read", "read-inject") else "decode_attend.cu",
+              "write_attend.cu" if k in ("read", "read-inject")
+              else "golay_attend.cu" if k == "golay" else "decode_attend.cu",
               "paged_attention.py:828", k4[k],
-              max(max_err_k4[k], max_err_k4["extract"]) if k == "read" else max_err_k4[k])
+              max(max_err_k4[k], max_err_k4["extract"]) if k == "read"
+              else max(max_err_k4[k], max_err_g4) if k == "hamming84" else max_err_k4[k])
         for k in ("read", "read-inject", "hamming84", "hamming84-interp", "hamming74", "golay")
     ] + [
         entry(f"float_attend {c} write+attend (K2f)", c, "write_attend.cu",
@@ -1569,6 +1961,10 @@ def main():
         entry(f"paged_attention_ecc {c} (K2f read)", "k4-" + c, "write_attend.cu",
               "paged_attention.py:300", k4[c], max_err_float[(c, "read")])
         for c in ("fp16", "fp8")
+    ] + [
+        # K5-K9 equal their plain versions (torch.equal): error 0
+        entry(name, key, "codec_kernels.cu", replaces, hv(key), 0.0)
+        for name, key, replaces in CODEC_KERNELS
     ]}
     say(f"total {time.perf_counter() - T0:.1f} s")
     say(json.dumps(table))

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..device import resolve_device
 from ..kernels.common import popcount
 
 
@@ -52,18 +53,22 @@ def inject_bit_errors(data, ber, n_bits, seed=0, generator=None, return_stats=Fa
     return corrupted
 
 
-def verify_ber_fidelity(ber=0.01, n_bits=8, n=1_000_000, seed=0, tolerance=0.15):
-    """The empirical flip rate over n zero elements is within ``tolerance``
-    (relative) of ``ber``. Returns (ok, empirical rate)."""
-    data = torch.zeros((n,), dtype=torch.uint8 if n_bits <= 8 else torch.int32)
+def verify_ber_fidelity(ber=0.01, n_bits=8, n=1_000_000, seed=0, tolerance=0.15, device=None):
+    """The empirical flip rate over n zero elements on ``device`` (None: the
+    card) is within ``tolerance`` (relative) of ``ber``. Returns (ok,
+    empirical rate)."""
+    data = torch.zeros((n,), dtype=torch.uint8 if n_bits <= 8 else torch.int32,
+                       device=resolve_device(device))
     _, (flips, _) = inject_bit_errors(data, ber, n_bits, seed=seed, return_stats=True)
     empirical = flips / (n * n_bits)
     return abs(empirical - ber) <= tolerance * ber, empirical
 
 
-def verify_determinism(ber=0.01, n_bits=8, n=4096, seed=123):
-    """The same seed gives the same corruption, the next seed another."""
-    data = (torch.arange(n, dtype=torch.int32) % 256).to(torch.uint8)
+def verify_determinism(ber=0.01, n_bits=8, n=4096, seed=123, device=None):
+    """The same seed gives the same corruption, the next seed another, on
+    ``device`` (None: the card)."""
+    data = (torch.arange(n, dtype=torch.int32, device=resolve_device(device)) % 256).to(
+        torch.uint8)
     a = inject_bit_errors(data, ber, n_bits, seed=seed)
     b = inject_bit_errors(data, ber, n_bits, seed=seed)
     c = inject_bit_errors(data, ber, n_bits, seed=seed + 1)

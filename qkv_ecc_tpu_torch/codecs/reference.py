@@ -20,6 +20,7 @@ import functools
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels.common import popcount
 from .algebra import (
     ErrorType,
@@ -267,20 +268,22 @@ class Golay2412:
         triplets, _, corrected_bits, uncorrectable = golay_decode(torch.as_tensor(codewords))
         return triplets, (int(corrected_bits), int(uncorrectable))
 
-    def verify_properties(self):
-        """Spot-check the code: G H^T = 0 over GF(2), and 64 random triplets
-        decode back from every weight 1-3 flip pattern drawn for them."""
+    def verify_properties(self, device=None):
+        """Spot-check the code on ``device`` (None: the card): G H^T = 0 over
+        GF(2), and 64 random triplets decode back from every weight 1-3 flip
+        pattern drawn for them."""
         from . import algebra as A
 
+        device = resolve_device(device)
         ok = ((A.GOLAY_G.astype(int) @ A.GOLAY_H.astype(int).T) % 2).sum() == 0
         rng = np.random.default_rng(0)
-        trip = torch.from_numpy(rng.integers(0, 16, size=(64, 3), dtype=np.uint8))
+        trip = torch.from_numpy(rng.integers(0, 16, size=(64, 3), dtype=np.uint8)).to(device)
         cw = golay_encode(trip)
         for weight in (1, 2, 3):
             flips = np.zeros(cw.shape, dtype=np.int64)
             for r in range(cw.shape[0]):
                 for b in rng.choice(24, size=weight, replace=False):
                     flips[r] |= 1 << int(b)
-            dec, _, _, unc = golay_decode(cw ^ torch.from_numpy(flips.astype(np.int32)))
+            dec, _, _, unc = golay_decode(cw ^ torch.from_numpy(flips.astype(np.int32)).to(device))
             ok = ok and bool(torch.equal(dec, trip)) and int(unc) == 0
         return bool(ok)

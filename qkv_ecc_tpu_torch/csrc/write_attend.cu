@@ -503,7 +503,8 @@ cudaError_t launch_float(const void* q, const void* k_new, const void* v_new, vo
 // head_dim) of the registered models, each with and without read
 // injection (a template parameter, so the clean read compiles without the
 // hash): (2, 2, 16) and (4, 2, 16) for
-// tiny-llama (hamming74 pads to 4 words) and (16, 2, 128) for bench-0.9b;
+// tiny-llama (hamming74 pads to 4 words), (16, 2, 128) for bench-0.9b and
+// (16, 4, 128) for the kernel benchmark's 32 query heads over 8 KV heads;
 // any other triple returns cudaErrorInvalidValue. All tensors contiguous;
 // q bf16 (exact = 0) or fp32 (exact = 1); out fp32 (out_bf16 = 0) or bf16
 // (out_bf16 = 1); window <= 0 means no window; P is the block table's row
@@ -532,6 +533,7 @@ extern "C" int write_attend_launch(
   if (wd == 2 && group == 2 && head_dim == 16) WA_LAUNCH(2, 2, 16);
   if (wd == 4 && group == 2 && head_dim == 16) WA_LAUNCH(4, 2, 16);
   if (wd == 16 && group == 2 && head_dim == 128) WA_LAUNCH(16, 2, 128);
+  if (wd == 16 && group == 4 && head_dim == 128) WA_LAUNCH(16, 4, 128);
 #undef WA_LAUNCH
 #undef WA_ARGS
   return (int)err;
@@ -539,8 +541,9 @@ extern "C" int write_attend_launch(
 
 // Launches K2f (float_attend_kernel) on `stream` and returns
 // cudaGetLastError() (0 on success). fp8 = 0: bfloat16 caches (codec fp16),
-// fp8 = 1: e4m3. Instances for (group, head_dim) = (2, 16) (tiny-llama)
-// and (2, 128) (bench-0.9b); any other pair returns cudaErrorInvalidValue.
+// fp8 = 1: e4m3. Instances for (group, head_dim) = (2, 16) (tiny-llama),
+// (2, 128) (bench-0.9b) and (4, 128) (the kernel benchmark); any other
+// pair returns cudaErrorInvalidValue.
 // Tensors contiguous; q, out, window, P, num_pages, num_chunks, ppc,
 // has_new, m_out and l_out as in write_attend_launch (k_new and v_new may
 // be null when has_new = 0).
@@ -558,6 +561,7 @@ extern "C" int float_attend_launch(
   cudaError_t err = cudaErrorInvalidValue;
   if (group == 2 && head_dim == 16) FA_LAUNCH(2, 16);
   if (group == 2 && head_dim == 128) FA_LAUNCH(2, 128);
+  if (group == 4 && head_dim == 128) FA_LAUNCH(4, 128);
 #undef FA_LAUNCH
 #undef FA_ARGS
   return (int)err;

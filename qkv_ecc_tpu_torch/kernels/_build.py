@@ -11,17 +11,19 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("write_attend", "decode_attend")
+SOURCES = ("write_attend", "decode_attend", "golay_attend", "codec_kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -86,14 +88,21 @@ def build_all(names=SOURCES) -> list[Built]:
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         todo[name] = (proc, tmp, target, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, target, t0) in todo.items():
+
+    def finish(item):  # each build's own time, whichever ends first
+        name, (proc, tmp, target, t0) = item
         log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed for {name}.cu:\n{log}")
-            continue
-        os.replace(tmp, target)
-        _BUILT[name] = Built(name, target, time.perf_counter() - t0, log)
+        return name, proc.returncode, log, time.perf_counter() - t0
+
+    failed = []
+    with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
+        for name, rc, log, seconds in pool.map(finish, todo.items()):
+            _, tmp, target, _ = todo[name]
+            if rc != 0:
+                failed.append(f"nvcc failed for {name}.cu:\n{log}")
+                continue
+            os.replace(tmp, target)
+            _BUILT[name] = Built(name, target, seconds, log)
     if failed:
         raise RuntimeError("\n".join(failed))
     return [_BUILT[name] for name in names]
@@ -109,3 +118,19 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         _LIBS[name] = ctypes.CDLL(str(build(name).path))
     return _LIBS[name]
+
+
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_longlong,
+           "f": ctypes.c_float}
+
+
+@functools.lru_cache(maxsize=None)
+def launcher(name: str, signature: str, symbol=None):
+    """The C launcher ``symbol`` (default ``<name>_launch``) of
+    csrc/<name>.cu, built and loaded at first use; ``signature`` spells its
+    arguments, p for a pointer (the stream last), i for an int, l for a
+    64-bit int, f for a float. Returns a cudaError_t."""
+    fn = getattr(load(name), symbol or f"{name}_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_CTYPES[c] for c in signature]
+    return fn

@@ -19,6 +19,12 @@ def round_up(x: int, m: int) -> int:
     return cdiv(x, m) * m
 
 
+def i32_bits(x: int) -> int:
+    """An unsigned 32-bit value as the C int with the same bits."""
+    x &= 0xFFFFFFFF
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
 def popcount(x: torch.Tensor) -> torch.Tensor:
     """Set bits of each non-negative int32 element (SWAR byte sums)."""
     x = x - ((x >> 1) & 0x55555555)

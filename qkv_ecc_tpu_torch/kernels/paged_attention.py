@@ -12,10 +12,11 @@ return the unnormalised softmax state:
     int4-packed data words only - the scrub-extract read of every packed
     codec, and int4's general read (``scrub=False``), with the read-time
     injection of mode ``int4`` and its flipped-bit count;
-  * ``csrc/decode_attend.cu`` (K2, K3 and K4's correcting reads): the
+  * ``csrc/decode_attend.cuh`` (K2, K3 and K4's correcting reads): the
     correcting read of the parity codecs - hamming84 (optionally
     interpolating double errors), hamming74 and golay - with the per-read
-    ECC statistics;
+    ECC statistics; its Hamming instances build from
+    ``csrc/decode_attend.cu``, Golay's from ``csrc/golay_attend.cu``;
   * ``float_attend`` in ``csrc/write_attend.cu`` (K2f, and K4's reads of
     the float codecs): the raw values of fp16 (stored as bfloat16) and fp8
     (e4m3), widened to float32, with no scales, no zero point and no
@@ -23,7 +24,7 @@ return the unnormalised softmax state:
 
 Launches are counted on the wrapper that made them:
 ``paged_attention_ecc_write_attend.launches`` (write_attend.cu),
-``write_decode_attend.launches`` (decode_attend.cu) and
+``write_decode_attend.launches`` (decode_attend.cu, golay_attend.cu) and
 ``paged_attention_ecc.launches`` (any kernel, for K4), each with
 ``launches_by`` per branch (the float branches: "fp16", "fp8").
 
@@ -48,14 +49,13 @@ whole row's weights NaN, and its normalised output 0 (acc / l where l > 0).
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
 from . import common as C
 from . import swar
-from ._build import load
+from ._build import launcher
 
 _NEG_INF = -1e30
 _PACKED = ("int4", "hamming74", "hamming84", "golay")
@@ -63,20 +63,24 @@ _FLOAT = swar.FLOAT_CODECS
 # (data words per row, GQA group, head_dim) instantiated in
 # csrc/write_attend.cu, each with and without read injection: those of the
 # registered models, tiny-llama (int4, golay, hamming84: 2 words; hamming74
-# pads 16 values to 32: 4 words) and bench-0.9b (16 words in every codec)
-KERNEL_SHAPES = ((2, 2, 16), (4, 2, 16), (16, 2, 128))
+# pads 16 values to 32: 4 words) and bench-0.9b (16 words in every codec),
+# and group 4 at head_dim 128, the kernel benchmark's 32 query heads over 8
+# KV heads (benchmarks/harness.py)
+KERNEL_SHAPES = ((2, 2, 16), (4, 2, 16), (16, 2, 128), (16, 4, 128))
 # (codec, data words, parity words, GQA group, head_dim) instantiated in
-# csrc/decode_attend.cu for tiny-llama and bench-0.9b (hamming84 with and
+# csrc/decode_attend.cu (Hamming) and csrc/golay_attend.cu (Golay) for
+# tiny-llama, bench-0.9b and the kernel benchmark (hamming84 with and
 # without interpolation)
 DECODE_KERNEL_SHAPES = (
-    ("hamming84", 2, 2, 2, 16), ("hamming84", 16, 16, 2, 128),
-    ("hamming74", 4, 3, 2, 16), ("hamming74", 16, 12, 2, 128),
-    ("golay", 2, 4, 2, 16), ("golay", 16, 17, 2, 128),
+    ("hamming84", 2, 2, 2, 16), ("hamming84", 16, 16, 2, 128), ("hamming84", 16, 16, 4, 128),
+    ("hamming74", 4, 3, 2, 16), ("hamming74", 16, 12, 2, 128), ("hamming74", 16, 12, 4, 128),
+    ("golay", 2, 4, 2, 16), ("golay", 16, 17, 2, 128), ("golay", 16, 17, 4, 128),
 )
 _CODEC_IDS = {"hamming84": 0, "hamming74": 1, "golay": 2}
 # (GQA group, head_dim) instantiated in csrc/write_attend.cu's float_attend,
-# for bfloat16 (fp16) and e4m3 (fp8): tiny-llama and bench-0.9b
-FLOAT_KERNEL_SHAPES = ((2, 16), (2, 128))
+# for bfloat16 (fp16) and e4m3 (fp8): tiny-llama, bench-0.9b and the kernel
+# benchmark
+FLOAT_KERNEL_SHAPES = ((2, 16), (2, 128), (4, 128))
 
 
 def visited_pages(num_pages: int, pages_per_chunk: int) -> int:
@@ -535,27 +539,6 @@ def _stream(query):
     return torch.cuda.current_stream(query.device).cuda_stream
 
 
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
-
-
-@functools.lru_cache(maxsize=None)
-def _launcher(name: str, signature: str, symbol=None):
-    """The C launcher ``symbol`` (default ``<name>_launch``) of
-    csrc/<name>.cu, built and loaded at first use; ``signature`` spells its
-    arguments, p for a pointer (the stream last), i for an int, f for a
-    float. Returns a cudaError_t."""
-    fn = getattr(load(name), symbol or f"{name}_launch")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [_CTYPES[c] for c in signature]
-    return fn
-
-
-def _i32(x: int) -> int:
-    """An unsigned 32-bit value as the C int with the same bits."""
-    x &= 0xFFFFFFFF
-    return x - (1 << 32) if x >= 1 << 31 else x
-
-
 def _kernel_query(query, precision):
     """The query as the kernels read it: bf16 for "fast", fp32 for
     "highest"."""
@@ -568,7 +551,7 @@ def _seed_args(seed):
     on the device, so drawing it costs the host no sync."""
     if torch.is_tensor(seed) and seed.device.type == "cuda":
         return seed.to(torch.int32).reshape(()).contiguous(), 0
-    return None, _i32(int(seed))
+    return None, C.i32_bits(int(seed))
 
 
 def _outputs(query, collect_stats, return_softmax_state):
@@ -628,12 +611,12 @@ def _launch(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales,
     seed_t, seed_v = _seed_args(read_seed)
     ptrs = (q, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales, v_scales,
             block_table, context_lens, out, stats, seed_t, m, l)
-    rc = _launcher("write_attend", "p" * 16 + "i" * 10 + "f" + "i" * 9 + "p")(
+    rc = launcher("write_attend", "p" * 16 + "i" * 10 + "f" + "i" * 9 + "p")(
         *(0 if t is None else t.data_ptr() for t in ptrs), batch, Hkv, group, Wd, head_dim,
         bs, NB, block_table.shape[1], num_pages, int(layer_idx), float(sm_scale),
         int(sliding_window or 0), int(out.dtype == torch.bfloat16),
         int(precision == "highest"), int(read_threshold is not None),
-        _i32(read_threshold or 0), seed_v, C.cdiv(num_pages, pages_per_chunk),
+        C.i32_bits(read_threshold or 0), seed_v, C.cdiv(num_pages, pages_per_chunk),
         pages_per_chunk, int(bool(new)), _stream(query))
     if rc != 0:
         raise RuntimeError(f"write_attend kernel launch failed: cudaError {rc}")
@@ -677,7 +660,7 @@ def _launch_float(query, k_new, v_new, k_cache, v_cache, block_table, context_le
     q = _kernel_query(query, precision)
     out, stats, m, l = _outputs(query, collect_stats, return_softmax_state)
     ptrs = (q, k_new, v_new, k_cache, v_cache, block_table, context_lens, out, m, l)
-    rc = _launcher("write_attend", "p" * 10 + "i" * 10 + "f" + "i" * 6 + "p",
+    rc = launcher("write_attend", "p" * 10 + "i" * 10 + "f" + "i" * 6 + "p",
                    symbol="float_attend_launch")(
         *(0 if t is None else t.data_ptr() for t in ptrs), batch, Hkv, group, head_dim,
         int(codec == "fp8"), bs, NB, block_table.shape[1], num_pages, int(layer_idx),
@@ -706,7 +689,7 @@ def _launch_decode(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scal
                    v_scales, block_table, context_lens, layer_idx, k_parity, v_parity, *,
                    codec, sm_scale, pages_per_chunk, interpolate, num_pages, precision,
                    sliding_window, collect_stats, return_softmax_state=False, counter=None):
-    """Check what csrc/decode_attend.cu takes, allocate the outputs and
+    """Check what csrc/decode_attend.cuh takes, allocate the outputs and
     launch it on the current stream; ``k_new`` None reads without writing.
     The launch counts on ``counter`` (default: write_decode_attend)."""
     batch, num_q_heads, head_dim = query.shape
@@ -731,7 +714,9 @@ def _launch_decode(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scal
     ptrs = (q, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_parity, v_parity,
             k_scales, v_scales, block_table, context_lens, out, stats, m, l)
     interp = bool(interpolate and codec == "hamming84")
-    rc = _launcher("decode_attend", "p" * 17 + "i" * 13 + "f" + "i" * 6 + "p")(
+    # Golay's instances build in a source of their own, with the same launcher
+    source = "golay_attend" if codec == "golay" else "decode_attend"
+    rc = launcher(source, "p" * 17 + "i" * 13 + "f" + "i" * 6 + "p", "decode_attend_launch")(
         *(0 if t is None else t.data_ptr() for t in ptrs), batch, Hkv, group,
         _CODEC_IDS[codec], Wd, Pw, head_dim, bs, NB, block_table.shape[1], num_pages,
         int(layer_idx), int(sliding_window or 0), float(sm_scale),
@@ -746,8 +731,8 @@ def _launch_decode(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scal
 
 def write_decode_attend(*args, **kw):
     """The correcting read of the parity codecs: on the card
-    csrc/decode_attend.cu (or raise), on the CPU write_decode_attend_plain.
-    Arguments as write_decode_attend_plain."""
+    csrc/decode_attend.cu or golay_attend.cu (or raise), on the CPU
+    write_decode_attend_plain. Arguments as write_decode_attend_plain."""
     query = args[0]
     if query.device.type == "cuda":
         return _launch_decode(*args, **kw)
@@ -941,8 +926,8 @@ def paged_attention_ecc(query, k_cache, v_cache, k_scales, v_scales, block_table
     ``return_softmax_state`` (acc [B, Hq, D], m [B, Hq], l [B, Hq]) float32,
     the unnormalised online-softmax state (an empty row: 0, -1e30, 0); with
     ``collect_stats`` (that, stats [B, 2] int32). On the card it launches
-    csrc/write_attend.cu or csrc/decode_attend.cu without a new column (or
-    raises); on the CPU it runs ``attend_plain``. Launches count in
+    csrc/write_attend.cu, decode_attend.cu or golay_attend.cu without a new
+    column (or raises); on the CPU it runs ``attend_plain``. Launches count in
     ``paged_attention_ecc.launches`` and ``.launches_by`` per branch. The
     float codecs fp16 and fp8 read their raw values through float_attend
     (K2f's read; their stats are zeros)."""

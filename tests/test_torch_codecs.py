@@ -128,16 +128,16 @@ def test_codec_classes_match_jax():
     want, got = j.decode(bad), t.decode(torch.from_numpy(bad))
     same(want[0], got[0])
     assert want[1] == got[1]
-    assert t.verify_properties() and j.verify_properties()
+    assert t.verify_properties(device="cpu") and j.verify_properties()
 
 
 def test_fault_injection():
     """verify_ber_fidelity and verify_determinism hold, as in JAX; the
     injector keeps the data's type, reports its flips, draws from a given
     generator, and at BER 0 returns the data untouched."""
-    ok, rate = tf.verify_ber_fidelity()
+    ok, rate = tf.verify_ber_fidelity(device="cpu")
     assert ok and jf.verify_ber_fidelity()[0] and abs(rate - 0.01) < 0.15 * 0.01
-    assert tf.verify_determinism() and jf.verify_determinism()
+    assert tf.verify_determinism(device="cpu") and jf.verify_determinism()
     data = torch.arange(1000, dtype=torch.int32) & 0xFFFFFF
     out, (flips, affected) = tf.inject_bit_errors(data, 0.05, 24, seed=3, return_stats=True)
     assert out.dtype == torch.int32 and flips == int(tcodecs.reference.popcount(out ^ data).sum())
@@ -150,3 +150,15 @@ def test_fault_injection():
     assert tf.inject_bit_errors(small, 0.3, 8, seed=1).dtype == torch.uint8
     assert tf.inject_bit_errors(small, 0.0, 8) is small
     assert tf.inject_bit_errors(small, 0.0, 8, return_stats=True)[1] == (0, 0)
+
+
+def test_verifiers_need_a_card_unless_told():
+    """F8: given no device the verifiers run on the card, as every entry
+    point of the port does, and raise when there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None means that card")
+    for call in (tf.verify_ber_fidelity, tf.verify_determinism,
+                 tr.Golay2412().verify_properties):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert tf.verify_ber_fidelity(n=10_000, device="cpu")[0]

@@ -15,7 +15,9 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 import torch  # noqa: E402
 
+from qkv_ecc_tpu_torch.benchmarks import harness, scaling  # noqa: E402
 from qkv_ecc_tpu_torch.cache.layout import ECCCacheConfig, allocate_ecc_kv_cache  # noqa: E402
+from qkv_ecc_tpu_torch.codecs import Golay2412, verify_ber_fidelity, verify_determinism  # noqa: E402
 from qkv_ecc_tpu_torch.device import resolve_device  # noqa: E402
 from qkv_ecc_tpu_torch.models.config import TINY_LLAMA  # noqa: E402
 from qkv_ecc_tpu_torch.models.kv_policy import policy_for_mode  # noqa: E402
@@ -92,4 +94,19 @@ def test_entry_points_need_a_card_unless_told():
     np_params["layers"] = [{k: v.numpy() for k, v in lp.items()} for lp in params["layers"]]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_jax(np_params, TINY_LLAMA)
+    # the codec verifiers (F8), the kernel benchmark and the decode scaling
+    for call in (verify_ber_fidelity, verify_determinism, Golay2412().verify_properties,
+                 lambda: harness.benchmark_hamming84(16), lambda: harness.benchmark_hamming74(16),
+                 lambda: harness.benchmark_golay(16), lambda: harness.benchmark_fault_injection(16),
+                 lambda: harness.benchmark_encode_inject_decode(16),
+                 lambda: harness.benchmark_cpu_vs_tpu_hamming84(16),
+                 lambda: harness.create_random_block_table(1, 2, 4),
+                 lambda: harness.build_decode_attention_case(1, 4, 2, 16, 16, 16),
+                 lambda: harness.benchmark_ecc_attention(1, 4, 2, 16, 16, 16),
+                 lambda: harness.run_full_benchmark(16, attention=False),
+                 lambda: scaling.measure_single_device(TINY_LLAMA, pol, batch=1, prompt_len=4,
+                                                       steps=1, block_size=16),
+                 lambda: scaling.main(["--meshes", "single"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
     assert resolve_device("cpu") == torch.device("cpu")
