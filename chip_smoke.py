@@ -41,8 +41,10 @@ through the port's entry points on four paths:
 Then the codec kernels K5-K9 (csrc/codec_kernels.cu) are held equal to
 their plain versions (every byte, every Golay data word, every error
 pattern of weight 0-3 on a sample of codewords, wide masks, 16M and 4M
-injected elements with the flip rate and determinism), K4 at GQA group 4
-against its plain version in every codec, and two more paths run:
+injected elements with the flip rate and determinism, and the kernel
+benchmark's own inputs at its 8M values), K4 at GQA group 4 against its
+plain version in every codec at each of the benchmark's four shapes, and
+two more paths run:
   * the kernel benchmark: benchmarks.harness.run_full_benchmark() at the
     JAX defaults (8M values through K5-K7 and K9, the plain pipeline, the
     card against the CPU, K4 hamming84 at 32/8 heads against
@@ -54,7 +56,9 @@ Each path checks that every kernel branch it calls was launched exactly as
 often as it calls it. Then it times the kernels (K2f beside
 scaled_dot_product_attention over the same context stored dense, fp16's
 yardstick; the Golay and Hamming encodes beside a gather from the table of
-all codewords) and traces the decode step of each arm. Every phase prints
+all codewords; each beside its bound: the bytes at 3.35 TB/s or the fp32
+flops at 67 T/s, the integer operations counted from the source printed as
+an estimate) and traces the decode step of each arm. Every phase prints
 one line with its seconds; any failure exits non-zero. Without a CUDA
 device it fails.
 
@@ -82,7 +86,12 @@ BASELINE = "int4-write-inject"
 # the stats phase's arms (the protected ones without scrub)
 STATS_MODES = ("int4", "int12-golay", "int4-hamming", "int4-hamming84", "int4-hamming84-interp")
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM: HBM3 rate and fp32 rate outside the
-PEAK_FP32_FLOPS = 67e12     # tensor cores (NVIDIA data sheet)
+PEAK_FP32_FLOPS = 67e12     # tensor cores, an FMA as two (NVIDIA data sheet)
+# 32-bit integer instructions issue on 64 lanes per clock per SM (popcount on
+# 16): 64 x 132 SMs x 1.98 GHz. The integer operation counts below come from
+# the source, not from the instructions that run, so the time they give at
+# this rate is an estimate, printed beside the bound and not part of it
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # 32-bit integer operations counted from the sources: the SECDED decode of
 # one data word with its parity word (decode_attend.cu: codeword rebuild 10,
 # two SWAR decodes of 49, repack 4) and the interpolation of one word (10);
@@ -1112,64 +1121,94 @@ def codec_kernel_check(torch, gen, device):
     odd shape), all 4096 Golay data words and random int32 words through
     K7's encode, 256 codewords under every error pattern of weight 0-3, 4000
     of weight 4 and 256 words with bits 24-31 set through its decode, K8 on
-    random int32 words with random masks (BER 0.12 over 32 bits, and every
-    bit random), K9 on 16M uint8 values (n_bits 8) and 4M int32 words
+    8M / 3 random int32 words with random masks (BER 0.12 over 32 bits, and
+    every bit random), K9 on 16M uint8 values (n_bits 8) and 4M int32 words
     (n_bits 24) at BER 1e-2: equal to the plain version, its flip rate
     within 1% of the BER, the same flips for the same seed and others for
-    the next. Each wrapper's launches must equal the calls made."""
+    the next. Then the kernel benchmark's own inputs at its size (8M values:
+    several passes of the kernels' grid-stride loop over at most 132 x 16
+    blocks of 256 threads), made as benchmarks/harness.py makes them:
+    seed-0 nibbles through both Hamming encodes, their codewords through
+    the decodes clean and with flips at BER 1e-2, seed-0 triplets through
+    the Golay triplet wrappers (encode, decode clean and with flips), K9 on
+    8M zeros, and the card-against-CPU row's 4M seed-0 bytes through K6's
+    decode. Each wrapper's launches must equal the calls made. Returns the
+    largest difference from the plain version measured on each kernel, by
+    the wrapper names of CODEC_KERNELS (0 where the kernel is right)."""
+    import numpy as np
+
+    from qkv_ecc_tpu_torch.benchmarks import harness
+    from qkv_ecc_tpu_torch.codecs.reference import golay_pack, golay_unpack
     from qkv_ecc_tpu_torch.kernels import codec_kernels as ck
     from qkv_ecc_tpu_torch.kernels.common import popcount
 
     reset_counts(*ck.WRAPPERS)
     calls = {w: 0 for w in ck.WRAPPERS}
+    errs = {key: 0 for _, key, _ in CODEC_KERNELS}
+    thr = min(int(BER * 2 ** 32), 0xFFFFFFFF)
 
-    def check(name, wrapper, *args):
-        got = wrapper(*args)
-        calls[wrapper] += 1
-        torch.cuda.synchronize()
-        want = getattr(ck, name + "_plain")(*(a.to(dt) for a, dt in zip(args, DTYPES[name])))
+    def diff(got, want, name):
+        """The largest |got - want| over the outputs; fails unless the
+        kernel's outputs equal the plain version's, dtypes and shapes too."""
         got = got if isinstance(got, tuple) else (got,)
         want = want if isinstance(want, tuple) else (want,)
+        d = 0
         for g, w in zip(got, want):
-            if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g, w):
-                fail(f"{name}: the kernel differs from its plain version")
-        return got
+            if g.dtype != w.dtype or g.shape != w.shape:
+                fail(f"{name}: the kernel's dtype or shape differs from its plain version")
+            d = max(d, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
+            if not torch.equal(g, w):
+                fail(f"{name}: the kernel differs from its plain version by up to {d}")
+        return d
+
+    def check(key, wrapper, plain, *args):
+        """wrapper(*args) against plain(*args); key names the counted
+        wrapper (the triplet wrappers launch through the packed ones)."""
+        got = wrapper(*args)
+        calls[getattr(ck, key + "_cuda")] += 1
+        torch.cuda.synchronize()
+        errs[key] = max(errs[key], diff(got, plain(*args), wrapper.__name__))
+        return got if isinstance(got, tuple) else (got,)
+
+    def codec(name, *args):
+        return check(name, getattr(ck, name + "_cuda"), getattr(ck, name + "_plain"), *args)
 
     u8, i32 = torch.uint8, torch.int32
-    DTYPES = dict.fromkeys(("hamming74_encode", "hamming74_decode", "hamming84_encode",
-                            "hamming84_decode"), (u8,))
-    DTYPES.update(golay_encode=(i32,), golay_decode=(i32,), golay_write_scrub=(i32, i32))
     every_byte = torch.arange(256, dtype=i32, device=device).to(u8)
     odd = torch.randint(0, 256, (3, 1001, 7), generator=gen, device=device, dtype=u8)
     for name in ("hamming74_encode", "hamming74_decode", "hamming84_encode", "hamming84_decode"):
         for x in (every_byte, odd):
-            check(name, getattr(ck, name + "_cuda"), x)
+            codec(name, x)
     say("  K5, K6: every byte and 21021 random bytes equal to the plain versions")
 
     words = torch.cat([torch.arange(4096, dtype=i32, device=device),
                        torch.randint(-2 ** 31, 2 ** 31, (4096,), generator=gen, device=device,
                                      dtype=torch.int64).to(i32)])
-    cw = check("golay_encode", ck.golay_encode_packed_cuda, words)[0][:4096]
+    cw = check("golay_encode_packed", ck.golay_encode_packed_cuda, ck.golay_encode_plain,
+               words)[0][:4096]
     pats = golay_error_patterns(torch, gen, device)
     sample = cw[torch.randperm(4096, generator=gen, device=device)[:256]]
     rx = sample[:, None] ^ pats[None, :]  # [256, 6581]
-    _, count = check("golay_decode", ck.golay_decode_packed_cuda, rx)
+    _, count = check("golay_decode_packed", ck.golay_decode_packed_cuda, ck.golay_decode_plain,
+                     rx)
     hist = torch.bincount(count.reshape(-1), minlength=5).tolist()
     if any(h == 0 for h in hist):
         fail(f"golay decode: error counts {hist} miss a weight")
     say(f"  K7: 8192 words encoded, {rx.numel()} received words decoded equal to the plain "
         f"version (error counts 0-4: {hist})")
 
-    data = torch.randint(-2 ** 31, 2 ** 31, (1 << 20,), generator=gen, device=device,
+    m = HARNESS_N // 3
+    data = torch.randint(-2 ** 31, 2 ** 31, (m,), generator=gen, device=device,
                          dtype=torch.int64).to(i32)
-    sparse = (torch.rand((1 << 20, 32), generator=gen, device=device) < 0.12).to(torch.int64)
-    sparse = (sparse << torch.arange(32, device=device)).sum(dim=1)
+    sparse = torch.zeros((m,), dtype=torch.int64, device=device)
+    for b in range(32):
+        sparse |= (torch.rand((m,), generator=gen, device=device) < 0.12).to(torch.int64) << b
     sparse = (sparse - ((sparse >> 31) << 32)).to(i32)
-    dense = torch.randint(-2 ** 31, 2 ** 31, (1 << 20,), generator=gen, device=device,
+    dense = torch.randint(-2 ** 31, 2 ** 31, (m,), generator=gen, device=device,
                           dtype=torch.int64).to(i32)
     for mask in (sparse, dense):
-        check("golay_write_scrub", ck.golay_write_scrub_cuda, data, mask)
-    say("  K8: 2 x 1048576 words scrubbed equal to the plain version (masks over 32 bits)")
+        codec("golay_write_scrub", data, mask)
+    say(f"  K8: 2 x {m} words scrubbed equal to the plain version (masks over 32 bits)")
 
     for dtype, n, n_bits in ((u8, 16 << 20, 8), (i32, 4 << 20, 24)):
         hi = 256 if dtype == u8 else 1 << 24
@@ -1179,13 +1218,14 @@ def codec_kernel_check(torch, gen, device):
         other = ck.inject_bit_errors_cuda(x, BER, n_bits, 43)
         calls[ck.inject_bit_errors_cuda] += 3
         torch.cuda.synchronize()
-        want = ck.inject_bit_errors_plain(x, min(int(BER * 2 ** 32), 0xFFFFFFFF), n_bits, 42)
-        if out.dtype != dtype or not torch.equal(out, want):
-            fail(f"inject_bit_errors {dtype}: the kernel differs from its plain version")
-        diff = out.to(i32) ^ x.to(i32)
-        flips = int(popcount(diff).sum())
+        errs["inject_bit_errors"] = max(errs["inject_bit_errors"], diff(
+            out, ck.inject_bit_errors_plain(x, thr, n_bits, 42), f"inject_bit_errors {dtype}"))
+        if out.dtype != dtype:
+            fail(f"inject_bit_errors {dtype}: the kernel returns {out.dtype}")
+        flips_diff = out.to(i32) ^ x.to(i32)
+        flips = int(popcount(flips_diff).sum())
         rate = flips / (n * n_bits)
-        if abs(rate - BER) > 0.01 * BER or int((diff >> n_bits).abs().sum()) != 0:
+        if abs(rate - BER) > 0.01 * BER or int((flips_diff >> n_bits).abs().sum()) != 0:
             fail(f"inject_bit_errors {dtype}: flip rate {rate} not within 1% of {BER}, or "
                  "flips above n_bits")
         if not torch.equal(out, again) or torch.equal(out, other):
@@ -1194,50 +1234,92 @@ def codec_kernel_check(torch, gen, device):
             f"{flips} flips, rate {rate:.6f} (BER {BER}, band 1%); seed 42 twice equal, "
             "seed 43 differs")
 
-    for w, n in calls.items():
-        say(f"  {w.__name__}: launches {w.launches} (expected {n}, one per call)")
-        if w.launches != n:
-            fail(f"{w.__name__}: {w.launches} launches for {n} calls")
+    # the kernel benchmark's inputs at its size
+    n = HARNESS_N
+    vals = harness._values(n, device)
+    for code in ("hamming74", "hamming84"):
+        cw = codec(code + "_encode", vals)[0]
+        codec(code + "_decode", cw)
+        codec(code + "_decode", ck.inject_bit_errors_plain(cw, thr, 8, 1))
+    trip = torch.from_numpy(np.random.default_rng(0).integers(0, 16, (m, 3), dtype=np.uint8)).to(
+        device)
+
+    def golay_decode_triplets(c):
+        data12, count = ck.golay_decode_plain(c)
+        return golay_unpack(data12), count
+
+    cw = check("golay_encode_packed", ck.golay_encode_cuda,
+               lambda t: ck.golay_encode_plain(golay_pack(t)), trip)[0]
+    check("golay_decode_packed", ck.golay_decode_cuda, golay_decode_triplets, cw)
+    _, count = check("golay_decode_packed", ck.golay_decode_cuda, golay_decode_triplets,
+                     ck.inject_bit_errors_plain(cw, thr, 24, 1))
+    hist = torch.bincount(count.reshape(-1), minlength=5).tolist()
+    check("inject_bit_errors", ck.inject_bit_errors_cuda,
+          lambda d, *_: ck.inject_bit_errors_plain(d, thr, 8, 42),
+          torch.zeros(n, dtype=u8, device=device), BER, 8, 42)
+    cpu_row = torch.from_numpy(np.random.default_rng(0).integers(0, 256, n // 2, dtype=np.uint8))
+    codec("hamming84_decode", cpu_row.to(device))
+    say(f"  the kernel benchmark's inputs: {n} seed-0 nibbles through K5 and K6 (encode, decode "
+        f"clean and at BER {BER}), {m} seed-0 triplets through K7 (encode, decode clean and at "
+        f"BER {BER}: error counts 0-4 {hist}), K9 on {n} zeros, K6's decode on {n // 2} seed-0 "
+        "bytes: equal to the plain versions")
+
+    for w, k in calls.items():
+        say(f"  {w.__name__}: launches {w.launches} (expected {k}, one per call)")
+        if w.launches != k:
+            fail(f"{w.__name__}: {w.launches} launches for {k} calls")
+    say("  largest difference from the plain version, by kernel: " + json.dumps(errs))
+    return errs
 
 
 def group4_check(torch, gen):
     """K4 at the kernel benchmark's GQA group 4 (32 query heads over 8 KV
     heads, head_dim 128: new instances in all three kernels) on
-    harness.build_decode_attention_case's random caches (batch 8 at context
-    2048, batch 1 at 512) in every codec - hamming84 with and without
-    interpolation, hamming74 and golay with ECC statistics, int4, fp16 and
-    fp8 - against attend_plain on the same inputs (a query in bf16 and in
-    fp32). Returns the largest error."""
+    harness.build_decode_attention_case's random caches at each of the
+    attention suite's shapes (batch 1 and 8, context 512 and 2048, its fp32
+    query; at batch 8 and context 2048 a bf16 query too) in every codec -
+    hamming84 with and without interpolation, hamming74 and golay with ECC
+    statistics, int4, fp16 and fp8 - against attend_plain on the same
+    inputs. Returns the largest error by K4 branch (the keys of the kernel
+    table: read for int4's extract read, k4-fp16 and k4-fp8 for the float
+    reads)."""
     from qkv_ecc_tpu_torch.benchmarks.harness import build_decode_attention_case
     from qkv_ecc_tpu_torch.kernels.paged_attention import attend_plain, paged_attention_ecc
 
-    worst = 0.0
+    worst = {}
     names = ("k_cache", "v_cache", "k_scales", "v_scales")
-    for codec, interp in (("hamming84", False), ("hamming84", True), ("hamming74", False),
-                          ("golay", False), ("int4", False), ("fp16", False), ("fp8", False)):
-        for batch, ctx_len, qdtype in ((8, 2048, torch.bfloat16), (1, 512, torch.float32)):
-            q, cache, bt, ctx, _ = build_decode_attention_case(batch=batch, context_len=ctx_len,
-                                                               codec=codec)
-            q = q.to(qdtype)
+    for codec, interp, key in (("hamming84", False, "hamming84"),
+                               ("hamming84", True, "hamming84-interp"),
+                               ("hamming74", False, "hamming74"), ("golay", False, "golay"),
+                               ("int4", False, "read"), ("fp16", False, "k4-fp16"),
+                               ("fp8", False, "k4-fp8")):
+        for batch, ctx_len in ((1, 512), (1, 2048), (8, 512), (8, 2048)):
+            case, cache, bt, ctx, _ = build_decode_attention_case(batch=batch,
+                                                                  context_len=ctx_len,
+                                                                  codec=codec)
             parity = () if "k_parity" not in cache else (cache["k_parity"], cache["v_parity"])
             stats = bool(parity)
-            out = paged_attention_ecc(q, *(cache[n] for n in names), bt, ctx, 0, *parity,
-                                      codec=codec, use_interpolation=interp,
-                                      collect_stats=stats)
-            torch.cuda.synchronize()
-            ref = attend_plain(q, *(cache[n] for n in names), bt, ctx, 0, *parity, codec=codec,
-                               sm_scale=128 ** -0.5, num_pages=bt.shape[1],
-                               pages_per_chunk=min(4, bt.shape[1]), interpolate=interp,
-                               collect_stats=stats)
-            label = (f"paged_attention_ecc group 4 {codec}{' interp' if interp else ''} "
-                     f"batch {batch} ctx {ctx_len} q={str(qdtype)[6:]}")
-            if codec in ("fp16", "fp8"):
-                worst = max(worst, check_float(label, out, ref))
-            elif stats:
-                worst = max(worst, check_outputs(label, out[0], ref[0], {}, {}, (), out[1],
-                                                 ref[1]))
-            else:
-                worst = max(worst, check_outputs(label, out, ref, {}, {}, ()))
+            qdtypes = (torch.float32, torch.bfloat16) if (batch, ctx_len) == (8, 2048) else (
+                torch.float32,)
+            for qdtype in qdtypes:
+                q = case.to(qdtype)
+                out = paged_attention_ecc(q, *(cache[n] for n in names), bt, ctx, 0, *parity,
+                                          codec=codec, use_interpolation=interp,
+                                          collect_stats=stats)
+                torch.cuda.synchronize()
+                ref = attend_plain(q, *(cache[n] for n in names), bt, ctx, 0, *parity,
+                                   codec=codec, sm_scale=128 ** -0.5, num_pages=bt.shape[1],
+                                   pages_per_chunk=min(4, bt.shape[1]), interpolate=interp,
+                                   collect_stats=stats)
+                label = (f"paged_attention_ecc group 4 {codec}{' interp' if interp else ''} "
+                         f"batch {batch} ctx {ctx_len} q={str(qdtype)[6:]}")
+                if codec in ("fp16", "fp8"):
+                    err = check_float(label, out, ref)
+                elif stats:
+                    err = check_outputs(label, out[0], ref[0], {}, {}, (), out[1], ref[1])
+                else:
+                    err = check_outputs(label, out, ref, {}, {}, ())
+                worst[key] = max(worst.get(key, 0.0), err)
     return worst
 
 
@@ -1340,8 +1422,8 @@ def codec_timing(torch, gen, device, smi):
     words; K8, which has no caller there, on the Golay words with masks of
     BER 1e-2 over 24 bits), each cycling 8 inputs (64-270 MB, beyond the 50
     MB L2): device time behind a sleep (device_ms), the plain version's
-    time, the bound (bytes at 3.35 TB/s, integer operations counted from the
-    source at 67 T/s) and, for the encodes, one library call computing the
+    time, the bound (bytes at 3.35 TB/s; the integer operations counted from
+    the source are printed as an estimate) and, for the encodes, one library call computing the
     same function: index_select from the table of all 256 (Hamming, indices
     held as int32) or 4096 (Golay) codewords. Returns the timings by
     wrapper name."""
@@ -1403,12 +1485,11 @@ def time_codec(torch, label, call, plain, wrapper, copies, nbytes, ops, library,
              device_ms(torch, call, 240, copies, wrapper))
     plain_ms = timed(torch, plain, 24, copies)
     library_ms = None if library is None else device_ms(torch, library, 240, copies, None)
-    b_ms, b_by, bytes_ms, ops_ms = bound(nbytes, 0, ops)
+    b_ms, b_by, bytes_ms, _ = bound(nbytes, 0)
     say(f"  {label}: {ms * 1e3:.2f} us/launch on the device (CUDA events, calls queued behind a "
-        f"sleep); bound {b_ms * 1e3:.2f} us by {b_by} ({nbytes / 1e6:.2f} MB at 3.35 TB/s = "
-        f"{bytes_ms * 1e3:.2f} us; {ops / 1e6:.1f} M int32 ops at 67 T/s = {ops_ms * 1e3:.2f} "
-        f"us); share of bound {b_ms / ms:.3f}; plain version {plain_ms * 1e3:.1f} us; library "
-        "call: " + ("none" if library_ms is None else
+        f"sleep); bound {b_ms * 1e3:.2f} us by {b_by} ({nbytes / 1e6:.2f} MB at 3.35 TB/s; no "
+        f"fp32 operations; {int_estimate(ops)}); share of bound {b_ms / ms:.3f}; plain version "
+        f"{plain_ms * 1e3:.1f} us; library call: " + ("none" if library_ms is None else
                     f"{library_ms * 1e3:.2f} us (index_select from the codeword table)")
         + f" ({smi})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
@@ -1513,12 +1594,23 @@ def check_launches(path, expected):
                  "layer and step of its arms")
 
 
-def bound(nbytes, flops, int_ops):
+def bound(nbytes, flops):
     """(least ms, "bytes" or "operations", bytes ms, operations ms): bytes at
-    3.35 TB/s, fp32 and 32-bit integer operations at 67 T/s."""
+    3.35 TB/s, fp32 flops at 67 T/s. Integer operations have no rate in the
+    data sheet and their count from the source is not the instructions that
+    run (int_estimate): they are left out of the bound."""
     bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
-    ops_ms = 1e3 * (flops + int_ops) / PEAK_FP32_FLOPS
+    ops_ms = 1e3 * flops / PEAK_FP32_FLOPS
     return max((bytes_ms, "bytes"), (ops_ms, "operations")) + (bytes_ms, ops_ms)
+
+
+def int_estimate(int_ops):
+    """The integer operations counted from the source as a time at Hopper's
+    32-bit integer rate, in words for a printed line: an estimate, not a
+    bound (LOP3 and IADD3 fuse several operations into one instruction,
+    popcounts issue at a quarter of the rate, and a branch may skip some)."""
+    return (f"integer operations counted from the source {int_ops / 1e6:.1f} M, "
+            f"{1e6 * int_ops / INT32_OPS_PER_S:.2f} us at 16.7 T/s (an estimate, not a bound)")
 
 
 def main():
@@ -1700,7 +1792,7 @@ def main():
         serve_ber0_check(torch, device)
 
     with Phase("codec kernels"):
-        codec_kernel_check(torch, gen, device)
+        max_err_codec = codec_kernel_check(torch, gen, device)
 
     with Phase("harness"):
         max_err_g4 = group4_check(torch, gen)
@@ -1745,13 +1837,13 @@ def main():
                       + bt.numel() * 4 + BATCH * 4)
             flops = 2 * 2 * tokens * Hkv * group * cfg.head_dim
             ops = int_ops(tokens, Hkv)
-            b_ms, b_by, bytes_ms, ops_ms = bound(nbytes, flops, ops)
+            b_ms, b_by, bytes_ms, ops_ms = bound(nbytes, flops)
             say(f"  {label} at ctx {tokens // BATCH}: {ms * 1e3:.2f} us/launch on the device "
                 f"(CUDA events, calls queued behind a sleep; {call_ms * 1e3:.2f} us per "
                 f"back-to-back call, host included); bound {b_ms * 1e3:.2f} us by {b_by} "
                 f"({nbytes / 1e6:.2f} MB at 3.35 TB/s = {bytes_ms * 1e3:.2f} us; "
-                f"{flops / 1e6:.1f} MFLOP fp32 + {ops / 1e6:.1f} M int32 ops at 67 T/s = "
-                f"{ops_ms * 1e3:.2f} us); share of bound {b_ms / ms:.3f}; plain version "
+                f"{flops / 1e6:.1f} MFLOP fp32 at 67 T/s = {ops_ms * 1e3:.2f} us; "
+                f"{int_estimate(ops)}); share of bound {b_ms / ms:.3f}; plain version "
                 f"{plain_ms * 1e3:.1f} us; library call: "
                 + ("none" if library_ms is None else
                    f"{library_ms * 1e3:.2f} us (scaled_dot_product_attention, dense bf16 K/V)")
@@ -1929,6 +2021,9 @@ def main():
     k4 = dict(k4, hamming84=k4["hamming84"] + harness_launches[("paged_attention_ecc",
                                                                  "hamming84")])
 
+    def k4_err(key, err):  # with the group-4 check's error on the branch
+        return max(err, max_err_g4.get(key, 0.0))
+
     def hv(key):
         return sum(n for (name, _), n in harness_launches.items() if name == key + "_cuda")
 
@@ -1943,15 +2038,14 @@ def main():
               "paged_attention.py:135", wa(1, "hamming84"), max_err_decode["hamming84"]),
         entry("decode_attend hamming74 (K2)", "hamming74", "decode_attend.cu",
               "paged_attention.py:143", wa(1, "hamming74"), max_err_decode["hamming74"]),
-        entry("decode_attend golay (K2)", "golay", "golay_attend.cu", "paged_attention.py:154",
+        entry("decode_attend golay (K2)", "golay", "decode_attend.cu", "paged_attention.py:154",
               wa(1, "golay"), max_err_decode["golay"]),
     ] + [
         entry(f"paged_attention_ecc {k} (K4)", "k4-" + k,
-              "write_attend.cu" if k in ("read", "read-inject")
-              else "golay_attend.cu" if k == "golay" else "decode_attend.cu",
+              "write_attend.cu" if k in ("read", "read-inject") else "decode_attend.cu",
               "paged_attention.py:828", k4[k],
-              max(max_err_k4[k], max_err_k4["extract"]) if k == "read"
-              else max(max_err_k4[k], max_err_g4) if k == "hamming84" else max_err_k4[k])
+              k4_err(k, max(max_err_k4[k], max_err_k4["extract"]) if k == "read"
+                     else max_err_k4[k]))
         for k in ("read", "read-inject", "hamming84", "hamming84-interp", "hamming74", "golay")
     ] + [
         entry(f"float_attend {c} write+attend (K2f)", c, "write_attend.cu",
@@ -1959,11 +2053,12 @@ def main():
         for c in ("fp16", "fp8")
     ] + [
         entry(f"paged_attention_ecc {c} (K2f read)", "k4-" + c, "write_attend.cu",
-              "paged_attention.py:300", k4[c], max_err_float[(c, "read")])
+              "paged_attention.py:300", k4[c], k4_err("k4-" + c, max_err_float[(c, "read")]))
         for c in ("fp16", "fp8")
     ] + [
-        # K5-K9 equal their plain versions (torch.equal): error 0
-        entry(name, key, "codec_kernels.cu", replaces, hv(key), 0.0)
+        # K5-K9: the largest difference from the plain version measured in
+        # the codec kernels' check (which fails unless it is 0)
+        entry(name, key, "codec_kernels.cu", replaces, hv(key), max_err_codec[key])
         for name, key, replaces in CODEC_KERNELS
     ]}
     say(f"total {time.perf_counter() - T0:.1f} s")

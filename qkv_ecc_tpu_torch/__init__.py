@@ -15,9 +15,9 @@ and block manager (``cache/``), the continuous-batching server
 single-device scaling row (``benchmarks/``, ``evaluation/``). Kernels
 written by hand in CUDA C++ carry them: the fused write+attend read of data
 words and the float codecs' read (``csrc/write_attend.cu``), the correcting
-read of the parity codecs (``csrc/decode_attend.cuh``, built as
-``decode_attend.cu`` and ``golay_attend.cu``), and K4, each kernel's read
-without a write (``kernels/paged_attention.py``); the elementwise codec
+read of the parity codecs (``csrc/decode_attend.cu``), and K4, each
+kernel's read without a write (``kernels/paged_attention.py``); the
+elementwise codec
 kernels and the fault injector (``csrc/codec_kernels.cu``,
 ``kernels/codec_kernels.py``).
 """

@@ -5,7 +5,8 @@ The single-device tier runs the port's decode loop (``models/runtime.py``:
 prefill, then ``decode_step`` with a greedy argmax) and reports the JAX
 module's row. The mesh tiers (``measure_tp_mesh``, and every DATAxMODEL
 spec of ``main``) need the parallel runtime, which is not ported yet
-(ROADMAP M11): they raise NotImplementedError.
+(ROADMAP M11): they raise NotImplementedError, and ``--meshes`` defaults to
+``single`` until then (JAX's default lists the meshes).
 
     python -m qkv_ecc_tpu_torch.benchmarks.scaling --meshes single \\
         --model bench-0.9b --mode int12-golay
@@ -97,9 +98,9 @@ def main(argv=None):
     ap.add_argument("--model", default="tiny-llama")
     ap.add_argument("--mode", default="int12-golay")
     ap.add_argument("--ber", type=float, default=1e-2)
-    ap.add_argument("--meshes", default="1x1,2x1,4x1,8x1,1x2,2x2",
-                    help="comma-separated DATAxMODEL shapes (not ported yet: ROADMAP M11); "
-                         "'single' for the unsharded loop")
+    ap.add_argument("--meshes", default="single",
+                    help="'single' for the unsharded loop; comma-separated DATAxMODEL "
+                         "shapes are not ported yet (ROADMAP M11)")
     ap.add_argument("--batch-per-data", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--steps", type=int, default=20)

@@ -39,13 +39,15 @@
 // int32.
 //
 // Bound on this card, at the kernel benchmark's 8M values and 8M / 3 Golay
-// words (each input read once, each output written once; integer
-// operations counted from this source at 67 T/s): bytes for K5, K6 and
-// K7's encode (2 or 3 bytes per uint8 value, 8 per Golay word: 5.0-7.5 us
-// at 3.35 TB/s); operations for K7's decode and K8 (about 300 and 425 per
-// codeword, a fifth of them popcounts, which issue at a quarter of the
-// integer rate: 12.4 and 17.7 us) and K9 (about 12.5 per flip decision,
-// n_bits per element: 12.5 us at 8M bytes).
+// words: the bytes (each input read once, each output written once: 2 or 3
+// bytes per uint8 value, 8 or 12 per Golay word, 5.0-10.0 us at 3.35 TB/s);
+// none of the kernels does fp32 arithmetic. Integer operations counted from
+// this source give estimates, not bounds (the compiler fuses some into one
+// instruction): about 300 and 425 per codeword for K7's decode and K8, a
+// fifth of them popcounts, which issue at a quarter of Hopper's 32-bit
+// integer rate of 64 lanes per clock per SM (about 50 and 71 us at that
+// rate), and about 12.5 per flip decision of K9, n_bits per element (50 us
+// at 8M bytes).
 //
 // Design: a grid-stride loop of 256-thread blocks, one element per thread
 // per pass, at most 16 blocks per SM; element loads and stores (one byte or

@@ -58,9 +58,11 @@
 // must read each live token's K and V data words and scales once: B * ctx *
 // Hkv * (2*Wd*4 + 2*4) bytes, about 9.3 MB at the bench-0.9b step (B 8, Hkv
 // 8, Wd 16, ctx 1056), i.e. 2.8 us at 3.35 TB/s. With injection, the hash
-// dominates: 32 murmur hashes per word (about 12.5 integer operations
-// each), 2 * 16 words per token and head, about 0.86 G operations per call
-// at the bench step - 14 us at 67 T/s, so operations bound it. Read
+// dominates the work: 32 murmur hashes per word (about 12.5 integer
+// operations counted from the source each), 2 * 16 words per token and
+// head, about 0.86 G operations per call at the bench step - an estimate of
+// 52 us at Hopper's 32-bit integer rate (64 lanes per clock per SM), not a
+// bound (the compiler fuses some operations): the bound stays the bytes. Read
 // injection is a template parameter: the clean read compiles without the
 // hash.
 //
@@ -332,7 +334,7 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
 // V values once: 2 * B * ctx * Hkv * HD elements, 17.3 M at the bench-0.9b
 // step (B 8, Hkv 8, HD 128, ctx 1056): 34.6 MB in bf16, 10.3 us at 3.35
 // TB/s; 17.3 MB in e4m3, 5.2 us. The arithmetic, 34.6 M multiply-adds, is
-// under 1 us at 67 T/s.
+// about 1 us at the fp32 rate of 67 T/s (an FMA as two).
 //
 // Design: write_attend_kernel's, with element loads. One block of 128
 // threads per (KV head, sequence), looping over the pages. Phase A, thread

@@ -4,7 +4,8 @@ load them with ctypes.
 Each source under ``csrc/`` becomes ``_build/lib<name>-<hash>.so`` (the hash
 covers the source, the shared headers ``csrc/*.cuh`` and the flags, so an
 edited source rebuilds). Builds run at first use, never at import;
-``build_all`` starts one nvcc per source, all at once.
+``build_all`` starts one nvcc per source, all at once, and each nvcc runs
+its optimisation passes on all cores (``--split-compile=0``).
 """
 
 from __future__ import annotations
@@ -17,15 +18,14 @@ import os
 import shutil
 import subprocess
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("write_attend", "decode_attend", "golay_attend", "codec_kernels")
+SOURCES = ("write_attend", "decode_attend", "codec_kernels")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--split-compile=0",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
@@ -71,11 +71,35 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def run_nvcc(jobs: dict, flags=NVCC_FLAGS) -> dict:
+    """Compile csrc/<name>.cu into each ``jobs[name]`` path, one nvcc per
+    source, all started together. Returns {name: (return code, seconds,
+    nvcc's output)}, each build's own seconds, whichever ends first."""
+    running = {}
+    for name, out in jobs.items():
+        log = Path(f"{out}.log")
+        cmd = [find_nvcc(), *flags, "-o", str(out), str(CSRC / f"{name}.cu")]
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        running[name] = (proc, log, time.perf_counter())
+    done = {}
+    while running:
+        time.sleep(0.05)
+        for name, (proc, log, t0) in list(running.items()):
+            if proc.poll() is None:
+                continue
+            seconds = time.perf_counter() - t0
+            del running[name]
+            done[name] = (proc.returncode, seconds, log.read_text())
+            log.unlink()
+    return done
+
+
 def build_all(names=SOURCES) -> list[Built]:
     """Build each csrc/<name>.cu that is not built yet, one nvcc process per
     source, all started together; raises with nvcc's output when a build
     fails."""
-    todo = {}
+    jobs = {}
     for name in names:
         if name in _BUILT:
             continue
@@ -84,25 +108,15 @@ def build_all(names=SOURCES) -> list[Built]:
             _BUILT[name] = Built(name, target, 0.0, "")
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        todo[name] = (proc, tmp, target, time.perf_counter())
-
-    def finish(item):  # each build's own time, whichever ends first
-        name, (proc, tmp, target, t0) = item
-        log, _ = proc.communicate()
-        return name, proc.returncode, log, time.perf_counter() - t0
-
+        jobs[name] = target.with_suffix(f".{os.getpid()}.tmp")
     failed = []
-    with ThreadPoolExecutor(max_workers=max(1, len(todo))) as pool:
-        for name, rc, log, seconds in pool.map(finish, todo.items()):
-            _, tmp, target, _ = todo[name]
-            if rc != 0:
-                failed.append(f"nvcc failed for {name}.cu:\n{log}")
-                continue
-            os.replace(tmp, target)
-            _BUILT[name] = Built(name, target, seconds, log)
+    for name, (rc, seconds, log) in run_nvcc(jobs).items():
+        if rc != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        target = _target(name)
+        os.replace(jobs[name], target)
+        _BUILT[name] = Built(name, target, seconds, log)
     if failed:
         raise RuntimeError("\n".join(failed))
     return [_BUILT[name] for name in names]

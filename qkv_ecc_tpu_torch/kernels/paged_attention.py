@@ -12,11 +12,10 @@ return the unnormalised softmax state:
     int4-packed data words only - the scrub-extract read of every packed
     codec, and int4's general read (``scrub=False``), with the read-time
     injection of mode ``int4`` and its flipped-bit count;
-  * ``csrc/decode_attend.cuh`` (K2, K3 and K4's correcting reads): the
+  * ``csrc/decode_attend.cu`` (K2, K3 and K4's correcting reads): the
     correcting read of the parity codecs - hamming84 (optionally
     interpolating double errors), hamming74 and golay - with the per-read
-    ECC statistics; its Hamming instances build from
-    ``csrc/decode_attend.cu``, Golay's from ``csrc/golay_attend.cu``;
+    ECC statistics;
   * ``float_attend`` in ``csrc/write_attend.cu`` (K2f, and K4's reads of
     the float codecs): the raw values of fp16 (stored as bfloat16) and fp8
     (e4m3), widened to float32, with no scales, no zero point and no
@@ -24,7 +23,7 @@ return the unnormalised softmax state:
 
 Launches are counted on the wrapper that made them:
 ``paged_attention_ecc_write_attend.launches`` (write_attend.cu),
-``write_decode_attend.launches`` (decode_attend.cu, golay_attend.cu) and
+``write_decode_attend.launches`` (decode_attend.cu) and
 ``paged_attention_ecc.launches`` (any kernel, for K4), each with
 ``launches_by`` per branch (the float branches: "fp16", "fp8").
 
@@ -68,9 +67,8 @@ _FLOAT = swar.FLOAT_CODECS
 # KV heads (benchmarks/harness.py)
 KERNEL_SHAPES = ((2, 2, 16), (4, 2, 16), (16, 2, 128), (16, 4, 128))
 # (codec, data words, parity words, GQA group, head_dim) instantiated in
-# csrc/decode_attend.cu (Hamming) and csrc/golay_attend.cu (Golay) for
-# tiny-llama, bench-0.9b and the kernel benchmark (hamming84 with and
-# without interpolation)
+# csrc/decode_attend.cu for tiny-llama, bench-0.9b and the kernel benchmark
+# (hamming84 with and without interpolation)
 DECODE_KERNEL_SHAPES = (
     ("hamming84", 2, 2, 2, 16), ("hamming84", 16, 16, 2, 128), ("hamming84", 16, 16, 4, 128),
     ("hamming74", 4, 3, 2, 16), ("hamming74", 16, 12, 2, 128), ("hamming74", 16, 12, 4, 128),
@@ -689,7 +687,7 @@ def _launch_decode(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scal
                    v_scales, block_table, context_lens, layer_idx, k_parity, v_parity, *,
                    codec, sm_scale, pages_per_chunk, interpolate, num_pages, precision,
                    sliding_window, collect_stats, return_softmax_state=False, counter=None):
-    """Check what csrc/decode_attend.cuh takes, allocate the outputs and
+    """Check what csrc/decode_attend.cu takes, allocate the outputs and
     launch it on the current stream; ``k_new`` None reads without writing.
     The launch counts on ``counter`` (default: write_decode_attend)."""
     batch, num_q_heads, head_dim = query.shape
@@ -714,9 +712,7 @@ def _launch_decode(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scal
     ptrs = (q, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_parity, v_parity,
             k_scales, v_scales, block_table, context_lens, out, stats, m, l)
     interp = bool(interpolate and codec == "hamming84")
-    # Golay's instances build in a source of their own, with the same launcher
-    source = "golay_attend" if codec == "golay" else "decode_attend"
-    rc = launcher(source, "p" * 17 + "i" * 13 + "f" + "i" * 6 + "p", "decode_attend_launch")(
+    rc = launcher("decode_attend", "p" * 17 + "i" * 13 + "f" + "i" * 6 + "p")(
         *(0 if t is None else t.data_ptr() for t in ptrs), batch, Hkv, group,
         _CODEC_IDS[codec], Wd, Pw, head_dim, bs, NB, block_table.shape[1], num_pages,
         int(layer_idx), int(sliding_window or 0), float(sm_scale),
@@ -731,7 +727,7 @@ def _launch_decode(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scal
 
 def write_decode_attend(*args, **kw):
     """The correcting read of the parity codecs: on the card
-    csrc/decode_attend.cu or golay_attend.cu (or raise), on the CPU
+    csrc/decode_attend.cu (or raise), on the CPU
     write_decode_attend_plain. Arguments as write_decode_attend_plain."""
     query = args[0]
     if query.device.type == "cuda":
@@ -926,8 +922,8 @@ def paged_attention_ecc(query, k_cache, v_cache, k_scales, v_scales, block_table
     ``return_softmax_state`` (acc [B, Hq, D], m [B, Hq], l [B, Hq]) float32,
     the unnormalised online-softmax state (an empty row: 0, -1e30, 0); with
     ``collect_stats`` (that, stats [B, 2] int32). On the card it launches
-    csrc/write_attend.cu, decode_attend.cu or golay_attend.cu without a new
-    column (or raises); on the CPU it runs ``attend_plain``. Launches count in
+    csrc/write_attend.cu or decode_attend.cu without a new column (or
+    raises); on the CPU it runs ``attend_plain``. Launches count in
     ``paged_attention_ecc.launches`` and ``.launches_by`` per branch. The
     float codecs fp16 and fp8 read their raw values through float_attend
     (K2f's read; their stats are zeros)."""

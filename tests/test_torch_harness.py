@@ -146,6 +146,29 @@ def test_timers_on_the_cpu():
     assert torch.equal(tt.run_warmup(fn, x, iterations=2)[1], x)
 
 
+def test_cpu_times_are_the_host_clock():
+    """On the CPU, time_fn_chained is the host clock around the calls, with
+    nothing subtracted by default: a call that sleeps 2 ms times at least 2
+    ms, and a harness row's time per call is at least the wall time of one
+    call of its function divided by the row's iteration count (20)."""
+    import time
+
+    def slow(v):
+        time.sleep(0.002)
+        return v
+
+    assert tt.time_fn_chained(slow, torch.zeros(4, dtype=torch.int32), iters=5, warmup=1) >= 0.002
+    enc, dec = th.benchmark_hamming84(4096, device="cpu")
+    cw = th.ck.hamming84_encode_cuda(th._values(4096, "cpu"))
+    one = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        th.ck.hamming84_decode_cuda(cw)
+        one.append(time.perf_counter() - t0)
+    assert dec.time_ms / 1e3 >= min(one) / 20
+    assert dec.mvalues_per_sec == pytest.approx(4096 / (dec.time_ms / 1e3) / 1e6)
+
+
 def test_scaling_efficiency_and_constants_match_jax():
     rows = [{"tier": "in-process-mesh", "mesh": m, "tokens_per_s": v}
             for m, v in (("2x1", 180.0), ("1x1", 100.0), ("4x1", 300.0), ("1x2", 90.0),
@@ -200,16 +223,17 @@ def test_attention_benchmark_row_on_the_cpu(tmp_path):
 
 def test_single_device_scaling_row():
     """measure_single_device on tiny-llama on the CPU gives the JAX row's
-    keys and values of the right kind; main runs --meshes single and
-    refuses a mesh (M11)."""
+    keys and values of the right kind; main runs --meshes single by default
+    and refuses a mesh (M11)."""
     pol = policy_for_mode("int12-golay", ber=1e-2, seed=42)
     row = tsc.measure_single_device(TINY_LLAMA, pol, batch=2, prompt_len=8, steps=2,
                                     block_size=16, warmup=1, device="cpu")
     assert list(row) == ["tier", "mesh", "batch", "ms_per_step", "tokens_per_s"]
     assert (row["tier"], row["mesh"], row["batch"]) == ("single-device", "1", 2)
     assert row["ms_per_step"] > 0 and row["tokens_per_s"] > 0
-    out = tsc.main(["--meshes", "single", "--device", "cpu", "--steps", "1",
-                    "--prompt-len", "8", "--batch-per-data", "1"])
+    out = tsc.main(["--device", "cpu", "--steps", "1", "--prompt-len", "8",
+                    "--batch-per-data", "1"])
+    assert out["config"]["meshes"] == "single" and len(out["rows"]) == 1
     assert out["platform"] == "cpu" and out["rows"][0]["block_size"] == 16
     assert set(out["rows"][0]) >= {"model", "mode", "ber", "platform"}
     with pytest.raises(NotImplementedError, match="M11"):
