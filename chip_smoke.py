@@ -11,7 +11,9 @@ at precision "fast" and "highest", a -1 page, F4, and the read alone with
 an empty row, the softmax state with a sliding window, and NaN pages: a NaN
 in a live K slot, a live V slot, a dead V slot of the last page and a page
 past the context in the last chunk, NaN where the plain version has it),
-the packed write+attend kernels (the scrubbed extract read, int4's
+the same at tiny-llama's shapes with 16-token pages, and chunks of one page
+so that blocks of a sequence's cluster hold no token; the packed
+write+attend kernels (the scrubbed extract read, int4's
 read-time injection, the hamming84 / hamming74 / golay correcting reads
 with and without ECC statistics, the -1 page clamp, precision "highest")
 and K4, the read alone (paged_attention_ecc: every branch with and without
@@ -55,7 +57,8 @@ two more paths run:
 Each path checks that every kernel branch it calls was launched exactly as
 often as it calls it. Then it times the kernels (K2f beside
 scaled_dot_product_attention over the same context stored dense, fp16's
-yardstick; the Golay and Hamming encodes beside a gather from the table of
+yardstick, and its read at 1, 2, 4 and 8 blocks per sequence and KV head
+and with no token; the Golay and Hamming encodes beside a gather from the table of
 all codewords; each beside its bound: the bytes at 3.35 TB/s or the fp32
 flops at 67 T/s, the integer operations counted from the source printed as
 an estimate) and traces the decode step of each arm. Every phase prints
@@ -523,7 +526,7 @@ FLOAT_CTX = [1152, 1024, 1025, 1, 512, 130, 778, 1101]
 NAN_BITS = {"fp16": 0x7FC0, "fp8": 0x7F}
 
 
-def float_cache(torch, cfg, codec, gen, device, tokens=1152):
+def float_cache(torch, cfg, codec, gen, device, block_size, tokens=1152):
     """A float cache of every layer of cfg with a value in every slot (a
     recycled page keeps old values in its dead slots): normals, a tenth of
     them times 30, stored as the codec stores them; random scales arrays
@@ -533,7 +536,7 @@ def float_cache(torch, cfg, codec, gen, device, tokens=1152):
     from qkv_ecc_tpu_torch.models.runtime import init_generation_state
 
     state, bt, _ = init_generation_state(cfg, KVCachePolicy(codec=codec), len(FLOAT_CTX),
-                                         tokens, 128, device=device)
+                                         tokens, block_size, device=device)
     for n in ("k_cache", "v_cache"):
         x = torch.randn(state[n].shape, generator=gen, device=device)
         x = torch.where(torch.rand(x.shape, generator=gen, device=device) < 0.1, 30 * x, x)
@@ -581,71 +584,100 @@ def check_float(name, out, ref, a=None, p=None):
 def float_kernel_check(torch, gen, device):
     """K2f (write_attend.cu's float_attend) against its plain versions at
     bench-0.9b attention shapes (B 8, Hkv 8, group 2, head_dim 128, block
-    128, 512-token chunks, layer 1, contexts FLOAT_CTX), in fp16 (bfloat16
-    pages) and fp8 (e4m3): the write+attend with bf16 and fp32 queries, at
-    precision "fast" and "highest"; the same with row 3 on a page of -1
-    (written to page 0, which row 0, now empty, does not read); K4, the read
-    alone, with an empty row (5) and a -1 page, as the output and as the
-    softmax state with a sliding window of 256; F4: num_pages 5 of the
-    10-page table (the kernel visits 8, reading page 4 again) for both; and
-    a cache with NaN (e4m3 0x7f, bfloat16 0x7fc0) in a live K slot (row 1,
-    token 100), a live V slot (row 2, token 7), a dead V slot of the last
-    page (row 6, token 800) and a V slot of a page past the context in the
-    last chunk (row 5, token 300): NaN where the plain version has NaN.
-    Arrays after the write equal, the scales arrays unchanged. Last, the
-    widening alone: one-token contexts whose V values are all 256 e4m3
-    codes (every 8th bfloat16 code) read out exactly torch's conversion.
-    Returns the largest error of each (codec, write or read)."""
+    128) and at tiny-llama's (Hkv 2, group 2, head_dim 16, block 16), 512-
+    token chunks, layer 1, contexts FLOAT_CTX, in fp16 (bfloat16 pages) and
+    fp8 (e4m3): the write+attend with bf16 and fp32 queries, at precision
+    "fast" and "highest"; the same with row 3 on a page of -1 (written to
+    page 0, which row 0, now empty, does not read); K4, the read alone, with
+    an empty row (5) and a -1 page, as the output and as the softmax state
+    with a sliding window of 256; F4: num_pages 5 of the table (the kernel
+    visits whole chunks of pages, reading page 4 again) for both; chunks of
+    one page (pages_per_chunk 1: the row of context 1 visits one page, fewer
+    tiles than the warps of its S blocks, so that blocks and warps without a
+    token merge) for both; and a cache with NaN (e4m3 0x7f, bfloat16 0x7fc0)
+    in a live K slot (row 1, token 100), a live V slot (row 2, token 7), a
+    dead V slot of the last page (row 6, token 800) and a V slot of a page
+    past the context in the last chunk (row 5, token 300): NaN where the
+    plain version has NaN. Arrays after the write equal, the scales arrays
+    unchanged. Last, the widening alone: one-token contexts whose V values
+    are all 256 e4m3 codes (bfloat16 codes at an even stride) read out
+    exactly torch's conversion. Each label names the blocks S per (sequence,
+    KV head) that float_splits gave the launch. Returns the largest error
+    of each (codec, write or read)."""
     import dataclasses
+    from qkv_ecc_tpu_torch.models.config import BENCH_0_9B, TINY_LLAMA
+
+    worst = {}
+    for cfg, bs in ((dataclasses.replace(BENCH_0_9B, num_layers=2), 128), (TINY_LLAMA, 16)):
+        for key, err in float_kernel_check_at(torch, gen, device, cfg, bs).items():
+            worst[key] = max(worst.get(key, 0.0), err)
+    return worst
+
+
+def float_kernel_check_at(torch, gen, device, cfg, bs):
+    """float_kernel_check on cfg's attention shapes with pages of bs
+    tokens."""
     from qkv_ecc_tpu_torch.kernels.common import to_float_storage
     from qkv_ecc_tpu_torch.kernels.paged_attention import (
-        attend_plain, paged_attention_ecc, paged_attention_ecc_write_attend as write_attend,
-        write_attend_plain)
-    from qkv_ecc_tpu_torch.models.config import BENCH_0_9B
+        _sm_count, attend_plain, float_splits, paged_attention_ecc,
+        paged_attention_ecc_write_attend as write_attend, visited_pages, write_attend_plain)
 
-    cfg = dataclasses.replace(BENCH_0_9B, num_layers=2)
     B, Hq, Hkv, D = len(FLOAT_CTX), cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     names = ("k_cache", "v_cache", "k_scales", "v_scales")
+    tpc = 512  # the default chunk: 512 tokens of pages
     worst = {}
     for codec in ("fp16", "fp8"):
-        state, bt = float_cache(torch, cfg, codec, gen, device)
+        state, bt = float_cache(torch, cfg, codec, gen, device, bs)
         scales = {n: state[n].clone() for n in ("k_scales", "v_scales")}
         ctx = torch.tensor(FLOAT_CTX, dtype=torch.int32, device=device)
+
+        def shape(num_pages, ppc):
+            """The label's shapes: block size, chunk, S."""
+            num_pages = num_pages or bt.shape[1]
+            ppc = min(ppc or tpc // bs, num_pages)
+            s = float_splits(B, Hkv, visited_pages(num_pages, ppc) * bs,
+                             state["k_cache"].element_size(), _sm_count(device.index or 0))
+            return f"[{cfg.name} block {bs}, {ppc}-page chunks, S {s}]", ppc
 
         def new():
             return [to_float_storage(codec, torch.randn((B, Hkv, D), generator=gen,
                                                         device=device)) for _ in range(2)]
 
         def write(label, qdtype=torch.bfloat16, precision="fast", bt=bt, ctx=ctx, num_pages=None,
-                  st=state):
+                  ppc=None, st=state):
             q = torch.randn((B, Hq, D), generator=gen, device=device).to(qdtype)
             kn, vn = new()
             sn = torch.ones((B, Hkv), device=device)
             a = {n: st[n].clone() for n in names}
             p = {n: st[n].clone() for n in names}
             out = write_attend(q, kn, vn, sn, sn, *(a[n] for n in names), bt, ctx, 1, codec=codec,
-                               precision=precision, num_pages=num_pages)
+                               block_size=bs, precision=precision, num_pages=num_pages,
+                               pages_per_chunk=ppc)
             torch.cuda.synchronize()
+            where, ppc = shape(num_pages, ppc)
             ref = write_attend_plain(q, kn, vn, sn, sn, *(p[n] for n in names), bt, ctx, 1,
                                      sm_scale=D ** -0.5, precision=precision, codec=codec,
-                                     num_pages=num_pages, pages_per_chunk=4)
+                                     num_pages=num_pages, pages_per_chunk=ppc)
             for n in ("k_scales", "v_scales"):
                 if not torch.equal(a[n], scales[n]):
-                    fail(f"K2f {codec} {label}: the write changed {n}")
+                    fail(f"K2f {codec} {label} {where}: the write changed {n}")
             key = (codec, "write")
-            worst[key] = max(worst.get(key, 0.0),
-                             check_float(f"float_attend {codec} write+attend {label}", out, ref, a, p))
+            worst[key] = max(worst.get(key, 0.0), check_float(
+                f"float_attend {codec} write+attend {label} {where}", out, ref, a, p))
 
-        def read(label, bt=bt, ctx=ctx, num_pages=None, window=None, state_out=False, st=state):
+        def read(label, bt=bt, ctx=ctx, num_pages=None, ppc=None, window=None, state_out=False,
+                 st=state):
             q = torch.randn((B, Hq, D), generator=gen, device=device).to(torch.bfloat16)
             args = (q, *(st[n] for n in names), bt, ctx, 1)
             before = {n: st[n].clone() for n in names}
-            out = paged_attention_ecc(*args, codec=codec, num_pages=num_pages,
-                                      sliding_window=window, return_softmax_state=state_out,
-                                      collect_stats=True)
+            out = paged_attention_ecc(*args, codec=codec, block_size=bs, num_pages=num_pages,
+                                      pages_per_chunk=ppc, sliding_window=window,
+                                      return_softmax_state=state_out, collect_stats=True)
             torch.cuda.synchronize()
+            where, ppc = shape(num_pages, ppc)
+            label = f"{label} {where}"
             ref = attend_plain(*args, codec=codec, sm_scale=D ** -0.5,
-                               num_pages=num_pages or bt.shape[1], pages_per_chunk=4,
+                               num_pages=num_pages or bt.shape[1], pages_per_chunk=ppc,
                                sliding_window=window, return_softmax_state=state_out)
             (out, stats) = out
             if stats.any():
@@ -682,15 +714,17 @@ def float_kernel_check(torch, gen, device):
         if acc[0][5].any() or not bool((acc[1][5] == -1e30).all()) or acc[2][5].any():
             fail(f"K2f {codec}: the empty row's softmax state is not 0, -1e30, 0")
         read("num_pages=5 (F4)", num_pages=5)
+        write("pages_per_chunk=1", ppc=1)
+        read("pages_per_chunk=1", ppc=1)
         # NaN pages (row, token, K or V): a live K slot, a live V slot, a dead
         # V slot of the last page, a V slot of a page past the context that
         # the last 512-token chunk holds
         poisoned = {n: state[n].clone() for n in names}
         for row, tok, n in ((1, 100, "k_cache"), (2, 7, "v_cache"), (6, 800, "v_cache"),
                             (5, 300, "v_cache")):
-            page = int(bt[row, tok // 128])
+            page = int(bt[row, tok // bs])
             raw = poisoned[n].view(torch.uint8 if codec == "fp8" else torch.int16)
-            raw[1, page, 0, 5, tok % 128] = NAN_BITS[codec]
+            raw[1, page, 0, 5, tok % bs] = NAN_BITS[codec]
         write("NaN pages", st=poisoned)
         out = read("NaN pages", st=poisoned)
         nan = torch.isnan(out.float())
@@ -701,12 +735,13 @@ def float_kernel_check(torch, gen, device):
         # the widening, exactly: a context of one token (each row's new
         # column) at precision "highest" reads out its V values unchanged, so
         # the fp32 output holds the kernel's widening of every code written:
-        # all 256 e4m3 codes, every 8th bfloat16 code (each exponent, the
-        # subnormals, +-inf and NaN among them)
+        # all 256 e4m3 codes, bfloat16 codes at a stride of 2^16 / n (8 at
+        # bench-0.9b's n: each exponent, the subnormals, +-inf and NaN among
+        # them)
         bits = torch.uint8 if codec == "fp8" else torch.int16
         n = B * Hkv * D
         codes = (torch.arange(n, device=device) % 256 if codec == "fp8" else
-                 torch.arange(n, device=device) * 8 - 2 ** 15).to(bits)
+                 torch.arange(n, device=device) * (2 ** 16 // n) - 2 ** 15).to(bits)
         vn = codes.reshape(B, Hkv, D).view(state["v_cache"].dtype)
         kn = new()[0]
         one = torch.ones_like(ctx)
@@ -714,14 +749,14 @@ def float_kernel_check(torch, gen, device):
         sn = torch.ones((B, Hkv), device=device)
         a = {n: state[n].clone() for n in names}
         out = write_attend(q, kn, vn, sn, sn, *(a[n] for n in names), bt, one, 1, codec=codec,
-                           precision="highest")
+                           block_size=bs, precision="highest")
         torch.cuda.synchronize()
         want = vn.to(torch.float32).repeat_interleave(Hq // Hkv, dim=1)
         same = torch.equal(torch.isnan(out), torch.isnan(want)) and torch.equal(
             torch.nan_to_num(out, posinf=1e38, neginf=-1e38),
             torch.nan_to_num(want, posinf=1e38, neginf=-1e38))
-        say(f"  float_attend {codec} widening of {len(torch.unique(codes))} codes, against "
-            f"torch's: {'equal' if same else 'DIFFERENT'}")
+        say(f"  float_attend {codec} widening of {len(torch.unique(codes))} codes "
+            f"[{cfg.name}], against torch's: {'equal' if same else 'DIFFERENT'}")
         if not same:
             fail(f"K2f {codec}: the kernel widens stored values otherwise than torch")
     return worst
@@ -987,11 +1022,16 @@ def output_tolerance(ref):
     the element (the last rounding, which both sides make), and 2^-8 of the
     largest |ref| of its (sequence, head) row allows one softmax weight
     p * v_scale to round to a neighbouring bf16 value after an fp32 ulp of
-    difference in exp or in the summation order. Kernel and plain version
-    take the softmax online page by page alike, so neither term is needed
-    in practice; a row scale rather than the batch's largest value keeps a
-    token dropped or added at any context length (ctx 1 to 1152) beyond the
-    tolerance."""
+    difference in exp or in the summation order. The packed kernels take
+    the softmax online page by page as the plain version does, so neither
+    term is needed for them in practice. K2f (float_attend) splits a
+    sequence's tokens over warps and blocks, each rounding its weights
+    against its own running maximum, so both terms are needed there: a
+    weight rounds to a neighbouring bf16 value (the second term), and the
+    fp32 results then differ enough for a bf16 output to round to the
+    neighbouring value (the first). A row scale rather than the batch's
+    largest value keeps a token dropped or added at any context length (ctx
+    1 to 1152) beyond the tolerance."""
     r = ref.float().abs()
     return 2.0 ** -7 * r + 2.0 ** -8 * r.amax(dim=-1, keepdim=True)
 
@@ -1077,14 +1117,14 @@ CHAINED_CALLS = 3 + 20
 # of 2 XORs, 2 shifts and 3 ORs) and decode (mask, 7 bit extractions 13,
 # syndrome 13, correction 5, XOR and mask 2, flag 1); hamming84 adds the
 # parity bit (popcount, mask, shift, OR) to the encode and the parity check
-# and type selects (10) to the decode; golay encode (a product by B of 60,
-# mask, shift, OR) and decode (the IMLD of 298, as in GOLAY_OPS_PER_CODEWORD
-# without the rebuild and repack); the write scrub (encode, XOR, IMLD,
-# encode); one flip decision of K9 (counter, multiply, add, fmix32 8,
-# compare, shift, OR)
+# and type selects (10) to the decode; golay encode (mask, three nibble
+# indices 6, three table loads, two XORs, shift, OR) and decode (the IMLD of
+# 298, as in GOLAY_OPS_PER_CODEWORD without the rebuild and repack); the
+# write scrub (encode, XOR, IMLD, encode); one flip decision of K9 (counter,
+# multiply, add, fmix32 8, compare, shift, OR)
 CODEC_OPS = {"hamming74_encode": 19, "hamming74_decode": 35, "hamming84_encode": 23,
-             "hamming84_decode": 45, "golay_encode": 63, "golay_decode": 298,
-             "golay_write_scrub": 425}
+             "hamming84_decode": 45, "golay_encode": 14, "golay_decode": 298,
+             "golay_write_scrub": 327}
 INJECT_OPS_PER_BIT = 12.5
 # (JSON name, wrapper, the TPU function it replaces) of K5-K9
 CODEC_KERNELS = (
@@ -1119,7 +1159,8 @@ def codec_kernel_check(torch, gen, device):
     """K5-K9 against their plain versions with torch.equal on the card,
     dtypes included: every byte through K5 and K6 (and random bytes in an
     odd shape), all 4096 Golay data words and random int32 words through
-    K7's encode, 256 codewords under every error pattern of weight 0-3, 4000
+    K7's encode (also slices of them not 16-byte aligned or not a multiple
+    of 4 words long), 256 codewords under every error pattern of weight 0-3, 4000
     of weight 4 and 256 words with bits 24-31 set through its decode, K8 on
     8M / 3 random int32 words with random masks (BER 0.12 over 32 bits, and
     every bit random), K9 on 16M uint8 values (n_bits 8) and 4M int32 words
@@ -1186,6 +1227,9 @@ def codec_kernel_check(torch, gen, device):
                                      dtype=torch.int64).to(i32)])
     cw = check("golay_encode_packed", ck.golay_encode_packed_cuda, ck.golay_encode_plain,
                words)[0][:4096]
+    # inputs not 16-byte aligned (the encode's one-word path) and short tails
+    for x in (words[1:], words[3:4102], words[:4099], words[2:5]):
+        check("golay_encode_packed", ck.golay_encode_packed_cuda, ck.golay_encode_plain, x)
     pats = golay_error_patterns(torch, gen, device)
     sample = cw[torch.randperm(4096, generator=gen, device=device)[:256]]
     rx = sample[:, None] ^ pats[None, :]  # [256, 6581]
@@ -1194,8 +1238,9 @@ def codec_kernel_check(torch, gen, device):
     hist = torch.bincount(count.reshape(-1), minlength=5).tolist()
     if any(h == 0 for h in hist):
         fail(f"golay decode: error counts {hist} miss a weight")
-    say(f"  K7: 8192 words encoded, {rx.numel()} received words decoded equal to the plain "
-        f"version (error counts 0-4: {hist})")
+    say(f"  K7: 8192 words encoded (and slices of them not 16-byte aligned or not a multiple "
+        f"of 4 long), {rx.numel()} received words decoded equal to the plain version (error "
+        f"counts 0-4: {hist})")
 
     m = HARNESS_N // 3
     data = torch.randint(-2 ** 31, 2 ** 31, (m,), generator=gen, device=device,
@@ -1811,13 +1856,13 @@ def main():
         timings = {}
 
         def time_kernel(key, label, call, plain, wrapper, state, bt, words_read, int_ops, row_w,
-                        word_bytes=4, scale_bytes=4, library=None):
+                        word_bytes=4, scale_bytes=4, library=None, note=""):
             """Device time (behind a sleep), back-to-back time, the plain
             version's time, the library call's (when one computes the same
             function) and the bound of one call on `state`'s caches; row_w
             words of a new row per (sequence, KV head) are written (0: a
             read, K4). A float cache reads values of word_bytes and no
-            scales (scale_bytes 0)."""
+            scales (scale_bytes 0). note is printed after the label."""
             L = state["k_cache"].shape[0]
             ms = device_ms(torch, call, 240, L, wrapper)
             call_ms = timed(torch, call, 240, L)
@@ -1838,7 +1883,7 @@ def main():
             flops = 2 * 2 * tokens * Hkv * group * cfg.head_dim
             ops = int_ops(tokens, Hkv)
             b_ms, b_by, bytes_ms, ops_ms = bound(nbytes, flops)
-            say(f"  {label} at ctx {tokens // BATCH}: {ms * 1e3:.2f} us/launch on the device "
+            say(f"  {label} at ctx {tokens // BATCH}{note}: {ms * 1e3:.2f} us/launch on the device "
                 f"(CUDA events, calls queued behind a sleep; {call_ms * 1e3:.2f} us per "
                 f"back-to-back call, host included); bound {b_ms * 1e3:.2f} us by {b_by} "
                 f"({nbytes / 1e6:.2f} MB at 3.35 TB/s = {bytes_ms * 1e3:.2f} us; "
@@ -1953,7 +1998,9 @@ def main():
         # K2f on the float arms' caches of the slice, the write+attend and
         # the read; fp16's yardstick: scaled_dot_product_attention over the
         # same context stored dense ([B, Hkv, ctx, D] bf16, GQA), not paged
-        from qkv_ecc_tpu_torch.kernels.paged_attention import gather_pages
+        from qkv_ecc_tpu_torch.kernels import paged_attention as pa_module
+        from qkv_ecc_tpu_torch.kernels.paged_attention import (
+            _sm_count, float_splits, gather_pages, visited_pages)
 
         for codec in ("fp16", "fp8"):
             state, bt = runs[codec][-1]["state"], runs[codec][-1]["bt"]
@@ -1990,14 +2037,41 @@ def main():
                 return attend_plain(q, *(state[n] for n in names), bt, ctx, layer, codec=codec,
                                     sm_scale=sm, num_pages=bt.shape[1], pages_per_chunk=4)
 
+            # what the kernel reads beyond the bound's bytes: the V of every
+            # slot of the visited pages (a dead slot's NaN reaches the output)
+            ppc = min(4, bt.shape[1])  # 512-token chunks of 128-token pages
+            tpc, chunks = ppc * 128, -(-bt.shape[1] // ppc)
+            visited = sum(min(-(-c // tpc), chunks) * tpc for c in ctx.tolist())
+            read_mb = (int(ctx.sum()) + visited) * cfg.num_kv_heads * D * elem / 1e6
+            s = float_splits(BATCH, cfg.num_kv_heads, visited_pages(bt.shape[1], ppc) * 128,
+                             elem, _sm_count(0))
+            note = (f" (S {s} blocks per sequence and KV head; the K of the live tokens and the V "
+                    f"of every visited slot, the dead pages' too: {read_mb:.2f} MB, "
+                    f"{read_mb * 1e12 / PEAK_BYTES_PER_S:.2f} us at 3.35 TB/s)")
             no_ops = lambda tok, h: 0  # noqa: E731
             time_kernel(codec, f"float_attend {codec} write+attend (K2f)", call_w, plain_w,
                         write_attend, state, bt, D, no_ops, D, word_bytes=elem, scale_bytes=0,
-                        library=library)
+                        library=library, note=note)
             time_kernel("k4-" + codec, f"paged_attention_ecc {codec} (K2f read)", call_r,
                         plain_r, paged_attention_ecc, state, bt, D, no_ops, 0, word_bytes=elem,
-                        scale_bytes=0, library=library)
+                        scale_bytes=0, library=library, note=note)
             del library
+            # the read at every split count (float_splits replaced for the
+            # sweep alone), and with no token: the launch's fixed cost
+            sweep = {}
+            for forced in (1, 2, 4, 8):
+                pa_module.float_splits = lambda *a, forced=forced: forced
+                try:
+                    sweep[forced] = device_ms(torch, call_r, 240, cfg.num_layers,
+                                              paged_attention_ecc)
+                finally:
+                    pa_module.float_splits = float_splits
+            none = torch.zeros_like(ctx)
+            fixed = device_ms(torch, lambda layer, none=none: call_r(layer, ctx=none), 240,
+                              cfg.num_layers, paged_attention_ecc)
+            say(f"  paged_attention_ecc {codec} (K2f read) at S blocks per sequence and KV head: "
+                + ", ".join(f"S {k} {v * 1e3:.2f} us" for k, v in sweep.items())
+                + f"; with no token (ctx 0, S {s}): {fixed * 1e3:.2f} us ({smi})")
 
         timings.update(codec_timing(torch, gen, device, smi))
 

@@ -43,18 +43,24 @@
 // bytes per uint8 value, 8 or 12 per Golay word, 5.0-10.0 us at 3.35 TB/s);
 // none of the kernels does fp32 arithmetic. Integer operations counted from
 // this source give estimates, not bounds (the compiler fuses some into one
-// instruction): about 300 and 425 per codeword for K7's decode and K8, a
-// fifth of them popcounts, which issue at a quarter of Hopper's 32-bit
-// integer rate of 64 lanes per clock per SM (about 50 and 71 us at that
-// rate), and about 12.5 per flip decision of K9, n_bits per element (50 us
-// at 8M bytes).
+// instruction): about 300 and 325 per codeword for K7's decode and K8, a
+// fifth of the decode's popcounts, which issue at a quarter of Hopper's
+// 32-bit integer rate of 64 lanes per clock per SM (about 50 and 55 us at
+// that rate), and about 12.5 per flip decision of K9, n_bits per element
+// (50 us at 8M bytes).
 //
-// Design: a grid-stride loop of 256-thread blocks, one element per thread
-// per pass, at most 16 blocks per SM; element loads and stores (one byte or
-// one word a thread). The operation is a template parameter, so each
-// instance compiles to its straight-line bit arithmetic; Golay shares
-// golay.cuh with the correcting read of decode_attend.cu. Vector loads are
-// later work.
+// Design: a grid-stride loop of 256-thread blocks, at most 16 blocks per
+// SM. K5, K6, K7's decode, K8 and K9 take one element per thread per pass
+// with element loads and stores (one byte or one word a thread); the
+// operation is a template parameter, so each instance compiles to its
+// straight-line bit arithmetic. K7's encode (golay_encode_kernel) moves 16
+// bytes a load and a store, 4 words a thread (one word at a time when x or
+// y is not 16-byte aligned): its bytes are the bound. Its product by B
+// takes three lookups in golay.cuh's nibble tables in shared memory instead
+// of 12 popcounts, which at a quarter of the integer rate would take longer
+// than the bytes (12 x 2.8 M words: about 8 us); K8 encodes through the same
+// tables. Golay's decode, shared with the correcting read of
+// decode_attend.cu, keeps its popcounts.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,6 +112,11 @@ __global__ void __launch_bounds__(kThreads) codec_kernel(const In* __restrict__ 
                                                          const int32_t* __restrict__ mask,
                                                          Out* __restrict__ y0,
                                                          Out* __restrict__ y1, int64_t n) {
+  __shared__ uint32_t tab[golay::kEncodeTableWords];  // the write scrub's encode tables
+  if constexpr (OP == kGolayWriteScrub) {
+    golay::fill_encode_tables(tab);
+    __syncthreads();
+  }
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
     const uint32_t v = (uint32_t)x[i];
@@ -124,18 +135,45 @@ __global__ void __launch_bounds__(kThreads) codec_kernel(const In* __restrict__ 
       const uint32_t et = s == 0u ? (parity_error ? 3u : 0u) : (parity_error ? 1u : 2u);
       y0[i] = (Out)((c ^ (et == 1u ? h74_error_mask(s) : 0u)) & 0xFu);
       y1[i] = (Out)et;
-    } else if constexpr (OP == kGolayEncode) {
-      y0[i] = (Out)golay::encode(v & 0xFFFu);
     } else if constexpr (OP == kGolayDecode) {
       int weight;
       y0[i] = (Out)golay::decode<false>(v, weight);
       y1[i] = (Out)weight;
     } else {  // kGolayWriteScrub
       int weight;
-      const uint32_t cw = golay::encode(v & 0xFFFu) ^ (uint32_t)mask[i];
-      y0[i] = (Out)golay::encode(golay::decode<true>(cw, weight));
+      const uint32_t cw = golay::encode(v & 0xFFFu, tab) ^ (uint32_t)mask[i];
+      y0[i] = (Out)golay::encode(golay::decode<true>(cw, weight), tab);
     }
   }
+}
+
+// K7's encode: data12 & 0xFFF of each int32 word -> its 24-bit codeword,
+// 4 words a thread per pass through 16-byte loads and stores when x and y
+// are 16-byte aligned (the wrapper's y always is), the n % 4 last words one
+// a thread; else every word one a thread.
+__global__ void __launch_bounds__(kThreads) golay_encode_kernel(const int32_t* __restrict__ x,
+                                                               int32_t* __restrict__ y,
+                                                               int64_t n) {
+  __shared__ uint32_t tab[golay::kEncodeTableWords];
+  golay::fill_encode_tables(tab);
+  __syncthreads();
+  const int64_t t = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  const bool aligned = (((uintptr_t)x | (uintptr_t)y) & 15u) == 0;
+  const int64_t nvec = aligned ? n / 4 : 0;
+  const int4* xv = (const int4*)x;
+  int4* yv = (int4*)y;
+  for (int64_t i = t; i < nvec; i += stride) {
+    const int4 w = xv[i];
+    int4 c;
+    c.x = (int32_t)golay::encode((uint32_t)w.x & 0xFFFu, tab);
+    c.y = (int32_t)golay::encode((uint32_t)w.y & 0xFFFu, tab);
+    c.z = (int32_t)golay::encode((uint32_t)w.z & 0xFFFu, tab);
+    c.w = (int32_t)golay::encode((uint32_t)w.w & 0xFFFu, tab);
+    yv[i] = c;
+  }
+  for (int64_t i = 4 * nvec + t; i < n; i += stride)
+    y[i] = (int32_t)golay::encode((uint32_t)x[i] & 0xFFFu, tab);
 }
 
 // murmur3's 32-bit finalizer (swar._murmur_mix; write_attend.cu's fmix32)
@@ -196,7 +234,12 @@ extern "C" int codec_launch(int op, const void* x, const void* mask, void* y0, v
     case kH74Decode: return (int)launch<kH74Decode, uint8_t, uint8_t>(x, mask, y0, y1, n, s);
     case kH84Encode: return (int)launch<kH84Encode, uint8_t, uint8_t>(x, mask, y0, y1, n, s);
     case kH84Decode: return (int)launch<kH84Decode, uint8_t, uint8_t>(x, mask, y0, y1, n, s);
-    case kGolayEncode: return (int)launch<kGolayEncode, int32_t, int32_t>(x, mask, y0, y1, n, s);
+    case kGolayEncode: {
+      const bool aligned = (((uintptr_t)x | (uintptr_t)y0) & 15u) == 0;
+      golay_encode_kernel<<<grid_for(aligned ? (n + 3) / 4 : n), kThreads, 0, s>>>(
+          (const int32_t*)x, (int32_t*)y0, n);
+      return (int)cudaGetLastError();
+    }
     case kGolayDecode: return (int)launch<kGolayDecode, int32_t, int32_t>(x, mask, y0, y1, n, s);
     case kGolayWriteScrub:
       return (int)launch<kGolayWriteScrub, int32_t, int32_t>(x, mask, y0, y1, n, s);

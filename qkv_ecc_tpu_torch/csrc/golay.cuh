@@ -1,5 +1,6 @@
 // Golay(24,12) on one 32-bit lane, shared by the correcting read
-// (decode_attend.cu) and the elementwise codec kernels (codec_kernels.cu).
+// (decode_attend.cu: decode) and the elementwise codec kernels
+// (codec_kernels.cu: encode and decode).
 //
 // A codeword holds its 12 data bits in bits 0-11 and its 12 parity bits in
 // bits 12-23 (codecs/reference.py golay_encode); bits 24-31 are ignored.
@@ -23,8 +24,30 @@ __device__ __forceinline__ uint32_t times_b(uint32_t x) {  // x . B, 12 bits
   return s;
 }
 
+// The encoder's product x . B without popcounts. B is symmetric
+// (GOLAY_B_ROW_MASKS equals its transpose), so x . B is the XOR of the rows
+// B[i] that the bits i of x select, and by linearity over GF(2) it is
+// tab[x & 15] ^ tab[16 + (x >> 4 & 15)] ^ tab[32 + (x >> 8)], where entry n
+// of the table of nibble k is the XOR of the rows 4k + i for the bits i of
+// n. The 48 words of the tables sit in shared memory, one bank for each
+// entry a gather of one table can read: no bank conflicts.
+constexpr int kEncodeTableWords = 48;
+
+// Fill the tables (all threads of the block, then a block barrier)
+__device__ __forceinline__ void fill_encode_tables(uint32_t* tab) {
+  for (int i = threadIdx.x; i < kEncodeTableWords; i += blockDim.x) {
+    const int k = i / 16, n = i % 16;
+    uint32_t s = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) s ^= (n >> b & 1) ? kB[4 * k + b] : 0u;
+    tab[i] = s;
+  }
+}
+
 // 12 data bits -> the 24-bit codeword (common.golay_encode_i32)
-__device__ __forceinline__ uint32_t encode(uint32_t d12) { return d12 | (times_b(d12) << 12); }
+__device__ __forceinline__ uint32_t encode(uint32_t d12, const uint32_t* tab) {
+  return d12 | ((tab[d12 & 15u] ^ tab[16 + (d12 >> 4 & 15u)] ^ tab[32 + (d12 >> 8)]) << 12);
+}
 
 // Arithmetic IMLD of one 24-bit codeword (common.golay_decode_i32 /
 // golay_correct_data_i32): the corrected 12 data bits; weight = the error

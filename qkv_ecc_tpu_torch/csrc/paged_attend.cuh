@@ -1,6 +1,8 @@
-// Online-softmax paged attention, shared by the port's write+attend kernels
-// (write_attend.cu, decode_attend.cu): over int4-packed nibble words, and
-// (page_weights alone) over the float codecs' raw values.
+// Online-softmax paged attention over int4-packed nibble words, shared by
+// the port's packed write+attend kernels (write_attend.cu's
+// write_attend_kernel, decode_attend.cu). The float codecs' kernel
+// (write_attend.cu's float_attend_kernel) takes its constants and the
+// warp reductions alone.
 //
 // A block of kThreads threads attends the GROUP query heads of one KV head
 // of one sequence, page by page:
@@ -9,8 +11,8 @@
 //     and V scale staged in v_s / vs_s;
 //   phase B (page_weights): the page's softmax weights, V scale folded in
 //     and rounded to bf16, against the running maximum;
-//   phase C (attend_page; the float kernel has its own): thread per
-//     head-dim value - the staged V page contracted into acc.
+//   phase C (attend_page): thread per head-dim value - the staged V page
+//     contracted into acc.
 // Maxima carry NaN as jnp.max and jnp.maximum do (max_nan, not fmaxf): a
 // NaN score makes the row's m, l and acc NaN, as on the TPU.
 // Precision follows the TPU kernel's: "fast" rounds q to bf16 (the caller
@@ -81,10 +83,9 @@ struct SoftmaxState {
 
 // Phase B of one page whose scores (kNegInf where not live) are in p_s
 // [GROUP][bs], whose per-thread score maxima are lmax, and whose V scales
-// are staged in vs_s [bs] (null: scales of 1, the float codecs): the new
-// running maximum, st.alpha, st.l, and in p_s the weights p * v_scale of
-// the live tokens (0 elsewhere). Every thread reads p_s and st.alpha after
-// it returns.
+// are staged in vs_s [bs]: the new running maximum, st.alpha, st.l, and in
+// p_s the weights p * v_scale of the live tokens (0 elsewhere). Every
+// thread reads p_s and st.alpha after it returns.
 template <int GROUP>
 __device__ __forceinline__ void page_weights(const float (&lmax)[GROUP], float* p_s,
                                              const float* vs_s, SoftmaxState<GROUP>& st,
@@ -116,7 +117,7 @@ __device__ __forceinline__ void page_weights(const float (&lmax)[GROUP], float* 
   for (int t = tid; t < bs; t += kThreads) {
     const int tok = page_tok + t;
     const bool live = tok < ctx && tok >= first_tok;
-    const float vs = vs_s ? vs_s[t] : 1.f;
+    const float vs = vs_s[t];
 #pragma unroll
     for (int g = 0; g < GROUP; ++g) {
       const float p = expf(p_s[g * bs + t] - st.m[g]);

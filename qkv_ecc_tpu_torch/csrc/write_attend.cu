@@ -83,7 +83,13 @@
 // softmax state are runtime flags outside the unrolled token loop. The
 // kernel allocates nothing; the wrapper zeroes the stats.
 
+#include <cooperative_groups.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
+
 #include "paged_attend.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -320,47 +326,93 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
 //      into slot ctx-1 of its page, in place (the -1 page clamp and the
 //      num_pages rule of write_attend_kernel);
 //   2. attends the group's query heads: s = q . k * sm_scale over the live
-//      tokens (t < ctx, and t >= ctx - window), online softmax page by page,
-//      acc += p * v. As on the TPU, every slot of every page of each chunk
-//      that starts before ctx reaches acc with its weight (0 for a dead
-//      slot, before the window or past ctx): 0 * NaN is NaN, so an e4m3
-//      NaN (0x7f, 0xff) or a bfloat16 NaN or inf in any of those V slots
-//      makes that head-dim value NaN. A NaN in a live K slot makes the
-//      scores, m, l and acc NaN (max_nan), and the normalised output 0.
+//      tokens (t < ctx, and t >= ctx - window), softmax, acc += p * v. As on
+//      the TPU, every slot of every page of each chunk that starts before
+//      ctx reaches acc with its weight (0 for a dead slot, before the window
+//      or past ctx): 0 * NaN is NaN, so an e4m3 NaN (0x7f, 0xff) or a
+//      bfloat16 NaN or inf in any of those V slots makes that head-dim value
+//      NaN. A NaN in a live K slot makes the scores, m, l and acc NaN
+//      (max_nan), and the normalised output 0.
 // Precision: "fast" rounds q (passed as bf16) and p to bf16; "highest"
-// keeps both in fp32. K and V widen exactly to fp32.
+// keeps both in fp32. K and V widen exactly to fp32 (e4m3 through the
+// hardware's conversion to half, which is exact for every code).
 //
 // Bound on this card: bytes. Per call it must read each live token's K and
 // V values once: 2 * B * ctx * Hkv * HD elements, 17.3 M at the bench-0.9b
 // step (B 8, Hkv 8, HD 128, ctx 1056): 34.6 MB in bf16, 10.3 us at 3.35
-// TB/s; 17.3 MB in e4m3, 5.2 us. The arithmetic, 34.6 M multiply-adds, is
-// about 1 us at the fp32 rate of 67 T/s (an FMA as two).
+// TB/s; 17.3 MB in e4m3, 5.2 us. To keep the TPU's NaN it also reads the V
+// of the dead slots of every visited page (1536 slots a sequence at the
+// bench step: 42.5 MB in all in bf16, 12.7 us). The arithmetic, 34.6 M
+// multiply-adds, is about 1 us at the fp32 rate of 67 T/s (an FMA as two).
 //
-// Design: write_attend_kernel's, with element loads. One block of 128
-// threads per (KV head, sequence), looping over the pages. Phase A, thread
-// per token: the K column of a live token (HD coalesced element loads:
-// thread t reads element d of token t at d * bs + t), widened to fp32 and
-// dotted with the staged query; a dead token's K is not read. The V column
-// of every slot is staged raw in shared memory (rows padded by one 32-bit
-// word). Phase B is paged_attend.cuh's page_weights with scales of 1;
-// phase C maps threads to head-dim values. The new token is read from the
-// column passed in. Speed (vector loads across tokens, several blocks per
-// sequence, TMA) is later work.
+// Design: a split context (flash decoding), for loads of whole row pieces
+// and enough blocks. A cluster of S <= 8 blocks (float_splits: the fewest,
+// a power of two, for B * Hkv * S blocks to give every SM one: 4 at the
+// bench step) shares each (b, h): block r takes the tiles r, r + S, ... of
+// its visited tokens. A tile is 128 bytes of each head-dim row (64 bfloat16
+// or 128 e4m3 tokens; pages are contiguous rows [bs], bs a multiple of 16):
+// thread (t, r) of the block's 128 loads the 16 bytes t of the rows
+// r + 16 j, so a warp's load reads 4 rows of 128 contiguous bytes. The next
+// tile's K is in flight while this tile's softmax and V contraction run,
+// and its V while its own scores are taken; a tile with no live token loads
+// no K. Each thread sums its rows' part of the scores of its 8 or 16
+// tokens; the warps' parts meet in shared memory, where each slot of the
+// tile has one thread for its softmax (one exp a token); the block keeps
+// one online softmax (m, l, acc), each weight rounded against the block's
+// running maximum, and each thread contracts its V rows over its tokens.
+// At the end every block writes its state into block 0's shared memory
+// (distributed shared memory), and after one cluster barrier block 0 merges
+// them by merge_softmax_states' formula (m = max_nan, weights exp(m_s - m),
+// m taken as 0 when it is -1e30, so a block with no live token adds
+// 0 * acc: NaN stays NaN): one launch, no scratch in device memory. The new
+// column is written by block 0, and every load of its (page, slot) - in any
+// block, also through a -1 page or F4's clamp - takes the column passed in
+// instead, so no block waits for the write. The e4m3 widening is the
+// hardware's (cvt to half2, exact for every code). What holds the kernel
+// above its bound on an H100, and the designs measured against this one
+// (a split over warps, a ring of tiles in shared memory through cp.async,
+// the products on the tensor cores, an integer e4m3 decode): PERF.md.
 
-// bfloat16 bits -> fp32 (exact)
-__device__ __forceinline__ float widen(uint16_t bits) {
-  return __uint_as_float((uint32_t)bits << 16);
+constexpr int kMaxSplits = 8;  // the portable cluster size
+constexpr int kTileLoads = 8;  // 16-byte loads along a tile's tokens: 128 bytes a row
+
+// 16 loaded bytes widened to fp32: 8 bfloat16 values (exact: the bits on top)
+__device__ __forceinline__ void widen16(const uint4& r, float (&v)[8]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
 }
 
-// e4m3 (fn: no infinities; 0x7f and 0xff are NaN) -> fp32 (exact)
-__device__ __forceinline__ float widen(uint8_t code) {
-  const uint32_t em = code & 0x7Fu;
-  const uint32_t sign = (uint32_t)(code & 0x80u) << 24;
-  // normal: exponent e - 7 + 127, mantissa bits on top; subnormal: m * 2^-9
-  const float mag = em == 0x7Fu ? __uint_as_float(0x7FC00000u)
-                    : em >= 8u  ? __uint_as_float((em << 20) + (120u << 23))
-                                : (float)em * 0.001953125f;
-  return __uint_as_float(__float_as_uint(mag) | sign);
+// ... or 16 e4m3 values (0x7f and 0xff are NaN), two at a time through half
+__device__ __forceinline__ void widen16(const uint4& r, float (&v)[16]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const __half2_raw h2 =
+          __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(w[i] >> (16 * k)), __NV_E4M3);
+      const float2 f = __half22float2(__half2(h2));
+      v[4 * i + 2 * k] = f.x;
+      v[4 * i + 2 * k + 1] = f.y;
+    }
+  }
+}
+
+// element e of a loaded vector of T := the bits val
+template <typename T>
+__device__ __forceinline__ void put(uint4& r, int e, uint32_t val) {
+  constexpr int kPerWord = 4 / sizeof(T), kBits = 8 * sizeof(T);
+  constexpr uint32_t kMask = (1u << kBits) - 1u;
+  const int word = e / kPerWord, shift = (e % kPerWord) * kBits;
+  const uint32_t keep = ~(kMask << shift), set = (val & kMask) << shift;
+  r.x = word == 0 ? (r.x & keep) | set : r.x;
+  r.y = word == 1 ? (r.y & keep) | set : r.y;
+  r.z = word == 2 ? (r.z & keep) | set : r.z;
+  r.w = word == 3 ? (r.w & keep) | set : r.w;
 }
 
 template <typename T, int GROUP, int HD>
@@ -377,104 +429,268 @@ __global__ void __launch_bounds__(kThreads) float_attend_kernel(
     float* l_out,
     int Hkv, int bs, int NB, int P, int num_pages, int layer, float sm_scale, int window,
     int out_bf16, int exact, int num_chunks, int ppc, int has_new) {
-  static_assert(HD % 8 == 0 && HD <= kThreads, "a thread per head-dim value");
-  constexpr int VPAD = 4 / sizeof(T);  // one 32-bit word of padding per V row
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int vstride = bs + VPAD;
+  constexpr int VT = 16 / sizeof(T);  // tokens of one 16-byte load
+  constexpr int TG = kTileLoads;      // loads along a tile's tokens
+  constexpr int TT = TG * VT;         // tokens of a tile (64 bf16, 128 e4m3)
+  constexpr int RG = kThreads / TG;  // row groups
+  constexpr int NJ = HD / RG;         // head-dim rows of a thread
+  static_assert(HD % RG == 0 && TT <= kThreads, "tile shape");
+  constexpr unsigned kAll = 0xffffffffu;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tg = tid % TG, rg = tid / TG;  // the thread's load along tokens, its rows rg + RG j
 
-  extern __shared__ float smem[];
-  float* q_s = smem;                 // [GROUP][HD]
-  float* p_s = q_s + GROUP * HD;     // [GROUP][bs] scores, then weights
-  T* v_s = (T*)(p_s + GROUP * bs);   // [HD][vstride] V values, raw
-  __shared__ SoftmaxState<GROUP> st;
+  __shared__ float q_s[GROUP][HD];
+  __shared__ float red[kWarps][GROUP][TT];  // the warps' partial scores, slot t
+  __shared__ float p_s[GROUP][TT];          // the tile's weights, slot t
+  __shared__ float mx[kWarps][GROUP];  // the warps' tile maxima, then sums of weights
+  __shared__ float s_acc[kMaxSplits][GROUP][HD];  // in block 0: each block's state
+  __shared__ float s_ml[kMaxSplits][2][GROUP];
+  // slot t of a tile is token (t % TG) * VT + t / TG: the slots a warp
+  // writes and reads are consecutive words
 
   const int Hq = Hkv * GROUP;
   const int ctx = context_lens[b];
   const bool writes = has_new && ctx > 0 && (ctx - 1) / bs < num_pages;
-  const int tok_new = writes ? ctx - 1 : -1;
   const size_t head_page = (size_t)layer * NB * Hkv;
   const size_t row0 = (size_t)b * Hq + (size_t)h * GROUP;
-
-  stage_queries<HD / 8, GROUP, HD>((const char*)q + row0 * HD * (exact ? 4 : 2), exact, q_s, st);
-
   const size_t new_row = (size_t)b * Hkv + h;
-  const T* kn = writes ? k_new + new_row * HD : nullptr;
-  const T* vn = writes ? v_new + new_row * HD : nullptr;
 
-  // 1. the in-place write of the new token's values
-  if (writes) {
-    const int phys = max(block_table[(size_t)b * P + tok_new / bs], 0);
-    const size_t page = head_page + (size_t)phys * Hkv + h;
-    const int slot = tok_new % bs;
-    for (int d = tid; d < HD; d += kThreads) {
-      k_cache[(page * HD + d) * bs + slot] = kn[d];
-      v_cache[(page * HD + d) * bs + slot] = vn[d];
-    }
-  }
-
-  float acc[GROUP];
+  constexpr int QN = (GROUP * HD + kThreads - 1) / kThreads;  // query values a thread
+  float qv[QN];
 #pragma unroll
-  for (int g = 0; g < GROUP; ++g) acc[g] = 0.f;
+  for (int k = 0; k < QN; ++k) {
+    const int i = tid + k * kThreads;
+    const size_t idx = row0 * HD + i;
+    qv[k] = i >= GROUP * HD ? 0.f
+            : exact         ? ((const float*)q)[idx]
+                            : __bfloat162float(((const __nv_bfloat16*)q)[idx]);
+  }
 
   const int first_tok = window > 0 ? max(0, ctx - window) : 0;
-  // every page of the chunks the TPU kernel processes: those starting before ctx
+  // every slot of the chunks the TPU kernel processes: those starting before ctx
   const int tpc = ppc * bs;
-  const int npages = min((ctx + tpc - 1) / tpc, num_chunks) * ppc;
-  __syncthreads();
+  const int nvis = min((ctx + tpc - 1) / tpc, num_chunks) * tpc;
+  const int ntiles = (nvis + TT - 1) / TT;
 
-  for (int pg = 0; pg < npages; ++pg) {
-    const int pidx = min(pg, num_pages - 1);
-    const size_t page = head_page + (size_t)max(block_table[(size_t)b * P + pidx], 0) * Hkv + h;
-    const T* kp = k_cache + page * HD * bs;
-    const T* vp = v_cache + page * HD * bs;
-
-    // phase A: thread per token - scores of the live tokens, V into shared memory
-    float lmax[GROUP];
+  // the block's tiles: where the thread's load of tile ti lies, and its loads
+  auto where = [&](int ti, size_t& page, int& t_in) {
+    const int tok0 = ti * TT + tg * VT;
+    const int pg = tok0 / bs;
+    t_in = tok0 - pg * bs;
+    const int entry = block_table[(size_t)b * P + min(pg, num_pages - 1)];
+    page = head_page + (size_t)max(entry, 0) * Hkv + h;
+    return tok0;
+  };
+  auto fetch = [&](const T* cache, int ti, bool need, uint4(&r)[NJ]) {
+    size_t page;
+    int t_in;
+    const int tok0 = where(ti, page, t_in);
+    const bool ok = need && tok0 < nvis;
+    const T* p = cache + (page * HD + rg) * bs + t_in;
 #pragma unroll
-    for (int g = 0; g < GROUP; ++g) lmax[g] = kNegInf;
-    for (int t = tid; t < bs; t += kThreads) {
-      const int tok = pg * bs + t;
-      const bool is_new = tok == tok_new;
-      const bool live = tok < ctx && tok >= first_tok;
-#pragma unroll 8
-      for (int d = 0; d < HD; ++d) v_s[d * vstride + t] = is_new ? vn[d] : vp[d * bs + t];
-      float dot[GROUP];
+    for (int j = 0; j < NJ; ++j)
+      r[j] = ok ? *(const uint4*)(p + (size_t)RG * j * bs) : make_uint4(0u, 0u, 0u, 0u);
+  };
+  auto k_needed = [&](int ti) {  // the tile has a live token
+    return ti * TT < ctx && ti * TT + TT > first_tok;
+  };
+  float m[GROUP], lt[GROUP], acc[GROUP][NJ];
 #pragma unroll
-      for (int g = 0; g < GROUP; ++g) dot[g] = 0.f;
-      if (live) {
-#pragma unroll 8
-        for (int d = 0; d < HD; ++d) {
-          const float kv = widen(is_new ? kn[d] : kp[d * bs + t]);
+  for (int g = 0; g < GROUP; ++g) {
+    m[g] = kNegInf;
+    lt[g] = 0.f;  // the weights of the thread's slot
 #pragma unroll
-          for (int g = 0; g < GROUP; ++g) dot[g] = fmaf(q_s[g * HD + d], kv, dot[g]);
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < GROUP; ++g) {
-        const float s = live ? dot[g] * sm_scale : kNegInf;
-        p_s[g * bs + t] = s;
-        lmax[g] = max_nan(lmax[g], s);
-      }
-    }
-    page_weights<GROUP>(lmax, p_s, nullptr, st, pg * bs, ctx, first_tok, bs, exact != 0);
-
-    // phase C: thread per head-dim value - contract the staged V page
-    if (tid < HD) {
-      const T* vrow = v_s + tid * vstride;
-#pragma unroll
-      for (int g = 0; g < GROUP; ++g) acc[g] *= st.alpha[g];
-      for (int t = 0; t < bs; ++t) {
-        const float vv = widen(vrow[t]);
-#pragma unroll
-        for (int g = 0; g < GROUP; ++g) acc[g] = fmaf(p_s[g * bs + t], vv, acc[g]);
-      }
-    }
-    __syncthreads();
+    for (int j = 0; j < NJ; ++j) acc[g][j] = 0.f;
+  }
+  uint4 kr[NJ], vr[NJ];
+  int i = rank;
+  if (i < ntiles) {
+    fetch(k_cache, i, k_needed(i), kr);
+    fetch(v_cache, i, true, vr);
   }
 
-  store_output<GROUP, HD>(acc, st, out, row0, out_bf16, m_out, l_out);
+  // the in-place write of the new token's values, by block 0, with the
+  // first tile's loads in flight; the physical page and slot it lands in
+  // are overlaid on every load of every block
+  size_t page_new = ~(size_t)0;
+  int slot_new = -1;
+  if (writes) {
+    const int tok = ctx - 1;
+    page_new = head_page + (size_t)max(block_table[(size_t)b * P + tok / bs], 0) * Hkv + h;
+    slot_new = tok % bs;
+    if (rank == 0) {
+      for (int d = tid; d < HD; d += kThreads) {
+        k_cache[(page_new * HD + d) * bs + slot_new] = k_new[new_row * HD + d];
+        v_cache[(page_new * HD + d) * bs + slot_new] = v_new[new_row * HD + d];
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < QN; ++k) {
+    const int i = tid + k * kThreads;
+    if (i < GROUP * HD) q_s[i / HD][i % HD] = qv[k];
+  }
+  __syncthreads();
+  for (; i < ntiles; i += splits) {
+    const int next = i + splits;
+    size_t page;
+    int t_in;
+    const int tok0 = where(i, page, t_in);
+    if (tok0 < nvis && page == page_new && slot_new >= t_in && slot_new < t_in + VT) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const size_t d = (size_t)rg + RG * j;
+        put<T>(kr[j], slot_new - t_in, (uint32_t)k_new[new_row * HD + d]);
+        put<T>(vr[j], slot_new - t_in, (uint32_t)v_new[new_row * HD + d]);
+      }
+    }
+    if (!k_needed(i)) {
+      // no live token: V alone, its weights 0, but 0 * NaN is NaN
+      if (next < ntiles) fetch(k_cache, next, k_needed(next), kr);  // in flight from here
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float vv[VT];
+        widen16(vr[j], vv);
+        float z = 0.f;
+#pragma unroll
+        for (int e = 0; e < VT; ++e) z = fmaf(0.f, vv[e], z);
+#pragma unroll
+        for (int g = 0; g < GROUP; ++g) acc[g][j] += z;
+      }
+    } else {
+      float s[GROUP][VT];  // partial scores over the thread's rows
+#pragma unroll
+      for (int g = 0; g < GROUP; ++g) {
+#pragma unroll
+        for (int e = 0; e < VT; ++e) s[g][e] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float kv[VT];
+        widen16(kr[j], kv);
+#pragma unroll
+        for (int g = 0; g < GROUP; ++g) {
+          const float qv = q_s[g][rg + RG * j];
+#pragma unroll
+          for (int e = 0; e < VT; ++e) s[g][e] = fmaf(qv, kv[e], s[g][e]);
+        }
+      }
+      if (next < ntiles) fetch(k_cache, next, k_needed(next), kr);  // in flight from here
+#pragma unroll
+      for (int o = TG; o < 32; o <<= 1) {  // the warp's row groups
+#pragma unroll
+        for (int g = 0; g < GROUP; ++g) {
+#pragma unroll
+          for (int e = 0; e < VT; ++e) s[g][e] += __shfl_xor_sync(kAll, s[g][e], o);
+        }
+      }
+      if (lane < TG) {
+#pragma unroll
+        for (int g = 0; g < GROUP; ++g) {
+#pragma unroll
+          for (int e = 0; e < VT; ++e) red[warp][g][e * TG + tg] = s[g][e];
+        }
+      }
+      __syncthreads();
+      // slot tid (threads past the tile's TT slots have none): its token's
+      // scores (the warps' sum), the tile's maximum
+      const int tok = i * TT + (tid % TG) * VT + tid / TG;
+      const bool slot = tid < TT;
+      const bool live = slot && tok < nvis && tok < ctx && tok >= first_tok;
+      float sc[GROUP];
+#pragma unroll
+      for (int g = 0; g < GROUP; ++g) {
+        float x = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) x += slot ? red[w][g][tid] : 0.f;
+        sc[g] = live ? x * sm_scale : kNegInf;
+        const float wm = warp_max(sc[g]);
+        if (lane == 0) mx[warp][g] = wm;
+      }
+      __syncthreads();
+      float alpha[GROUP];
+#pragma unroll
+      for (int g = 0; g < GROUP; ++g) {
+        float tmax = mx[0][g];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) tmax = max_nan(tmax, mx[w][g]);
+        const float m_new = max_nan(m[g], tmax);
+        alpha[g] = expf(m[g] - m_new);
+        const float p = live ? expf(sc[g] - m_new) : 0.f;
+        lt[g] = lt[g] * alpha[g] + p;
+        if (slot) p_s[g][tid] = exact ? p : __bfloat162float(__float2bfloat16(p));
+        m[g] = m_new;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float vv[VT];
+        widen16(vr[j], vv);
+#pragma unroll
+        for (int g = 0; g < GROUP; ++g) {
+          float a = acc[g][j] * alpha[g];
+#pragma unroll
+          for (int e = 0; e < VT; ++e) a = fmaf(p_s[g][e * TG + tg], vv[e], a);
+          acc[g][j] = a;
+        }
+      }
+    }
+    if (next < ntiles) fetch(v_cache, next, true, vr);  // in flight over the next K's use
+  }
+
+  // the block's state into block 0's shared memory, which merges the
+  // cluster's blocks once they have all arrived
+  float* c_acc = cluster.map_shared_rank(&s_acc[0][0][0], 0) + (size_t)rank * GROUP * HD;
+  float* c_ml = cluster.map_shared_rank(&s_ml[0][0][0], 0) + (size_t)rank * 2 * GROUP;
+#pragma unroll
+  for (int g = 0; g < GROUP; ++g) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      float a = acc[g][j];
+#pragma unroll
+      for (int o = 1; o < TG; o <<= 1) a += __shfl_xor_sync(kAll, a, o);  // over the tokens
+      if (tg == 0) c_acc[g * HD + rg + RG * j] = a;
+    }
+    const float ls = warp_sum(lt[g]);
+    if (lane == 0) mx[warp][g] = ls;
+  }
+  __syncthreads();
+  if (tid < GROUP) {
+    float ls = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) ls += mx[w][tid];
+    c_ml[tid] = m[tid];
+    c_ml[GROUP + tid] = ls;
+  }
+  cluster.sync();
+  if (rank != 0) return;
+  for (int i = tid; i < GROUP * HD; i += kThreads) {
+    const int g = i / HD, d = i % HD;
+    float mg = kNegInf;
+    for (int r = 0; r < splits; ++r) mg = max_nan(mg, s_ml[r][0][g]);
+    const float mz = mg > 0.5f * kNegInf ? mg : 0.f;
+    float a = 0.f, lsum = 0.f;
+    for (int r = 0; r < splits; ++r) {
+      const float wt = expf(s_ml[r][0][g] - mz);
+      a = fmaf(s_acc[r][g][d], wt, a);
+      lsum = fmaf(s_ml[r][1][g], wt, lsum);
+    }
+    const float o = m_out ? a : lsum > 0.f ? a / lsum : 0.f;
+    const size_t idx = (row0 + g) * HD + d;
+    if (out_bf16)
+      ((__nv_bfloat16*)out)[idx] = __float2bfloat16(o);
+    else
+      ((float*)out)[idx] = o;
+    if (m_out && d == 0) {
+      m_out[row0 + g] = mg;
+      l_out[row0 + g] = lsum;
+    }
+  }
 }
 
 template <typename T, int GROUP, int HD>
@@ -483,19 +699,30 @@ cudaError_t launch_float(const void* q, const void* k_new, const void* v_new, vo
                          void* out, void* m_out, void* l_out, int B, int Hkv, int bs, int NB,
                          int P, int num_pages, int layer, float sm_scale, int window,
                          int out_bf16, int exact, int num_chunks, int ppc, int has_new,
-                         cudaStream_t stream) {
-  const size_t smem = (size_t)(GROUP * HD + GROUP * bs) * sizeof(float) +
-                      (size_t)HD * (bs + 4 / sizeof(T)) * sizeof(T);
-  if (smem > 48 * 1024 || num_pages < 1 || num_pages > P || ppc < 1 || num_chunks < 1 ||
-      (long)num_chunks * ppc < num_pages)
+                         int splits, cudaStream_t stream) {
+  // pages whose rows are whole 16-byte loads, at 16-byte aligned caches
+  if (splits < 1 || splits > kMaxSplits || bs < 16 || bs % 16 != 0 ||
+      ((uintptr_t)k_cache | (uintptr_t)v_cache) % 16 != 0 || num_pages < 1 || num_pages > P ||
+      ppc < 1 || num_chunks < 1 || (long)num_chunks * ppc < num_pages)
     return cudaErrorInvalidValue;
-  dim3 grid(Hkv, B);
-  float_attend_kernel<T, GROUP, HD><<<grid, kThreads, smem, stream>>>(
-      q, (const T*)k_new, (const T*)v_new, (T*)k_cache, (T*)v_cache,
-      (const int32_t*)block_table, (const int32_t*)context_lens, out, (float*)m_out,
-      (float*)l_out, Hkv, bs, NB, P, num_pages, layer, sm_scale, window, out_bf16, exact,
-      num_chunks, ppc, has_new);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, Hkv, B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, float_attend_kernel<T, GROUP, HD>, q, (const T*)k_new, (const T*)v_new,
+      (T*)k_cache, (T*)v_cache, (const int32_t*)block_table, (const int32_t*)context_lens, out,
+      (float*)m_out, (float*)l_out, Hkv, bs, NB, P, num_pages, layer, sm_scale, window,
+      out_bf16, exact, num_chunks, ppc, has_new);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace
@@ -541,11 +768,13 @@ extern "C" int write_attend_launch(
   return (int)err;
 }
 
-// Launches K2f (float_attend_kernel) on `stream` and returns
-// cudaGetLastError() (0 on success). fp8 = 0: bfloat16 caches (codec fp16),
-// fp8 = 1: e4m3. Instances for (group, head_dim) = (2, 16) (tiny-llama),
-// (2, 128) (bench-0.9b) and (4, 128) (the kernel benchmark); any other
-// pair returns cudaErrorInvalidValue.
+// Launches K2f (float_attend_kernel) on `stream` as `splits` (1-8) blocks a
+// cluster per (sequence, KV head) and returns its launch error (0 on
+// success). fp8 = 0: bfloat16 caches (codec fp16), fp8 = 1: e4m3.
+// Instances for (group, head_dim) = (2, 16) (tiny-llama), (2, 128)
+// (bench-0.9b) and (4, 128) (the kernel benchmark); any other pair, a
+// block size that is not a multiple of 16, or caches not 16-byte aligned
+// return cudaErrorInvalidValue.
 // Tensors contiguous; q, out, window, P, num_pages, num_chunks, ppc,
 // has_new, m_out and l_out as in write_attend_launch (k_new and v_new may
 // be null when has_new = 0).
@@ -554,10 +783,10 @@ extern "C" int float_attend_launch(
     const void* block_table, const void* context_lens, void* out, void* m_out, void* l_out,
     int B, int Hkv, int group, int head_dim, int fp8, int bs, int NB, int P, int num_pages,
     int layer, float sm_scale, int window, int out_bf16, int exact, int num_chunks, int ppc,
-    int has_new, void* stream) {
+    int has_new, int splits, void* stream) {
 #define FA_ARGS q, k_new, v_new, k_cache, v_cache, block_table, context_lens, out, m_out,  \
     l_out, B, Hkv, bs, NB, P, num_pages, layer, sm_scale, window, out_bf16, exact,       \
-    num_chunks, ppc, has_new, (cudaStream_t)stream
+    num_chunks, ppc, has_new, splits, (cudaStream_t)stream
 #define FA_LAUNCH(G, H) \
   err = fp8 ? launch_float<uint8_t, G, H>(FA_ARGS) : launch_float<uint16_t, G, H>(FA_ARGS)
   cudaError_t err = cudaErrorInvalidValue;

@@ -19,7 +19,9 @@ return the unnormalised softmax state:
   * ``float_attend`` in ``csrc/write_attend.cu`` (K2f, and K4's reads of
     the float codecs): the raw values of fp16 (stored as bfloat16) and fp8
     (e4m3), widened to float32, with no scales, no zero point and no
-    statistics (a float read that collects them returns zeros).
+    statistics (a float read that collects them returns zeros). It splits
+    a sequence's visited tokens over a cluster of ``float_splits`` blocks
+    and merges their softmax states as ``merge_softmax_states`` does.
 
 Launches are counted on the wrapper that made them:
 ``paged_attention_ecc_write_attend.launches`` (write_attend.cu),
@@ -79,6 +81,27 @@ _CODEC_IDS = {"hamming84": 0, "hamming74": 1, "golay": 2}
 # for bfloat16 (fp16) and e4m3 (fp8): tiny-llama, bench-0.9b and the kernel
 # benchmark
 FLOAT_KERNEL_SHAPES = ((2, 16), (2, 128), (4, 128))
+FLOAT_MAX_SPLITS = 8  # float_attend's largest cluster (kMaxSplits), the portable size
+_FLOAT_TILE_BYTES = 128  # bytes of each head-dim row in a float_attend tile (kTileLoads)
+
+
+def float_splits(batch: int, num_kv_heads: int, visited_tokens: int, elem_bytes: int,
+                 sms: int) -> int:
+    """The blocks S (a power of two, 1 to 8) that float_attend gives each
+    (sequence, KV head): the fewest with batch * num_kv_heads * S blocks at
+    least one per SM, and no more than leave every block a tile of the
+    visited tokens (a tile holds 128 bytes of each head-dim row: 64 bfloat16
+    or 128 e4m3 tokens)."""
+    tiles = -(-visited_tokens * elem_bytes // _FLOAT_TILE_BYTES)
+    s = 1
+    while s < FLOAT_MAX_SPLITS and batch * num_kv_heads * s < sms and s < tiles:
+        s *= 2
+    return s
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def visited_pages(num_pages: int, pages_per_chunk: int) -> int:
@@ -181,14 +204,17 @@ def _write_column(cols, arrays, scale_cols, scale_arrays, block_table, context_l
 
 
 def _online_attend(query, kn, vn, ks, vs, context_lens, bs, *, sm_scale,
-                   sliding_window, exact=False):
+                   sliding_window, exact=False, page_range=None):
     """The kernels' attention over dequantization-free codes: kn / vn
     [B, Hkv, tokens, D] nibbles minus 8 (float32), ks / vs [B, Hkv, tokens]
     scales. A masked softmax taken online page by page with the kernels'
     precision: "fast" (``exact`` False) rounds q and p * v_scale to bf16,
     "highest" keeps both in float32; sums in float32. Returns the
     unnormalised state: acc [B, Hq, D], the running maximum m and the sum of
-    weights l [B, Hq], float32 (an empty row: 0, -1e30, 0)."""
+    weights l [B, Hq], float32 (an empty row: 0, -1e30, 0). With
+    ``page_range`` (page indices) the state of those pages alone, each
+    weight rounded against their own running maximum: a split of K2f's
+    context, whose states ``merge_softmax_states`` merges."""
     batch, num_q_heads, head_dim = query.shape
     num_kv_heads, tokens = kn.shape[1], kn.shape[2]
     group = num_q_heads // num_kv_heads
@@ -203,7 +229,7 @@ def _online_attend(query, kn, vn, ks, vs, context_lens, bs, *, sm_scale,
     m = torch.full((batch, num_kv_heads, group, 1), _NEG_INF, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((batch, num_kv_heads, group, head_dim), device=q.device)
-    for start in range(0, tokens, bs):
+    for start in range(0, tokens, bs) if page_range is None else (p * bs for p in page_range):
         t = slice(start, start + bs)
         s = torch.einsum("bhgd,bhtd->bhgt", q, kn[:, :, t])
         s = s * (ks[:, :, None, t] * sm_scale)
@@ -221,6 +247,20 @@ def _online_attend(query, kn, vn, ks, vs, context_lens, bs, *, sm_scale,
         m = m_new
     return (acc.reshape(batch, num_q_heads, head_dim), m.reshape(batch, num_q_heads),
             l.reshape(batch, num_q_heads))
+
+
+def merge_softmax_states(acc, m, l):
+    """The softmax state of a context from those of its splits, the splits
+    leading (acc [S, ..., D], m and l [S, ...]): JAX's merge_softmax_shards
+    (qkv_ecc_tpu/parallel/context_parallel.py:30) without the collectives,
+    returning the merged state (acc [..., D], m, l) whose ``_normalise`` is
+    that function's output. m is the splits' largest (NaN when one is NaN);
+    split s weighs exp(m_s - m), m taken as 0 when it is -1e30 (every split
+    empty), so a split without a live token adds 0 * acc: NaN stays NaN.
+    float_attend's block 0 merges the blocks of its cluster so."""
+    m_g = m.amax(dim=0)
+    w = torch.exp(m - torch.where(m_g > _NEG_INF / 2, m_g, torch.zeros_like(m_g)))
+    return (acc * w[..., None]).sum(dim=0), m_g, (l * w).sum(dim=0)
 
 
 def _normalise(acc, l, dtype):
@@ -352,7 +392,7 @@ def interpolate_chunked(nib, dbl, context_lens, chunk_tokens: int):
 def _read(query, k_cache, v_cache, k_scales, v_scales, block_table, context_lens, layer_idx,
           k_parity=None, v_parity=None, *, codec, sm_scale, num_pages, pages_per_chunk,
           precision="fast", sliding_window=None, read_threshold=None, read_seed=0,
-          interpolate=False, collect_stats=False):
+          interpolate=False, collect_stats=False, page_range=None):
     """What every kernel reads, in plain PyTorch: the pages the kernel
     visits (``visited_pages``, F4's clamp included), then
 
@@ -364,10 +404,11 @@ def _read(query, k_cache, v_cache, k_scales, v_scales, block_table, context_lens
         ``interpolate``;
       * fp16 / fp8: ``_float_values``, with scales of 1;
 
-    attended as ``_online_attend``. Returns (acc, m, l) and the stats [B, 2]
-    int32 over the valid tokens (zeros without ``collect_stats``, and for
-    the float codecs): the flipped read bits in slot 0 with read injection,
-    else ``count_errors``."""
+    attended as ``_online_attend`` (over the visited pages ``page_range``
+    alone, when given). Returns (acc, m, l) and the stats [B, 2] int32 over
+    the valid tokens (zeros without ``collect_stats``, and for the float
+    codecs): the flipped read bits in slot 0 with read injection, else
+    ``count_errors``."""
     batch, head_dim = query.shape[0], query.shape[-1]
     _, _, Hkv, dw, bs = k_cache.shape
     pages = visited_pages(num_pages, pages_per_chunk)
@@ -378,7 +419,8 @@ def _read(query, k_cache, v_cache, k_scales, v_scales, block_table, context_lens
                              pages_per_chunk)
         ones = torch.ones(k.shape[:3], device=query.device)
         state = _online_attend(query, k, v, ones, ones, context_lens, bs, sm_scale=sm_scale,
-                               sliding_window=sliding_window, exact=precision == "highest")
+                               sliding_window=sliding_window, exact=precision == "highest",
+                               page_range=page_range)
         return state, stats
     flips = None
     if read_threshold is not None:
@@ -409,7 +451,7 @@ def _read(query, k_cache, v_cache, k_scales, v_scales, block_table, context_lens
     state = _online_attend(query, codes(k_cache, k_parity, 0), codes(v_cache, v_parity, 1),
                            scales(k_scales), scales(v_scales), context_lens, bs,
                            sm_scale=sm_scale, sliding_window=sliding_window,
-                           exact=precision == "highest")
+                           exact=precision == "highest", page_range=page_range)
     return state, stats
 
 
@@ -627,10 +669,11 @@ def _launch_float(query, k_new, v_new, k_cache, v_cache, block_table, context_le
                   layer_idx, *, codec, sm_scale, num_pages, precision, sliding_window,
                   pages_per_chunk, collect_stats, return_softmax_state, counter):
     """Check what csrc/write_attend.cu's float_attend takes (K2f), allocate
-    the outputs and launch it on the current stream; ``k_new`` None reads
-    without writing. The stats of ``collect_stats`` stay zero. The launch
-    counts on ``counter`` (default: paged_attention_ecc_write_attend) under
-    the codec's name."""
+    the outputs and launch it on the current stream as ``float_splits``
+    blocks per (sequence, KV head); ``k_new`` None reads without writing.
+    The stats of ``collect_stats`` stay zero. The launch counts on
+    ``counter`` (default: paged_attention_ecc_write_attend) under the
+    codec's name."""
     batch, num_q_heads, head_dim = query.shape
     L, NB, Hkv, D, bs = k_cache.shape
     group = num_q_heads // Hkv
@@ -651,6 +694,9 @@ def _launch_float(query, k_new, v_new, k_cache, v_cache, block_table, context_le
          "block table or context length shapes"),
         (0 <= layer_idx < L, "layer out of range"),
         (pages_per_chunk >= 1, "pages_per_chunk must be positive"),
+        (bs % 16 == 0, f"block size {bs} is not a multiple of 16 (whole 16-byte loads)"),
+        (k_cache.data_ptr() % 16 == 0 and v_cache.data_ptr() % 16 == 0,
+         "the caches must be 16-byte aligned"),
         (group * Hkv == num_q_heads and (group, head_dim) in FLOAT_KERNEL_SHAPES,
          f"(GQA group, head_dim) = {(group, head_dim)} has no kernel instance; built: "
          f"{FLOAT_KERNEL_SHAPES}"),
@@ -658,13 +704,15 @@ def _launch_float(query, k_new, v_new, k_cache, v_cache, block_table, context_le
     q = _kernel_query(query, precision)
     out, stats, m, l = _outputs(query, collect_stats, return_softmax_state)
     ptrs = (q, k_new, v_new, k_cache, v_cache, block_table, context_lens, out, m, l)
-    rc = launcher("write_attend", "p" * 10 + "i" * 10 + "f" + "i" * 6 + "p",
+    splits = float_splits(batch, Hkv, visited_pages(num_pages, pages_per_chunk) * bs,
+                          k_cache.element_size(), _sm_count(query.device.index))
+    rc = launcher("write_attend", "p" * 10 + "i" * 10 + "f" + "i" * 7 + "p",
                    symbol="float_attend_launch")(
         *(0 if t is None else t.data_ptr() for t in ptrs), batch, Hkv, group, head_dim,
         int(codec == "fp8"), bs, NB, block_table.shape[1], num_pages, int(layer_idx),
         float(sm_scale), int(sliding_window or 0), int(out.dtype == torch.bfloat16),
         int(precision == "highest"), C.cdiv(num_pages, pages_per_chunk), pages_per_chunk,
-        int(bool(new)), _stream(query))
+        int(bool(new)), splits, _stream(query))
     if rc != 0:
         raise RuntimeError(f"float_attend kernel launch failed: cudaError {rc}")
     _count(counter or paged_attention_ecc_write_attend, codec)

@@ -130,6 +130,32 @@ def test_golay_write_scrub_matches_jax():
         tk.golay_write_scrub_cuda(torch.from_numpy(d12), torch.from_numpy(mask[:2]))
 
 
+@pytest.mark.parametrize("form", ["rows", "nibble tables"])
+def test_golay_encode_without_popcounts(form):
+    """The plain form of K7's encode on the card: B (the port's and the JAX
+    package's row masks) equals its transpose, so x . B is the XOR of the
+    rows that x's bits select, and by linearity the XOR of three 16-entry
+    tables, one per nibble of x (csrc/golay.cuh's encode tables); either
+    gives golay_encode_plain's codeword for all 4096 data words."""
+    from qkv_ecc_tpu.codecs.algebra import GOLAY_B_ROW_MASKS as jax_rows
+    from qkv_ecc_tpu_torch.codecs.algebra import GOLAY_B_ROW_MASKS as rows
+
+    np.testing.assert_array_equal(rows, jax_rows)
+    b = (rows[:, None] >> np.arange(12)) & 1  # b[i, j] = B[i, j]
+    np.testing.assert_array_equal(b, b.T)
+    x = np.arange(4096, dtype=np.int64)
+    sel = (x[:, None] >> np.arange(12)) & 1  # [word, row i]: bit i of x
+    if form == "rows":
+        parity = np.bitwise_xor.reduce(np.where(sel == 1, rows.astype(np.int64), 0), axis=1)
+    else:
+        tables = np.array([[np.bitwise_xor.reduce([int(rows[4 * k + i]) for i in range(4)
+                                                   if n >> i & 1] or [0]) for n in range(16)]
+                           for k in range(3)], dtype=np.int64)
+        parity = tables[0][x & 15] ^ tables[1][x >> 4 & 15] ^ tables[2][x >> 8]
+    want = tk.golay_encode_plain(torch.arange(4096, dtype=torch.int32)).numpy()
+    np.testing.assert_array_equal((x | parity << 12).astype(np.int32), want)
+
+
 @pytest.mark.parametrize("name", HAMMING + ("golay_encode_packed", "golay_decode_packed"))
 def test_empty_input_matches_jax(name):
     """Empty input: zeros of the shape and the JAX dtypes, no launch."""

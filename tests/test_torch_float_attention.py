@@ -281,3 +281,81 @@ def test_reference_and_checks():
                                     t["ctx"], 0, codec=codec, block_size=BS)
     assert tpa.paged_attention_ecc_write_attend.launches == 0
     assert tpa.paged_attention_ecc.launches == 0
+
+
+@pytest.mark.parametrize("splits", [2, 3, 5])
+def test_merge_softmax_states_matches_jax(splits):
+    """merge_softmax_states against JAX's merge_softmax_shards run under
+    jax.vmap with the splits as its axis name: random states from a seed,
+    one split empty (m -1e30, l 0) whose acc holds a NaN (a dead slot's
+    NaN V: 0 * NaN stays NaN), a NaN in a non-empty split's acc, and a row
+    whose every split is empty (reads 0). NaN at the same elements, the
+    rest within 1e-6; m is the splits' largest."""
+    from qkv_ecc_tpu.parallel.context_parallel import merge_softmax_shards
+
+    rng = np.random.default_rng(20 + splits)
+    acc = rng.normal(size=(splits, 3, 4, D)).astype(np.float32)
+    m = rng.normal(scale=4.0, size=(splits, 3, 4)).astype(np.float32)
+    l = (rng.random((splits, 3, 4)) + 0.5).astype(np.float32)
+    m[1], l[1], acc[1] = -1e30, 0.0, 0.0
+    acc[1, 0, 1, 2] = np.nan
+    acc[0, 2, 0, 7] = np.nan
+    m[:, 1, 3], l[:, 1, 3], acc[:, 1, 3] = -1e30, 0.0, 0.0
+    want = jax.vmap(lambda a, mm, ll: merge_softmax_shards(a, mm, ll, "splits"),
+                    axis_name="splits")(acc, m, l)[0]
+    got_acc, got_m, got_l = tpa.merge_softmax_states(*(torch.from_numpy(x) for x in (acc, m, l)))
+    got = tpa._normalise(got_acc, got_l, torch.float32).numpy()
+    assert_close(got, np.asarray(want), 1e-6, rtol=1e-6)
+    assert np.isnan(got[0, 1, 2]) and np.isnan(got[2, 0, 7]) and not got[1, 3].any()
+    np.testing.assert_array_equal(got_m.numpy(), m.max(axis=0))
+
+
+def _split_read(case, codec, parts, num_pages, write, layer=1):
+    """The plain model of K2f's split: (after the port's plain write, for a
+    write+attend) the visited pages cut into `parts` contiguous ranges, each
+    read as a softmax state with its weights rounded against its own running
+    maximum, merged by merge_softmax_states and normalised. Returns the
+    output (float32 numpy) and the arrays after the write."""
+    t = {n: to_torch(case[n].copy()) for n in case}
+    if write:
+        tpa._write_column((t["kn"], t["vn"]), (t["k_cache"], t["v_cache"]), (), (), t["bt"],
+                          t["ctx"], layer, num_pages)
+    visited = tpa.visited_pages(num_pages, PPC)
+    states = [tpa._read(t["q"], *(t[n] for n in NAMES), t["bt"], t["ctx"], layer, codec=codec,
+                        sm_scale=D ** -0.5, num_pages=num_pages, pages_per_chunk=PPC,
+                        page_range=r)[0]
+              for r in np.array_split(np.arange(visited), parts)]
+    acc, _, l = tpa.merge_softmax_states(*(torch.stack(x) for x in zip(*states)))
+    return tpa._normalise(acc, l, torch.float32).numpy(), {n: to_numpy(t[n]) for n in NAMES}
+
+
+@pytest.mark.parametrize("codec", ["fp16", "fp8"])
+@pytest.mark.parametrize("variant", ["clean", "NaN pages", "-1 page, num_pages 5"])
+@pytest.mark.parametrize("read", [False, True])
+def test_split_read_matches_jax(codec, variant, read):
+    """The rounding of K2f's split context fits the stated tolerance: the
+    visited pages cut into 2, 3 and 4 ranges (_split_read) stay within
+    tolerance(case) of JAX's paged_attention_ecc_write_attend (arrays after
+    the write equal) and paged_attention_ecc, NaN where JAX has NaN: on a
+    clean cache; with NaN in a live K slot, a live V slot, a dead V slot of
+    the last page and a page past the context in the last chunk; and with a
+    -1 page (row 2 reads page 0) and F4's num_pages 5 (6 pages visited)."""
+    case = build_case(codec, seed=9)
+    num_pages = PAGES
+    if variant == "NaN pages":
+        poison(case, codec, "k_cache", 0, 0)
+        bits(case["kn"])[0, 0, 3] = NAN_BITS[codec]
+        poison(case, codec, "v_cache", 1, 5)
+        poison(case, codec, "v_cache", 2, 45)
+        poison(case, codec, "v_cache", 3, 85)
+    elif variant != "clean":
+        case["bt"][2, 0] = -1
+        num_pages = 5
+    want, want_arrays = run_jax(case, codec, read=read, num_pages=num_pages)
+    for parts in (2, 3, 4):
+        got, arrays = _split_read(case, codec, parts, num_pages, write=not read)
+        assert_close(got, want, tolerance(case), f"{parts} ranges")
+        if not read:
+            same_arrays(want_arrays, arrays)
+    if variant == "NaN pages":
+        assert np.isnan(got[1:, :GROUP, 3]).all() and not got[0, :GROUP].any()
