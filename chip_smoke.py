@@ -18,9 +18,15 @@ read-time injection, the hamming84 / hamming74 / golay correcting reads
 with and without ECC statistics, the -1 page clamp, precision "highest")
 and K4, the read alone (paged_attention_ecc: every branch with and without
 statistics, the softmax state with a sliding window, an empty row, a -1
-page, and the chunk-clamped pages of F4 on all three kernels) - and checks
-the card against the CPU on tiny-llama in every mode, fp16 and fp8
-included. Then it drives bench-0.9b (random bf16 weights from a seed)
+page, and the chunk-clamped pages of F4 on all three kernels); then the
+packed kernels' split of a sequence's pages over S blocks at S = 1, the
+rule's and 3 (whose blocks' pages begin inside a chunk): Golay's correcting
+read, write+attend and K4, on caches whose codewords carry every error
+pattern of weight 0-3 and 4000 of weight 4, at bench-0.9b's shapes and at
+tiny-llama's, and int4's read-inject read, write+attend and K4, with and
+without statistics, with a sliding window and with a row of context 0 -
+and checks the card against the CPU on tiny-llama in every mode, fp16 and
+fp8 included. Then it drives bench-0.9b (random bf16 weights from a seed)
 through the port's entry points on four paths:
   * the decode slice: batch 8, prompt 1024, 32 greedy steps at BER 1e-2 in
     the five arms of the JAX bench.py (int12-golay, int4-hamming84,
@@ -58,17 +64,23 @@ Each path checks that every kernel branch it calls was launched exactly as
 often as it calls it. Then it times the kernels (K2f beside
 scaled_dot_product_attention over the same context stored dense, fp16's
 yardstick, and its read at 1, 2, 4 and 8 blocks per sequence and KV head
-and with no token; the Golay and Hamming encodes beside a gather from the table of
-all codewords; each beside its bound: the bytes at 3.35 TB/s or the fp32
-flops at 67 T/s, the integer operations counted from the source printed as
-an estimate) and traces the decode step of each arm. Every phase prints
+and with no token; Golay's correcting read and the read-inject read at 1,
+2, 4 and 8 blocks, against their required times and targets; the Golay
+and Hamming encodes beside a gather from the table of all codewords; each
+beside its bound: the bytes at 3.35 TB/s or the fp32 flops at 67 T/s; the
+integer bound of Golay's decode and of the read hashes from their SASS
+instructions per pipe (kernels/sass_count.py), the other integer
+operations counted from the source printed as an estimate) and traces the
+decode step of each arm. Every phase prints
 one line with its seconds; any failure exits non-zero. Without a CUDA
 device it fails.
 
-Output, last lines: the kernel table as one JSON object, the card's name and
-power limit from nvidia-smi, then {"ok": true, "device": {...}}.
+Output, last lines: the kernel table as one JSON object (each kernel also
+with int_bound_ms, its integer bound where counted, else null), the card's
+name and power limit from nvidia-smi, then {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -99,12 +111,16 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # one data word with its parity word (decode_attend.cu: codeword rebuild 10,
 # two SWAR decodes of 49, repack 4) and the interpolation of one word (10);
 # hamming74's decode of one data word (parity gather 8 lanes x 3 planes x 4,
-# syndromes 15, correction 14, count 5); golay's IMLD of one codeword
-# (rebuild 18, two products by B of 60, two candidate loops of 72 and 84,
-# selects and counts 22, repack 9); the read flips of one word (32 hashes of
-# 12.5: fmix32 8, counter, compare, insert; XOR and count 5)
+# syndromes 15, correction 14, count 5). Golay's syndrome-table decode and
+# the read flips' hashes are counted in the built SASS instead
+# (kernels/sass_count.py), which gives them an integer bound
 DECODE_OPS_PER_WORD, INTERP_OPS_PER_WORD = 112, 10
-H74_OPS_PER_WORD, GOLAY_OPS_PER_CODEWORD, INJECT_OPS_PER_WORD = 130, 325, 405
+H74_OPS_PER_WORD = 130
+# the required times at the bench step, and the targets (us), of the two
+# kernels this port redesigned last: Golay's correcting read and the
+# read-inject read
+REQUIRED_US = {"golay": 180.0, "read-inject": 200.0}
+TARGET_US = {"golay": 60.0, "read-inject": 100.0}
 
 
 def say(msg):
@@ -335,12 +351,18 @@ def decode_kernel_check(torch, gen, device):
 def read_inject_check(torch, gen, device):
     """int4's read-time injection (write_attend with read_inject_ber 1e-2, a
     device seed) against write_attend_plain at bench-0.9b attention shapes,
-    with and without stats: caches and scales equal (they change only in the
-    new column), the flipped-bit count equal, outputs within
-    output_tolerance."""
+    with and without stats, with a sliding window of 256 (stats on: the
+    flips before the window are counted, never attended) and with row 5 of
+    context 0 (nothing written, attended or counted): caches and scales
+    equal (they change only in the new column), the flipped-bit count
+    equal, outputs within output_tolerance. Then K4's read-inject read on
+    the same cache (paged_attention_ecc, no new column) with stats, a
+    window and the empty row, against attend_plain. Labels name the blocks
+    S per (sequence, KV head)."""
     import dataclasses
     from qkv_ecc_tpu_torch.kernels.paged_attention import (
-        paged_attention_ecc_write_attend as write_attend, write_attend_plain)
+        attend_plain, paged_attention_ecc, paged_attention_ecc_write_attend as write_attend,
+        write_attend_plain)
     from qkv_ecc_tpu_torch.models.config import BENCH_0_9B
 
     cfg = dataclasses.replace(BENCH_0_9B, num_layers=2)
@@ -348,29 +370,196 @@ def read_inject_check(torch, gen, device):
     B, Hq, D = len(ctx_before), cfg.num_heads, cfg.head_dim
     state, bt, new = unscrubbed_cache(torch, cfg, "int4", ctx_before, gen, device, ber=0.0)
     ctx = torch.tensor(ctx_before, dtype=torch.int32, device=device) + 1
+    empty = ctx.clone()
+    empty[5] = 0
     names = ("k_cache", "v_cache", "k_scales", "v_scales")
+    s = splits_label(torch, B, cfg.num_kv_heads, bt.shape[1], 4, read_inject=True)
     worst = 0.0
-    for stats in (False, True):
+    thr = int(BER * 2 ** 32)
+    for stats, window, c, what in ((False, None, ctx, ""), (True, None, ctx, ""),
+                                   (True, 256, ctx, " window=256"),
+                                   (True, None, empty, " row 5 of context 0")):
         q = torch.randn((B, Hq, D), generator=gen, device=device).to(torch.bfloat16)
         seed = torch.randint(-2 ** 31, 2 ** 31, (), generator=gen, device=device).to(torch.int32)
         a = {n: state[n].clone() for n in names}
         p = {n: state[n].clone() for n in names}
-        out = write_attend(q, *new, *(a[n] for n in names), bt, ctx, 1, codec="int4",
-                           read_inject_ber=BER, read_inject_seed=seed, collect_stats=stats)
+        out = write_attend(q, *new, *(a[n] for n in names), bt, c, 1, codec="int4",
+                           read_inject_ber=BER, read_inject_seed=seed, collect_stats=stats,
+                           sliding_window=window)
         torch.cuda.synchronize()
-        ref = write_attend_plain(q, *new, *(p[n] for n in names), bt, ctx, 1,
-                                 sm_scale=D ** -0.5, read_threshold=int(BER * 2 ** 32),
-                                 read_seed=seed, pages_per_chunk=4, collect_stats=stats)
+        ref = write_attend_plain(q, *new, *(p[n] for n in names), bt, c, 1,
+                                 sm_scale=D ** -0.5, read_threshold=thr, read_seed=seed,
+                                 pages_per_chunk=4, collect_stats=stats, sliding_window=window)
         (out, st), (ref, ref_st) = (out, ref) if stats else ((out, None), (ref, None))
-        err = check_outputs(f"write_attend int4 read-inject BER {BER} stats={stats}", out, ref,
-                            a, p, names, st, ref_st)
-        if stats:
+        err = check_outputs(f"write_attend int4 read-inject BER {BER} stats={stats}{what} [{s}]",
+                            out, ref, a, p, names, st, ref_st)
+        if c is empty and (out[5].any() or (stats and int(st[5].abs().sum()) != 0)):
+            fail("read-inject: the row of context 0 read or counted something")
+        if stats and window is None and c is ctx:
             bits = int(ctx.sum()) * cfg.num_kv_heads * 2 * state["k_cache"].shape[3] * 32
             rate = int(st[:, 0].sum()) / bits
             say(f"    flipped {int(st[:, 0].sum())} of {bits} bits read: rate {rate:.6f}")
             if not 0.9 * BER < rate < 1.1 * BER or int(st[:, 1].sum()) != 0:
                 fail("read-inject: the flipped-bit count is off its rate")
         worst = max(worst, err)
+        # K4: the same read without a new column, on the cache as it stands
+        seed = torch.randint(-2 ** 31, 2 ** 31, (), generator=gen, device=device).to(torch.int32)
+        args = (q, *(state[n] for n in names), bt, c, 1)
+        out = paged_attention_ecc(*args, codec="int4", read_inject_ber=BER, read_inject_seed=seed,
+                                  collect_stats=True, sliding_window=window)
+        torch.cuda.synchronize()
+        ref = attend_plain(*args, codec="int4", sm_scale=D ** -0.5, num_pages=bt.shape[1],
+                           pages_per_chunk=4, read_threshold=thr, read_seed=seed,
+                           collect_stats=True, sliding_window=window)
+        worst = max(worst, check_outputs(
+            f"paged_attention_ecc read-inject stats=True{what} [{s}]", out[0], ref[0], {}, {}, (),
+            out[1], ref[1]))
+    return worst
+
+
+# the blocks per (sequence, KV head) at which the packed kernels' split is
+# checked: 1, the rule's (None) and 3, whose blocks' pages begin inside the
+# 4-page chunks of 512 tokens (and of tiny-llama's pages of 16)
+CHECK_SPLITS = (1, None, 3)
+
+
+@contextlib.contextmanager
+def forced_splits(s):
+    """The packed kernels' blocks per (sequence, KV head) forced to s for
+    the block (None: the rule's, packed_splits)."""
+    from qkv_ecc_tpu_torch.kernels import paged_attention as pa
+
+    rule = pa.packed_splits
+    if s is not None:
+        pa.packed_splits = lambda *a, **kw: s
+    try:
+        yield
+    finally:
+        pa.packed_splits = rule
+
+
+def splits_label(torch, batch, hkv, num_pages, ppc, read_inject=False):
+    """'S n' of a packed kernel's launch on these shapes, as packed_splits
+    gives it (or as forced)."""
+    from qkv_ecc_tpu_torch.kernels import paged_attention as pa
+
+    return "S %d" % pa.packed_splits(batch, hkv, pa.visited_pages(num_pages, min(ppc, num_pages)),
+                                     pa._sm_count(0), 2 if read_inject else 1)
+
+
+def golay_crafted_cache(torch, cfg, ctx_before, block_size, gen, device):
+    """A golay cache (every layer of cfg, raw codewords, as an unscrubbed
+    arm stores them) whose codewords carry the error patterns of
+    golay_error_patterns - every pattern of weight 0-3, 4000 of weight 4 -
+    on 30% of the codewords (the rest clean), and new rows made the same
+    way. Returns the state, the table, the new rows (data ++ parity) and the
+    count of each error weight 0-4 written."""
+    from qkv_ecc_tpu_torch.kernels.common import popcount
+    from qkv_ecc_tpu_torch.models.kv_policy import KVCachePolicy, encode_kv, pack_kv
+    from qkv_ecc_tpu_torch.models.runtime import init_generation_state, _write_tokens
+
+    policy = KVCachePolicy(codec="golay")
+    B, Hkv, D = len(ctx_before), cfg.num_kv_heads, cfg.head_dim
+    T = max(ctx_before) + 1
+    state, bt, _ = init_generation_state(cfg, policy, B, T, block_size, device=device)
+    pos = torch.arange(T, device=device).expand(B, T)
+    pats = golay_error_patterns(torch, gen, device)
+    pats = pats[(pats >> 24) == 0]  # the cache keeps 24 bits a codeword
+    hist = torch.zeros(5, dtype=torch.int64, device=device)
+
+    def rows(shape):
+        nonlocal hist
+        cw, scale, _ = encode_kv(torch.randn(shape, generator=gen, device=device), policy)
+        pick = pats[torch.randint(0, len(pats), cw.shape, generator=gen, device=device)]
+        err = torch.where(torch.rand(cw.shape, generator=gen, device=device) < 0.3, pick, 0)
+        hist += torch.bincount(popcount(err).reshape(-1).long(), minlength=5)[:5]
+        return pack_kv(cw ^ err, policy, D), scale
+
+    for layer in range(cfg.num_layers):
+        kc, ks = rows((B, T, Hkv, D))
+        vc, vs = rows((B, T, Hkv, D))
+        _write_tokens(state, layer, bt, pos, kc, vc, ks, vs)
+    kn, ksn = rows((B, 1, Hkv, D))
+    vn, vsn = rows((B, 1, Hkv, D))
+    return state, bt, (kn[:, 0].contiguous(), vn[:, 0].contiguous(), ksn[:, 0].contiguous(),
+                       vsn[:, 0].contiguous()), hist.tolist()
+
+
+def golay_split_check(torch, gen, device, cfg, block_size, ctx_before):
+    """K2 golay (decode_attend, write+attend, with and without stats) and
+    K4 golay (paged_attention_ecc with stats, row 1 empty) on
+    golay_crafted_cache against their plain versions at cfg's attention
+    shapes (layer 1, 512-token chunks): caches, parity and scales after the
+    write equal, the counts equal, outputs within output_tolerance. Returns
+    the largest error of K2 and of K4."""
+    from qkv_ecc_tpu_torch.kernels.paged_attention import (
+        attend_plain, paged_attention_ecc, paged_attention_ecc_write_attend as write_attend,
+        write_decode_attend_plain)
+
+    B, Hq, D = len(ctx_before), cfg.num_heads, cfg.head_dim
+    state, bt, new, hist = golay_crafted_cache(torch, cfg, ctx_before, block_size, gen, device)
+    if any(h == 0 for h in hist):
+        fail(f"golay crafted cache: error weights 0-4 written {hist} miss a weight")
+    ppc = max(1, 512 // block_size)
+    s = splits_label(torch, B, cfg.num_kv_heads, bt.shape[1], ppc)
+    where = f"[{cfg.name} block {block_size}, {s}; error weights 0-4 written: {hist}]"
+    names = ("k_cache", "v_cache", "k_scales", "v_scales", "k_parity", "v_parity")
+    ctx = torch.tensor(ctx_before, dtype=torch.int32, device=device) + 1
+    worst = [0.0, 0.0]
+    for stats in (False, True):
+        q = torch.randn((B, Hq, D), generator=gen, device=device).to(torch.bfloat16)
+        a = {n: state[n].clone() for n in names}
+        p = {n: state[n].clone() for n in names}
+        out = write_attend(q, *new, a["k_cache"], a["v_cache"], a["k_scales"], a["v_scales"], bt,
+                           ctx, 1, a["k_parity"], a["v_parity"], codec="golay",
+                           block_size=block_size, collect_stats=stats)
+        torch.cuda.synchronize()
+        ref = write_decode_attend_plain(
+            q, *new, p["k_cache"], p["v_cache"], p["k_scales"], p["v_scales"], bt, ctx, 1,
+            p["k_parity"], p["v_parity"], codec="golay", sm_scale=D ** -0.5,
+            pages_per_chunk=min(ppc, bt.shape[1]), collect_stats=stats)
+        (out, st), (ref, ref_st) = (out, ref) if stats else ((out, None), (ref, None))
+        worst[0] = max(worst[0], check_outputs(
+            f"decode_attend golay crafted errors stats={stats} {where}", out, ref, a, p, names,
+            st, ref_st))
+        if stats and not (int(st[:, 0].sum()) > 0 and int(st[:, 1].sum()) > 0):
+            fail("golay crafted errors: corrections and uncorrectable codewords not counted")
+    k4_ctx = ctx.clone()
+    k4_ctx[1] = 0
+    q = torch.randn((B, Hq, D), generator=gen, device=device).to(torch.bfloat16)
+    args = (q, *(state[n] for n in names[:4]), bt, k4_ctx, 1, state["k_parity"],
+            state["v_parity"])
+    out = paged_attention_ecc(*args, codec="golay", block_size=block_size, collect_stats=True)
+    torch.cuda.synchronize()
+    ref = attend_plain(*args, codec="golay", sm_scale=D ** -0.5, num_pages=bt.shape[1],
+                       pages_per_chunk=min(ppc, bt.shape[1]), collect_stats=True)
+    worst[1] = check_outputs(f"paged_attention_ecc golay crafted errors, row 1 empty {where}",
+                             out[0], ref[0], {}, {}, (), out[1], ref[1])
+    if out[0][1].any():
+        fail("golay crafted errors: the empty row did not read 0")
+    return worst
+
+
+def split_check(torch, gen, device):
+    """The packed kernels' split at S = 1, the rule's and 3 (CHECK_SPLITS):
+    golay_split_check at bench-0.9b's attention shapes (block 128, contexts
+    1 to 1152) and at tiny-llama's (block 16, contexts 1 to 160), and
+    read_inject_check. Returns the largest errors of K2 golay, K4 golay and
+    the read-inject reads."""
+    import dataclasses
+    from qkv_ecc_tpu_torch.models.config import BENCH_0_9B, TINY_LLAMA
+
+    worst = dict(golay=0.0, k4_golay=0.0, inject=0.0)
+    for s in CHECK_SPLITS:
+        with forced_splits(s):
+            for cfg, bs, ctx_before in (
+                    (dataclasses.replace(BENCH_0_9B, num_layers=2), 128,
+                     [1151, 1023, 1024, 0, 511, 512, 777, 1100]),
+                    (TINY_LLAMA, 16, [159, 0, 15, 16, 100, 47, 128, 33])):
+                k2, k4 = golay_split_check(torch, gen, device, cfg, bs, ctx_before)
+                worst["golay"] = max(worst["golay"], k2)
+                worst["k4_golay"] = max(worst["k4_golay"], k4)
+            worst["inject"] = max(worst["inject"], read_inject_check(torch, gen, device))
     return worst
 
 
@@ -1085,6 +1274,7 @@ def tiny_agreement(torch, device):
             for m, seed in zip(masks, seeds):
                 toks.append(torch.argmax(logits, -1).cpu())
                 logits, state = decode_step(params, torch.argmax(logits, -1), state, bt, cfg, pol,
+                                            block_size=16,
                                             hoisted_masks=None if m is None else m.to(dev),
                                             collect_ecc_stats=stats,
                                             read_inject_seed=seed if read else None)
@@ -1118,8 +1308,9 @@ CHAINED_CALLS = 3 + 20
 # syndrome 13, correction 5, XOR and mask 2, flag 1); hamming84 adds the
 # parity bit (popcount, mask, shift, OR) to the encode and the parity check
 # and type selects (10) to the decode; golay encode (mask, three nibble
-# indices 6, three table loads, two XORs, shift, OR) and decode (the IMLD of
-# 298, as in GOLAY_OPS_PER_CODEWORD without the rebuild and repack); the
+# indices 6, three table loads, two XORs, shift, OR) and decode (the
+# arithmetic IMLD of golay.cuh: two products by B of 60, two candidate
+# loops of 72 and 84, selects and counts 22); the
 # write scrub (encode, XOR, IMLD, encode); one flip decision of K9 (counter,
 # multiply, add, fmix32 8, compare, shift, OR)
 CODEC_OPS = {"hamming74_encode": 19, "hamming74_decode": 35, "hamming84_encode": 23,
@@ -1537,7 +1728,8 @@ def time_codec(torch, label, call, plain, wrapper, copies, nbytes, ops, library,
         f"{plain_ms * 1e3:.1f} us; library call: " + ("none" if library_ms is None else
                     f"{library_ms * 1e3:.2f} us (index_select from the codeword table)")
         + f" ({smi})")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                int_bound_ms=None)
 
 
 def trace_decode(torch, params, ids, gen, device, smi):
@@ -1669,7 +1861,7 @@ def main():
         import qkv_ecc_tpu_torch  # noqa: F401
     except ImportError as e:
         fail(f"the port package is missing ({e}): run from the repository root")
-    from qkv_ecc_tpu_torch.kernels import _build
+    from qkv_ecc_tpu_torch.kernels import _build, swar
     from qkv_ecc_tpu_torch.kernels.paged_attention import (
         attend_plain, paged_attention_ecc, paged_attention_ecc_write_attend as write_attend,
         write_attend_plain, write_decode_attend, write_decode_attend_plain)
@@ -1700,8 +1892,8 @@ def main():
         max_err_float = float_kernel_check(torch, gen, device)
         max_err = kernel_check(torch, gen, device)
         max_err_decode = decode_kernel_check(torch, gen, device)
-        max_err_inject = read_inject_check(torch, gen, device)
         max_err_k4 = attend_check(torch, gen, device)
+        max_err_split = split_check(torch, gen, device)
 
     with Phase("tiny agreement"):
         tiny_agreement(torch, device)
@@ -1855,14 +2047,32 @@ def main():
         sn = torch.ones((BATCH, cfg.num_kv_heads), dtype=torch.float32, device=device)
         timings = {}
 
+        # the integer work of Golay's decode and of the read hashes, counted
+        # in the built libraries' SASS, and the card's SMs and largest clock
+        from qkv_ecc_tpu_torch.kernels import paged_attention as pa_module
+        from qkv_ecc_tpu_torch.kernels import sass_count
+
+        sass = sass_count.probe_counts()
+        clock = sass_count.max_sm_clock_hz()
+        sms = pa_module._sm_count(0)
+        for probe, ((_, fn), _, units, unit) in sass_count.PROBES.items():
+            say(f"  {fn[:-1]}: SASS instructions per {unit}: "
+                + ", ".join(f"{k} {v:.2f}" for k, v in sass[probe].items())
+                + f" (cuobjdump -sass of the built library; {sms} SMs, largest SM clock "
+                f"{clock / 1e9:.3f} GHz; {smi})")
+
         def time_kernel(key, label, call, plain, wrapper, state, bt, words_read, int_ops, row_w,
-                        word_bytes=4, scale_bytes=4, library=None, note=""):
+                        word_bytes=4, scale_bytes=4, library=None, note="", probe=None):
             """Device time (behind a sleep), back-to-back time, the plain
             version's time, the library call's (when one computes the same
             function) and the bound of one call on `state`'s caches; row_w
             words of a new row per (sequence, KV head) are written (0: a
             read, K4). A float cache reads values of word_bytes and no
-            scales (scale_bytes 0). note is printed after the label."""
+            scales (scale_bytes 0). note is printed after the label. With
+            probe ("golay", "hash"), int_ops(tokens, Hkv) counts that
+            probe's units and the integer bound (sass_count) is printed and
+            kept as int_bound_ms; else int_ops counts integer operations
+            from the source, printed as an estimate."""
             L = state["k_cache"].shape[0]
             ms = device_ms(torch, call, 240, L, wrapper)
             call_ms = timed(torch, call, 240, L)
@@ -1875,45 +2085,84 @@ def main():
             # and scales once, the query, block table and lengths; write the
             # new rows, scales and the output. Operations: QK and PV, one
             # multiply-add each per (token, KV head, group head, value), in
-            # fp32, and the integer operations counted from the source
+            # fp32, and the integer work
             nbytes = (tokens * Hkv * 2 * (words_read * word_bytes + scale_bytes)
                       + 2 * q.numel() * q.element_size()
                       + (2 * BATCH * Hkv * (row_w * word_bytes + scale_bytes) if row_w else 0)
                       + bt.numel() * 4 + BATCH * 4)
             flops = 2 * 2 * tokens * Hkv * group * cfg.head_dim
-            ops = int_ops(tokens, Hkv)
             b_ms, b_by, bytes_ms, ops_ms = bound(nbytes, flops)
+            int_ms = None
+            if probe is None:
+                integer = int_estimate(int_ops(tokens, Hkv))
+            else:
+                units = int_ops(tokens, Hkv)
+                int_ms, pipe = sass_count.int_bound_ms(sass[probe], units, sms, clock)
+                unit = sass_count.PROBES[probe][3]
+                integer = (f"integer bound {int_ms * 1e3:.2f} us by the {pipe} pipe ({units / 1e6:.2f} M "
+                           f"{unit}s, SASS counts above); share of the integer bound "
+                           f"{int_ms / ms:.3f}; the {'integer' if int_ms > b_ms else b_by} bound binds")
             say(f"  {label} at ctx {tokens // BATCH}{note}: {ms * 1e3:.2f} us/launch on the device "
                 f"(CUDA events, calls queued behind a sleep; {call_ms * 1e3:.2f} us per "
                 f"back-to-back call, host included); bound {b_ms * 1e3:.2f} us by {b_by} "
                 f"({nbytes / 1e6:.2f} MB at 3.35 TB/s = {bytes_ms * 1e3:.2f} us; "
                 f"{flops / 1e6:.1f} MFLOP fp32 at 67 T/s = {ops_ms * 1e3:.2f} us; "
-                f"{int_estimate(ops)}); share of bound {b_ms / ms:.3f}; plain version "
+                f"{integer}); share of bound {b_ms / ms:.3f}; plain version "
                 f"{plain_ms * 1e3:.1f} us; library call: "
                 + ("none" if library_ms is None else
                    f"{library_ms * 1e3:.2f} us (scaled_dot_product_attention, dense bf16 K/V)")
                 + f" ({smi})")
             timings[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                                library_ms=library_ms)
+                                library_ms=library_ms, int_bound_ms=int_ms)
+            return ms
+
+        golay_pw = swar.parity_words("golay", cfg.head_dim)
+
+        def codewords(tok, h):  # golay: 44 codewords a row at head_dim 128, K and V
+            return tok * h * 2 * 4 * (Wd + golay_pw) // 3
+
+        def hashes(tok, h):  # 32 a data word read, K and V
+            return tok * h * 2 * Wd * 32
+
+        def sweep(label, call, wrapper, what):
+            """The read at S = 1, 2, 4 and 8 blocks per (sequence, KV
+            head), packed_splits replaced for the sweep alone."""
+            times = {}
+            for forced in (1, 2, 4, 8):
+                with forced_splits(forced):
+                    times[forced] = device_ms(torch, call, 240, cfg.num_layers, wrapper)
+            say(f"  {label} at S blocks per sequence and KV head: "
+                + ", ".join(f"S {k} {v * 1e3:.2f} us" for k, v in times.items())
+                + f" (the rule's: {what}; {smi})")
+
+        def against(kind, key, ms):
+            say(f"  {key} {kind}: {ms * 1e3:.2f} us; required at most {REQUIRED_US[kind]:.0f} us: "
+                f"{'met' if ms * 1e3 <= REQUIRED_US[kind] else 'MISSED'}; target at most "
+                f"{TARGET_US[kind]:.0f} us: {'met' if ms * 1e3 <= TARGET_US[kind] else 'missed'}; "
+                f"target at least 0.5 of the integer bound: "
+                f"{'met' if timings[key]['int_bound_ms'] / ms >= 0.5 else 'missed'} "
+                f"({timings[key]['int_bound_ms'] / ms:.3f}; {smi})")
 
         # K1 on the golay arm's cache (the column at ctx-1 is rewritten)
         state, bt = runs["int12-golay"][-1]["state"], runs["int12-golay"][-1]["bt"]
         Wd = state["k_cache"].shape[3]
         ctx = state["context_len"].clone()
         kn = torch.zeros((BATCH, cfg.num_kv_heads, Wd), dtype=torch.int32, device=device)
+        s_rule = splits_label(torch, BATCH, cfg.num_kv_heads, bt.shape[1], 4)
+        s_inject = splits_label(torch, BATCH, cfg.num_kv_heads, bt.shape[1], 4, read_inject=True)
         time_kernel(
             "read", "write_attend (scrub-extract read)",
             lambda layer: write_attend(q, kn, kn, sn, sn, *(state[n] for n in names), bt, ctx,
                                        layer, codec="golay", scrub=True),
             lambda layer: write_attend_plain(q, kn, kn, sn, sn, *(state[n] for n in names), bt,
                                              ctx, layer, sm_scale=sm),
-            write_attend, state, bt, Wd, lambda tok, h: 0, Wd)
+            write_attend, state, bt, Wd, lambda tok, h: 0, Wd, note=f" ({s_rule})")
 
         # K2r on the stats phase's int4 cache, seed on the device
         state, bt = (stats_runs["int4"][k] for k in ("state", "bt"))
         ctx = state["context_len"].clone()
         seed = torch.randint(-2 ** 31, 2 ** 31, (), generator=gen, device=device).to(torch.int32)
-        time_kernel(
+        k2r_ms = time_kernel(
             "read-inject", f"write_attend int4 read-inject BER {BER}",
             lambda layer: write_attend(q, kn, kn, sn, sn, *(state[n] for n in names), bt, ctx,
                                        layer, codec="int4", read_inject_ber=BER,
@@ -1922,20 +2171,19 @@ def main():
                                              ctx, layer, sm_scale=sm,
                                              read_threshold=int(BER * 2 ** 32), read_seed=seed,
                                              pages_per_chunk=4),
-            write_attend, state, bt, Wd, lambda tok, h: tok * h * 2 * Wd * INJECT_OPS_PER_WORD,
-            Wd)
+            write_attend, state, bt, Wd, hashes, Wd, note=f" ({s_inject})", probe="hash")
+        against("read-inject", "read-inject", k2r_ms)
 
         # decode_attend: hamming84 on the interpolation arm's cache, hamming74
         # and golay on the stats phase's unscrubbed caches
-        for key, codec, src, interp, per_row in (
+        for key, codec, src, interp, per_row, probe in (
                 ("hamming84-interp", "hamming84", runs["int4-hamming84-interp"][-1], True,
-                 lambda w, p: w * (DECODE_OPS_PER_WORD + INTERP_OPS_PER_WORD)),
+                 lambda w, p: w * (DECODE_OPS_PER_WORD + INTERP_OPS_PER_WORD), None),
                 ("hamming84", "hamming84", runs["int4-hamming84-interp"][-1], False,
-                 lambda w, p: w * DECODE_OPS_PER_WORD),
+                 lambda w, p: w * DECODE_OPS_PER_WORD, None),
                 ("hamming74", "hamming74", stats_runs["int4-hamming"], False,
-                 lambda w, p: w * H74_OPS_PER_WORD),
-                ("golay", "golay", stats_runs["int12-golay"], False,
-                 lambda w, p: 4 * (w + p) // 3 * GOLAY_OPS_PER_CODEWORD)):
+                 lambda w, p: w * H74_OPS_PER_WORD, None),
+                ("golay", "golay", stats_runs["int12-golay"], False, None, "golay")):
             state, bt = src["state"], src["bt"]
             ctx = state["context_len"].clone()
             Pw = state["k_parity"].shape[3]
@@ -1952,23 +2200,25 @@ def main():
                     state["k_parity"], state["v_parity"], codec=codec, sm_scale=sm,
                     interpolate=interp, pages_per_chunk=4)
 
-            time_kernel(key, f"decode_attend {key}", call_d, plain_d, write_decode_attend, state,
-                        bt, Wd + Pw, lambda tok, h, f=per_row, p=Pw: tok * h * 2 * f(Wd, p), Wd + Pw)
+            ops = codewords if probe else (lambda tok, h, f=per_row, p=Pw: tok * h * 2 * f(Wd, p))
+            t = time_kernel(key, f"decode_attend {key}", call_d, plain_d, write_decode_attend,
+                            state, bt, Wd + Pw, ops, Wd + Pw, note=f" ({s_rule})", probe=probe)
+            if probe:
+                against("golay", key, t)
 
         # K4, the read alone, on the same caches: each branch as above
-        for key, codec, src, kw, per_row in (
-                ("read", "golay", runs["int12-golay"][-1], dict(scrub=True), lambda w, p: 0),
-                ("read-inject", "int4", stats_runs["int4"], dict(read_inject_ber=BER),
-                 lambda w, p: w * INJECT_OPS_PER_WORD),
+        for key, codec, src, kw, per_row, probe in (
+                ("read", "golay", runs["int12-golay"][-1], dict(scrub=True), lambda w, p: 0, None),
+                ("read-inject", "int4", stats_runs["int4"], dict(read_inject_ber=BER), None,
+                 "hash"),
                 ("hamming84-interp", "hamming84", runs["int4-hamming84-interp"][-1],
                  dict(use_interpolation=True),
-                 lambda w, p: w * (DECODE_OPS_PER_WORD + INTERP_OPS_PER_WORD)),
+                 lambda w, p: w * (DECODE_OPS_PER_WORD + INTERP_OPS_PER_WORD), None),
                 ("hamming84", "hamming84", runs["int4-hamming84-interp"][-1], {},
-                 lambda w, p: w * DECODE_OPS_PER_WORD),
+                 lambda w, p: w * DECODE_OPS_PER_WORD, None),
                 ("hamming74", "hamming74", stats_runs["int4-hamming"], {},
-                 lambda w, p: w * H74_OPS_PER_WORD),
-                ("golay", "golay", stats_runs["int12-golay"], {},
-                 lambda w, p: 4 * (w + p) // 3 * GOLAY_OPS_PER_CODEWORD)):
+                 lambda w, p: w * H74_OPS_PER_WORD, None),
+                ("golay", "golay", stats_runs["int12-golay"], {}, None, "golay")):
             state, bt = src["state"], src["bt"]
             ctx = state["context_len"].clone()
             extract = codec == "int4" or kw.get("scrub")
@@ -1991,14 +2241,20 @@ def main():
                     read_seed=kw.get("read_inject_seed", 0),
                     interpolate=kw.get("use_interpolation", False))
 
-            time_kernel("k4-" + key, f"paged_attention_ecc {key} (K4)", call_k4, plain_k4,
-                        paged_attention_ecc, state, bt, Wd + Pw,
-                        lambda tok, h, f=per_row, p=Pw: tok * h * 2 * f(Wd, p), 0)
+            ops = ({"golay": codewords, "hash": hashes}[probe] if probe else
+                   (lambda tok, h, f=per_row, p=Pw: tok * h * 2 * f(Wd, p)))
+            inject = "read_inject_ber" in kw
+            t = time_kernel("k4-" + key, f"paged_attention_ecc {key} (K4)", call_k4, plain_k4,
+                            paged_attention_ecc, state, bt, Wd + Pw, ops, 0,
+                            note=f" ({s_inject if inject else s_rule})", probe=probe)
+            if probe:
+                against("read-inject" if inject else "golay", "k4-" + key, t)
+                sweep(f"paged_attention_ecc {key} (K4)", call_k4, paged_attention_ecc,
+                      s_inject if inject else s_rule)
 
         # K2f on the float arms' caches of the slice, the write+attend and
         # the read; fp16's yardstick: scaled_dot_product_attention over the
         # same context stored dense ([B, Hkv, ctx, D] bf16, GQA), not paged
-        from qkv_ecc_tpu_torch.kernels import paged_attention as pa_module
         from qkv_ecc_tpu_torch.kernels.paged_attention import (
             _sm_count, float_splits, gather_pages, visited_pages)
 
@@ -2105,7 +2361,7 @@ def main():
         entry("write_attend", "read", "write_attend.cu", "paged_attention.py:1056",
               wa(0, "read") + scaling_launches, max_err),
         entry("write_attend read-inject (K2r)", "read-inject", "write_attend.cu",
-              "paged_attention.py:352", wa(0, "read-inject"), max_err_inject),
+              "paged_attention.py:352", wa(0, "read-inject"), max_err_split["inject"]),
         entry("decode_attend", "hamming84-interp", "decode_attend.cu", "paged_attention.py:677",
               wa(1, "hamming84-interp"), max_err_decode["hamming84-interp"]),
         entry("decode_attend hamming84 (K2)", "hamming84", "decode_attend.cu",
@@ -2113,12 +2369,14 @@ def main():
         entry("decode_attend hamming74 (K2)", "hamming74", "decode_attend.cu",
               "paged_attention.py:143", wa(1, "hamming74"), max_err_decode["hamming74"]),
         entry("decode_attend golay (K2)", "golay", "decode_attend.cu", "paged_attention.py:154",
-              wa(1, "golay"), max_err_decode["golay"]),
+              wa(1, "golay"), max(max_err_decode["golay"], max_err_split["golay"])),
     ] + [
         entry(f"paged_attention_ecc {k} (K4)", "k4-" + k,
               "write_attend.cu" if k in ("read", "read-inject") else "decode_attend.cu",
               "paged_attention.py:828", k4[k],
               k4_err(k, max(max_err_k4[k], max_err_k4["extract"]) if k == "read"
+                     else max(max_err_k4[k], max_err_split["inject"]) if k == "read-inject"
+                     else max(max_err_k4[k], max_err_split["k4_golay"]) if k == "golay"
                      else max_err_k4[k]))
         for k in ("read", "read-inject", "hamming84", "hamming84-interp", "hamming74", "golay")
     ] + [

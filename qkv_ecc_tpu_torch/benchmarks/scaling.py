@@ -52,12 +52,14 @@ def measure_single_device(cfg, policy, *, batch, prompt_len, steps,
         logits, state = prefill(params, ids, state, bt, cfg, policy, gen)
         tok = torch.argmax(logits, -1)
         for _ in range(warmup):
-            logits, state = decode_step(params, tok, state, bt, cfg, policy, gen)
+            logits, state = decode_step(params, tok, state, bt, cfg, policy, gen,
+                                        block_size=block_size)
             tok = torch.argmax(logits, -1)
         synchronize(tok)
         t0 = time.perf_counter()
         for _ in range(steps):
-            logits, state = decode_step(params, tok, state, bt, cfg, policy, gen)
+            logits, state = decode_step(params, tok, state, bt, cfg, policy, gen,
+                                        block_size=block_size)
             tok = torch.argmax(logits, -1)
         synchronize(tok)
     dt = (time.perf_counter() - t0) / steps

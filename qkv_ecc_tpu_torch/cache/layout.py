@@ -81,6 +81,21 @@ class ECCCacheConfig:
     def needs_scales(self) -> bool:
         return self.codec not in swar.FLOAT_CODECS
 
+    @property
+    def words_per_block(self) -> int:
+        """Storage elements of one (layer, kv head) page: block_size rows."""
+        return self.block_size * self.row_words
+
+    @property
+    def storage_overhead_vs_int4(self) -> float:
+        """Stored bits per value relative to bare INT4."""
+        return storage_bits_per_value(self.codec) / 4.0
+
+    @property
+    def max_tokens(self) -> int:
+        """Tokens the cache holds: every block full."""
+        return self.num_blocks * self.block_size
+
     def cache_shape(self):
         return (self.num_layers, self.num_blocks, self.num_kv_heads,
                 self.data_words, self.block_size)

@@ -38,9 +38,12 @@
 //        from its three data nibbles (values c, c + C, c + 2C in bits 0-3,
 //        8-11 and 4-7; values past the data words live in the parity tail),
 //        its low parity nibble and its high parity byte (_golay_cw_tile,
-//        swar.golay_split_unpack), and decoded by the arithmetic IMLD of
-//        common.golay_correct_data_i32 (golay.cuh; uncorrectable codewords
-//        read as 0);
+//        swar.golay_split_unpack), and decoded by its syndrome: s = d . B ^
+//        p from three lookups in the encoder's nibble tables, then one
+//        lookup in the 4096-entry syndrome table (golay.cuh decode_table),
+//        whose entries are the arithmetic IMLD's data correction and error
+//        weight (common.golay_correct_data_i32 / golay_decode_i32 depend on
+//        s alone); uncorrectable codewords read as 0;
 //   3. with INTERP (hamming84), replaces each double by (left + right + 1)
 //      >> 1 of its pre-interpolation neighbours along the sequence, exactly
 //      as the TPU kernel does chunk by chunk: token 0 is its own left
@@ -63,34 +66,47 @@
 // Bound on this card at the bench-0.9b step (B 8, Hkv 8, ctx 1056): bytes
 // (each live token's K and V data and parity words and scales read once:
 // B * ctx * Hkv * (2 * (WD + PW) * 4 + 8), 17.9, 15.4 and 18.1 MB for
-// hamming84, hamming74 and golay, 5.3, 4.6 and 5.4 us at 3.35 TB/s).
-// Golay's IMLD takes about 325 integer operations counted from the source
-// for each of 44 codewords per row (1.9 G per call, about 110 us at Hopper's
-// 32-bit integer rate of 64 lanes per clock per SM, about 50 of them
-// popcounts, which issue at a quarter of it); that is an estimate and not
-// a bound, since the compiler fuses some operations into one instruction.
+// hamming84, hamming74 and golay, 5.3, 4.6 and 5.4 us at 3.35 TB/s), and for
+// golay the integer work of its decode: about 26 integer-ALU instructions a
+// codeword in the built SASS (kernels/sass_count.py), 9 us at 64 lanes a
+// clock on 132 SMs for the 5.8 M codewords of a call, which binds.
 //
-// Design: one block of 128 threads per (KV head, sequence), looping over the
-// sequence's pages, as write_attend.cu. Phase D maps threads to tokens
-// (thread t loads word j of token t at j*bs + t, data and parity, K and V,
-// coalesced) and decodes them in registers, all shifts and word indices
-// compile-time constants; with INTERP the decoded words and doubles masks
-// go to shared memory, with the page's left neighbour (the previous page's
-// last token) in column 0 and its right neighbour (the next page's first
-// token, when the chunk goes on) in column bs + 1, decoded by the first
-// 4*WD threads; a barrier, then phase A interpolates each token from its
-// neighbours' words. Without INTERP a thread's own decoded words go straight
-// into its scores. The new token is decoded from the row passed in, never
-// read back from the cache, also where it is a neighbour; a read without a
-// new row (K4) decodes every token from the cache, so the seams come out as
-// in K3 without the overlay. Writing and the softmax state are runtime
-// flags outside the unrolled decode. Counts stay in
-// registers and reach the stats by one integer atomicAdd per warp (exact in
-// any order). At the bench shapes: 64 blocks on 132 SMs; 43.8 KB of shared
-// memory with INTERP, 10.8 KB otherwise.
+// Design: a cluster of S blocks of 128 threads per (KV head, sequence)
+// (packed_splits: the fewest, a power of two up to 8, with a block per SM;
+// 4 at the bench step), block r taking the visited pages r, r + S, ... with
+// its own online softmax; merge_cluster (paged_attend.cuh) merges the
+// blocks' states in block 0's shared memory by merge_softmax_states'
+// formula, so at S = 1 the output is the unsplit one bit for bit. Phase A
+// maps threads to rows - item i < valid is token i's K row, item valid + i
+// its V row, for the valid tokens (t < ctx) of the page, so that the last
+// page's few tokens still spread over the warps - loads the row's words
+// (word j of token t at j*bs + t, coalesced), decodes them in registers
+// (all shifts and word indices compile-time constants; golay's tables sit
+// in shared memory, the syndrome table copied from the wrapper's tensor
+// once a block) and turns a K row into the token's scores, a V row into
+// shared memory; a slot past the context is never decoded (weight 0). With
+// INTERP phase D first decodes the page's words and doubles masks into
+// shared memory, with the page's left neighbour (the previous page's last
+// token) in column 0 and its right neighbour (the next page's first token,
+// when the chunk goes on) in column bs + 1, decoded by the first 4*WD
+// threads from the cache - so every page stands alone and the split needs
+// nothing from another block - and phase A interpolates each token from
+// its neighbours' words. Block 0 writes the new row; every block reads the
+// row passed in wherever it reads the new token's physical page and slot (a
+// -1 page and F4's clamp included), so no block waits for the write; a read
+// without a new row (K4) decodes every token from the cache. Writing and
+// the softmax state are runtime flags outside the unrolled decode. Counts
+// stay in registers and reach the stats by one integer atomicAdd per warp
+// and block (exact in any order). What still holds the kernel above its
+// bounds on an H100: the attention around the decode (the clean read of
+// the same pages, write_attend.cu, takes about half of golay's time) - a
+// launch's fixed cost, the per-page barriers and the latency of each
+// page's loads that a few blocks per SM leave uncovered (PERF.md).
 
 #include "golay.cuh"
 #include "paged_attend.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -253,11 +269,20 @@ __device__ __forceinline__ uint32_t golay_value(const int32_t (&dw)[WD], const i
   }
 }
 
+// The tables of the Golay decode, in shared memory: the encoder's nibble
+// tables (d . B in three lookups) and the syndrome table (golay.cuh
+// decode_table).
+struct GolayTables {
+  const uint32_t* nib;
+  const uint16_t* syn;
+};
+
 template <int WD, int PW, int CW>
 struct GolayCodewords {  // compile-time loop over the codewords
   __device__ __forceinline__ static void run(const int32_t (&dw)[WD], const int32_t (&pw)[PW],
-                                             int32_t (&out)[WD], Counts& n) {
-    GolayCodewords<WD, PW, CW - 1>::run(dw, pw, out, n);
+                                             int32_t (&out)[WD], Counts& n,
+                                             const GolayTables& gt) {
+    GolayCodewords<WD, PW, CW - 1>::run(dw, pw, out, n, gt);
     constexpr int c = CW - 1;
     constexpr int C = 4 * (WD + PW) / 3;
     constexpr int PT = PW - C / 4;
@@ -266,10 +291,10 @@ struct GolayCodewords {  // compile-time loop over the codewords
                          (golay_value<WD, PW, c + C>(dw, pw) << 8);
     const uint32_t plo = nib<PT, c, 0, PW>(pw);
     const uint32_t phi = ((uint32_t)pw[PT + c / 4] >> (8 * (c % 4))) & 0xFFu;
-    int weight;
-    const uint32_t dec = golay::decode<true>(d12 | (plo << 12) | (phi << 16), weight);
-    n.corrected += weight < 4 ? weight : 0;
-    n.detected += weight == 4;
+    uint32_t e;
+    const uint32_t dec = golay::decode_table(d12, plo | (phi << 4), gt.nib, gt.syn, e);
+    n.corrected += (int)((e >> 12) & 3u);  // weights 1-3; an uncorrectable one is 4
+    n.detected += (int)(e >> 14);
     if constexpr (c < 8 * WD) set_nib<WD, c>(out, dec & 0xFu);
     if constexpr (c + C < 8 * WD) set_nib<WD, c + C>(out, (dec >> 8) & 0xFu);
     if constexpr (c + 2 * C < 8 * WD) set_nib<WD, c + 2 * C>(out, (dec >> 4) & 0xFu);
@@ -278,7 +303,7 @@ struct GolayCodewords {  // compile-time loop over the codewords
 template <int WD, int PW>
 struct GolayCodewords<WD, PW, 0> {
   __device__ __forceinline__ static void run(const int32_t (&)[WD], const int32_t (&)[PW],
-                                             int32_t (&)[WD], Counts&) {}
+                                             int32_t (&)[WD], Counts&, const GolayTables&) {}
 };
 
 // --------------------------------------------------------------- one row
@@ -293,7 +318,7 @@ struct Row {  // where one token's data and parity words live
 // hamming84, the doubles mask of each word), adding its counts to n.
 template <int CODEC, int WD, int PW>
 __device__ __forceinline__ void decode_row(const Row& r, int32_t (&dec)[WD], int32_t (&dbl)[WD],
-                                           Counts& n) {
+                                           Counts& n, const GolayTables& gt) {
   if constexpr (CODEC == kH84) {
 #pragma unroll
     for (int j = 0; j < WD; ++j)
@@ -311,7 +336,7 @@ __device__ __forceinline__ void decode_row(const Row& r, int32_t (&dec)[WD], int
       static_assert((WD + PW) % 3 == 0, "golay rows hold 3 words per 4 codewords");
 #pragma unroll
       for (int j = 0; j < WD; ++j) dec[j] = 0;
-      GolayCodewords<WD, PW, 4 * (WD + PW) / 3>::run(dw, pw, dec, n);
+      GolayCodewords<WD, PW, 4 * (WD + PW) / 3>::run(dw, pw, dec, n, gt);
     }
 #pragma unroll
     for (int j = 0; j < WD; ++j) dbl[j] = 0;
@@ -333,6 +358,7 @@ __global__ void __launch_bounds__(kThreads) decode_attend_kernel(
     float* v_scales,
     const int32_t* __restrict__ block_table,   // [B, P]
     const int32_t* __restrict__ context_lens,  // [B]
+    const uint16_t* __restrict__ syn_table,    // [4096] golay's syndrome table, or null
     void* out,                                 // [B, Hq, HD] fp32 or bf16
     int* stats,                                // [B, 2] int32, or null
     float* m_out,                              // [B, Hq] softmax state, or null
@@ -341,8 +367,11 @@ __global__ void __launch_bounds__(kThreads) decode_attend_kernel(
     int out_bf16, int exact, int chunk_tokens, int has_new) {
   constexpr int D = 8 * WD;  // values per row (head_dim HD plus padding)
   constexpr int RW = WD + PW;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
   const int tid = threadIdx.x;
 
   extern __shared__ float smem[];
@@ -355,15 +384,21 @@ __global__ void __launch_bounds__(kThreads) decode_attend_kernel(
   int32_t* vd = kd + WD * (bs + 2);           // [WD][bs + 2]
   int32_t* km = vd + WD * (bs + 2);           // [WD][bs]
   int32_t* vm = km + WD * bs;                 // [WD][bs]
+  // in block 0, the cluster's states: acc [splits][GROUP][D], then m and l
+  // [splits][2][GROUP]
+  float* s_acc = (float*)(INTERP ? vm + WD * bs : kd);
+  float* s_ml = s_acc + splits * GROUP * D;
   __shared__ SoftmaxState<GROUP> st;
+  __shared__ uint32_t nib_s[CODEC == kGolay ? golay::kEncodeTableWords : 1];
+  __shared__ __align__(16) uint16_t syn_s[CODEC == kGolay ? golay::kSyndromes : 8];
 
   const int Hq = Hkv * GROUP;
   const int ctx = context_lens[b];
-  // the new token is written, and decoded from the row passed in, when its
-  // page is one of the first num_pages; else (or in a read without a new
-  // row) every token is read from the cache
+  // the new token is written (by block 0), and decoded from the row passed
+  // in wherever any block reads its physical page and slot, when its page
+  // is one of the first num_pages; else (or in a read without a new row)
+  // every token is read from the cache
   const bool writes = has_new && ctx > 0 && (ctx - 1) / bs < num_pages;
-  const int tok_new = writes ? ctx - 1 : -1;
   const size_t head_page = (size_t)layer * NB * Hkv;  // page index base of this layer
   const size_t row0 = (size_t)b * Hq + (size_t)h * GROUP;
   // the pages of whole chunks, each past num_pages read as page num_pages - 1
@@ -371,41 +406,51 @@ __global__ void __launch_bounds__(kThreads) decode_attend_kernel(
   const int loop_pages = (num_pages + ppc - 1) / ppc * ppc;
 
   stage_queries<WD, GROUP, HD>((const char*)q + row0 * HD * (exact ? 4 : 2), exact, q_s, st);
+  GolayTables gt{nib_s, syn_s};
+  if constexpr (CODEC == kGolay) {
+    golay::fill_encode_tables(nib_s);
+    for (int i = tid; i < golay::kSyndromes / 8; i += kThreads)
+      ((uint4*)syn_s)[i] = ((const uint4*)syn_table)[i];
+  }
 
   const size_t new_row = (size_t)b * Hkv + h;
   const int32_t* kn = writes ? k_new + new_row * RW : nullptr;
   const int32_t* vn = writes ? v_new + new_row * RW : nullptr;
   const float ksn = writes ? ks_new[new_row] : 0.f;
   const float vsn = writes ? vs_new[new_row] : 0.f;
+  auto page_of = [&](int pg) {  // page index of visited page pg (F4's clamp, -1 -> 0)
+    const int pidx = min(pg, num_pages - 1);
+    return head_page + (size_t)max(block_table[(size_t)b * P + pidx], 0) * Hkv + h;
+  };
+  const size_t page_new = writes ? page_of((ctx - 1) / bs) : ~(size_t)0;
+  const int slot_new = writes ? (ctx - 1) % bs : -1;
 
   // 1. the in-place write of the new token's data and parity columns and scales
-  if (writes) {
-    const int phys = max(block_table[(size_t)b * P + tok_new / bs], 0);
-    const size_t page = head_page + (size_t)phys * Hkv + h;
-    const int slot = tok_new % bs;
+  if (writes && rank == 0) {
     for (int j = tid; j < WD; j += kThreads) {
-      k_cache[(page * WD + j) * bs + slot] = kn[j];
-      v_cache[(page * WD + j) * bs + slot] = vn[j];
+      k_cache[(page_new * WD + j) * bs + slot_new] = kn[j];
+      v_cache[(page_new * WD + j) * bs + slot_new] = vn[j];
     }
     for (int j = tid; j < PW; j += kThreads) {
-      k_parity[(page * PW + j) * bs + slot] = kn[WD + j];
-      v_parity[(page * PW + j) * bs + slot] = vn[WD + j];
+      k_parity[(page_new * PW + j) * bs + slot_new] = kn[WD + j];
+      v_parity[(page_new * PW + j) * bs + slot_new] = vn[WD + j];
     }
     if (tid == 0) {
-      k_scales[page * bs + slot] = ksn;
-      v_scales[page * bs + slot] = vsn;
+      k_scales[page_new * bs + slot_new] = ksn;
+      v_scales[page_new * bs + slot_new] = vsn;
     }
   }
 
+  // the rows of token tok: the row passed in where tok's physical page and
+  // slot are the new token's, else the cache's
   auto rows = [&](int tok, Row& kr, Row& vr) {
-    if (tok == tok_new) {
+    const size_t page = page_of(tok / bs);
+    const int slot = tok % bs;
+    if (page == page_new && slot == slot_new) {
       kr = Row{kn, kn + WD, 1};
       vr = Row{vn, vn + WD, 1};
       return;
     }
-    const int pidx = min(tok / bs, num_pages - 1);
-    const size_t page = head_page + (size_t)max(block_table[(size_t)b * P + pidx], 0) * Hkv + h;
-    const int slot = tok % bs;
     kr = Row{k_cache + page * WD * bs + slot, k_parity + page * PW * bs + slot, bs};
     vr = Row{v_cache + page * WD * bs + slot, v_parity + page * PW * bs + slot, bs};
   };
@@ -421,10 +466,11 @@ __global__ void __launch_bounds__(kThreads) decode_attend_kernel(
   const int count_from = stats ? 0 : first_tok / bs;
   __syncthreads();
 
-  for (int pg = count_from; pg < npages; ++pg) {
+  // the block's pages: every splits-th from count_from + rank
+  for (int pg = count_from + rank; pg < npages; pg += splits) {
     const int page_tok = pg * bs;
-    const int pidx = min(pg, num_pages - 1);
-    const size_t page = head_page + (size_t)max(block_table[(size_t)b * P + pidx], 0) * Hkv + h;
+    const size_t page = page_of(pg);
+    const int new_slot = page == page_new ? slot_new : -1;  // the new row's slot here
     const float* ksp = k_scales + page * bs;
     const float* vsp = v_scales + page * bs;
 
@@ -435,8 +481,8 @@ __global__ void __launch_bounds__(kThreads) decode_attend_kernel(
         rows(page_tok + t, kr, vr);
         int32_t dec[WD], dbl[WD];
         Counts tc;
-        decode_row<CODEC, WD, PW>(kr, dec, dbl, tc);
-        decode_row<CODEC, WD, PW>(vr, dec, dbl, tc);
+        decode_row<CODEC, WD, PW>(kr, dec, dbl, tc, gt);
+        decode_row<CODEC, WD, PW>(vr, dec, dbl, tc, gt);
         cnt.add(tc);
       }
       continue;
@@ -481,19 +527,19 @@ __global__ void __launch_bounds__(kThreads) decode_attend_kernel(
       __syncthreads();
     }
 
-    // phase A: thread per token - its K words (decoded, interpolated) into
-    // scores, its V words into shared memory
     float lmax[GROUP];
 #pragma unroll
     for (int g = 0; g < GROUP; ++g) lmax[g] = kNegInf;
-    for (int t = tid; t < bs; t += kThreads) {
-      const int tok = page_tok + t;
-      const bool is_new = tok == tok_new;
-      const bool live = tok < ctx && tok >= first_tok;
-      int32_t kw[WD];
-      if constexpr (INTERP) {
+    if constexpr (INTERP) {
+      // phase A: thread per token - its K words (interpolated) into scores,
+      // its V words into shared memory
+      for (int t = tid; t < bs; t += kThreads) {
+        const int tok = page_tok + t;
+        const bool is_new = t == new_slot;
+        const bool live = tok < ctx && tok >= first_tok;
         const bool own_left = tok == 0;
         const bool own_right = tok + 1 >= ctx || (tok + 1) % chunk_tokens == 0;
+        int32_t kw[WD];
 #pragma unroll
         for (int j = 0; j < WD; ++j) {
           const int32_t* kc = kd + j * (bs + 2) + t;  // columns t, t+1, t+2
@@ -503,35 +549,49 @@ __global__ void __launch_bounds__(kThreads) decode_attend_kernel(
           v_s[j * (bs + 1) + t] = interpolate_word(
               vc[1], own_left ? vc[1] : vc[0], own_right ? vc[1] : vc[2], vm[j * bs + t]);
         }
-      } else {
+        const float ks = is_new ? ksn : ksp[t];
+        vs_s[t] = is_new ? vsn : vsp[t];
+        score_token<WD, GROUP>(kw, q_s, ks * sm_scale, live, p_s + t, bs, lmax);
+      }
+    } else {
+      // phase A: thread per row - the K rows of the valid tokens (t < ctx)
+      // decoded into scores, their V rows decoded into shared memory: item
+      // i < valid is token i's K, item valid + i its V, so that a page with
+      // few valid tokens still spreads over the warps; a slot past the
+      // context has weight 0 and is not decoded (its staged V words stay
+      // finite nibbles)
+      const int valid = min(bs, ctx - page_tok);
+      for (int i = tid; i < 2 * valid; i += kThreads) {
+        const bool is_v = i >= valid;
+        const int t = is_v ? i - valid : i;
+        const int tok = page_tok + t;
+        const bool is_new = t == new_slot;
         Row kr, vr;
         rows(tok, kr, vr);
         Counts n;
-        int32_t dbl[WD], vw[WD];
-        decode_row<CODEC, WD, PW>(kr, kw, dbl, n);
-        decode_row<CODEC, WD, PW>(vr, vw, dbl, n);
-        if (tok < ctx) cnt.add(n);
+        int32_t dec[WD], dbl[WD];
+        decode_row<CODEC, WD, PW>(is_v ? vr : kr, dec, dbl, n, gt);
+        cnt.add(n);
+        if (is_v) {
 #pragma unroll
-        for (int j = 0; j < WD; ++j) v_s[j * (bs + 1) + t] = vw[j];
+          for (int j = 0; j < WD; ++j) v_s[j * (bs + 1) + t] = dec[j];
+          vs_s[t] = is_new ? vsn : vsp[t];
+        } else {
+          const float ks = is_new ? ksn : ksp[t];
+          score_token<WD, GROUP>(dec, q_s, ks * sm_scale, tok >= first_tok, p_s + t, bs, lmax);
+        }
       }
-      const float ks = is_new ? ksn : ksp[t];
-      vs_s[t] = is_new ? vsn : vsp[t];
-      float dot[GROUP];
-      qk_dot<WD, GROUP>(kw, q_s, dot);
-      const float kscale = ks * sm_scale;
+      for (int t = valid + tid; t < bs; t += kThreads) {
 #pragma unroll
-      for (int g = 0; g < GROUP; ++g) {
-        const float s = live ? dot[g] * kscale : kNegInf;
-        p_s[g * bs + t] = s;
-        lmax[g] = fmaxf(lmax[g], s);
+        for (int g = 0; g < GROUP; ++g) p_s[g * bs + t] = kNegInf;
       }
     }
     attend_page<WD, GROUP>(lmax, p_s, vs_s, v_s, st, acc, page_tok, ctx, first_tok, bs,
                            exact != 0);
   }
 
-  store_output<GROUP, HD>(acc, st, out, row0, out_bf16, m_out, l_out);
   if (stats) flush_stats(stats, b, cnt.corrected, cnt.detected);
+  merge_cluster<GROUP, HD, D>(cluster, acc, st, s_acc, s_ml, out, row0, out_bf16, m_out, l_out);
 }
 
 template <int CODEC, int WD, int PW, int GROUP, int HD, bool INTERP>
@@ -539,57 +599,100 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    const void* ks_new, const void* vs_new, void* k_cache,
                    void* v_cache, void* k_parity, void* v_parity, void* k_scales,
                    void* v_scales, const void* block_table, const void* context_lens,
-                   void* out, void* stats, void* m_out, void* l_out, int B, int Hkv, int bs,
-                   int NB, int P, int num_pages, int layer, int window, float sm_scale,
-                   int out_bf16, int exact, int chunk_tokens, int has_new, cudaStream_t stream) {
+                   const void* syn_table, void* out, void* stats, void* m_out, void* l_out,
+                   int B, int Hkv, int bs, int NB, int P, int num_pages, int layer, int window,
+                   float sm_scale, int out_bf16, int exact, int chunk_tokens, int has_new,
+                   int splits, cudaStream_t stream) {
   constexpr int D = 8 * WD;
   size_t smem = (size_t)(GROUP * D + GROUP * bs + bs) * sizeof(float) +
                 (size_t)WD * (bs + 1) * sizeof(int32_t);
   if (INTERP) smem += (size_t)WD * (2 * (bs + 2) + 2 * bs) * sizeof(int32_t);
-  if (smem > 48 * 1024 || chunk_tokens <= 0 || chunk_tokens % bs != 0 || num_pages < 1 ||
-      num_pages > P)
+  smem += merge_bytes<GROUP, D>(splits);
+  if (splits < 1 || splits > kMaxSplits || smem > kMaxSmem || chunk_tokens <= 0 ||
+      chunk_tokens % bs != 0 || num_pages < 1 || num_pages > P ||
+      (CODEC == kGolay && (syn_table == nullptr || (uintptr_t)syn_table % 16 != 0)))
     return cudaErrorInvalidValue;
-  dim3 grid(Hkv, B);
-  decode_attend_kernel<CODEC, WD, PW, GROUP, HD, INTERP><<<grid, kThreads, smem, stream>>>(
-      q, (const int32_t*)k_new, (const int32_t*)v_new, (const float*)ks_new,
-      (const float*)vs_new, (int32_t*)k_cache, (int32_t*)v_cache, (int32_t*)k_parity,
-      (int32_t*)v_parity, (float*)k_scales, (float*)v_scales, (const int32_t*)block_table,
-      (const int32_t*)context_lens, out, (int*)stats, (float*)m_out, (float*)l_out, Hkv, bs,
-      NB, P, num_pages, layer, sm_scale, window, out_bf16, exact, chunk_tokens, has_new);
-  return cudaGetLastError();
+  auto kernel = decode_attend_kernel<CODEC, WD, PW, GROUP, HD, INTERP>;
+  return launch_cluster(kernel, dim3(splits, Hkv, B), splits, smem, stream, q,
+                        (const int32_t*)k_new, (const int32_t*)v_new, (const float*)ks_new,
+                        (const float*)vs_new, (int32_t*)k_cache, (int32_t*)v_cache,
+                        (int32_t*)k_parity, (int32_t*)v_parity, (float*)k_scales,
+                        (float*)v_scales, (const int32_t*)block_table,
+                        (const int32_t*)context_lens, (const uint16_t*)syn_table, out,
+                        (int*)stats, (float*)m_out, (float*)l_out, Hkv, bs, NB, P, num_pages,
+                        layer, sm_scale, window, out_bf16, exact, chunk_tokens, has_new);
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 on
-// success). codec: 0 hamming84, 1 hamming74, 2 golay. Instances are built
-// only for the (codec, data words, parity words, group, head_dim) of the
-// registered models - tiny-llama (hamming84 2/2, hamming74 4/3, golay 2/4
-// words at head_dim 16, group 2) and bench-0.9b (hamming84 16/16, hamming74
-// 16/12, golay 16/17 at head_dim 128, group 2) - and the bench shapes at
-// group 4 (the kernel benchmark's 32 query heads over 8 KV heads);
-// hamming84 with and without interpolation (interpolate is ignored for the
-// other codecs); any other shape returns cudaErrorInvalidValue. All
-// tensors contiguous; q bf16 (exact = 0) or fp32 (exact = 1); out fp32
-// (out_bf16 = 0) or bf16 (out_bf16 = 1); window <= 0 means no window; P is
-// the block table's row stride and num_pages <= P the pages of the table;
-// chunk_tokens = pages_per_chunk * bs sets the interpolation's seams and
-// the pages visited; stats (null when collect_stats is 0) must be zeroed
-// by the caller; has_new = 0 reads without a new row (k_new, v_new, ks_new,
-// vs_new may be null); m_out and l_out (both null, or both [B, Hq] fp32
-// with out fp32) take the softmax state.
+// Never launched: bench-0.9b golay rows (44 codewords each) through
+// decode_row as phase A runs it, one row a thread in _row1 and two in
+// _row2, whose difference in the built library's SASS is one row's decode
+// (kernels/sass_count.py, for the integer bound).
+template <int N>
+__device__ __forceinline__ void sass_probe_golay(const int32_t* rows, int32_t* out, int* counts,
+                                                 const uint16_t* syn_table) {
+  __shared__ uint32_t nib_s[golay::kEncodeTableWords];
+  __shared__ uint16_t syn_s[golay::kSyndromes];
+  golay::fill_encode_tables(nib_s);
+  for (int i = threadIdx.x; i < golay::kSyndromes; i += blockDim.x) syn_s[i] = syn_table[i];
+  __syncthreads();
+  const int r0 = N * (blockIdx.x * blockDim.x + threadIdx.x);
+  Counts n;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    int32_t dec[16], dbl[16];
+    const int32_t* row = rows + (r0 + k) * 33;
+    decode_row<kGolay, 16, 17>(Row{row, row + 16, 1}, dec, dbl, n, GolayTables{nib_s, syn_s});
+#pragma unroll
+    for (int j = 0; j < 16; ++j) out[(r0 + k) * 16 + j] = dec[j];
+  }
+  counts[2 * r0] = n.corrected;
+  counts[2 * r0 + 1] = n.detected;
+}
+
+extern "C" __global__ void sass_probe_golay_row1(const int32_t* rows, int32_t* out, int* counts,
+                                                 const uint16_t* syn_table) {
+  sass_probe_golay<1>(rows, out, counts, syn_table);
+}
+
+extern "C" __global__ void sass_probe_golay_row2(const int32_t* rows, int32_t* out, int* counts,
+                                                 const uint16_t* syn_table) {
+  sass_probe_golay<2>(rows, out, counts, syn_table);
+}
+
+// Launches the kernel on `stream` as `splits` (1-8) blocks a cluster per
+// (sequence, KV head) and returns its launch error (0 on success). codec:
+// 0 hamming84, 1 hamming74, 2 golay (syn_table: the [4096] uint16 syndrome
+// table of kernels/common.py golay_syndrome_table on the device, 16-byte
+// aligned; null for the other codecs). Instances are built only for the
+// (codec, data words, parity words, group, head_dim) of the registered
+// models - tiny-llama (hamming84 2/2, hamming74 4/3, golay 2/4 words at
+// head_dim 16, group 2) and bench-0.9b (hamming84 16/16, hamming74 16/12,
+// golay 16/17 at head_dim 128, group 2) - and the bench shapes at group 4
+// (the kernel benchmark's 32 query heads over 8 KV heads); hamming84 with
+// and without interpolation (interpolate is ignored for the other codecs);
+// any other shape returns cudaErrorInvalidValue. All tensors contiguous; q
+// bf16 (exact = 0) or fp32 (exact = 1); out fp32 (out_bf16 = 0) or bf16
+// (out_bf16 = 1); window <= 0 means no window; P is the block table's row
+// stride and num_pages <= P the pages of the table; chunk_tokens =
+// pages_per_chunk * bs sets the interpolation's seams and the pages
+// visited; stats (null when collect_stats is 0) must be zeroed by the
+// caller; has_new = 0 reads without a new row (k_new, v_new, ks_new, vs_new
+// may be null); m_out and l_out (both null, or both [B, Hq] fp32 with out
+// fp32) take the softmax state.
 extern "C" int decode_attend_launch(
     const void* q, const void* k_new, const void* v_new, const void* ks_new,
     const void* vs_new, void* k_cache, void* v_cache, void* k_parity, void* v_parity,
     void* k_scales, void* v_scales, const void* block_table, const void* context_lens,
-    void* out, void* stats, void* m_out, void* l_out, int B, int Hkv, int group, int codec,
-    int wd, int pw, int head_dim, int bs, int NB, int P, int num_pages, int layer, int window,
-    float sm_scale, int out_bf16, int exact, int chunk_tokens, int interpolate,
-    int collect_stats, int has_new, void* stream) {
+    const void* syn_table, void* out, void* stats, void* m_out, void* l_out, int B, int Hkv,
+    int group, int codec, int wd, int pw, int head_dim, int bs, int NB, int P, int num_pages,
+    int layer, int window, float sm_scale, int out_bf16, int exact, int chunk_tokens,
+    int interpolate, int collect_stats, int has_new, int splits, void* stream) {
 #define DA_ARGS q, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_parity, v_parity,     \
-    k_scales, v_scales, block_table, context_lens, out, collect_stats ? stats : nullptr, \
-    m_out, l_out, B, Hkv, bs, NB, P, num_pages, layer, window, sm_scale, out_bf16, exact, \
-    chunk_tokens, has_new, (cudaStream_t)stream
+    k_scales, v_scales, block_table, context_lens, syn_table, out,                        \
+    collect_stats ? stats : nullptr, m_out, l_out, B, Hkv, bs, NB, P, num_pages, layer,   \
+    window, sm_scale, out_bf16, exact, chunk_tokens, has_new, splits, (cudaStream_t)stream
   cudaError_t err = cudaErrorInvalidValue;
   if (group == 2 && head_dim == 16) {
     if (codec == kH84 && wd == 2 && pw == 2) {

@@ -1,6 +1,6 @@
 // Golay(24,12) on one 32-bit lane, shared by the correcting read
-// (decode_attend.cu: decode) and the elementwise codec kernels
-// (codec_kernels.cu: encode and decode).
+// (decode_attend.cu: the syndrome-table decode) and the elementwise codec
+// kernels (codec_kernels.cu: encode, and the arithmetic IMLD decode).
 //
 // A codeword holds its 12 data bits in bits 0-11 and its 12 parity bits in
 // bits 12-23 (codecs/reference.py golay_encode); bits 24-31 are ignored.
@@ -49,13 +49,31 @@ __device__ __forceinline__ uint32_t encode(uint32_t d12, const uint32_t* tab) {
   return d12 | ((tab[d12 & 15u] ^ tab[16 + (d12 >> 4 & 15u)] ^ tab[32 + (d12 >> 8)]) << 12);
 }
 
+// The syndrome-table decode of the correcting reads (decode_attend.cu).
+// The IMLD's data correction and error weight depend on the 12-bit syndrome
+// s = d . B ^ p alone (common.golay_correct_data_i32, golay_decode_i32:
+// every stage is built from s and q = s . B), so a table of the 4096
+// syndromes gives both: entry s holds the data correction in bits 0-11 and
+// the weight in bits 12-14 (0-3, or 4 when uncorrectable), 8 KB of uint16
+// (kernels/common.py golay_syndrome_table builds it from the arithmetic
+// IMLD; the wrapper passes it). d . B is three lookups in the encoder's
+// nibble tables. Returns the corrected 12 data bits, 0 when uncorrectable.
+constexpr int kSyndromes = 4096;
+
+__device__ __forceinline__ uint32_t decode_table(uint32_t d12, uint32_t p12, const uint32_t* tab,
+                                                 const uint16_t* syn, uint32_t& e) {
+  const uint32_t s = tab[d12 & 15u] ^ tab[16 + (d12 >> 4 & 15u)] ^ tab[32 + (d12 >> 8)] ^ p12;
+  e = syn[s];
+  return e >> 14 ? 0u : d12 ^ (e & 0xFFFu);
+}
+
 // Arithmetic IMLD of one 24-bit codeword (common.golay_decode_i32 /
 // golay_correct_data_i32): the corrected 12 data bits; weight = the error
 // pattern's weight 0-3, or 4 when uncorrectable. An uncorrectable codeword
-// reads as 0 with ZERO_UNCORRECTABLE (the attention kernels' and the write
-// scrub's semantics), else keeps its corrupt data bits (the codec kernels'
-// decode). B's rows are pairwise >= 6 apart, so a stage has at most one hit
-// and hits may be OR-ed.
+// reads as 0 with ZERO_UNCORRECTABLE (the write scrub's semantics), else
+// keeps its corrupt data bits (the codec kernels' decode). B's rows are
+// pairwise >= 6 apart, so a stage has at most one hit and hits may be
+// OR-ed.
 template <bool ZERO_UNCORRECTABLE>
 __device__ __forceinline__ uint32_t decode(uint32_t cw, int& weight) {
   const uint32_t d = cw & 0xFFFu;

@@ -5,10 +5,11 @@
 // warp reductions alone.
 //
 // A block of kThreads threads attends the GROUP query heads of one KV head
-// of one sequence, page by page:
-//   phase A (the caller): thread per token - the token's K words into
-//     qk_dot, the scores into p_s and the running lmax; the token's V words
-//     and V scale staged in v_s / vs_s;
+// of one sequence over its share of the pages (a cluster of blocks splits
+// them; merge_cluster merges their states), page by page:
+//   phase A (the caller): each token's K words into its scores in p_s and
+//     the running lmax (score_token); its V words and V scale staged in
+//     v_s / vs_s;
 //   phase B (page_weights): the page's softmax weights, V scale folded in
 //     and rounded to bf16, against the running maximum;
 //   phase C (attend_page): thread per head-dim value - the staged V page
@@ -25,6 +26,7 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,6 +36,8 @@ namespace paged_attend {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNegInf = -1e30f;
+constexpr int kMaxSplits = 8;           // the portable cluster size
+constexpr size_t kMaxSmem = 200 * 1024;  // dynamic shared memory a launch may ask for
 
 // max(a, b), NaN when either is NaN
 __device__ __forceinline__ float max_nan(float a, float b) { return (a > b || a != a) ? a : b; }
@@ -71,6 +75,22 @@ __device__ __forceinline__ void qk_dot(const int32_t (&kw)[WD], const float* q_s
         dot[g] = fmaf(q_s[g * DP + HALF + 4 * j + k], hi, dot[g]);
       }
     }
+  }
+}
+
+// One token's scores: dot[g] * kscale into p_s[g * stride] (kNegInf where
+// not live), folded into the running maxima lmax.
+template <int WD, int GROUP>
+__device__ __forceinline__ void score_token(const int32_t (&kw)[WD], const float* q_s,
+                                            float kscale, bool live, float* p_s, int stride,
+                                            float (&lmax)[GROUP]) {
+  float dot[GROUP];
+  qk_dot<WD, GROUP>(kw, q_s, dot);
+#pragma unroll
+  for (int g = 0; g < GROUP; ++g) {
+    const float s = live ? dot[g] * kscale : kNegInf;
+    p_s[g * stride] = s;
+    lmax[g] = fmaxf(lmax[g], s);
   }
 }
 
@@ -214,6 +234,100 @@ __device__ __forceinline__ void store_output(const float (&acc)[GROUP],
     else
       ((float*)out)[idx] = o;
   }
+}
+
+// The split of a sequence's pages over a cluster of S blocks (the packed
+// kernels: write_attend_kernel and decode_attend_kernel): block r of the
+// cluster takes every S-th visited page and keeps its own online softmax
+// state; merge_cluster writes the states of every block into block 0's
+// shared memory (distributed shared memory) and, after one cluster barrier,
+// block 0 merges them by merge_softmax_states' formula (kernels/
+// paged_attention.py: m = the largest m_r, each block weighed by exp(m_r -
+// m), m taken as 0 when it is -1e30) and writes the output as
+// store_output does. At S = 1 each weight is exp(0) = 1: store_output's
+// result, bit for bit.
+
+// bytes of block 0's merge area for `splits` blocks: acc [S][GROUP][DP],
+// then m and l [S][2][GROUP]
+template <int GROUP, int DP>
+__host__ __device__ constexpr size_t merge_bytes(int splits) {
+  return (size_t)splits * (GROUP * DP + 2 * GROUP) * sizeof(float);
+}
+
+// s_acc / s_ml: the merge area in this block's shared memory (block 0's is
+// the one written); acc: value tid < DP of each group head, st: the
+// block's m and l.
+template <int GROUP, int HD, int DP>
+__device__ __forceinline__ void merge_cluster(cooperative_groups::cluster_group& cluster,
+                                              const float (&acc)[GROUP],
+                                              const SoftmaxState<GROUP>& st, float* s_acc,
+                                              float* s_ml, void* out, size_t row0, int out_bf16,
+                                              float* m_out, float* l_out) {
+  const int splits = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  float* c_acc = cluster.map_shared_rank(s_acc, 0) + (size_t)rank * GROUP * DP;
+  float* c_ml = cluster.map_shared_rank(s_ml, 0) + (size_t)rank * 2 * GROUP;
+  if (tid < DP) {
+#pragma unroll
+    for (int g = 0; g < GROUP; ++g) c_acc[g * DP + tid] = acc[g];
+  }
+  if (tid < GROUP) {
+    c_ml[tid] = st.m[tid];
+    c_ml[GROUP + tid] = st.l[tid];
+  }
+  cluster.sync();
+  if (rank != 0) return;
+  for (int i = tid; i < GROUP * HD; i += kThreads) {
+    const int g = i / HD, d = i % HD;
+    float mg = kNegInf;
+    for (int r = 0; r < splits; ++r) mg = max_nan(mg, s_ml[r * 2 * GROUP + g]);
+    const float mz = mg > 0.5f * kNegInf ? mg : 0.f;
+    float a = 0.f, l = 0.f;
+    for (int r = 0; r < splits; ++r) {
+      const float wt = expf(s_ml[r * 2 * GROUP + g] - mz);
+      a = fmaf(s_acc[(r * GROUP + g) * DP + d], wt, a);
+      l = fmaf(s_ml[r * 2 * GROUP + GROUP + g], wt, l);
+    }
+    const float o = m_out ? a : l > 0.f ? a / l : 0.f;
+    const size_t idx = (row0 + g) * HD + d;
+    if (out_bf16)
+      ((__nv_bfloat16*)out)[idx] = __float2bfloat16(o);
+    else
+      ((float*)out)[idx] = o;
+    if (m_out && d == 0) {
+      m_out[row0 + g] = mg;
+      l_out[row0 + g] = l;
+    }
+  }
+}
+
+// Launch `kernel` over `grid` (x: the cluster's blocks) as clusters of
+// `splits` blocks of kThreads threads with `smem` bytes of dynamic shared
+// memory (more than 48 KB by the kernel's attribute); returns the launch
+// error.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(KArgs...), dim3 grid, int splits, size_t smem,
+                           cudaStream_t stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 __device__ __forceinline__ int warp_sum_int(int v) {

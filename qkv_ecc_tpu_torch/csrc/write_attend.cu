@@ -57,31 +57,40 @@
 // Bound on this card: bytes for the reads without injection. Per call it
 // must read each live token's K and V data words and scales once: B * ctx *
 // Hkv * (2*Wd*4 + 2*4) bytes, about 9.3 MB at the bench-0.9b step (B 8, Hkv
-// 8, Wd 16, ctx 1056), i.e. 2.8 us at 3.35 TB/s. With injection, the hash
-// dominates the work: 32 murmur hashes per word (about 12.5 integer
-// operations counted from the source each), 2 * 16 words per token and
-// head, about 0.86 G operations per call at the bench step - an estimate of
-// 52 us at Hopper's 32-bit integer rate (64 lanes per clock per SM), not a
-// bound (the compiler fuses some operations): the bound stays the bytes. Read
-// injection is a template parameter: the clean read compiles without the
-// hash.
+// 8, Wd 16, ctx 1056), i.e. 2.8 us at 3.35 TB/s. With injection, the hashes:
+// 32 a word read, 2 * 16 words per token and head, 68 M a call at the bench
+// step, each about 9.5 integer-ALU instructions in the built SASS
+// (kernels/sass_count.py) - 38 us at 64 lanes a clock on 132 SMs, which
+// binds. Read injection is a template parameter: the clean read compiles
+// without the hash.
 //
-// Design: one block of 128 threads per (KV head, sequence), looping over the
-// sequence's pages. Phase A maps threads to tokens (coalesced loads of the
-// token-minor words: thread t reads word j of token t at j*bs + t), XORs the
-// token's masks (the 32 hashes of a word are independent, which gives the
-// scheduler its parallelism), computes the group's scores and stages the V
-// words in shared memory; phases B and C (paged_attend.cuh, shared with
-// decode_attend.cu) take the page's softmax weights and map threads to
-// head-dim values to contract the staged V page. At the bench shapes that is
-// 8 x 8 = 64 blocks on the H100's 132 SMs; splitting a sequence's pages over
-// blocks is later work. The new token is attended from the column passed in
-// (in registers), not read back from the cache, so the in-place write needs
-// no fence. Each block writes only its own head's column and scale, so
-// blocks never race, except rows whose page is -1: several such rows write
+// Design: a cluster of S blocks of 128 threads per (KV head, sequence)
+// (packed_splits: the fewest, a power of two up to 8, with a block per SM,
+// 4 at the bench step; with injection two blocks per SM, 8 at the bench
+// step, so that one block's hashes keep the integer pipe busy while
+// another attends), block r taking the visited pages r, r + S, ... with
+// its own online softmax, merged in block 0's shared memory by
+// merge_cluster (paged_attend.cuh; at S = 1 the unsplit output, bit for
+// bit). With injection, phase H maps threads to the (K or V, word, slot)
+// items of the page's valid tokens (a slot past the context is never
+// attended nor counted; before a sliding window the flips are counted
+// alone, with stats), 32 independent hashes a word, and stages the flipped
+// words in shared memory; without it phase A loads the words itself. Phase
+// A maps threads to tokens (coalesced loads of the token-minor words:
+// thread t reads word j of token t at j*bs + t), computes the group's
+// scores and stages the V words; phases B and C (paged_attend.cuh, shared
+// with decode_attend.cu) take the page's softmax weights and map threads
+// to head-dim values to contract the staged V page. Block 0 writes the new
+// column; every block reads the column passed in (in registers) wherever it
+// reads the new token's physical page and slot (a -1 page and F4's clamp
+// included), so no block waits for the write. Rows whose page is -1 write
 // page 0 in no fixed order, as the TPU leaves undefined. Writing and the
 // softmax state are runtime flags outside the unrolled token loop. The
-// kernel allocates nothing; the wrapper zeroes the stats.
+// kernel allocates nothing; the wrapper zeroes the stats. What holds the
+// read-inject read at about half its integer bound on an H100: the
+// attention around the hashes (the clean read alone takes about a third of
+// the time), and the last page's block taking a quarter page more than the
+// others (PERF.md).
 
 #include <cooperative_groups.h>
 #include <cuda_fp16.h>
@@ -153,8 +162,11 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
     int out_bf16, int exact, uint32_t thr, uint32_t seed_val, int num_chunks, int ppc,
     int has_new) {
   constexpr int DP = 8 * WD;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
   const int tid = threadIdx.x;
 
   extern __shared__ float smem[];
@@ -162,15 +174,19 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
   float* p_s = q_s + GROUP * DP;              // [GROUP][bs] scores, then weights
   float* vs_s = p_s + GROUP * bs;             // [bs] V scales
   int32_t* v_s = (int32_t*)(vs_s + bs);       // [WD][bs + 1] V words (padded rows)
+  int32_t* k_s = v_s + WD * (bs + 1);         // INJECT: [WD][bs + 1] flipped K words
+  // in block 0, the cluster's states (merge_cluster)
+  float* s_acc = (float*)(k_s + (INJECT ? WD * (bs + 1) : 0));
+  float* s_ml = s_acc + splits * GROUP * DP;
   __shared__ SoftmaxState<GROUP> st;
 
   const int Hq = Hkv * GROUP;
   const int ctx = context_lens[b];
-  // the new token is written, and attended from the column passed in, when
-  // its page is one of the first num_pages; else (or in a read without a
-  // new column) every token is read from the cache
+  // the new token is written (by block 0), and read from the column passed
+  // in wherever any block reads its physical page and slot, when its page
+  // is one of the first num_pages; else (or in a read without a new column)
+  // every token is read from the cache
   const bool writes = has_new && ctx > 0 && (ctx - 1) / bs < num_pages;
-  const int tok_new = writes ? ctx - 1 : -1;
   const size_t head_page = (size_t)layer * NB * Hkv;  // page index base of this layer
   const size_t row0 = (size_t)b * Hq + (size_t)h * GROUP;
 
@@ -181,11 +197,17 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
   const int32_t* vn = writes ? v_new + new_row * WD : nullptr;
   const float ksn = writes ? ks_new[new_row] : 0.f;
   const float vsn = writes ? vs_new[new_row] : 0.f;
+  auto page_of = [&](int pg) {  // page index of visited page pg (F4's clamp, -1 -> 0)
+    const int pidx = min(pg, num_pages - 1);
+    return head_page + (size_t)max(block_table[(size_t)b * P + pidx], 0) * Hkv + h;
+  };
+  const size_t page_new = writes ? page_of((ctx - 1) / bs) : ~(size_t)0;
+  const int slot_new = writes ? (ctx - 1) % bs : -1;
 
   ReadInject ri;
   ri.thr = thr;
   ri.seed = seed_ptr ? (uint32_t)*seed_ptr : seed_val;
-  ri.uid0 = ((uint32_t)layer * gridDim.y + (uint32_t)b) * (uint32_t)num_chunks * (uint32_t)ppc;
+  ri.uid0 = ((uint32_t)layer * gridDim.z + (uint32_t)b) * (uint32_t)num_chunks * (uint32_t)ppc;
   ri.ppc = ppc;
   ri.Hkv = Hkv;
   ri.h = h;
@@ -194,17 +216,14 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
   int flipped = 0;  // read bits flipped over this thread's valid tokens
 
   // 1. the in-place write of the new token's column and scales
-  if (writes) {
-    const int phys = max(block_table[(size_t)b * P + tok_new / bs], 0);
-    const size_t page = head_page + (size_t)phys * Hkv + h;
-    const int slot = tok_new % bs;
+  if (writes && rank == 0) {
     for (int j = tid; j < WD; j += kThreads) {
-      k_cache[(page * WD + j) * bs + slot] = kn[j];
-      v_cache[(page * WD + j) * bs + slot] = vn[j];
+      k_cache[(page_new * WD + j) * bs + slot_new] = kn[j];
+      v_cache[(page_new * WD + j) * bs + slot_new] = vn[j];
     }
     if (tid == 0) {
-      k_scales[page * bs + slot] = ksn;
-      v_scales[page * bs + slot] = vsn;
+      k_scales[page_new * bs + slot_new] = ksn;
+      v_scales[page_new * bs + slot_new] = vsn;
     }
   }
 
@@ -219,70 +238,77 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
   const int count_from = stats && INJECT ? 0 : first_tok / bs;
   __syncthreads();
 
-  for (int pg = count_from; pg < npages; ++pg) {
-    const int pidx = min(pg, num_pages - 1);
-    const size_t page = head_page + (size_t)max(block_table[(size_t)b * P + pidx], 0) * Hkv + h;
+  // the block's pages: every splits-th from count_from + rank
+  for (int pg = count_from + rank; pg < npages; pg += splits) {
+    const size_t page = page_of(pg);
+    const int new_slot = page == page_new ? slot_new : -1;  // the new column's slot here
     const int32_t* kp = k_cache + page * WD * bs;
     const int32_t* vp = v_cache + page * WD * bs;
     const float* ksp = k_scales + page * bs;
     const float* vsp = v_scales + page * bs;
-    const uint32_t kbase = INJECT ? ri.base(pg, 0) : 0u;
-    const uint32_t vbase = INJECT ? ri.base(pg, 1) : 0u;
 
-    if (INJECT && pg < first_tok / bs) {  // before the window: count the flips only
-      for (int t = tid; t < bs; t += kThreads) {
-        if (pg * bs + t >= ctx) continue;
-        for (int j = 0; j < WD; ++j) {
-          const uint32_t elem = (uint32_t)(j * bs + t);
-          flipped += __popc(flip_word(kbase + elem, ri.seed, ri.thr)) +
-                     __popc(flip_word(vbase + elem, ri.seed, ri.thr));
+    if constexpr (INJECT) {
+      // phase H: thread per (K or V, word, slot) of the valid tokens (a
+      // slot past the context is never attended nor counted, and a page
+      // with few valid tokens still spreads over the warps) - the word
+      // read, XORed with its flips, into k_s / v_s; before the window the
+      // flips are counted alone
+      const uint32_t kbase = ri.base(pg, 0), vbase = ri.base(pg, 1);
+      const int valid = min(bs, ctx - pg * bs);
+      const bool attended = pg >= first_tok / bs;
+      // item i = row * valid + t, row = kv * WD + j, advanced by kThreads
+      // items a step without a division
+      int row = tid / valid, t = tid - row * valid;
+      const int drow = kThreads / valid, dt = kThreads - drow * valid;
+      for (int i = tid; i < 2 * WD * valid; i += kThreads) {
+        const int j = row % WD, kv = row / WD;
+        const uint32_t m = flip_word((kv ? vbase : kbase) + (uint32_t)(j * bs + t), ri.seed,
+                                     ri.thr);
+        flipped += __popc(m);
+        if (attended) {
+          const int32_t w = t == new_slot ? (kv ? vn : kn)[j] : (kv ? vp : kp)[j * bs + t];
+          (kv ? v_s : k_s)[j * (bs + 1) + t] = w ^ (int32_t)m;
+        }
+        t += dt;
+        row += drow;
+        if (t >= valid) {
+          t -= valid;
+          ++row;
         }
       }
-      continue;
+      if (!attended) continue;
+      __syncthreads();
     }
 
-    // phase A: thread per token - scores, and the V page into shared memory
+    // phase A: thread per token - scores, and (without injection) the V
+    // page into shared memory
     float lmax[GROUP];
 #pragma unroll
     for (int g = 0; g < GROUP; ++g) lmax[g] = kNegInf;
     for (int t = tid; t < bs; t += kThreads) {
       const int tok = pg * bs + t;
-      const bool is_new = tok == tok_new;
+      const bool is_new = t == new_slot;
       const bool live = tok < ctx && tok >= first_tok;
       int32_t kw[WD];
 #pragma unroll
       for (int j = 0; j < WD; ++j) {
-        int32_t kword = is_new ? kn[j] : kp[j * bs + t];
-        int32_t vword = is_new ? vn[j] : vp[j * bs + t];
         if constexpr (INJECT) {
-          const uint32_t elem = (uint32_t)(j * bs + t);
-          const uint32_t km = flip_word(kbase + elem, ri.seed, ri.thr);
-          const uint32_t vm = flip_word(vbase + elem, ri.seed, ri.thr);
-          kword ^= (int32_t)km;
-          vword ^= (int32_t)vm;
-          if (tok < ctx) flipped += __popc(km) + __popc(vm);
+          kw[j] = k_s[j * (bs + 1) + t];
+        } else {
+          kw[j] = is_new ? kn[j] : kp[j * bs + t];
+          v_s[j * (bs + 1) + t] = is_new ? vn[j] : vp[j * bs + t];
         }
-        kw[j] = kword;
-        v_s[j * (bs + 1) + t] = vword;
       }
       const float ks = is_new ? ksn : ksp[t];
       vs_s[t] = is_new ? vsn : vsp[t];
-      float dot[GROUP];
-      qk_dot<WD, GROUP>(kw, q_s, dot);
-      const float kscale = ks * sm_scale;
-#pragma unroll
-      for (int g = 0; g < GROUP; ++g) {
-        const float s = live ? dot[g] * kscale : kNegInf;
-        p_s[g * bs + t] = s;
-        lmax[g] = fmaxf(lmax[g], s);
-      }
+      score_token<WD, GROUP>(kw, q_s, ks * sm_scale, live, p_s + t, bs, lmax);
     }
     attend_page<WD, GROUP>(lmax, p_s, vs_s, v_s, st, acc, pg * bs, ctx, first_tok, bs,
                            exact != 0);
   }
 
-  store_output<GROUP, HD>(acc, st, out, row0, out_bf16, m_out, l_out);
   if (stats) flush_stats(stats, b, flipped, 0);
+  merge_cluster<GROUP, HD, DP>(cluster, acc, st, s_acc, s_ml, out, row0, out_bf16, m_out, l_out);
 }
 
 template <int WD, int GROUP, int HD, bool INJECT>
@@ -293,22 +319,22 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    const void* seed_ptr, void* m_out, void* l_out, int B, int Hkv, int bs,
                    int NB, int P, int num_pages, int layer, float sm_scale, int window,
                    int out_bf16, int exact, uint32_t thr, uint32_t seed_val, int num_chunks,
-                   int ppc, int has_new, cudaStream_t stream) {
+                   int ppc, int has_new, int splits, cudaStream_t stream) {
   constexpr int DP = 8 * WD;
   const size_t smem = (size_t)(GROUP * DP + GROUP * bs + bs) * sizeof(float) +
-                      (size_t)WD * (bs + 1) * sizeof(int32_t);
-  if (smem > 48 * 1024 || num_pages < 1 || num_pages > P || ppc < 1 || num_chunks < 1 ||
-      (long)num_chunks * ppc < num_pages)
+                      (size_t)(INJECT ? 2 : 1) * WD * (bs + 1) * sizeof(int32_t) +
+                      merge_bytes<GROUP, DP>(splits);
+  if (splits < 1 || splits > kMaxSplits || smem > kMaxSmem || num_pages < 1 || num_pages > P ||
+      ppc < 1 || num_chunks < 1 || (long)num_chunks * ppc < num_pages)
     return cudaErrorInvalidValue;
-  dim3 grid(Hkv, B);
-  write_attend_kernel<WD, GROUP, HD, INJECT><<<grid, kThreads, smem, stream>>>(
-      q, (const int32_t*)k_new, (const int32_t*)v_new, (const float*)ks_new,
-      (const float*)vs_new, (int32_t*)k_cache, (int32_t*)v_cache, (float*)k_scales,
-      (float*)v_scales, (const int32_t*)block_table, (const int32_t*)context_lens, out,
-      (int*)stats, (const int32_t*)seed_ptr, (float*)m_out, (float*)l_out, Hkv, bs, NB, P,
-      num_pages, layer, sm_scale, window, out_bf16, exact, thr, seed_val, num_chunks, ppc,
-      has_new);
-  return cudaGetLastError();
+  return launch_cluster(write_attend_kernel<WD, GROUP, HD, INJECT>, dim3(splits, Hkv, B), splits,
+                        smem, stream, q, (const int32_t*)k_new, (const int32_t*)v_new,
+                        (const float*)ks_new, (const float*)vs_new, (int32_t*)k_cache,
+                        (int32_t*)v_cache, (float*)k_scales, (float*)v_scales,
+                        (const int32_t*)block_table, (const int32_t*)context_lens, out,
+                        (int*)stats, (const int32_t*)seed_ptr, (float*)m_out, (float*)l_out, Hkv,
+                        bs, NB, P, num_pages, layer, sm_scale, window, out_bf16, exact, thr,
+                        seed_val, num_chunks, ppc, has_new);
 }
 
 // ---------------------------------------------------------------------------
@@ -373,7 +399,6 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
 // (a split over warps, a ring of tiles in shared memory through cp.async,
 // the products on the tensor cores, an integer e4m3 decode): PERF.md.
 
-constexpr int kMaxSplits = 8;  // the portable cluster size
 constexpr int kTileLoads = 8;  // 16-byte loads along a tile's tokens: 128 bytes a row
 
 // 16 loaded bytes widened to fp32: 8 bfloat16 values (exact: the bits on top)
@@ -705,31 +730,36 @@ cudaError_t launch_float(const void* q, const void* k_new, const void* v_new, vo
       ((uintptr_t)k_cache | (uintptr_t)v_cache) % 16 != 0 || num_pages < 1 || num_pages > P ||
       ppc < 1 || num_chunks < 1 || (long)num_chunks * ppc < num_pages)
     return cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, Hkv, B);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, float_attend_kernel<T, GROUP, HD>, q, (const T*)k_new, (const T*)v_new,
-      (T*)k_cache, (T*)v_cache, (const int32_t*)block_table, (const int32_t*)context_lens, out,
-      (float*)m_out, (float*)l_out, Hkv, bs, NB, P, num_pages, layer, sm_scale, window,
-      out_bf16, exact, num_chunks, ppc, has_new);
-  return err != cudaSuccess ? err : cudaGetLastError();
+  return launch_cluster(float_attend_kernel<T, GROUP, HD>, dim3(splits, Hkv, B), splits, 0,
+                        stream, q, (const T*)k_new, (const T*)v_new, (T*)k_cache, (T*)v_cache,
+                        (const int32_t*)block_table, (const int32_t*)context_lens, out,
+                        (float*)m_out, (float*)l_out, Hkv, bs, NB, P, num_pages, layer, sm_scale,
+                        window, out_bf16, exact, num_chunks, ppc, has_new);
 }
 
 }  // namespace
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 on
-// success). Instances are built only for the (data words per row, group,
-// head_dim) of the registered models, each with and without read
+// Never launched: the read flips of one word (32 hashes, flip_word) a
+// thread in _word1 and of two in _word2, whose difference in the built
+// library's SASS is one word's hashes (kernels/sass_count.py, for the
+// integer bound).
+extern "C" __global__ void sass_probe_flip_word1(const uint32_t* elems, uint32_t* masks,
+                                                 uint32_t seed, uint32_t thr) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  masks[i] = flip_word(elems[i], seed, thr);
+}
+
+extern "C" __global__ void sass_probe_flip_word2(const uint32_t* elems, uint32_t* masks,
+                                                 uint32_t seed, uint32_t thr) {
+  const int i = 2 * (blockIdx.x * blockDim.x + threadIdx.x);
+  masks[i] = flip_word(elems[i], seed, thr);
+  masks[i + 1] = flip_word(elems[i + 1], seed, thr);
+}
+
+// Launches the kernel on `stream` as `splits` (1-8) blocks a cluster per
+// (sequence, KV head) and returns its launch error (0 on success).
+// Instances are built only for the (data words per row, group, head_dim)
+// of the registered models, each with and without read
 // injection (a template parameter, so the clean read compiles without the
 // hash): (2, 2, 16) and (4, 2, 16) for
 // tiny-llama (hamming74 pads to 4 words), (16, 2, 128) for bench-0.9b and
@@ -751,11 +781,11 @@ extern "C" int write_attend_launch(
     void* out, void* stats, const void* seed_ptr, void* m_out, void* l_out, int B, int Hkv,
     int group, int wd, int head_dim, int bs, int NB, int P, int num_pages, int layer,
     float sm_scale, int window, int out_bf16, int exact, int read_inject, int thr,
-    int seed_val, int num_chunks, int ppc, int has_new, void* stream) {
+    int seed_val, int num_chunks, int ppc, int has_new, int splits, void* stream) {
 #define WA_ARGS q, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales, v_scales,      \
     block_table, context_lens, out, stats, seed_ptr, m_out, l_out, B, Hkv, bs, NB, P,      \
     num_pages, layer, sm_scale, window, out_bf16, exact, (uint32_t)thr, (uint32_t)seed_val, \
-    num_chunks, ppc, has_new, (cudaStream_t)stream
+    num_chunks, ppc, has_new, splits, (cudaStream_t)stream
 #define WA_LAUNCH(W, G, H) \
   err = read_inject ? launch<W, G, H, true>(WA_ARGS) : launch<W, G, H, false>(WA_ARGS)
   cudaError_t err = cudaErrorInvalidValue;

@@ -229,6 +229,51 @@ def golay_correct_data_i32(cw: torch.Tensor, b_masks) -> torch.Tensor:
     return torch.where(correctable, d ^ ed, zero)
 
 
+def golay_nibble_tables(b_masks) -> torch.Tensor:
+    """[48] int32: entry 16 k + n is the XOR of B's rows 4 k + i over the
+    set bits i of n, so that d . B = t[d & 15] ^ t[16 + (d >> 4 & 15)] ^
+    t[32 + (d >> 8)] (B is symmetric): golay.cuh fill_encode_tables."""
+    n = torch.arange(16, dtype=torch.int32)
+    rows = [torch.zeros_like(n) for _ in range(3)]
+    for k in range(3):
+        for i in range(4):
+            rows[k] = rows[k] ^ torch.where((n >> i) & 1 == 1, b_masks[4 * k + i], 0)
+    return torch.cat(rows).to(torch.int32)
+
+
+GOLAY_WEIGHT_SHIFT = 12  # a syndrome-table entry: correction | weight << 12
+
+
+def golay_syndrome_table(b_masks) -> torch.Tensor:
+    """[4096] int16, the correcting reads' decode table (golay.cuh
+    decode_table): entry s holds the IMLD's data correction (bits 0-11) and
+    the error weight (bits 12-14: 0-3, or 4 when uncorrectable, correction
+    0) of a codeword whose syndrome d . B ^ p is s. Both depend on s alone,
+    so they are read off the arithmetic IMLD (golay_decode_i32 and
+    golay_correct_data_i32, which must agree) at d = 0, p = s."""
+    cw = torch.arange(4096, dtype=torch.int32) << 12
+    data, weight = golay_decode_i32(cw, b_masks, zero_uncorrectable=True)
+    if not torch.equal(data, golay_correct_data_i32(cw, b_masks)):
+        raise AssertionError("the two arithmetic IMLDs disagree")
+    return (data | (weight << GOLAY_WEIGHT_SHIFT)).to(torch.int16)
+
+
+def golay_table_decode(cw: torch.Tensor, nibble_tables: torch.Tensor,
+                       syndrome_table: torch.Tensor):
+    """The kernels' syndrome-table decode of 24-bit codewords, in plain
+    torch: s from three nibble-table lookups and the parity bits, then one
+    lookup. Returns (data12, weight 0-3 | 4); an uncorrectable codeword's
+    data reads as 0. The same bits as golay_decode_i32(zero_uncorrectable=
+    True)."""
+    cw = cw.to(torch.int32)
+    d = cw & 0xFFF
+    t = nibble_tables.to(cw.device).long()
+    s = t[d & 15] ^ t[16 + ((d >> 4) & 15)] ^ t[32 + (d >> 8)] ^ ((cw >> 12) & 0xFFF)
+    e = syndrome_table.to(cw.device).to(torch.int32)[s]
+    weight = e >> GOLAY_WEIGHT_SHIFT
+    return torch.where(weight == 4, 0, d ^ (e & 0xFFF)), weight
+
+
 # =============================================================================
 # The float codecs' storage types, rounded as JAX's astype rounds
 # =============================================================================

@@ -14,14 +14,20 @@ return the unnormalised softmax state:
     injection of mode ``int4`` and its flipped-bit count;
   * ``csrc/decode_attend.cu`` (K2, K3 and K4's correcting reads): the
     correcting read of the parity codecs - hamming84 (optionally
-    interpolating double errors), hamming74 and golay - with the per-read
-    ECC statistics;
+    interpolating double errors), hamming74 and golay (through the
+    syndrome table ``golay_syndrome_table``) - with the per-read ECC
+    statistics;
   * ``float_attend`` in ``csrc/write_attend.cu`` (K2f, and K4's reads of
     the float codecs): the raw values of fp16 (stored as bfloat16) and fp8
     (e4m3), widened to float32, with no scales, no zero point and no
     statistics (a float read that collects them returns zeros). It splits
     a sequence's visited tokens over a cluster of ``float_splits`` blocks
     and merges their softmax states as ``merge_softmax_states`` does.
+
+The two packed kernels split a sequence's visited pages the same way, over
+a cluster of ``packed_splits`` blocks (page r, r + S, ... to block r); the
+plain model of that split is ``_read(page_range=range(r, pages, S))``
+merged by ``merge_softmax_states``.
 
 Launches are counted on the wrapper that made them:
 ``paged_attention_ecc_write_attend.launches`` (write_attend.cu),
@@ -81,7 +87,7 @@ _CODEC_IDS = {"hamming84": 0, "hamming74": 1, "golay": 2}
 # for bfloat16 (fp16) and e4m3 (fp8): tiny-llama, bench-0.9b and the kernel
 # benchmark
 FLOAT_KERNEL_SHAPES = ((2, 16), (2, 128), (4, 128))
-FLOAT_MAX_SPLITS = 8  # float_attend's largest cluster (kMaxSplits), the portable size
+FLOAT_MAX_SPLITS = 8  # the kernels' largest cluster (kMaxSplits), the portable size
 _FLOAT_TILE_BYTES = 128  # bytes of each head-dim row in a float_attend tile (kTileLoads)
 
 
@@ -97,6 +103,32 @@ def float_splits(batch: int, num_kv_heads: int, visited_tokens: int, elem_bytes:
     while s < FLOAT_MAX_SPLITS and batch * num_kv_heads * s < sms and s < tiles:
         s *= 2
     return s
+
+
+def packed_splits(batch: int, num_kv_heads: int, visited: int, sms: int,
+                  blocks_per_sm: int = 1) -> int:
+    """The blocks S (a power of two, 1 to 8) that the packed kernels
+    (write_attend_kernel, decode_attend_kernel) give each (sequence, KV
+    head), splitting its visited pages round-robin: float_splits' rule with
+    pages for tiles - the fewest with batch * num_kv_heads * S blocks at
+    least ``blocks_per_sm`` per SM, and no more than leave every block a
+    page of the ``visited`` pages. The read-inject read asks for 2 (its
+    hashes load the integer pipe, which a second block on each SM keeps
+    busy while the first attends; S = 8 at the bench step, 4 for the
+    others)."""
+    s = 1
+    while (s < FLOAT_MAX_SPLITS and batch * num_kv_heads * s < sms * blocks_per_sm
+           and s < visited):
+        s *= 2
+    return s
+
+
+@functools.lru_cache(maxsize=None)
+def golay_syndrome_table(device: torch.device) -> torch.Tensor:
+    """The Golay decode's [4096] syndrome table (common.golay_syndrome_table)
+    on ``device``, built once per device: decode_attend.cu copies it into
+    each block's shared memory."""
+    return C.golay_syndrome_table(swar._B_MASKS).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,12 +183,15 @@ def gather_scales(scales, block_table, layer_idx, num_pages, pages_per_chunk=Non
 
 def paged_attention_ecc_reference(query, k_cache, v_cache, k_scales, v_scales,
                                   block_table, context_lens, layer_idx,
-                                  k_parity=None, v_parity=None, *, codec: str,
-                                  num_pages=None, sm_scale=None):
+                                  k_parity=None, v_parity=None, *, codec: str = "hamming84",
+                                  block_size: int = 128, num_pages=None, sm_scale=None):
     """Plain paged attention with explicit unpack + decode of full rows, in
     float32 (golay zeroes uncorrectable codewords, hamming84 doubles keep
     their data; no interpolation; fp16 / fp8 widen their raw values, with
-    no scales)."""
+    no scales). Signature and defaults are the JAX function's; a
+    ``block_size`` other than the cache's raises."""
+    if k_cache.shape[4] != block_size:
+        raise ValueError(f"block_size {block_size} != the cache's {k_cache.shape[4]}")
     batch, num_q_heads, head_dim = query.shape
     num_kv_heads = k_cache.shape[2]
     group = num_q_heads // num_kv_heads
@@ -651,13 +686,15 @@ def _launch(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales,
     seed_t, seed_v = _seed_args(read_seed)
     ptrs = (q, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales, v_scales,
             block_table, context_lens, out, stats, seed_t, m, l)
-    rc = launcher("write_attend", "p" * 16 + "i" * 10 + "f" + "i" * 9 + "p")(
+    splits = packed_splits(batch, Hkv, visited_pages(num_pages, pages_per_chunk),
+                           _sm_count(query.device.index), 1 if read_threshold is None else 2)
+    rc = launcher("write_attend", "p" * 16 + "i" * 10 + "f" + "i" * 10 + "p")(
         *(0 if t is None else t.data_ptr() for t in ptrs), batch, Hkv, group, Wd, head_dim,
         bs, NB, block_table.shape[1], num_pages, int(layer_idx), float(sm_scale),
         int(sliding_window or 0), int(out.dtype == torch.bfloat16),
         int(precision == "highest"), int(read_threshold is not None),
         C.i32_bits(read_threshold or 0), seed_v, C.cdiv(num_pages, pages_per_chunk),
-        pages_per_chunk, int(bool(new)), _stream(query))
+        pages_per_chunk, int(bool(new)), splits, _stream(query))
     if rc != 0:
         raise RuntimeError(f"write_attend kernel launch failed: cudaError {rc}")
     _count(counter or paged_attention_ecc_write_attend,
@@ -757,15 +794,18 @@ def _launch_decode(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scal
     ])
     q = _kernel_query(query, precision)
     out, stats, m, l = _outputs(query, collect_stats, return_softmax_state)
+    syn = golay_syndrome_table(query.device) if codec == "golay" else None
     ptrs = (q, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_parity, v_parity,
-            k_scales, v_scales, block_table, context_lens, out, stats, m, l)
+            k_scales, v_scales, block_table, context_lens, syn, out, stats, m, l)
     interp = bool(interpolate and codec == "hamming84")
-    rc = launcher("decode_attend", "p" * 17 + "i" * 13 + "f" + "i" * 6 + "p")(
+    splits = packed_splits(batch, Hkv, visited_pages(num_pages, pages_per_chunk),
+                           _sm_count(query.device.index))
+    rc = launcher("decode_attend", "p" * 18 + "i" * 13 + "f" + "i" * 7 + "p")(
         *(0 if t is None else t.data_ptr() for t in ptrs), batch, Hkv, group,
         _CODEC_IDS[codec], Wd, Pw, head_dim, bs, NB, block_table.shape[1], num_pages,
         int(layer_idx), int(sliding_window or 0), float(sm_scale),
         int(out.dtype == torch.bfloat16), int(precision == "highest"),
-        int(pages_per_chunk * bs), int(interp), int(collect_stats), int(bool(new)),
+        int(pages_per_chunk * bs), int(interp), int(collect_stats), int(bool(new)), splits,
         _stream(query))
     if rc != 0:
         raise RuntimeError(f"decode_attend kernel launch failed: cudaError {rc}")

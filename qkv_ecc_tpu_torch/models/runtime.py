@@ -104,6 +104,14 @@ def init_generation_state(cfg: ModelConfig, policy: KVCachePolicy, batch: int,
     return state, block_table, cache_cfg
 
 
+def _check_block_size(state, block_size: int) -> int:
+    """The cache's page size, which ``block_size`` must equal."""
+    bs = state["k_cache"].shape[4]
+    if block_size != bs:
+        raise ValueError(f"block_size {block_size} != the cache's page size {bs}")
+    return bs
+
+
 def _physical_pages(block_table, positions, bs):
     """Physical page of each position [B, S]; raises on a page of -1 (an
     index_put_ would wrap it to the last page): a prompt is never written
@@ -185,8 +193,8 @@ def _inv_freq(cfg: ModelConfig, device):
 
 @torch.no_grad()
 def prefill(params, input_ids, state, block_table, cfg: ModelConfig,
-            policy: KVCachePolicy, generator=None, read_masks=None, logit_pos=None,
-            true_len=None):
+            policy: KVCachePolicy, generator=None, logit_pos=None, true_len=None, *,
+            read_masks=None):
     """Process the prompt [B, S]: write the cache and return the last
     token's logits [B, V] float32 (with ``logit_pos`` [B], those at each
     row's position; ``true_len`` [B] is stored as the context length: a
@@ -198,7 +206,10 @@ def prefill(params, input_ids, state, block_table, cfg: ModelConfig,
     sequence when asked; golay keeps an uncorrectable codeword's data here).
     Mode ``int4`` stores clean nibbles and attends through fresh read flips:
     ``read_masks`` [L, 2, B, S, Hkv, D'] (the flips JAX draws from each
-    layer's key folded with "READ"), or drawn from ``generator``."""
+    layer's key folded with "READ"), or drawn from ``generator``.
+
+    Positional arguments are JAX's, a ``torch.Generator`` in place of
+    ``step_key``; ``read_masks`` is the port's own, keyword-only."""
     _check_slice(cfg, policy)
     scrub = _use_scrub(policy)
     read = _read_inject(policy)
@@ -253,12 +264,18 @@ def write_mask_shape(policy: KVCachePolicy, batch: int, cfg: ModelConfig):
 
 @torch.no_grad()
 def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
-                policy: KVCachePolicy, generator=None, hoisted_masks=None,
-                collect_ecc_stats: bool = False, read_inject_seed=None):
+                policy: KVCachePolicy, generator=None, block_size: int = 128,
+                collect_ecc_stats: bool = False, *, hoisted_masks=None,
+                read_inject_seed=None):
     """One decode step: token_ids [B] -> logits [B, V] float32; the caches
     advance in place. A row whose block-table page is -1 (an inactive
     serving slot, context 0) writes into the trash page 0: its data column
     where the kernels clamp it, its parity column at slot b % block_size.
+
+    Positional arguments are JAX's (``_decode_step_impl``), a
+    ``torch.Generator`` in place of ``step_key``; ``block_size`` must be the
+    cache's page size (it raises otherwise); ``hoisted_masks`` and
+    ``read_inject_seed`` are keyword-only.
 
     hoisted_masks: every layer's write masks for this step, [L, 2, *shape] -
     folded deltas (kv_policy.hoisted_write_deltas, uint8) in the scrubbed
@@ -276,11 +293,11 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
     or an int32 scalar tensor that the kernel reads on the card without a
     host sync); drawn from ``generator`` on its device when not given."""
     _check_slice(cfg, policy)
+    bs = _check_block_size(state, block_size)
     B = token_ids.shape[0]
     L = len(params["layers"])
     pos = state["context_len"]
     positions = pos[:, None]
-    bs = state["k_cache"].shape[4]
     dw = state["k_cache"].shape[3]
     inv_freq = _inv_freq(cfg, token_ids.device)
     scrub = _use_scrub(policy) and not collect_ecc_stats
@@ -357,16 +374,19 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
 @torch.no_grad()
 def decode_loop(params, logits, state, block_table, cfg: ModelConfig,
                 policy: KVCachePolicy, generator, num_steps: int,
-                collect_ecc_stats: bool = False):
+                block_size: int = 128, collect_ecc_stats: bool = False):
     """``num_steps`` greedy decode steps in a Python loop, each step's write
     masks (folded deltas or raw logical masks, as the mode writes) or read
     seed drawn from ``generator``. With ``collect_ecc_stats`` the counters
     state["ecc_corrected"] / state["ecc_detected"] start at 0 when absent
-    and add up over the steps.
+    and add up over the steps. Arguments are JAX's, in its order (a
+    ``torch.Generator`` in place of ``base_key``); ``block_size`` must be
+    the cache's page size.
 
     Returns (logits [B, V] after the last step, state, tokens [num_steps, B]
     - the argmax token fed into each step)."""
     _check_slice(cfg, policy)
+    _check_block_size(state, block_size)
     if collect_ecc_stats:
         B = logits.shape[0]
         for name in ("ecc_corrected", "ecc_detected"):
@@ -376,19 +396,24 @@ def decode_loop(params, logits, state, block_table, cfg: ModelConfig,
         tok = torch.argmax(logits, dim=-1)
         tokens.append(tok)
         logits, state = decode_step(params, tok, state, block_table, cfg, policy,
-                                    generator, collect_ecc_stats=collect_ecc_stats)
+                                    generator, block_size, collect_ecc_stats)
     return logits, state, torch.stack(tokens)
 
 
 @torch.no_grad()
 def generate(params, input_ids, cfg: ModelConfig, policy: KVCachePolicy,
-             max_new_tokens: int = 32, block_size: int = 128, device=None,
-             return_ecc_stats: bool = False):
+             max_new_tokens: int = 32, block_size: int = 128, temperature: float = 0.0,
+             seed: int = 0, return_ecc_stats: bool = False, *, device=None):
     """Greedy generation on ``device`` (None: the card), masks and read
     seeds drawn from a generator seeded with policy.seed. input_ids:
     [B, S] ints. Returns [B, S + max_new_tokens], or with
     ``return_ecc_stats`` (tokens, {"errors_corrected": [B],
-    "errors_detected": [B]}), the decode steps' counts."""
+    "errors_detected": [B]}), the decode steps' counts. Arguments are
+    JAX's, in its order, and ``device`` the port's own, keyword-only;
+    sampling (``temperature`` > 0, from ``seed``) is not ported yet and
+    raises."""
+    if temperature > 0:
+        raise NotImplementedError("sampled generation (temperature > 0) is not ported yet")
     device = resolve_device(device)
     input_ids = torch.as_tensor(input_ids).to(device=device, dtype=torch.long)
     B, S = input_ids.shape
@@ -403,7 +428,7 @@ def generate(params, input_ids, cfg: ModelConfig, policy: KVCachePolicy,
         if step == max_new_tokens - 1:
             break
         logits, state = decode_step(params, tok, state, block_table, cfg, policy, generator,
-                                    collect_ecc_stats=return_ecc_stats)
+                                    block_size, return_ecc_stats)
     out = torch.cat(tokens, dim=1)
     if return_ecc_stats:
         zeros = torch.zeros((B,), dtype=torch.int32, device=device)

@@ -121,7 +121,7 @@ class ContinuousBatchingServer:
         self.state.pop("ecc_corrected", None)
         self.state.pop("ecc_detected", None)
         logits, self.state = decode_step(self.params, tokens, self.state, block_table, self.cfg,
-                                         self.policy, self._gen,
+                                         self.policy, self._gen, block_size=self.block_size,
                                          collect_ecc_stats=self.collect_ecc_stats)
         self._harvest_ecc()
         return logits

@@ -261,7 +261,8 @@ def test_reference_and_checks():
         args = ("q", "k_cache", "v_cache", "k_scales", "v_scales", "bt", "ctx")
         want = jpa.paged_attention_ecc_reference(*(jnp.asarray(case[a]) for a in args), 1,
                                                  codec=codec, block_size=BS)
-        got = tpa.paged_attention_ecc_reference(*(to_torch(case[a]) for a in args), 1, codec=codec)
+        got = tpa.paged_attention_ecc_reference(*(to_torch(case[a]) for a in args), 1, codec=codec,
+                                                block_size=BS)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
         t = {n: to_torch(case[n]) for n in case}
         call = functools.partial(tpa.paged_attention_ecc_write_attend,

@@ -134,7 +134,8 @@ def test_gather_and_reference_match_jax():
         *(jt[a] for a in args), 1, jt["k_parity"], jt["v_parity"], codec="golay",
         block_size=16)
     got = tpa.paged_attention_ecc_reference(
-        *(tt[a] for a in args), 1, tt["k_parity"], tt["v_parity"], codec="golay")
+        *(tt[a] for a in args), 1, tt["k_parity"], tt["v_parity"], codec="golay",
+        block_size=16)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
@@ -152,7 +153,7 @@ def test_plain_is_close_to_reference():
         tt["v_parity"][1, page, :, :, slot] = tt["vp"][b]
     ref = tpa.paged_attention_ecc_reference(
         *(tt[a] for a in ("q", "k_cache", "v_cache", "k_scales", "v_scales", "bt", "ctx")),
-        1, tt["k_parity"], tt["v_parity"], codec="golay")
+        1, tt["k_parity"], tt["v_parity"], codec="golay", block_size=16)
     np.testing.assert_allclose(got[0], ref.numpy(), rtol=0, atol=2.0 ** -6 * np.abs(ref.numpy()).max())
 
 
@@ -378,7 +379,8 @@ def test_h84_reference_matches_jax():
         *(jt[a] for a in args), 0, jt["k_parity"], jt["v_parity"], codec="hamming84",
         block_size=H84_BS)
     got = tpa.paged_attention_ecc_reference(
-        *(tt[a] for a in args), 0, tt["k_parity"], tt["v_parity"], codec="hamming84")
+        *(tt[a] for a in args), 0, tt["k_parity"], tt["v_parity"], codec="hamming84",
+        block_size=H84_BS)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
@@ -773,3 +775,124 @@ def test_attend_signature_and_checks():
     assert out.shape == case["q"].shape
     assert tpa.paged_attention_ecc.launches == 0
     assert all(v == 0 for v in tpa.paged_attention_ecc.launches_by.values())
+
+
+def test_cache_config_and_reference_api_match_jax():
+    """F10: ECCCacheConfig's words_per_block, storage_overhead_vs_int4 and
+    max_tokens equal JAX's for every codec; paged_attention_ecc_reference
+    takes JAX's call form - codec defaulting to "hamming84" and a
+    block_size keyword (tests/test_paged_attention.py:393's call) - with
+    JAX's output (float32, within 1e-5), and raises on a block_size other
+    than the cache's."""
+    for codec in tl.CODEC_CHOICES:
+        for hd, bs, nb in ((16, 16, 6), (128, 128, 40), (64, 32, 9)):
+            a = ECCCacheConfig(num_blocks=nb, block_size=bs, num_layers=2, num_kv_heads=2,
+                               head_dim=hd, codec=codec)
+            b = tl.ECCCacheConfig(num_blocks=nb, block_size=bs, num_layers=2, num_kv_heads=2,
+                                  head_dim=hd, codec=codec)
+            for name in ("words_per_block", "storage_overhead_vs_int4", "max_tokens"):
+                assert getattr(a, name) == getattr(b, name), (codec, hd, name)
+    assert tl.ECCCacheConfig().max_tokens == ECCCacheConfig().max_tokens
+    case = build_h84_case(seed=4)
+    jt = {n: jnp.asarray(case[n]) for n in case}
+    tt = {n: torch.from_numpy(case[n]) for n in case}
+    args = ("q", "k_cache", "v_cache", "k_scales", "v_scales", "bt", "ctx")
+    want = jpa.paged_attention_ecc_reference(*(jt[a] for a in args), 0, jt["k_parity"],
+                                             jt["v_parity"], block_size=H84_BS)
+    got = tpa.paged_attention_ecc_reference(*(tt[a] for a in args), 0, tt["k_parity"],
+                                            tt["v_parity"], block_size=H84_BS)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    jsig = inspect.signature(jpa.paged_attention_ecc_reference).parameters
+    tsig = inspect.signature(tpa.paged_attention_ecc_reference).parameters
+    assert list(jsig) == list(tsig)
+    assert {n: p.default for n, p in jsig.items()} == {n: p.default for n, p in tsig.items()}
+    with pytest.raises(ValueError, match="block_size 128"):
+        tpa.paged_attention_ecc_reference(*(tt[a] for a in args), 0, tt["k_parity"],
+                                          tt["v_parity"])
+
+
+def test_golay_syndrome_table_matches_jax_imld():
+    """The correcting reads' Golay decode table (common.golay_syndrome_table,
+    decoded by the plain model of the kernels' lookups,
+    golay_table_decode) against JAX's arithmetic IMLDs: every syndrome s of
+    0..4095, each with 8 random data words d (d = 0 among them), in the
+    codeword cw = d | ((d . B ^ s) << 12): data equal to JAX's
+    golay_correct_data_i32 and golay_decode_i32(zero_uncorrectable=True),
+    weight (0-3, 4 uncorrectable) equal to the latter's. Exhaustive, since
+    both depend on s alone."""
+    from qkv_ecc_tpu.kernels import common as jc
+    from qkv_ecc_tpu.kernels.paged_attention import _B_MASKS as JB
+    from qkv_ecc_tpu_torch.kernels import common as tc
+
+    table = tc.golay_syndrome_table(tpa.swar._B_MASKS)
+    nib = tc.golay_nibble_tables(tpa.swar._B_MASKS)
+    assert table.shape == (4096,) and table.dtype == torch.int16
+    rng = np.random.default_rng(11)
+    d = rng.integers(0, 4096, (8, 4096)).astype(np.int32)
+    d[0] = 0
+    s = np.broadcast_to(np.arange(4096, dtype=np.int32), d.shape)
+    parity = np.asarray(jc.golay_encode_i32(jnp.asarray(d), JB)) >> 12
+    cw = d | ((parity ^ s) << 12)
+    got, weight = tc.golay_table_decode(torch.from_numpy(cw), nib, table)
+    want, want_w = jc.golay_decode_i32(jnp.asarray(cw), JB, zero_uncorrectable=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(weight.numpy(), np.asarray(want_w))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jc.golay_correct_data_i32(
+        jnp.asarray(cw), JB)))
+    assert np.bincount(weight[0].numpy(), minlength=5).tolist() == [1, 24, 276, 2024, 1771]
+
+
+def _packed_split_read(case, codec, splits, layer=1, **kw):
+    """The plain model of the packed kernels' split (write_attend_kernel,
+    decode_attend_kernel): after the port's plain write of the new row,
+    block r of `splits` reads the visited pages r, r + splits, ... as a
+    softmax state whose weights round against its own running maximum;
+    merge_softmax_states merges them. Returns ((output, stats) as numpy,
+    the arrays after the write); the stats are the plain read's counts over
+    every valid token (each block counts its own pages' tokens, and integer
+    sums take no order)."""
+    parity = "k_parity" in case
+    names = H84_NAMES if parity else NAMES
+    t = {n: torch.from_numpy(case[n].copy()) for n in case}
+    dw = t["k_cache"].shape[3]
+    num_pages = t["bt"].shape[1]
+    if parity:
+        cols = (t["kn"][..., :dw], t["vn"][..., :dw], t["kn"][..., dw:], t["vn"][..., dw:])
+        arrays = (t["k_cache"], t["v_cache"], t["k_parity"], t["v_parity"])
+    else:
+        cols, arrays = (t["kn"], t["vn"]), (t["k_cache"], t["v_cache"])
+    tpa._write_column(cols, arrays, (t["ksn"], t["vsn"]), (t["k_scales"], t["v_scales"]),
+                      t["bt"], t["ctx"], layer, num_pages)
+    visited = tpa.visited_pages(num_pages, H84_CHUNK_PAGES)
+    reads = [tpa._read(t["q"], *(t[n] for n in NAMES), t["bt"], t["ctx"], layer,
+                       *((t["k_parity"], t["v_parity"]) if parity else ()), codec=codec,
+                       sm_scale=case["q"].shape[-1] ** -0.5, num_pages=num_pages,
+                       pages_per_chunk=H84_CHUNK_PAGES, page_range=range(r, visited, splits),
+                       **kw)
+             for r in range(splits)]
+    acc, _, l = tpa.merge_softmax_states(*(torch.stack(x) for x in zip(*(s for s, _ in reads))))
+    out = tpa._normalise(acc, l, torch.float32).numpy()
+    return (out, reads[0][1].numpy()), {n: t[n].numpy() for n in names}
+
+
+@pytest.mark.parametrize("splits", [2, 3, 4])
+@pytest.mark.parametrize("codec", ["golay", "int4 read-inject"])
+def test_packed_split_read_matches_jax(codec, splits):
+    """The rounding of the packed kernels' split fits the unchanged
+    tolerance: the visited pages dealt round-robin to 2, 3 and 4 blocks
+    (_packed_split_read; at 3 a block's pages start inside a chunk of 2)
+    stay within tolerance(case) of JAX's write+attend in interpret mode, for
+    golay's correcting read (1-4-bit errors) and int4's read-time injection
+    (BER 1e-2); arrays after the write equal, the counts (corrections and
+    uncorrectable codewords; flipped read bits) exactly JAX's."""
+    name = codec.split()[0]
+    case = build_ecc_case(name, seed=30 + splits)
+    jkw = dict(collect_stats=True)
+    tkw = dict(collect_stats=True)
+    if name == "int4":
+        jkw.update(read_inject_ber=1e-2, read_inject_seed=4242)
+        tkw.update(read_threshold=tpa._read_threshold(1e-2, "int4"), read_seed=4242)
+    want = run_jax_read(case, name, 1, **jkw)
+    got = _packed_split_read(case, name, splits, **tkw)
+    assert_reads_agree(case, want, got)
+    assert got[0][1][:, 0].sum() > 0

@@ -220,7 +220,7 @@ def test_slice_matches_jax(weights, mode):
                                          block_size=BS, hoisted_masks=jh,
                                          collect_ecc_stats=stats)
         tlogits, tstate = tr.decode_step(tparams, ttok, tstate, tbt, T_TINY, tpol,
-                                         hoisted_masks=th, collect_ecc_stats=stats,
+                                         block_size=BS, hoisted_masks=th, collect_ecc_stats=stats,
                                          read_inject_seed=seed)
         np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), rtol=0, atol=1e-3,
                                    err_msg=f"step {step}")
@@ -264,11 +264,11 @@ def test_decode_loop_and_generate(weights, mode):
         g = torch.Generator().manual_seed(5)
         logits, state = tr.prefill(tparams, ids, state, bt, T_TINY, pol, g)
         if loop:
-            return tr.decode_loop(tparams, logits, state, bt, T_TINY, pol, g, 4)
+            return tr.decode_loop(tparams, logits, state, bt, T_TINY, pol, g, 4, BS)
         toks = []
         for _ in range(4):
             toks.append(torch.argmax(logits, -1))
-            logits, state = tr.decode_step(tparams, toks[-1], state, bt, T_TINY, pol, g)
+            logits, state = tr.decode_step(tparams, toks[-1], state, bt, T_TINY, pol, g, BS)
         return logits, state, torch.stack(toks)
 
     a, b = run(True), run(False)
@@ -337,7 +337,7 @@ def decode_with_inactive_row(weights, mode):
                                          jax.random.fold_in(key, step), block_size=BS,
                                          hoisted_masks=jh)
         tlogits, tstate = tr.decode_step(tparams, ttok, tstate, torch.from_numpy(bt), T_TINY,
-                                         tpol, hoisted_masks=th)
+                                         tpol, block_size=BS, hoisted_masks=th)
         np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), rtol=0, atol=1e-3,
                                    err_msg=f"step {step}")
         live = {n: jstate[n] for n in jstate if n in CACHE_NAMES}
@@ -393,7 +393,8 @@ def test_unported_paths_raise(weights):
         fstate, fbt, _ = tr.init_generation_state(T_TINY, pol, B, 40, BS, device="cpu")
         g = torch.Generator().manual_seed(0)
         logits, fstate = tr.prefill(tparams, ids, fstate, fbt, T_TINY, pol, g)
-        logits, fstate = tr.decode_step(tparams, logits.argmax(-1), fstate, fbt, T_TINY, pol, g)
+        logits, fstate = tr.decode_step(tparams, logits.argmax(-1), fstate, fbt, T_TINY, pol, g,
+                                        BS)
         assert logits.shape == (B, T_TINY.vocab_size) and fstate["context_len"].tolist() == [5, 5]
     with pytest.raises(NotImplementedError, match="the runtime supports"):
         tr.prefill(tparams, ids, state, bt, T_TINY, dataclasses.replace(t_policy("fp16"),
@@ -470,13 +471,13 @@ def test_ecc_stats_add_up(weights, mode):
 
     logits, state, bt, g = start()
     _, loop_state, _ = tr.decode_loop(tparams, logits, state, bt, T_TINY, pol, g, 4,
-                                      collect_ecc_stats=True)
+                                      block_size=BS, collect_ecc_stats=True)
     logits, state, bt, g = start()
     assert "ecc_corrected" not in state
     seen = [torch.zeros(B, dtype=torch.int32)] * 2
     for _ in range(4):
         logits, state = tr.decode_step(tparams, torch.argmax(logits, -1), state, bt, T_TINY,
-                                       pol, g, collect_ecc_stats=True)
+                                       pol, g, BS, collect_ecc_stats=True)
         now = [state["ecc_corrected"], state["ecc_detected"]]
         assert all(bool((a >= b).all()) for a, b in zip(now, seen))
         seen = now
@@ -524,3 +525,79 @@ def test_layers_match_jax(llama3, window):
                             sliding_window=window).numpy(),
         np.asarray(jl.causal_attention(jnp.asarray(x), jnp.asarray(k), jnp.asarray(v), 2,
                                        sliding_window=window)), **close)
+
+
+def test_jax_positional_decode_loop(weights):
+    """F9: JAX's positional call decode_loop(params, logits, state, bt, cfg,
+    pol, key, 4, 16) - 16 is block_size - on tiny-llama in int4-hamming84
+    (batch 2, prompt 21, pages of 16). At BER 0 the port's call with a
+    generator in the key's place stores the words JAX stores, bit for bit
+    (scales within the module docstring's decode tolerance), gives its
+    tokens and adds no ECC counters (collect_ecc_stats stays off, so scrub
+    stays on); at BER 1e-2 the positional call stores the bits of the
+    port's keyword call block_size=16 from the same generator seed (the two
+    packages draw different masks, so that comparison stays in the port).
+    A block_size other than the cache's raises, in decode_loop and
+    decode_step; generate takes JAX's positions and raises for sampling."""
+    jparams, tparams = weights
+    ids = np.random.default_rng(3).integers(0, J_TINY.vocab_size, (B, PROMPT))
+    jpol, tpol = policies("int4-hamming84")
+    jstate, jbt, _ = jr.init_generation_state(J_TINY, jpol, B, PROMPT + 8, block_size=BS)
+    tstate, tbt, _ = tr.init_generation_state(T_TINY, tpol, B, PROMPT + 8, BS, device="cpu")
+    key = jax.random.key(0)
+    jlogits, jstate = jr.prefill(jparams, jnp.asarray(ids), jstate, jbt, J_TINY, jpol, key)
+    tlogits, tstate = tr.prefill(tparams, torch.from_numpy(ids), tstate, tbt, T_TINY, tpol,
+                                 torch.Generator().manual_seed(0))
+    jlogits, jstate, jtoks = jr.decode_loop(jparams, jlogits, jstate, jbt, J_TINY, jpol, key,
+                                            4, 16)
+    tlogits, tstate, ttoks = tr.decode_loop(tparams, tlogits, tstate, tbt, T_TINY, tpol,
+                                            torch.Generator().manual_seed(1), 4, 16)
+    np.testing.assert_array_equal(np.asarray(jtoks), ttoks.numpy())
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), rtol=0, atol=1e-3)
+    assert "ecc_corrected" not in tstate and "ecc_corrected" not in jstate
+    compare_caches(jstate, tstate, "decode_loop(..., 4, 16)", 1e-3)
+
+    pol = t_policy("int4-hamming84", ber=1e-2)
+
+    def run(**kw):
+        state, bt, _ = tr.init_generation_state(T_TINY, pol, B, PROMPT + 8, BS, device="cpu")
+        g = torch.Generator().manual_seed(7)
+        logits, state = tr.prefill(tparams, torch.from_numpy(ids), state, bt, T_TINY, pol, g)
+        args = (tparams, logits, state, bt, T_TINY, pol, g, 4)
+        return tr.decode_loop(*args, 16) if not kw else tr.decode_loop(*args, **kw)
+
+    (la, sa, ta), (lb, sb, tb) = run(), run(block_size=16)
+    assert torch.equal(la, lb) and torch.equal(ta, tb) and sa.keys() == sb.keys()
+    assert "ecc_corrected" not in sa
+    for n in CACHE_NAMES:
+        assert torch.equal(sa[n], sb[n]), n
+    state, bt, _ = tr.init_generation_state(T_TINY, pol, B, PROMPT + 8, BS, device="cpu")
+    with pytest.raises(ValueError, match="block_size 128"):
+        tr.decode_loop(tparams, la, state, bt, T_TINY, pol, torch.Generator(), 1)
+    with pytest.raises(ValueError, match="block_size 32"):
+        tr.decode_step(tparams, ta[0], state, bt, T_TINY, pol, torch.Generator(), 32)
+    with pytest.raises(NotImplementedError, match="temperature"):
+        tr.generate(tparams, torch.from_numpy(ids), T_TINY, pol, 2, BS, 0.7, device="cpu")
+    out = tr.generate(tparams, torch.from_numpy(ids), T_TINY, pol, 2, BS, 0.0, 5, False,
+                      device="cpu")
+    assert out.shape == (B, PROMPT + 2)
+
+
+def test_runtime_signatures_follow_jax():
+    """F9: the entry points' parameters in JAX's order - the port's
+    generator in the place of JAX's key - with every parameter the port
+    adds after them, keyword-only."""
+    import inspect
+
+    renamed = {"step_key": "generator", "base_key": "generator"}
+    jax_fns = {"prefill": jr.prefill, "decode_step": jr._decode_step_impl,
+               "decode_loop": jr.decode_loop, "generate": jr.generate}
+    for name, jfn in jax_fns.items():
+        jparams = [renamed.get(p, p) for p in inspect.signature(jfn).parameters]
+        tsig = inspect.signature(getattr(tr, name)).parameters
+        positional = [p for p, v in tsig.items() if v.kind != v.KEYWORD_ONLY]
+        extra = [p for p, v in tsig.items() if v.kind == v.KEYWORD_ONLY]
+        if name == "decode_step":  # JAX's hoisted_masks is the port's keyword
+            jparams.remove("hoisted_masks")
+        assert positional == jparams, name
+        assert set(extra) <= {"read_masks", "hoisted_masks", "read_inject_seed", "device"}, name
