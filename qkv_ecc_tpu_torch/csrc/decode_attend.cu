@@ -669,8 +669,10 @@ extern "C" __global__ void sass_probe_golay_row2(const int32_t* rows, int32_t* o
 // (codec, data words, parity words, group, head_dim) of the registered
 // models - tiny-llama (hamming84 2/2, hamming74 4/3, golay 2/4 words at
 // head_dim 16, group 2) and bench-0.9b (hamming84 16/16, hamming74 16/12,
-// golay 16/17 at head_dim 128, group 2) - and the bench shapes at group 4
-// (the kernel benchmark's 32 query heads over 8 KV heads); hamming84 with
+// golay 16/17 at head_dim 128, group 2), the bench shapes at group 4
+// (the kernel benchmark's 32 query heads over 8 KV heads) and gpt2's
+// (hamming84 8/8, hamming74 8/6, golay 8/10 at head_dim 64, group 1; also
+// trained-word's); hamming84 with
 // and without interpolation (interpolate is ignored for the other codecs);
 // any other shape returns cudaErrorInvalidValue. All tensors contiguous; q
 // bf16 (exact = 0) or fp32 (exact = 1); out fp32 (out_bf16 = 0) or bf16
@@ -713,6 +715,14 @@ extern "C" int decode_attend_launch(
   if (group == 2 && head_dim == 128) { DA_HD128(2); }
   if (group == 4 && head_dim == 128) { DA_HD128(4); }
 #undef DA_HD128
+  if (group == 1 && head_dim == 64) {
+    if (codec == kH84 && wd == 8 && pw == 8) {
+      err = interpolate ? launch<kH84, 8, 8, 1, 64, true>(DA_ARGS)
+                        : launch<kH84, 8, 8, 1, 64, false>(DA_ARGS);
+    }
+    if (codec == kH74 && wd == 8 && pw == 6) err = launch<kH74, 8, 6, 1, 64, false>(DA_ARGS);
+    if (codec == kGolay && wd == 8 && pw == 10) err = launch<kGolay, 8, 10, 1, 64, false>(DA_ARGS);
+  }
 #undef DA_ARGS
   return (int)err;
 }

@@ -70,23 +70,27 @@ _FLOAT = swar.FLOAT_CODECS
 # (data words per row, GQA group, head_dim) instantiated in
 # csrc/write_attend.cu, each with and without read injection: those of the
 # registered models, tiny-llama (int4, golay, hamming84: 2 words; hamming74
-# pads 16 values to 32: 4 words) and bench-0.9b (16 words in every codec),
-# and group 4 at head_dim 128, the kernel benchmark's 32 query heads over 8
-# KV heads (benchmarks/harness.py)
-KERNEL_SHAPES = ((2, 2, 16), (4, 2, 16), (16, 2, 128), (16, 4, 128))
+# pads 16 values to 32: 4 words), bench-0.9b (16 words in every codec) and
+# gpt2 (12/12 heads, and trained-word's 6/6, at head_dim 64: 8 words in
+# every codec), and group 4 at head_dim 128, the kernel benchmark's 32
+# query heads over 8 KV heads (benchmarks/harness.py)
+KERNEL_SHAPES = ((2, 2, 16), (4, 2, 16), (16, 2, 128), (16, 4, 128), (8, 1, 64))
 # (codec, data words, parity words, GQA group, head_dim) instantiated in
-# csrc/decode_attend.cu for tiny-llama, bench-0.9b and the kernel benchmark
-# (hamming84 with and without interpolation)
+# csrc/decode_attend.cu for tiny-llama, bench-0.9b, gpt2 and the kernel
+# benchmark (hamming84 with and without interpolation)
 DECODE_KERNEL_SHAPES = (
     ("hamming84", 2, 2, 2, 16), ("hamming84", 16, 16, 2, 128), ("hamming84", 16, 16, 4, 128),
+    ("hamming84", 8, 8, 1, 64),
     ("hamming74", 4, 3, 2, 16), ("hamming74", 16, 12, 2, 128), ("hamming74", 16, 12, 4, 128),
+    ("hamming74", 8, 6, 1, 64),
     ("golay", 2, 4, 2, 16), ("golay", 16, 17, 2, 128), ("golay", 16, 17, 4, 128),
+    ("golay", 8, 10, 1, 64),
 )
 _CODEC_IDS = {"hamming84": 0, "hamming74": 1, "golay": 2}
 # (GQA group, head_dim) instantiated in csrc/write_attend.cu's float_attend,
-# for bfloat16 (fp16) and e4m3 (fp8): tiny-llama, bench-0.9b and the kernel
-# benchmark
-FLOAT_KERNEL_SHAPES = ((2, 16), (2, 128), (4, 128))
+# for bfloat16 (fp16) and e4m3 (fp8): tiny-llama, bench-0.9b, the kernel
+# benchmark and gpt2
+FLOAT_KERNEL_SHAPES = ((2, 16), (2, 128), (4, 128), (1, 64))
 FLOAT_MAX_SPLITS = 8  # the kernels' largest cluster (kMaxSplits), the portable size
 _FLOAT_TILE_BYTES = 128  # bytes of each head-dim row in a float_attend tile (kTileLoads)
 
@@ -616,9 +620,10 @@ def _stream(query):
 
 def _kernel_query(query, precision):
     """The query as the kernels read it: bf16 for "fast", fp32 for
-    "highest"."""
+    "highest", contiguous [B, Hq, D] (a view of a combined projection, as
+    gpt2's c_attn gives, is strided)."""
     dtype = torch.float32 if precision == "highest" else torch.bfloat16
-    return query if query.dtype == dtype else query.to(dtype)
+    return query.to(dtype).contiguous()
 
 
 def _seed_args(seed):
@@ -717,9 +722,10 @@ def _launch_float(query, k_new, v_new, k_cache, v_cache, block_table, context_le
     new = () if k_new is None else (k_new, v_new)
     dtype = C.FLOAT_STORAGE_DTYPES[codec]
     ints = (block_table, context_lens)
+    q = _kernel_query(query, precision)
     _check("float_attend", [
         (all(t.device == query.device and t.is_contiguous()
-             for t in (query, k_cache, v_cache, *new, *ints)),
+             for t in (q, k_cache, v_cache, *new, *ints)),
          "every tensor must be contiguous and on the query's device"),
         (all(t.dtype == dtype for t in (k_cache, v_cache, *new)),
          f"{codec} caches and new columns must be {dtype}"),
@@ -738,7 +744,6 @@ def _launch_float(query, k_new, v_new, k_cache, v_cache, block_table, context_le
          f"(GQA group, head_dim) = {(group, head_dim)} has no kernel instance; built: "
          f"{FLOAT_KERNEL_SHAPES}"),
     ])
-    q = _kernel_query(query, precision)
     out, stats, m, l = _outputs(query, collect_stats, return_softmax_state)
     ptrs = (q, k_new, v_new, k_cache, v_cache, block_table, context_lens, out, m, l)
     splits = float_splits(batch, Hkv, visited_pages(num_pages, pages_per_chunk) * bs,

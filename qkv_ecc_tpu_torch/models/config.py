@@ -1,5 +1,5 @@
-"""Model configurations (counterpart of ``qkv_ecc_tpu/models/config.py``;
-the llama configurations this slice runs)."""
+"""Model configurations (counterpart of ``qkv_ecc_tpu/models/config.py``):
+its nine configurations, field for field."""
 
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch: str  # "llama" (gpt2 is a later slice)
+    arch: str  # "gpt2" | "llama"
     vocab_size: int
     hidden_size: int
     num_layers: int
@@ -38,6 +38,68 @@ class ModelConfig:
         return {"float32": torch.float32, "bfloat16": torch.bfloat16}[self.dtype]
 
 
+GPT2_124M = ModelConfig(
+    name="gpt2",
+    arch="gpt2",
+    vocab_size=50257,
+    hidden_size=768,
+    num_layers=12,
+    num_heads=12,
+    num_kv_heads=12,
+    head_dim=64,
+    intermediate_size=3072,
+    max_position_embeddings=1024,
+    tie_word_embeddings=True,
+)
+
+MISTRAL_7B = ModelConfig(
+    name="mistral-7b",
+    arch="llama",
+    vocab_size=32768,
+    hidden_size=4096,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    intermediate_size=14336,
+    max_position_embeddings=32768,
+    rope_theta=1000000.0,
+    tie_word_embeddings=False,
+    sliding_window=None,  # v0.3 has no sliding window
+    dtype="bfloat16",
+)
+
+LLAMA31_8B = ModelConfig(
+    name="llama-3.1-8b",
+    arch="llama",
+    vocab_size=128256,
+    hidden_size=4096,
+    num_layers=32,
+    num_heads=32,
+    num_kv_heads=8,
+    head_dim=128,
+    intermediate_size=14336,
+    max_position_embeddings=131072,
+    rope_theta=500000.0,
+    rope_scaling_llama3=True,
+    tie_word_embeddings=False,
+    dtype="bfloat16",
+)
+
+# Tiny configs for tests (no checkpoints needed)
+TINY_GPT2 = ModelConfig(
+    name="tiny-gpt2",
+    arch="gpt2",
+    vocab_size=256,
+    hidden_size=64,
+    num_layers=2,
+    num_heads=4,
+    num_kv_heads=4,
+    head_dim=16,
+    intermediate_size=128,
+    max_position_embeddings=128,
+)
+
 TINY_LLAMA = ModelConfig(
     name="tiny-llama",
     arch="llama",
@@ -53,8 +115,43 @@ TINY_LLAMA = ModelConfig(
     tie_word_embeddings=False,
 )
 
-# The headline-benchmark model of the JAX package (bench.py): llama
-# architecture, ~0.9B parameters plus embeddings, GQA 16/8 at head_dim 128.
+# Byte-level GPT-2 trained by the JAX package (its checkpoint lives under
+# results/trained_tiny/): large enough that KV-cache corruption visibly
+# destroys its predictions, small enough to train in minutes.
+TRAINED_TINY = ModelConfig(
+    name="trained-tiny",
+    arch="gpt2",
+    vocab_size=256,
+    hidden_size=256,
+    num_layers=6,
+    num_heads=8,
+    num_kv_heads=8,
+    head_dim=32,
+    intermediate_size=1024,
+    max_position_embeddings=512,
+)
+
+# ~100M-param word-level model: llama architecture with GQA (12 Q / 4 KV
+# heads), trained on the word corpus; ~103M parameters (tied embeddings).
+TRAINED_100M = ModelConfig(
+    name="trained-100m",
+    arch="llama",
+    vocab_size=8192,
+    hidden_size=768,
+    num_layers=14,
+    num_heads=12,
+    num_kv_heads=4,
+    head_dim=64,
+    intermediate_size=2304,
+    max_position_embeddings=512,
+    rope_theta=10000.0,
+    tie_word_embeddings=True,
+)
+
+# The headline-benchmark model (bench.py, benchmarks/scaling.py): llama
+# architecture, ~0.9B parameters plus embeddings, GQA 16/8 at head_dim 128,
+# bf16 with room for batch-8 KV. Random weights: throughput does not depend
+# on their content.
 BENCH_0_9B = ModelConfig(
     name="bench-0.9b",
     arch="llama",
@@ -71,7 +168,28 @@ BENCH_0_9B = ModelConfig(
     dtype="bfloat16",
 )
 
-MODEL_CONFIGS = {c.name: c for c in (TINY_LLAMA, BENCH_0_9B)}
+# Word-level trainable model (8k vocab): big enough dynamic range for the
+# catastrophic unprotected-INT4 demonstration (byte models cap PPL at 256)
+TRAINED_WORD = ModelConfig(
+    name="trained-word",
+    arch="gpt2",
+    vocab_size=8192,
+    hidden_size=384,
+    num_layers=8,
+    num_heads=6,
+    num_kv_heads=6,
+    head_dim=64,
+    intermediate_size=1536,
+    max_position_embeddings=512,
+)
+
+MODEL_CONFIGS = {
+    c.name: c
+    for c in (
+        GPT2_124M, MISTRAL_7B, LLAMA31_8B, TINY_GPT2, TINY_LLAMA,
+        TRAINED_TINY, TRAINED_WORD, TRAINED_100M, BENCH_0_9B,
+    )
+}
 
 
 def get_model_config(name: str) -> ModelConfig:

@@ -84,6 +84,11 @@ def policy_for_mode(mode: str, ber: float = 0.0, seed: int = 42) -> KVCachePolic
     )
 
 
+def read_inject(policy: KVCachePolicy) -> bool:
+    """Whether reads draw fresh flips of the raw nibbles: the int4 arm."""
+    return policy.inject_at == "read" and policy.inject_errors and policy.ber > 0
+
+
 def write_inject(policy: KVCachePolicy) -> bool:
     """Whether a write draws flips: fp16 is the uncorrupted oracle."""
     return (policy.inject_errors and policy.ber > 0 and policy.inject_at == "write"
@@ -282,3 +287,101 @@ def decode_kv(enc, scale, policy: KVCachePolicy, *, head_dim: int, seq_axis: int
     if read_mask is not None:
         return x, corrected, detected, read_flips
     return x, corrected, detected
+
+
+def encode_kv_pair_scrubbed(k, v, policy: KVCachePolicy, k_generator=None, v_generator=None,
+                            k_mask=None, v_mask=None, k_folded=None, v_folded=None):
+    """encode_kv_scrubbed for a (K, V) pair, in JAX's argument order (a
+    generator in each key's place). Returns ((k_codewords, k_scales),
+    (v_codewords, v_scales))."""
+    return (encode_kv_scrubbed(k, policy, k_generator, mask=k_mask, folded=k_folded),
+            encode_kv_scrubbed(v, policy, v_generator, mask=v_mask, folded=v_folded))
+
+
+# -- the forward path: the codec chain as one roundtrip ----------------------
+#
+# Writing S tokens and reading them back at once is the roundtrip quantize ->
+# encode -> inject -> decode -> (interpolate) -> dequantize, so the forward
+# (prefill, perplexity) path applies it to the K/V activations directly;
+# the paged cache is only materialised for generation (models/runtime.py).
+
+_MASK64 = (1 << 64) - 1
+
+
+def stream_seed(*parts: int) -> int:
+    """A 64-bit generator seed from integers (policy seed, layer, K or V,
+    ...), mixed as splitmix64 so that neighbouring tuples seed unrelated
+    streams: the port's counterpart of JAX's fold_in chain."""
+    h = 0x9E3779B97F4A7C15
+    for p in parts:
+        h = (h ^ (p & _MASK64)) * 0xBF58476D1CE4E5B9 & _MASK64
+        h = (h ^ (h >> 31)) * 0x94D049BB133111EB & _MASK64
+        h ^= h >> 29
+    return h
+
+
+def empty_stats(device=None) -> dict:
+    """The four ECC counters of a forward, int32 scalars at 0."""
+    return {name: torch.zeros((), dtype=torch.int32, device=device)
+            for name in ("errors_corrected", "errors_detected", "bits_flipped", "total_values")}
+
+
+def kv_roundtrip(x, policy: KVCachePolicy, generator=None, *, seq_axis: int = 1, mask=None,
+                 read_mask=None):
+    """The full codec chain on one K or V tensor [..., S, ..., D]: encode
+    (write flips from ``mask``, a logical-codeword mask of the codewords'
+    shape, or drawn from ``generator``), decode (the int4 arm's fresh read
+    flips of the nibbles from ``read_mask`` or ``generator``, added to
+    bits_flipped), interpolate along ``seq_axis`` (hamming84-interp) and
+    dequantize. Arguments are JAX's, a generator in the key's place.
+
+    Returns (x processed float32, stats dict of int32 scalars)."""
+    x = x.to(torch.float32)
+    stats = empty_stats(x.device)
+    stats["total_values"] = torch.tensor(x.numel(), dtype=torch.int32, device=x.device)
+    enc, scale, flips = encode_kv(x, policy, generator, mask=mask)
+    head_dim = x.shape[-1]
+    if read_inject(policy):
+        if read_mask is None:
+            read_mask = _draw(None, generator, enc.shape, policy)
+        out, corrected, detected, read_flips = decode_kv(
+            enc, scale, policy, head_dim=head_dim, seq_axis=seq_axis, read_mask=read_mask)
+        flips = flips + read_flips
+    else:
+        out, corrected, detected = decode_kv(enc, scale, policy, head_dim=head_dim,
+                                             seq_axis=seq_axis)
+    stats["bits_flipped"] = flips
+    stats["errors_corrected"] = corrected
+    stats["errors_detected"] = detected
+    return out, stats
+
+
+def process_kv(k, v, policy: KVCachePolicy, layer_idx: int, *, seq_axis: int = 1, masks=None,
+               read_masks=None):
+    """Protect one layer's (K, V) pair through kv_roundtrip. Flips come from
+    ``masks`` / ``read_masks`` ([2, ...]: K's, then V's) when given, else
+    from a generator on K's device seeded from (policy.seed, layer, K or V)
+    (stream_seed): deterministic per seed, statistically what JAX draws
+    from its keys folded the same way. Returns (k, v, stats summed over K
+    and V)."""
+    draws = ((write_inject(policy) and masks is None)
+             or (read_inject(policy) and read_masks is None))
+    outs, stats = [], None
+    for i, x in enumerate((k, v)):
+        gen = None
+        if draws:
+            gen = torch.Generator(device=x.device).manual_seed(
+                stream_seed(policy.seed, layer_idx, i))
+        out, s = kv_roundtrip(x, policy, gen, seq_axis=seq_axis,
+                              mask=None if masks is None else masks[i],
+                              read_mask=None if read_masks is None else read_masks[i])
+        outs.append(out)
+        stats = merge_stats(stats, s)
+    return outs[0], outs[1], stats
+
+
+def merge_stats(acc, new):
+    """The counters of ``new`` added to ``acc`` (None: a copy of new)."""
+    if acc is None:
+        return dict(new)
+    return {k: acc[k] + new[k] for k in acc}

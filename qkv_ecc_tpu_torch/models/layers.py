@@ -1,5 +1,5 @@
-"""Model building blocks (counterpart of ``qkv_ecc_tpu/models/layers.py``,
-llama part): RMSNorm, rotary embeddings with Llama-3.1 scaling, causal GQA
+"""Model building blocks (counterpart of ``qkv_ecc_tpu/models/layers.py``):
+LayerNorm, RMSNorm, rotary embeddings with Llama-3.1 scaling, causal GQA
 attention with an optional sliding window. Large products are plain
 ``torch.matmul``."""
 
@@ -7,6 +7,14 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """(x - mean) / sqrt(var + eps) * g + b over the last axis, the
+    population variance, in x's dtype (as jnp.var)."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = (x - mean).square().mean(dim=-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * g + b
 
 
 def rms_norm(x: torch.Tensor, g: torch.Tensor, eps: float) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Generation runtime over the paged ECC cache (counterpart of
-``qkv_ecc_tpu/models/runtime.py``; the llama architecture in every mode:
+``qkv_ecc_tpu/models/runtime.py``; gpt2 and the llama family in every mode:
 int4 (read-time injection), int4-write-inject, int4-hamming,
 int4-hamming84, int4-hamming84-interp and int12-golay, with or without
 scrub, and with per-read ECC statistics; and the float arms fp16 and fp8).
@@ -47,10 +47,12 @@ from .kv_policy import (
     hoisted_logical_masks,
     hoisted_write_deltas,
     pack_kv,
+    read_inject,
     write_inject,
 )
 from ..codecs.fault_injection import flip_mask
-from .layers import apply_rope, causal_attention, rms_norm, rope_frequencies
+from .layers import causal_attention
+from .registry import arch_module
 
 
 def _use_scrub(policy: KVCachePolicy) -> bool:
@@ -68,17 +70,11 @@ FUSED_CODECS = ("int4", "hamming74", "hamming84", "golay", "fp16", "fp8")
 
 
 def _check_slice(cfg: ModelConfig, policy: KVCachePolicy):
-    """Raise for what the port does not carry yet (other architectures) and
-    for a codec the runtime has no kernel for, as JAX's generate does."""
-    if cfg.arch != "llama":
-        raise NotImplementedError(f"architecture '{cfg.arch}' is a later slice")
+    """Raise for an architecture the port does not know and for a codec the
+    runtime has no kernel for, as JAX's generate does."""
+    arch_module(cfg)
     if policy.codec not in FUSED_CODECS:
         raise NotImplementedError(f"the runtime supports {FUSED_CODECS}, got '{policy.codec}'")
-
-
-def _read_inject(policy: KVCachePolicy) -> bool:
-    """Fresh flips of the raw nibbles at every read: the int4 arm."""
-    return policy.inject_at == "read" and policy.inject_errors and policy.ber > 0
 
 
 def init_generation_state(cfg: ModelConfig, policy: KVCachePolicy, batch: int,
@@ -158,37 +154,15 @@ def _write_tokens(state, layer_idx, block_table, positions, kc, vc, ks, vs):
     return state
 
 
-def _proj_qkv(x, lp, cfg: ModelConfig, positions, inv_freq):
-    B, S, _ = x.shape
-    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    h = rms_norm(x, lp["input_norm"], cfg.rms_norm_eps)
-    q = (h @ lp["q_proj"]).reshape(B, S, H, D)
-    k = (h @ lp["k_proj"]).reshape(B, S, Hkv, D)
-    v = (h @ lp["v_proj"]).reshape(B, S, Hkv, D)
-    return apply_rope(q, positions, inv_freq), apply_rope(k, positions, inv_freq), v
-
-
-def _attn_out_mlp(x, attn, lp, cfg: ModelConfig):
-    B, S = x.shape[:2]
-    x = x + attn.reshape(B, S, cfg.num_heads * cfg.head_dim) @ lp["o_proj"]
-    h = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
-    h = torch.nn.functional.silu(h @ lp["gate_proj"]) * (h @ lp["up_proj"])
-    return x + h @ lp["down_proj"]
-
-
-def _embed(params, input_ids, cfg: ModelConfig):
-    return params["embed"][input_ids].to(cfg.torch_dtype)
-
-
-def _lm_head(params, x, cfg: ModelConfig):
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    head = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
-    return (x @ head.to(x.dtype)).to(torch.float32)
-
-
-def _inv_freq(cfg: ModelConfig, device):
-    return rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_llama3,
-                            device=device)
+def sample_tokens(logits, temperature, generator):
+    """Next tokens [B] of logits [B, V]: rows at temperature 0 take the
+    argmax, the others the Gumbel-max of logits / temperature (a draw from
+    their softmax, as jax.random.categorical), uniforms from ``generator``
+    on its device. temperature: a float, or [B] per row."""
+    t = torch.as_tensor(temperature, dtype=torch.float32).to(logits.device).expand(logits.shape[0])
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    sampled = torch.argmax(logits / t.clamp(min=1e-6)[:, None] - torch.log(-torch.log(u)), dim=-1)
+    return torch.where(t > 0, sampled, torch.argmax(logits, dim=-1))
 
 
 @torch.no_grad()
@@ -212,14 +186,15 @@ def prefill(params, input_ids, state, block_table, cfg: ModelConfig,
     ``step_key``; ``read_masks`` is the port's own, keyword-only."""
     _check_slice(cfg, policy)
     scrub = _use_scrub(policy)
-    read = _read_inject(policy)
+    read = read_inject(policy)
     B, S = input_ids.shape
     device = input_ids.device
     positions = torch.arange(S, device=device).expand(B, S)
-    inv_freq = _inv_freq(cfg, device)
-    x = _embed(params, input_ids, cfg)
+    arch = arch_module(cfg)
+    inv_freq = arch.inv_freq(cfg, device)
+    x = arch.embed(params, input_ids, cfg, positions)
     for i, lp in enumerate(params["layers"]):
-        q, k, v = _proj_qkv(x, lp, cfg, positions, inv_freq)
+        q, k, v = arch.qkv(x, lp, cfg, positions, inv_freq)
         kc, ks, _ = encode_kv(k, policy, generator)
         vc, vs, _ = encode_kv(v, policy, generator)
         kcs = swar.scrub_codewords(policy.codec, kc) if scrub else kc
@@ -236,12 +211,12 @@ def prefill(params, input_ids, state, block_table, cfg: ModelConfig,
             v_dec = decode_kv(vc, vs, policy, head_dim=cfg.head_dim, seq_axis=1)[0]
         attn = causal_attention(q, k_dec.to(x.dtype), v_dec.to(x.dtype),
                                 cfg.num_kv_groups, sliding_window=cfg.sliding_window)
-        x = _attn_out_mlp(x, attn, lp, cfg)
+        x = arch.attn_out_mlp(x, attn, lp, cfg)
     if logit_pos is None:
         x_last = x[:, -1:, :]
     else:
         x_last = torch.take_along_dim(x, logit_pos.long().to(device)[:, None, None], dim=1)
-    logits = _lm_head(params, x_last, cfg)[:, 0]
+    logits = arch.lm_head(params, x_last, cfg)[:, 0]
     state["context_len"] = (torch.full((B,), S, dtype=torch.int32, device=device)
                             if true_len is None
                             else torch.as_tensor(true_len, dtype=torch.int32).to(device))
@@ -299,9 +274,10 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
     pos = state["context_len"]
     positions = pos[:, None]
     dw = state["k_cache"].shape[3]
-    inv_freq = _inv_freq(cfg, token_ids.device)
+    arch = arch_module(cfg)
+    inv_freq = arch.inv_freq(cfg, token_ids.device)
     scrub = _use_scrub(policy) and not collect_ecc_stats
-    ri_ber = policy.ber if _read_inject(policy) else 0.0
+    ri_ber = policy.ber if read_inject(policy) else 0.0
     if ri_ber and read_inject_seed is None:
         if generator is None:
             raise ValueError("read-time injection needs a read_inject_seed or a torch.Generator")
@@ -311,7 +287,8 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
     if inject and hoisted_masks is None:
         hoist = hoisted_write_deltas if scrub else hoisted_logical_masks
         hoisted_masks = hoist(policy, L, write_mask_shape(policy, B, cfg), generator=generator)
-    x = _embed(params, token_ids[:, None], cfg)
+    # gpt2's position rows: each row's context length
+    x = arch.embed(params, token_ids[:, None], cfg, positions)
     # scrubbed: the kernel reads data words only and the parity columns are
     # stored at the end of the step; otherwise parity streams through it
     has_parity = "k_parity" in state
@@ -321,7 +298,7 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
     ctx = pos + 1
     corrected = detected = torch.zeros((B,), dtype=torch.int32, device=token_ids.device)
     for i, lp in enumerate(params["layers"]):
-        q, k, v = _proj_qkv(x, lp, cfg, positions, inv_freq)
+        q, k, v = arch.qkv(x, lp, cfg, positions, inv_freq)
         masks = hoisted_masks[i] if inject else (None, None)
         if scrub:
             kc, ks = encode_pack_kv_scrubbed(k, policy, folded=masks[0])
@@ -353,7 +330,7 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
             detected = detected + stats[:, 1]
         else:
             attn = out
-        x = _attn_out_mlp(x, attn[:, None], lp, cfg)
+        x = arch.attn_out_mlp(x, attn[:, None], lp, cfg)
     if k_par:
         # parity[l, phys[b], h, :, slot[b]] = col[b, l, h, :], all layers at once
         phys, slots = _trash_routed_slots(block_table, pos, bs)
@@ -368,7 +345,7 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
         state["ecc_corrected"] = state.get("ecc_corrected", zeros) + corrected
         state["ecc_detected"] = state.get("ecc_detected", zeros) + detected
     state["context_len"] = ctx
-    return _lm_head(params, x, cfg)[:, 0], state
+    return arch.lm_head(params, x, cfg)[:, 0], state
 
 
 @torch.no_grad()
@@ -404,16 +381,14 @@ def decode_loop(params, logits, state, block_table, cfg: ModelConfig,
 def generate(params, input_ids, cfg: ModelConfig, policy: KVCachePolicy,
              max_new_tokens: int = 32, block_size: int = 128, temperature: float = 0.0,
              seed: int = 0, return_ecc_stats: bool = False, *, device=None):
-    """Greedy generation on ``device`` (None: the card), masks and read
-    seeds drawn from a generator seeded with policy.seed. input_ids:
-    [B, S] ints. Returns [B, S + max_new_tokens], or with
-    ``return_ecc_stats`` (tokens, {"errors_corrected": [B],
-    "errors_detected": [B]}), the decode steps' counts. Arguments are
-    JAX's, in its order, and ``device`` the port's own, keyword-only;
-    sampling (``temperature`` > 0, from ``seed``) is not ported yet and
-    raises."""
-    if temperature > 0:
-        raise NotImplementedError("sampled generation (temperature > 0) is not ported yet")
+    """Greedy (``temperature`` 0) or sampled generation on ``device``
+    (None: the card), masks and read seeds drawn from a generator seeded
+    with policy.seed; sampling draws from a generator seeded with ``seed``
+    on the device (sample_tokens). input_ids: [B, S] ints. Returns
+    [B, S + max_new_tokens], or with ``return_ecc_stats`` (tokens,
+    {"errors_corrected": [B], "errors_detected": [B]}), the decode steps'
+    counts. Arguments are JAX's, in its order, and ``device`` the port's
+    own, keyword-only."""
     device = resolve_device(device)
     input_ids = torch.as_tensor(input_ids).to(device=device, dtype=torch.long)
     B, S = input_ids.shape
@@ -421,9 +396,11 @@ def generate(params, input_ids, cfg: ModelConfig, policy: KVCachePolicy,
         cfg, policy, B, S + max_new_tokens, block_size, device=device)
     generator = torch.Generator(device=device).manual_seed(policy.seed)
     logits, state = prefill(params, input_ids, state, block_table, cfg, policy, generator)
+    sample_gen = torch.Generator(device=device).manual_seed(seed) if temperature > 0 else None
     tokens = [input_ids]
     for step in range(max_new_tokens):
-        tok = torch.argmax(logits, dim=-1)
+        tok = (sample_tokens(logits, temperature, sample_gen) if temperature > 0
+               else torch.argmax(logits, dim=-1))
         tokens.append(tok[:, None])
         if step == max_new_tokens - 1:
             break

@@ -37,7 +37,7 @@ from ..cache.layout import ECCCacheConfig, allocate_ecc_kv_cache
 from ..device import resolve_device
 from ..models.config import ModelConfig
 from ..models.kv_policy import KVCachePolicy
-from ..models.runtime import _check_slice, decode_step, prefill
+from ..models.runtime import _check_slice, decode_step, prefill, sample_tokens
 
 
 @dataclasses.dataclass
@@ -211,13 +211,10 @@ class ContinuousBatchingServer:
         temps = np.zeros(logits.shape[0], np.float32)
         for row, req in requests_by_row.items():
             temps[row] = req.temperature
-        tokens = torch.argmax(logits, dim=-1)
         if (temps > 0).any():
-            t = torch.from_numpy(temps).to(logits.device)
-            u = torch.rand(logits.shape, generator=self._sample_gen, device=logits.device)
-            gumbel = -torch.log(-torch.log(u))
-            sampled = torch.argmax(logits / t.clamp(min=1e-6)[:, None] + gumbel, dim=-1)
-            tokens = torch.where(t > 0, sampled, tokens)
+            tokens = sample_tokens(logits, torch.from_numpy(temps), self._sample_gen)
+        else:
+            tokens = torch.argmax(logits, dim=-1)
         return tokens.cpu().numpy()
 
     def _note_token(self, slot: int, token: int):

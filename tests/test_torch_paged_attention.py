@@ -896,3 +896,20 @@ def test_packed_split_read_matches_jax(codec, splits):
     got = _packed_split_read(case, name, splits, **tkw)
     assert_reads_agree(case, want, got)
     assert got[0][1][:, 0].sum() > 0
+
+
+@pytest.mark.parametrize("precision", ["fast", "highest"])
+def test_kernel_query_is_contiguous(precision):
+    """F11: the kernels read the query as a contiguous [B, Hq, D] array, and
+    gpt2's decode passes a strided view of its combined c_attn projection
+    (q of a [B, 1, 3E] row). What the wrappers hand a kernel
+    (_kernel_query) is contiguous, in the precision's dtype and equal to
+    the query, also when the query already has that dtype (fp32 at
+    "highest", where it used to pass the strided view through)."""
+    qkv = torch.randn((2, 1, 3 * 4 * 8))
+    q = qkv[..., :32].reshape(2, 1, 4, 8)[:, 0]
+    assert not q.is_contiguous()
+    kq = tpa._kernel_query(q, precision)
+    assert kq.is_contiguous() and kq.shape == q.shape
+    want = q if precision == "highest" else q.to(torch.bfloat16)
+    assert kq.dtype == want.dtype and torch.equal(kq, want)

@@ -1,8 +1,10 @@
 """The port's decode slice (qkv_ecc_tpu_torch.models.runtime) against the JAX
-runtime on tiny-llama with the same weights (params_from_jax), in every
-mode: the five of bench.py, mode int4 (read-time injection), the float arms
-fp16 (bfloat16 values, never injected) and fp8 (e4m3, write injection of
-its bytes), the unscrubbed reads (scrub=False) of hamming84, golay,
+runtime with the same weights (params_from_jax): on tiny-gpt2 (GPT-2's
+layout and tied head, 4/4 heads: group 1) in bench.py's five arms, int4,
+fp16, fp8 and a statistics run (hamming84 with interpolation), and on
+tiny-llama in every mode: the five of bench.py, mode int4 (read-time
+injection), the float arms fp16 (bfloat16 values, never injected) and fp8
+(e4m3, write injection of its bytes), the unscrubbed reads (scrub=False) of hamming84, golay,
 hamming74 and int4, and collect_ecc_stats in golay, hamming74, hamming84
 (with and without interpolation) and int4. Prefill runs at BER 0 (int4: at the mode's BER,
 with the read flips JAX draws from its layer keys), then decode steps on the
@@ -53,6 +55,7 @@ from qkv_ecc_tpu.codecs.fault_injection import flip_mask_for  # noqa: E402
 from qkv_ecc_tpu.kernels import swar as js  # noqa: E402
 from qkv_ecc_tpu.models import runtime as jr  # noqa: E402
 from qkv_ecc_tpu.models.config import TINY_LLAMA as J_TINY  # noqa: E402
+from qkv_ecc_tpu.models.config import TINY_GPT2 as J_GPT2  # noqa: E402
 from qkv_ecc_tpu.models.kv_policy import policy_for_mode as j_policy  # noqa: E402
 from qkv_ecc_tpu.models.registry import init_params as j_init  # noqa: E402
 from qkv_ecc_tpu_torch.kernels.paged_attention import paged_attention_ecc_write_attend  # noqa: E402
@@ -61,6 +64,7 @@ from qkv_ecc_tpu_torch.kernels import swar  # noqa: E402
 from qkv_ecc_tpu_torch.kernels.common import hamming84_decode_i32  # noqa: E402
 from qkv_ecc_tpu_torch.models import runtime as tr  # noqa: E402
 from qkv_ecc_tpu_torch.models.config import TINY_LLAMA as T_TINY  # noqa: E402
+from qkv_ecc_tpu_torch.models.config import TINY_GPT2 as T_GPT2  # noqa: E402
 from qkv_ecc_tpu_torch.models.kv_policy import N_BITS, hoisted_write_deltas  # noqa: E402
 from qkv_ecc_tpu_torch.models.kv_policy import policy_for_mode as t_policy  # noqa: E402
 from qkv_ecc_tpu_torch.models.llama import params_from_jax  # noqa: E402
@@ -75,6 +79,12 @@ def weights():
     jparams = j_init(J_TINY, 0)
     np_params = jax.tree.map(np.asarray, jparams)
     return jparams, params_from_jax(np_params, T_TINY, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def gpt2_weights():
+    jparams = j_init(J_GPT2, 0)
+    return jparams, params_from_jax(jax.tree.map(np.asarray, jparams), T_GPT2, device="cpu")
 
 
 def numpy_masks(rng, shape, ber, n_bits):
@@ -141,28 +151,36 @@ def policies(mode, ber=0.0):
     return jpol, tpol
 
 
-def key_masks(jpol, step_key, shape):
+def key_masks(jpol, step_key, shape, num_layers=J_TINY.num_layers):
     """The write masks JAX draws per layer from its keys when it hoists
     none (golay unscrubbed, or collecting statistics): [L, 2, *shape]."""
     kv_key = jax.random.fold_in(step_key, 1000000)
     n_bits = N_BITS[jpol.codec]
     return np.stack([np.stack([np.asarray(flip_mask_for(k, shape, jpol.ber, n_bits))
                                for k in jr._layer_kv_key(jpol, i, kv_key)])
-                     for i in range(J_TINY.num_layers)]).astype(np.int32)
+                     for i in range(num_layers)]).astype(np.int32)
 
 
-def prefill_read_masks(jpol, key, shape):
+def prefill_read_masks(jpol, key, shape, num_layers=J_TINY.num_layers):
     """The read flips of JAX's int4 prefill: per layer, K and V, from the
     layer keys folded with READ, [L, 2, *shape]."""
     return np.stack([np.stack([np.asarray(flip_mask_for(jax.random.fold_in(k, READ), shape,
                                                         jpol.ber, 4))
                                for k in jr._layer_kv_key(jpol, i, key)])
-                     for i in range(J_TINY.num_layers)]).astype(np.int32)
+                     for i in range(num_layers)]).astype(np.int32)
 
 
 @pytest.mark.parametrize("mode", SLICE_MODES)
 def test_slice_matches_jax(weights, mode):
+    run_slice(weights, mode, J_TINY, T_TINY, 4.8e-7)
+
+
+def run_slice(weights, mode, jcfg, tcfg, prefill_scale_rtol):
+    """Prefill and STEPS decode steps of one mode on (jcfg, tcfg) in both
+    packages, compared as the module docstring says, the scales after
+    prefill within prefill_scale_rtol."""
     jparams, tparams = weights
+    L = tcfg.num_layers
     stats = mode.endswith("/stats")
     jpol0, tpol0 = policies(mode)
     codec = tpol0.codec
@@ -172,32 +190,32 @@ def test_slice_matches_jax(weights, mode):
                 and not floats)
     ber = 1e-2 if scrubbed or floats else 5e-2
     rng = np.random.default_rng(0)
-    ids = rng.integers(0, J_TINY.vocab_size, (B, PROMPT))
+    ids = rng.integers(0, jcfg.vocab_size, (B, PROMPT))
     T = PROMPT + STEPS + 2
 
-    jstate, jbt, _ = jr.init_generation_state(J_TINY, jpol0, B, T, block_size=BS)
-    tstate, tbt, _ = tr.init_generation_state(T_TINY, tpol0, B, T, block_size=BS, device="cpu")
+    jstate, jbt, _ = jr.init_generation_state(jcfg, jpol0, B, T, block_size=BS)
+    tstate, tbt, _ = tr.init_generation_state(tcfg, tpol0, B, T, block_size=BS, device="cpu")
     np.testing.assert_array_equal(np.asarray(jbt), tbt.numpy())
     key = jax.random.key(7)
     jpol, tpol = policies(mode, ber)
     if read:  # the int4 arm reads its prompt through fresh flips
-        rm = prefill_read_masks(jpol, key, (B, PROMPT, T_TINY.num_kv_heads, T_TINY.head_dim))
-        jlogits, jstate = jr.prefill(jparams, jnp.asarray(ids), jstate, jbt, J_TINY, jpol, key)
-        tlogits, tstate = tr.prefill(tparams, torch.from_numpy(ids), tstate, tbt, T_TINY, tpol,
+        rm = prefill_read_masks(jpol, key, (B, PROMPT, tcfg.num_kv_heads, tcfg.head_dim), L)
+        jlogits, jstate = jr.prefill(jparams, jnp.asarray(ids), jstate, jbt, jcfg, jpol, key)
+        tlogits, tstate = tr.prefill(tparams, torch.from_numpy(ids), tstate, tbt, tcfg, tpol,
                                      read_masks=torch.from_numpy(rm))
         assert int(np.count_nonzero(rm)) > 0
     else:
-        jlogits, jstate = jr.prefill(jparams, jnp.asarray(ids), jstate, jbt, J_TINY, jpol0, key)
-        tlogits, tstate = tr.prefill(tparams, torch.from_numpy(ids), tstate, tbt, T_TINY, tpol0)
+        jlogits, jstate = jr.prefill(jparams, jnp.asarray(ids), jstate, jbt, jcfg, jpol0, key)
+        tlogits, tstate = tr.prefill(tparams, torch.from_numpy(ids), tstate, tbt, tcfg, tpol0)
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), rtol=1e-4, atol=1e-5)
-    compare_caches(jstate, tstate, "prefill", 4.8e-7)
+    compare_caches(jstate, tstate, "prefill", prefill_scale_rtol)
 
-    shape = tr.write_mask_shape(tpol, B, T_TINY)
-    assert shape == jr._write_mask_shape(jpol, B, J_TINY)
+    shape = tr.write_mask_shape(tpol, B, tcfg)
+    assert shape == jr._write_mask_shape(jpol, B, jcfg)
     launches = paged_attention_ecc_write_attend.launches, write_decode_attend.launches
     for step in range(STEPS):
         step_key = jax.random.fold_in(key, step)
-        raw = numpy_masks(rng, (T_TINY.num_layers, 2) + shape, ber, N_BITS.get(codec, 8))
+        raw = numpy_masks(rng, (L, 2) + shape, ber, N_BITS.get(codec, 8))
         seed = None
         if read:
             jh = th = None
@@ -206,20 +224,19 @@ def test_slice_matches_jax(weights, mode):
         elif codec == "fp16":  # never injected
             jh = th = None
         elif stats or codec == "fp8" or (codec == "golay" and not scrubbed):  # JAX draws per layer
-            jh, th = None, torch.from_numpy(key_masks(jpol, step_key, shape))
+            jh, th = None, torch.from_numpy(key_masks(jpol, step_key, shape, L))
         elif scrubbed:
             jh = js.scrub_fold_mask(codec, jnp.asarray(raw)).astype(jnp.uint8)
-            th = hoisted_write_deltas(tpol, T_TINY.num_layers, shape,
-                                      raw_masks=torch.from_numpy(raw))
+            th = hoisted_write_deltas(tpol, L, shape, raw_masks=torch.from_numpy(raw))
             np.testing.assert_array_equal(np.asarray(jh), th.numpy())
         else:  # raw logical masks, XORed into the codewords
             jh, th = jnp.asarray(raw.astype(np.uint8)), torch.from_numpy(raw.astype(np.uint8))
         jtok, ttok = jnp.argmax(jlogits, axis=-1), torch.argmax(tlogits, dim=-1)
         np.testing.assert_array_equal(np.asarray(jtok), ttok.numpy(), err_msg=f"step {step}")
-        jlogits, jstate = jr.decode_step(jparams, jtok, jstate, jbt, J_TINY, jpol, step_key,
+        jlogits, jstate = jr.decode_step(jparams, jtok, jstate, jbt, jcfg, jpol, step_key,
                                          block_size=BS, hoisted_masks=jh,
                                          collect_ecc_stats=stats)
-        tlogits, tstate = tr.decode_step(tparams, ttok, tstate, tbt, T_TINY, tpol,
+        tlogits, tstate = tr.decode_step(tparams, ttok, tstate, tbt, tcfg, tpol,
                                          block_size=BS, hoisted_masks=th, collect_ecc_stats=stats,
                                          read_inject_seed=seed)
         np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), rtol=0, atol=1e-3,
@@ -239,7 +256,7 @@ def test_slice_matches_jax(weights, mode):
             assert (tstate["ecc_detected"] > 0).all()
     if codec == "hamming84" and not scrubbed:  # the cache holds doubles the read decoded
         rows = torch.cat([tstate["k_cache"], tstate["k_parity"]], dim=3).movedim(3, -1)
-        _, et = hamming84_decode_i32(swar.unpack_codewords("hamming84", rows, 16))
+        _, et = hamming84_decode_i32(swar.unpack_codewords("hamming84", rows, tcfg.head_dim))
         assert int((et == 2).sum()) > 0
 
 
@@ -377,13 +394,15 @@ def test_prefill_logit_pos_true_len(weights):
     assert not torch.equal(full, tlogits)  # the last position's logits differ
 
 
-def test_unported_paths_raise(weights):
-    """What stays to come raises: architectures other than llama (gpt2). (The
-    name is from before the float arms were ported, when fp16 and fp8 raised
-    here too.) The float arms now run: init_generation_state, prefill and
-    decode_step of the default KVCachePolicy() (fp16) and of fp8 take a
-    step; a codec outside JAX's FUSED_CODECS raises NotImplementedError, as
-    JAX's generate does."""
+def test_unported_paths_raise(weights, gpt2_weights):
+    """What stays to come raises: an architecture the port does not know.
+    (The name is from before the float arms and gpt2 were ported, when
+    fp16, fp8 and gpt2 raised here.) The float arms run:
+    init_generation_state, prefill and decode_step of the default
+    KVCachePolicy() (fp16) and of fp8 take a step; so does gpt2
+    (tiny-gpt2) in int4-write-inject and int4-hamming84, its logits
+    finite; a codec outside JAX's FUSED_CODECS raises NotImplementedError,
+    as JAX's generate does."""
     _, tparams = weights
     state, bt, _ = tr.init_generation_state(T_TINY, t_policy("int4-write-inject"), B, 40, BS,
                                             device="cpu")
@@ -399,12 +418,53 @@ def test_unported_paths_raise(weights):
     with pytest.raises(NotImplementedError, match="the runtime supports"):
         tr.prefill(tparams, ids, state, bt, T_TINY, dataclasses.replace(t_policy("fp16"),
                                                                           codec="int3"))
-    gpt2 = dataclasses.replace(T_TINY, arch="gpt2")
-    with pytest.raises(NotImplementedError, match="gpt2"):
-        tr.prefill(tparams, ids, state, bt, gpt2, t_policy("int4-write-inject"))
-    with pytest.raises(NotImplementedError, match="gpt2"):
-        tr.decode_loop(tparams, torch.zeros((B, 256)), state, bt, gpt2,
+    for mode in ("int4-write-inject", "int4-hamming84"):
+        pol = t_policy(mode, ber=1e-2)
+        gstate, gbt, _ = tr.init_generation_state(T_GPT2, pol, B, 40, BS, device="cpu")
+        g = torch.Generator().manual_seed(0)
+        logits, gstate = tr.prefill(gpt2_weights[1], ids, gstate, gbt, T_GPT2, pol, g)
+        logits, gstate = tr.decode_step(gpt2_weights[1], logits.argmax(-1), gstate, gbt, T_GPT2,
+                                        pol, g, BS)
+        assert logits.shape == (B, T_GPT2.vocab_size) and torch.isfinite(logits).all()
+        assert gstate["context_len"].tolist() == [5, 5]
+    other = dataclasses.replace(T_TINY, arch="mamba")
+    with pytest.raises(NotImplementedError, match="mamba"):
+        tr.prefill(tparams, ids, state, bt, other, t_policy("int4-write-inject"))
+    with pytest.raises(NotImplementedError, match="mamba"):
+        tr.decode_loop(tparams, torch.zeros((B, 256)), state, bt, other,
                        t_policy("int4-write-inject"), None, 1)
+
+
+GPT2_MODES = ["int12-golay", "int4-hamming84", "int4-hamming", "int4-hamming84-interp",
+              "int4-write-inject", "int4", "fp16", "fp8", "int4-hamming84-interp/stats"]
+
+
+@pytest.mark.parametrize("mode", GPT2_MODES)
+def test_gpt2_slice_matches_jax(gpt2_weights, mode):
+    """gpt2's decode (tiny-gpt2: absolute positions at each row's context
+    length, the tied head, group 1) against JAX's runtime in the eight arms
+    and a statistics run, as test_slice_matches_jax: stored words and
+    counts exact, logits within its tolerances, the same greedy tokens.
+    The scales after prefill within 8 float32 ulps (rtol 9.6e-7, as
+    test_prefill_logit_pos_true_len): gpt2's combined projection with its
+    bias sums in another order in each framework, and its K/V come out up
+    to 7.1e-7 relative apart here."""
+    run_slice(gpt2_weights, mode, J_GPT2, T_GPT2, 9.6e-7)
+
+
+@pytest.mark.parametrize("mode", ["int12-golay", "int4-hamming84", "int4-hamming",
+                                  "int4-hamming84-interp", "int4-write-inject", "int4", "fp16",
+                                  "fp8"])
+def test_gpt2_generate_matches_jax(gpt2_weights, mode):
+    """generate() on tiny-gpt2 at BER 0 against JAX's generate: the same
+    greedy tokens (prompt 21, 3 new)."""
+    jparams, tparams = gpt2_weights
+    ids = np.random.default_rng(11).integers(0, J_GPT2.vocab_size, (B, PROMPT))
+    want = np.asarray(jr.generate(jparams, ids, J_GPT2, j_policy(mode), max_new_tokens=3,
+                                  block_size=BS))
+    got = tr.generate(tparams, torch.from_numpy(ids), T_GPT2, t_policy(mode), max_new_tokens=3,
+                      block_size=BS, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("mode", ["fp16", "fp8"])
@@ -538,7 +598,9 @@ def test_jax_positional_decode_loop(weights):
     port's keyword call block_size=16 from the same generator seed (the two
     packages draw different masks, so that comparison stays in the port).
     A block_size other than the cache's raises, in decode_loop and
-    decode_step; generate takes JAX's positions and raises for sampling."""
+    decode_step; generate takes JAX's positions, sampling's (temperature,
+    seed) among them: a sampled call from its seed gives the same tokens
+    twice."""
     jparams, tparams = weights
     ids = np.random.default_rng(3).integers(0, J_TINY.vocab_size, (B, PROMPT))
     jpol, tpol = policies("int4-hamming84")
@@ -576,8 +638,9 @@ def test_jax_positional_decode_loop(weights):
         tr.decode_loop(tparams, la, state, bt, T_TINY, pol, torch.Generator(), 1)
     with pytest.raises(ValueError, match="block_size 32"):
         tr.decode_step(tparams, ta[0], state, bt, T_TINY, pol, torch.Generator(), 32)
-    with pytest.raises(NotImplementedError, match="temperature"):
-        tr.generate(tparams, torch.from_numpy(ids), T_TINY, pol, 2, BS, 0.7, device="cpu")
+    sampled = [tr.generate(tparams, torch.from_numpy(ids), T_TINY, pol, 2, BS, 0.7, 3,
+                           device="cpu") for _ in range(2)]
+    assert sampled[0].shape == (B, PROMPT + 2) and torch.equal(*sampled)
     out = tr.generate(tparams, torch.from_numpy(ids), T_TINY, pol, 2, BS, 0.0, 5, False,
                       device="cpu")
     assert out.shape == (B, PROMPT + 2)
