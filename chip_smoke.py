@@ -67,6 +67,22 @@ seed 0) on its paths:
     decode steps' within GPT2_FORWARD_TOL;
   * the BER-0 serve check on gpt2, and sampled generate() deterministic per
     seed; then the new instances' device times at gpt2's decode shapes.
+Then the Monte-Carlo quality path (evaluation/: run_sweep's forwards through
+kv_policy.process_kv, which launch no kernel, as JAX's), on two paths:
+  * quality gpt2: run_sweep on gpt2 at full width (random weights from seed
+    0, load_model), 4 synthetic texts at max_length 1024, the seven cache
+    modes at BER 0 and 1e-2, seed 42, KL, top-5 and the catastrophic pass
+    on: at BER 0 nothing counted and the int4 codes' perplexity equal to
+    int4's; at 1e-2 the flips within 4 sigma of BER x bits, the protected
+    modes correcting, every perplexity finite but fp8's (NaN bytes);
+  * quality trained-tiny: the Monte-Carlo CLI (main) on trained-tiny's
+    checkpoint at the TPU run's config (7 modes x 4 BERs x 3 seeds, 20
+    texts, max_length 256: 84 trials), its means against
+    results/trained_tiny_tpu/monte_carlo_results.json: within a floor at BER
+    0, and at BER > 0 within 4 sigma of the difference of the means (or the
+    floor) for perplexity, KL, top-5 and the correction rate; inf where the
+    TPU run has inf. Without the checkpoint in the copy it says so and is
+    skipped.
 Then the codec kernels K5-K9 (csrc/codec_kernels.cu) are held equal to
 their plain versions (every byte, every Golay data word, every error
 pattern of weight 0-3 on a sample of codewords, wide masks, 16M and 4M
@@ -82,8 +98,8 @@ two more paths run:
   * the scaling row: benchmarks.scaling.measure_single_device on bench-0.9b
     in int12-golay, batch 4, prompt 64, 20 steps, block 128.
 Each path checks that every kernel branch it calls was launched exactly as
-often as it calls it. Then it times the kernels (K2f beside
-scaled_dot_product_attention over the same context stored dense, fp16's
+often as it calls it (the quality paths: none). Then it times the kernels
+(K2f beside scaled_dot_product_attention over the same context stored dense, fp16's
 yardstick, and its read at 1, 2, 4 and 8 blocks per sequence and KV head
 and with no token; Golay's correcting read and the read-inject read at 1,
 2, 4 and 8 blocks, against their required times and targets; the Golay
@@ -102,7 +118,9 @@ name and power limit from nvidia-smi, then {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1603,12 +1621,8 @@ def harness_phase(torch, smi):
     launches by (wrapper, branch)."""
     from qkv_ecc_tpu_torch.benchmarks import harness
     from qkv_ecc_tpu_torch.evaluation.constants import compute_bandwidth_efficiency
-    from qkv_ecc_tpu_torch.kernels import codec_kernels as ck
-    from qkv_ecc_tpu_torch.kernels.paged_attention import (
-        paged_attention_ecc, paged_attention_ecc_write_attend, write_decode_attend)
 
-    reset_counts(*ck.WRAPPERS, paged_attention_ecc, paged_attention_ecc_write_attend,
-                 write_decode_attend)
+    reset_counts(*kernel_wrappers())
     res = harness.run_full_benchmark()
     torch.cuda.synchronize()
     say("  run_full_benchmark(): " + json.dumps(res))
@@ -1649,11 +1663,9 @@ def harness_phase(torch, smi):
         ("paged_attention_ecc", "hamming84"): 4 * per,
     }
     got = {}
-    for w in (*ck.WRAPPERS, paged_attention_ecc):
+    for w in kernel_wrappers():
         for branch, n in w.launches_by.items():
             got[(w.__name__, branch)] = n
-    for w in (paged_attention_ecc_write_attend, write_decode_attend):
-        got[(w.__name__, "any")] = w.launches
     check_launches("harness", {
         f"{name} {branch}": (n, expected.get((name, branch), 0),
                              "calls made" if (name, branch) in expected else "none")
@@ -1831,6 +1843,333 @@ LOSS_BATCH, LOSS_TOKENS = 4, 1024
 # the card adds its split's per-block rounding and another order of the
 # float32 sums. 1e-2 is 4x the largest measured
 GPT2_FORWARD_TOL = 1e-2
+
+
+# The quality path (M7): run_sweep's forwards through kv_policy.process_kv,
+# which launch no kernel, as JAX's. gpt2 at full width (random weights from
+# seed 0, synthetic texts) over the seven cache modes at BER 0 and 1e-2; and
+# trained-tiny through the Monte-Carlo CLI at the TPU run's config, against
+# that run's JSON
+QUALITY_TEXTS, QUALITY_MAX_LENGTH = 4, 1024
+TINY_CHECKPOINT = "results/trained_tiny/checkpoint.npz"
+TPU_RUN_JSON = "results/trained_tiny_tpu/monte_carlo_results.json"
+# the floors of the trained-tiny comparison, set from the largest difference
+# between the JAX package's CLI on a CPU and the TPU run at the same config,
+# BER 0, seed 42 (python -m qkv_ecc_tpu.evaluation.experiments.monte_carlo
+# --model trained-tiny --require-checkpoint --ber-levels 0 --seeds 42, its
+# other flags at their defaults, the TPU run's): perplexity 2.06e-3 relative
+# (int4: 2.194447 against 2.189945; the TPU rounds float32 matmuls through
+# bfloat16 passes), KL 1.15e-4 (fp8: 0.002027 against 0.002142), top-5
+# 1.18e-3 (int4: 0.930588 against 0.931765). Each floor is 2.4-4.3x that:
+# relative for perplexity, absolute for KL and top-5
+QUALITY_FLOORS = {"ppl": 5e-3, "kl_divergence": 5e-4, "top5_accuracy": 5e-3}
+# a protected mode's correction rate: every text of one length shares its
+# flips (the masks are drawn per seed, layer, K/V and shape), so a trial's
+# detections come in multiples of the texts; its floor is 4 Poisson sigmas
+# of the TPU run's distinct detections, sqrt(d + 1) with d its mean
+# detections over the texts, as a rate
+QUALITY_SIGMAS = 4
+
+
+def kernel_wrappers():
+    """Every kernel wrapper with a launch count."""
+    from qkv_ecc_tpu_torch.kernels import codec_kernels as ck
+    from qkv_ecc_tpu_torch.kernels.paged_attention import (
+        paged_attention_ecc, paged_attention_ecc_write_attend, write_decode_attend)
+
+    return (*ck.WRAPPERS, paged_attention_ecc, paged_attention_ecc_write_attend,
+            write_decode_attend)
+
+
+def check_no_launches(path):
+    """The quality path runs the forward, which launches no kernel."""
+    check_launches(path, {f"{w.__name__} (all branches)": (w.launches, 0, "none: the forward "
+                                                            "path runs no kernel, as JAX's")
+                          for w in kernel_wrappers()})
+
+
+def top5_card_check(torch, device):
+    """metrics.top5_indices on the card picks what jax.lax.top_k picks: NaN
+    above every number, equal values by lower index."""
+    from qkv_ecc_tpu_torch.evaluation.metrics import top5_indices
+
+    nan = float("nan")
+    rows = torch.zeros((3, 16), device=device)
+    rows[0] = nan
+    rows[1, [9, 4]] = 2.0
+    rows[2, 3], rows[2, 12], rows[2, 7] = nan, 5.0, 5.0
+    got = top5_indices(rows).tolist()
+    want = [[0, 1, 2, 3, 4], [4, 9, 0, 1, 2], [3, 7, 12, 0, 1]]
+    if got != want:
+        fail(f"top5_indices on the card: {got}, jax.lax.top_k's order is {want}")
+
+
+def flip_bits(cfg, pol, total_values):
+    """The bits a trial's loss pass exposed to flips: written codeword bits
+    (fp8: the stored bytes), or int4's read nibble bits."""
+    from qkv_ecc_tpu_torch.models.kv_policy import N_BITS, codeword_shape
+
+    rows = total_values // cfg.head_dim
+    per_row = codeword_shape(pol.codec, (cfg.head_dim,), cfg.head_dim)[0]
+    return rows * per_row * (4 if pol.inject_at == "read" else N_BITS[pol.codec])
+
+
+def draws_nest(torch, sizes, device):
+    """Whether torch's generator on ``device`` gives each flat index of a
+    draw the same value whatever the draw's size, for draws of ``sizes``
+    from one seed (so the masks of two padded lengths share the shorter's
+    draws)."""
+    draws = [torch.rand(n, generator=torch.Generator(device=device).manual_seed(7),
+                        device=device) for n in sorted(sizes)]
+    return all(torch.equal(a, b[:a.numel()]) for a, b in zip(draws, draws[1:]))
+
+
+def counted_flip_sigma(cfg, pol, lengths, ber, nest):
+    """The std of a trial's bits_flipped over texts of padded ``lengths``:
+    the texts of one length share their flips (one draw a seed, layer and
+    K/V), and two lengths share the draws of the shorter where the draws
+    ``nest``, else none."""
+    per_token = cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim
+    bits = {g: flip_bits(cfg, pol, g * per_token) for g in set(lengths)}
+    shared = sum(min(bits[g], bits[h]) if nest or g == h else 0
+                 for g in lengths for h in lengths)
+    return (shared * ber * (1 - ber)) ** 0.5
+
+
+@contextlib.contextmanager
+def counted_forwards():
+    """Counts the quality path's forwards (each a batch of texts or windows
+    of one length): yields a list whose length is the count so far."""
+    from qkv_ecc_tpu_torch.evaluation import metrics
+
+    calls, real = [], metrics.forward_jit
+
+    def counted(*a, **k):
+        calls.append(a[1].shape)
+        return real(*a, **k)
+
+    metrics.forward_jit = counted
+    try:
+        yield calls
+    finally:
+        metrics.forward_jit = real
+
+
+def quality_gpt2_phase(torch, device, smi):
+    """run_sweep on gpt2 (124M, full width, random weights from seed 0 via
+    evaluation.models.load_model) over the seven cache modes x BER {0,
+    1e-2} x seed 42, on QUALITY_TEXTS synthetic texts at max_length 1024,
+    KL, top-5 and the catastrophic pass on. Checks: every trial's
+    total_values is the K/V of its padded texts; at BER 0 nothing is
+    counted and the four int4 codes give int4's perplexity exactly; at
+    1e-2 each mode's bits_flipped is within 4 sigma of BER x the bits (the
+    sigma of texts that share their flips: counted_flip_sigma), the protected modes
+    correct; every perplexity is finite but fp8's at 1e-2, whose NaN bytes
+    may leave no finite loss (inf, as in JAX)."""
+    from qkv_ecc_tpu_torch.evaluation.constants import CACHE_MODE_ORDER
+    from qkv_ecc_tpu_torch.evaluation.data import load_wikitext2_test, pad_to_bucket, tokenize
+    from qkv_ecc_tpu_torch.evaluation.metrics import generate_clean_logits
+    from qkv_ecc_tpu_torch.evaluation.models import load_model
+    from qkv_ecc_tpu_torch.evaluation.sweep import SweepConfig, run_sweep
+    from qkv_ecc_tpu_torch.models.kv_policy import policy_for_mode
+
+    top5_card_check(torch, device)
+    params, cfg, tok = load_model("gpt2", device=device)
+    texts = load_wikitext2_test(QUALITY_TEXTS)
+    ids = [tokenize(tok, t, QUALITY_MAX_LENGTH) for t in texts]
+    padded = [pad_to_bucket(i)[0].shape[1] for i in ids]
+    t = time.perf_counter()
+    clean = generate_clean_logits(params, cfg, tok, texts, max_length=QUALITY_MAX_LENGTH)
+    torch.cuda.synchronize()
+    say(f"  quality gpt2: {len(texts)} synthetic texts of {[i.shape[1] for i in ids]} tokens "
+        f"(padded {padded}); clean logits [L, {cfg.vocab_size}] float32 kept on the card, "
+        f"{sum(c.numel() * 4 for c in clean) / 1e9:.3f} GB, in {time.perf_counter() - t:.3f} s")
+    stamps, counts = [], []
+    sc = SweepConfig(cache_modes=list(CACHE_MODE_ORDER), ber_levels=[0, BER], seeds=[42],
+                     max_length=QUALITY_MAX_LENGTH, clean_logits=clean)
+    with counted_forwards() as calls:
+        def progress(desc, cur, total):
+            stamps.append(time.perf_counter())
+            counts.append(len(calls))
+
+        t0 = time.perf_counter()
+        res = run_sweep(params, cfg, tok, texts, sc, progress)
+        stamps.append(time.perf_counter())
+        counts.append(len(calls))
+    per_token = cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim
+    values = sum(padded) * per_token
+    # the draws of one (layer, K/V) at the shortest and longest padded length
+    nest = draws_nest(torch, [8 * min(padded) * cfg.num_kv_heads * cfg.head_dim,
+                              8 * max(padded) * cfg.num_kv_heads * cfg.head_dim], device)
+    say(f"  quality gpt2: the card's draws of two padded lengths from one seed "
+        f"{'share the shorter one' if nest else 'share nothing'} (the flips' sigma counts "
+        f"that)")
+    by = {(tr.cache_mode, tr.ber): tr for tr in res.trials}
+    for i, tr in enumerate(res.trials):
+        dt, n = stamps[i + 1] - stamps[i], counts[i + 1] - counts[i]
+        pol = policy_for_mode(tr.cache_mode, ber=tr.ber, seed=tr.seed)
+        line = (f"  quality gpt2 {tr.cache_mode} BER {tr.ber}: ppl {tr.perplexity:.6f}, KL "
+                f"{tr.kl_divergence:.6f}, top-5 {tr.top5_accuracy:.6f}, catastrophic "
+                f"{tr.catastrophic_rate}, corrected {tr.errors_corrected}, detected "
+                f"{tr.errors_detected}, flipped {tr.bits_flipped}")
+        nan_bytes = tr.cache_mode == "fp8" and tr.ber > 0
+        if not math.isfinite(tr.perplexity) and not nan_bytes:
+            fail(f"quality gpt2 {tr.cache_mode} BER {tr.ber}: perplexity {tr.perplexity}")
+        if tr.total_values != values and not nan_bytes:
+            fail(f"quality gpt2 {tr.cache_mode} BER {tr.ber}: total_values {tr.total_values}, "
+                 f"the padded texts' K/V hold {values}")
+        if tr.ber == 0 and (tr.errors_corrected or tr.errors_detected or tr.bits_flipped):
+            fail(f"quality gpt2 {tr.cache_mode} BER 0: something was counted")
+        if tr.ber and pol.codec != "fp16" and tr.total_values == 0:
+            line += " (no text had a finite loss: nothing counted, as in JAX)"
+        elif tr.ber and pol.codec != "fp16":
+            # the texts counted: all, or (fp8) those whose loss is finite
+            counted = next((c for r in range(len(padded), 0, -1)
+                            for c in itertools.combinations(padded, r)
+                            if sum(c) * per_token == tr.total_values), None)
+            if counted is None:
+                fail(f"quality gpt2 {tr.cache_mode} BER {tr.ber}: total_values "
+                     f"{tr.total_values} is the K/V of no subset of the texts")
+            bits = flip_bits(cfg, pol, tr.total_values)
+            sigma = counted_flip_sigma(cfg, pol, counted, tr.ber, nest)
+            z = (tr.bits_flipped - tr.ber * bits) / sigma
+            line += f" of {bits} bits ({z:+.2f} sigma over texts of padded {list(counted)})"
+            if abs(z) > 4:
+                fail(f"quality gpt2 {tr.cache_mode}: bits_flipped {z:+.2f} sigma from BER x bits")
+            if pol.codec in ("hamming74", "hamming84", "golay") and not tr.errors_corrected > 0:
+                fail(f"quality gpt2 {tr.cache_mode} BER {tr.ber}: nothing corrected")
+        say(line + f"; {dt:.3f} s, {n} forwards, {1e3 * dt / n:.2f} ms a forward ({smi})")
+    int4 = by[("int4", 0)].perplexity
+    for mode in ("int4-hamming", "int4-hamming84", "int4-hamming84-interp", "int12-golay"):
+        if by[(mode, 0)].perplexity != int4:
+            fail(f"quality gpt2 {mode} BER 0: ppl {by[(mode, 0)].perplexity!r} against int4's "
+                 f"{int4!r}")
+    total, n = stamps[-1] - t0, counts[-1]
+    say(f"  quality gpt2: {len(res.trials)} trials in {total:.3f} s, {total / len(res.trials):.3f} "
+        f"s a trial, {n} forwards (batches of the texts of one length), {1e3 * total / n:.2f} ms "
+        f"a forward; the int4 codes' ppl at BER 0 equal int4's {int4!r} ({smi})")
+    del params, clean
+
+
+def quality_band(metric, tpu, port, ber, n_texts):
+    """(allowed |port - TPU| of a mean, the floor) for one metric of one
+    (mode, BER) cell: 4 sigma of the difference of two means of n trials,
+    never below the metric's floor."""
+    tm, ts, ps = tpu[f"{metric}_mean"], tpu[f"{metric}_std"], port[f"{metric}_std"]
+    if metric == "ppl":
+        floor = QUALITY_FLOORS["ppl"] * abs(tm)
+    elif metric == "correction_rate":
+        c, d = tpu["errors_corrected_mean"], tpu["errors_detected_mean"]
+        floor = (QUALITY_SIGMAS * n_texts * (d / n_texts + 1) ** 0.5 / (c + d)) if c + d else 0.0
+    else:
+        floor = QUALITY_FLOORS[metric]
+    if not ber:
+        return floor, floor
+    n = tpu["n_trials"]
+    return max(QUALITY_SIGMAS * ((ts ** 2 + ps ** 2) / n) ** 0.5, floor), floor
+
+
+def quality_tiny_phase(torch, smi):
+    """The Monte-Carlo CLI (evaluation/experiments/monte_carlo.py main) on
+    trained-tiny at the TPU run's config (results/trained_tiny_tpu: the
+    seven modes x BER {0, 1e-4, 1e-3, 1e-2} x seeds {42, 101, 997}, 20
+    texts, max_length 256, stride 128, KL, top-5 and the catastrophic pass
+    on) into a temporary directory, on the card, and its means against the
+    TPU run's: at BER 0 perplexity, KL and top-5 within their floors
+    (QUALITY_FLOORS); at BER > 0 perplexity, KL, top-5 and the correction
+    rate within 4 sigma of the difference of the two means of 3 seeds,
+    never below the floor; inf where the TPU has inf and only there.
+    Without the checkpoint or the TPU run's JSON in this copy it prints
+    that and returns None."""
+    import io
+    import os
+    import tempfile
+
+    for path in (TINY_CHECKPOINT, TPU_RUN_JSON):
+        if not os.path.exists(path):
+            say(f"  quality trained-tiny: not run: {path} is absent from this copy")
+            return None
+    from qkv_ecc_tpu_torch.evaluation.constants import BER_LEVELS, DEFAULT_CONFIG
+    from qkv_ecc_tpu_torch.evaluation.experiments.monte_carlo import main as monte_carlo
+
+    with open(TPU_RUN_JSON) as fh:
+        tpu = json.load(fh)
+    cfg = tpu["config"]
+    if cfg["ber_levels"] != BER_LEVELS or cfg["stride"] != DEFAULT_CONFIG["stride"]:
+        fail(f"quality trained-tiny: the TPU run's config {cfg} is not the CLI's defaults")
+    with tempfile.TemporaryDirectory() as out:
+        # no --ber-levels: the default BER_LEVELS is the TPU run's, keyed as
+        # its JSON keys them ("0" for the int 0)
+        argv = ["--model", "trained-tiny", "--require-checkpoint", "--output-dir", out,
+                "--seeds", *map(str, cfg["seeds"]), "--max-samples", str(cfg["max_samples"]),
+                "--max-length", str(cfg["max_length"]), "--cache-modes", *cfg["cache_modes"]]
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), counted_forwards() as calls:
+            monte_carlo(argv)
+        wall = time.perf_counter() - t
+        with open(os.path.join(out, "monte_carlo_results.json")) as fh:
+            port = json.load(fh)
+        files = sorted(os.path.relpath(os.path.join(d, f), out)
+                       for d, _, fs in os.walk(out) for f in fs)
+    n_trials, texts = len(port["trials"]), cfg["max_samples"]
+    rows = sum(shape[0] for shape in calls)
+    say(f"  quality trained-tiny: the CLI ran {n_trials} trials in {wall:.1f} s (loading and the "
+        f"clean logits included): {wall / n_trials:.3f} s a trial; {len(calls)} forwards of "
+        f"{rows} texts or windows of <= {cfg['max_length']} tokens, {1e3 * wall / len(calls):.2f} "
+        f"ms a forward; it wrote {files} ({smi})")
+    if port.keys() != tpu.keys() or port["config"] != cfg or \
+            port["trials"][0].keys() != tpu["trials"][0].keys():
+        fail("quality trained-tiny: the JSON's keys or config differ from the TPU run's")
+    worst, failures, near = {}, [], []
+
+    def seeds(run, mode, ber, field):
+        return [round(t[field], 6) for t in run["trials"]
+                if t["cache_mode"] == mode and t["ber"] == ber]
+
+    say(f"  quality trained-tiny by mode and BER: port (this card)|TPU run, mean +-std over "
+        f"{len(cfg['seeds'])} seeds, d = |port - TPU| <= the allowed difference (f: its floor)")
+    for mode in cfg["cache_modes"]:
+        for key, t_agg in tpu["aggregated"][mode].items():
+            p_agg = port["aggregated"][mode].get(key)
+            if p_agg is None:
+                fail(f"quality trained-tiny: no {mode} BER {key} in the port's JSON")
+            ber = t_agg["ber"]
+            cells = []
+            for metric in ("ppl", "kl_divergence", "top5_accuracy", "correction_rate"):
+                if not ber and metric == "correction_rate":
+                    continue
+                tm, pm = t_agg[f"{metric}_mean"], p_agg[f"{metric}_mean"]
+                ps = p_agg[f"{metric}_std"]
+                allowed, floor = quality_band(metric, t_agg, p_agg, ber, texts)
+                if math.isinf(tm) or math.isinf(pm):
+                    ok, d = tm == pm, 0.0
+                else:
+                    d = abs(pm - tm)
+                    ok = d <= allowed
+                    worst[metric] = max(worst.get(metric, 0.0), d / allowed if allowed else 0.0)
+                cells.append(f"{metric.split('_')[0]} {pm:.4f}|{tm:.4f} "
+                             f"+-{ps:.4f}|{t_agg[f'{metric}_std']:.4f} d {d:.1e}<="
+                             f"{allowed:.1e}{'f' if allowed == floor else ''}"
+                             f"{'' if ok else ' FAILED'}")
+                if not ok:
+                    failures.append(f"{mode} BER {key} {metric}")
+                if not ok or (allowed and d / allowed > 0.5):
+                    field = "perplexity" if metric == "ppl" else metric
+                    near.append(f"{mode} BER {key} {metric} by seed: port "
+                                f"{seeds(port, mode, ber, field)}, TPU {seeds(tpu, mode, ber, field)}")
+            say(f"    {mode:<21} {key:<6} " + "; ".join(cells)
+                + f"; corr/det {p_agg['errors_corrected_mean']:.0f}/"
+                f"{p_agg['errors_detected_mean']:.0f}|{t_agg['errors_corrected_mean']:.0f}/"
+                f"{t_agg['errors_detected_mean']:.0f}; cat {p_agg['catastrophic_rate_mean']:.3f}|"
+                f"{t_agg['catastrophic_rate_mean']:.3f}")
+    for line in near:
+        say(f"    {line} (over half its allowed difference)")
+    say("  quality trained-tiny: largest share of the allowed difference: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()) + f" ({smi})")
+    if failures:
+        fail(f"quality trained-tiny: {len(failures)} means outside their band against the TPU "
+             f"run: " + ", ".join(failures[:8]))
+    return wall
 
 
 def gpt2_attention_cfg():
@@ -2012,9 +2351,8 @@ def gpt2_loss_phase(torch, params, device, smi):
     equals int4's bit for bit and counts nothing; at BER 1e-2 each mode's
     bits_flipped is within 5 sigma of BER x the bits written (int4: read),
     golay corrects, and every loss is finite."""
-    from qkv_ecc_tpu_torch.kernels import swar
     from qkv_ecc_tpu_torch.models.config import GPT2_124M as cfg
-    from qkv_ecc_tpu_torch.models.kv_policy import N_BITS, policy_for_mode
+    from qkv_ecc_tpu_torch.models.kv_policy import policy_for_mode
     from qkv_ecc_tpu_torch.models.registry import loss_and_stats
 
     g = torch.Generator(device=device).manual_seed(4)
@@ -2034,12 +2372,13 @@ def gpt2_loss_phase(torch, params, device, smi):
                     f"targets; counts {counts}; {dt:.3f} s (batch {LOSS_BATCH} x {LOSS_TOKENS} "
                     f"tokens")
             if ber and pol.codec != "fp16":
-                n_bits = 4 if pol.inject_at == "read" else N_BITS[pol.codec]
-                per_row = swar.padded_values(pol.codec, cfg.head_dim)
-                if pol.codec == "golay":
-                    per_row //= 3
-                bits = (cfg.num_layers * 2 * LOSS_BATCH * LOSS_TOKENS * cfg.num_kv_heads * per_row
-                        * n_bits)
+                # the bits of the batch it was given, not the program's count
+                values = LOSS_BATCH * LOSS_TOKENS * cfg.num_layers * 2 * cfg.num_kv_heads \
+                    * cfg.head_dim
+                if counts["total_values"] != values:
+                    fail(f"gpt2 loss {mode}: total_values {counts['total_values']}, the batch's "
+                         f"K/V hold {values}")
+                bits = flip_bits(cfg, pol, values)
                 sigma = (bits * ber * (1 - ber)) ** 0.5
                 z = (counts["bits_flipped"] - ber * bits) / sigma
                 line += f"; {bits} bits {'read' if pol.inject_at == 'read' else 'written'}, " \
@@ -2473,6 +2812,17 @@ def main():
         gpt2_serve_and_sample(torch, gpt2_params, device)
         gpt2_kernel_times(torch, gpt2_runs, gpt2_stats_runs, device, smi)
         del gpt2_runs, gpt2_stats_runs, gpt2_params
+
+    # the quality path: run_sweep's forwards launch no kernel (as JAX's)
+    with Phase("quality gpt2"):
+        reset_counts(*kernel_wrappers())
+        quality_gpt2_phase(torch, device, smi)
+        check_no_launches("quality gpt2")
+
+    with Phase("quality trained-tiny"):
+        reset_counts(*kernel_wrappers())
+        quality_tiny_phase(torch, smi)
+        check_no_launches("quality trained-tiny")
 
     with Phase("codec kernels"):
         max_err_codec = codec_kernel_check(torch, gen, device)

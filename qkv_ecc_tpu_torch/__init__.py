@@ -19,5 +19,9 @@ read of the parity codecs (``csrc/decode_attend.cu``), and K4, each
 kernel's read without a write (``kernels/paged_attention.py``); the
 elementwise codec
 kernels and the fault injector (``csrc/codec_kernels.cu``,
-``kernels/codec_kernels.py``).
+``kernels/codec_kernels.py``). The Monte-Carlo quality path
+(``evaluation/``: the sweep, its metrics and tables, the CLI
+``evaluation/experiments/monte_carlo.py``; the quantizers and fused codec
+chains of ``codecs/``; ``training/``'s checkpoint loader) runs the forward,
+which needs no kernel.
 """

@@ -1,3 +1,5 @@
-"""Evaluation helpers (counterpart of ``qkv_ecc_tpu/evaluation``): the
-phase timers and the chips' memory rates the kernel benchmark reads. The
-quality sweep, metrics and experiments come with the quality path."""
+"""Evaluation (counterpart of ``qkv_ecc_tpu/evaluation``): the Monte-Carlo
+quality sweep (``sweep``, ``metrics``, ``data``, ``models``, the CLI in
+``experiments/monte_carlo.py``) and its tables (``latex_tables``), the
+codecs' algebraic verification, the phase timers, and the chips' memory
+rates the kernel benchmark reads."""

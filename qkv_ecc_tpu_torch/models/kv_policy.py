@@ -380,6 +380,34 @@ def process_kv(k, v, policy: KVCachePolicy, layer_idx: int, *, seq_axis: int = 1
     return outs[0], outs[1], stats
 
 
+def codeword_shape(codec: str, shape, head_dim: int) -> tuple:
+    """The shape of the logical codewords (the injection domain) of K or V
+    of ``shape`` [..., head_dim]: fp8's stored bytes, golay's 24-bit
+    codewords (a third of its padded values), the padded values of the
+    others."""
+    values = swar.padded_values(codec, head_dim)
+    return tuple(shape[:-1]) + (values // 3 if codec == "golay" else values,)
+
+
+def forward_masks(policy: KVCachePolicy, num_layers: int, shape, device):
+    """The flips that process_kv draws for a forward whose K/V have
+    ``shape`` [..., head_dim] when it is given none: (write_masks,
+    read_masks), each [num_layers, 2, *codeword_shape] (K's, then V's) or
+    None, each (layer, K or V) drawn from its stream_seed generator on
+    ``device`` as process_kv draws it. Drawn for one row (shape[0] == 1)
+    and expanded along the batch, they give every row of a batch the flips
+    of a forward of that row alone."""
+    write, read = write_inject(policy), read_inject(policy)
+    if not (write or read):
+        return None, None
+    es = codeword_shape(policy.codec, shape, shape[-1])
+    masks = torch.stack([
+        torch.stack([_draw(None, torch.Generator(device=device).manual_seed(
+            stream_seed(policy.seed, layer, i)), es, policy) for i in (0, 1)])
+        for layer in range(num_layers)])
+    return (masks, None) if write else (None, masks)
+
+
 def merge_stats(acc, new):
     """The counters of ``new`` added to ``acc`` (None: a copy of new)."""
     if acc is None:
