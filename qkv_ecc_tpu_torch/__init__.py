@@ -22,6 +22,13 @@ kernels and the fault injector (``csrc/codec_kernels.cu``,
 ``kernels/codec_kernels.py``). The Monte-Carlo quality path
 (``evaluation/``: the sweep, its metrics and tables, the CLI
 ``evaluation/experiments/monte_carlo.py``; the quantizers and fused codec
-chains of ``codecs/``; ``training/``'s checkpoint loader) runs the forward,
-which needs no kernel.
+chains of ``codecs/``) runs the forward, which needs no kernel. So does
+training (``training/``: the corpus, the word tokenizer, ``train_tiny``
+and the ``.npz`` checkpoints both packages read; the CLI
+``evaluation/experiments/train_tiny.py``), which differentiates it. The
+other experiment CLIs (``evaluation/experiments/``: latency, generation,
+architecture, quantization_ecc_comparison, fault_tolerance_benchmark) and
+the perplexity runner ``evaluation/runners/tpu_eval.py`` run on the card
+too, the decoding ones through the kernels; ``models/convert.py`` converts
+HF checkpoints.
 """

@@ -672,7 +672,8 @@ extern "C" __global__ void sass_probe_golay_row2(const int32_t* rows, int32_t* o
 // golay 16/17 at head_dim 128, group 2), the bench shapes at group 4
 // (the kernel benchmark's 32 query heads over 8 KV heads) and gpt2's
 // (hamming84 8/8, hamming74 8/6, golay 8/10 at head_dim 64, group 1; also
-// trained-word's); hamming84 with
+// trained-word's) and trained-tiny's (hamming84 4/4, hamming74 4/3, golay
+// 4/5 at head_dim 32, group 1); hamming84 with
 // and without interpolation (interpolate is ignored for the other codecs);
 // any other shape returns cudaErrorInvalidValue. All tensors contiguous; q
 // bf16 (exact = 0) or fp32 (exact = 1); out fp32 (out_bf16 = 0) or bf16
@@ -722,6 +723,14 @@ extern "C" int decode_attend_launch(
     }
     if (codec == kH74 && wd == 8 && pw == 6) err = launch<kH74, 8, 6, 1, 64, false>(DA_ARGS);
     if (codec == kGolay && wd == 8 && pw == 10) err = launch<kGolay, 8, 10, 1, 64, false>(DA_ARGS);
+  }
+  if (group == 1 && head_dim == 32) {
+    if (codec == kH84 && wd == 4 && pw == 4) {
+      err = interpolate ? launch<kH84, 4, 4, 1, 32, true>(DA_ARGS)
+                        : launch<kH84, 4, 4, 1, 32, false>(DA_ARGS);
+    }
+    if (codec == kH74 && wd == 4 && pw == 3) err = launch<kH74, 4, 3, 1, 32, false>(DA_ARGS);
+    if (codec == kGolay && wd == 4 && pw == 5) err = launch<kGolay, 4, 5, 1, 32, false>(DA_ARGS);
   }
 #undef DA_ARGS
   return (int)err;

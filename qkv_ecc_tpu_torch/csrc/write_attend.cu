@@ -764,8 +764,9 @@ extern "C" __global__ void sass_probe_flip_word2(const uint32_t* elems, uint32_t
 // hash): (2, 2, 16) and (4, 2, 16) for
 // tiny-llama (hamming74 pads to 4 words), (16, 2, 128) for bench-0.9b,
 // (16, 4, 128) for the kernel benchmark's 32 query heads over 8 KV heads
-// and (8, 1, 64) for gpt2 (and trained-word: 12/12 and 6/6 heads at
-// head_dim 64); any other triple returns cudaErrorInvalidValue. All tensors contiguous;
+// (8, 1, 64) for gpt2 (and trained-word: 12/12 and 6/6 heads at
+// head_dim 64) and (4, 1, 32) for trained-tiny (8/8 heads at head_dim 32);
+// any other triple returns cudaErrorInvalidValue. All tensors contiguous;
 // q bf16 (exact = 0) or fp32 (exact = 1); out fp32 (out_bf16 = 0) or bf16
 // (out_bf16 = 1); window <= 0 means no window; P is the block table's row
 // stride, num_pages <= P the pages of the table and num_chunks * ppc >=
@@ -795,6 +796,7 @@ extern "C" int write_attend_launch(
   if (wd == 16 && group == 2 && head_dim == 128) WA_LAUNCH(16, 2, 128);
   if (wd == 16 && group == 4 && head_dim == 128) WA_LAUNCH(16, 4, 128);
   if (wd == 8 && group == 1 && head_dim == 64) WA_LAUNCH(8, 1, 64);
+  if (wd == 4 && group == 1 && head_dim == 32) WA_LAUNCH(4, 1, 32);
 #undef WA_LAUNCH
 #undef WA_ARGS
   return (int)err;
@@ -804,8 +806,8 @@ extern "C" int write_attend_launch(
 // cluster per (sequence, KV head) and returns its launch error (0 on
 // success). fp8 = 0: bfloat16 caches (codec fp16), fp8 = 1: e4m3.
 // Instances for (group, head_dim) = (2, 16) (tiny-llama), (2, 128)
-// (bench-0.9b), (4, 128) (the kernel benchmark) and (1, 64) (gpt2,
-// trained-word); any other pair, a
+// (bench-0.9b), (4, 128) (the kernel benchmark), (1, 64) (gpt2,
+// trained-word) and (1, 32) (trained-tiny); any other pair, a
 // block size that is not a multiple of 16, or caches not 16-byte aligned
 // return cudaErrorInvalidValue.
 // Tensors contiguous; q, out, window, P, num_pages, num_chunks, ppc,
@@ -827,6 +829,7 @@ extern "C" int float_attend_launch(
   if (group == 2 && head_dim == 128) FA_LAUNCH(2, 128);
   if (group == 4 && head_dim == 128) FA_LAUNCH(4, 128);
   if (group == 1 && head_dim == 64) FA_LAUNCH(1, 64);
+  if (group == 1 && head_dim == 32) FA_LAUNCH(1, 32);
 #undef FA_LAUNCH
 #undef FA_ARGS
   return (int)err;

@@ -2,10 +2,11 @@
 ``qkv_ecc_tpu/evaluation/models.py``): a model name -> (params,
 ModelConfig, tokenizer) on the entry point's device.
 
-The trained models load the JAX package's checkpoints
-(``training.load_params``). The port has no converter of HF checkpoints
-yet, so its HF branch does what the JAX function does offline: random
-weights when allowed, else an error.
+The trained models load their ``.npz`` checkpoints
+(``training.load_params``; either package's ``save_params`` writes them).
+An HF model is converted by ``models/convert.py`` when ``transformers`` can
+load it (the hub or a local cache); otherwise it takes random weights when
+allowed, else raises, as the JAX function does.
 """
 
 from __future__ import annotations
@@ -15,9 +16,9 @@ from typing import Tuple
 
 from ..device import resolve_device
 from ..models.config import ModelConfig, get_model_config
-from ..models.registry import init_params
+from ..models.registry import init_params, map_tree
 from .constants import MODELS
-from .data import ByteTokenizer
+from .data import ByteTokenizer, get_tokenizer
 
 TRAINED_CHECKPOINTS = {
     "trained-tiny": "results/trained_tiny/checkpoint.npz",
@@ -44,12 +45,13 @@ def load_model(
 
     A trained model loads its checkpoint and, for the word models, the
     vocabulary beside it; without a checkpoint it takes random weights when
-    ``allow_random_init``, else raises RuntimeError. An HF model has no
-    converter in the port: with ``allow_random_init`` it takes random
-    weights and the byte tokenizer; otherwise it raises RuntimeError, as the
-    JAX function does when the download fails (a gated model without
-    ``HF_TOKEN`` skips the download there and takes random weights either
-    way, and so does it here)."""
+    ``allow_random_init``, else raises RuntimeError. An HF model loads
+    through ``convert.load_hf_checkpoint`` (moved to ``device``) with
+    ``get_tokenizer``'s tokenizer; when that fails (no ``transformers``, no
+    network and no cache) it takes random weights and the byte tokenizer
+    with ``allow_random_init``, else raises RuntimeError. A gated model
+    without ``HF_TOKEN`` skips the attempt and takes random weights either
+    way, as in JAX's."""
     if model_name not in MODELS:
         raise ValueError(f"Unknown model: {model_name}. Known: {sorted(MODELS)}")
     device = resolve_device(device)
@@ -71,19 +73,21 @@ def load_model(
             return load_params(path, cfg, device=device), cfg, tok_for()
         if not allow_random_init:
             raise RuntimeError(
-                f"{model_name} checkpoint not found at {path}; the JAX package trains it "
-                "(python -m qkv_ecc_tpu.evaluation.experiments.train_tiny)"
+                f"{model_name} checkpoint not found at {path}; train it with "
+                "python -m qkv_ecc_tpu_torch.evaluation.experiments.train_tiny"
             )
         return init_params(cfg, seed, device=device), cfg, tok_for()
 
     hf_id = meta["hf_id"]
-    if hf_id is not None:
-        gated = meta["requires_auth"] and not os.environ.get("HF_TOKEN")
-        if not gated and not allow_random_init:
-            raise RuntimeError(
-                f"Could not load HF checkpoint '{hf_id}': the port has no HF "
-                "checkpoint converter"
-            )
+    if hf_id is not None and not (meta["requires_auth"] and not os.environ.get("HF_TOKEN")):
+        try:
+            from ..models.convert import load_hf_checkpoint
+
+            params = map_tree(lambda _, t: t.to(device), load_hf_checkpoint(hf_id, cfg))
+            return params, cfg, get_tokenizer(model_name, hf_id)
+        except Exception as e:  # no transformers, no network, no cache
+            if not allow_random_init:
+                raise RuntimeError(f"Could not load HF checkpoint '{hf_id}': {e}") from e
 
     if not allow_random_init and hf_id is None:
         raise RuntimeError(f"No checkpoint available for {model_name}")

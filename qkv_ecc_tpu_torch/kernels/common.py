@@ -285,22 +285,25 @@ FLOAT_STORAGE_DTYPES = {"fp16": torch.bfloat16, "fp8": torch.float8_e4m3fn}
 
 def to_bf16(x: torch.Tensor) -> torch.Tensor:
     """float32 -> bfloat16 (the fp16 codec's storage): round to nearest
-    even, NaN stored as JAX stores it (0x7fc0, with the sign kept)."""
+    even, NaN stored as JAX stores it (0x7fc0, with the sign kept). The
+    result is the cast itself where x is not NaN, so autograd carries the
+    gradient through it as JAX's does through its astype (the cotangent
+    rounded to bfloat16)."""
     x = x.to(torch.float32)
-    bits = x.to(torch.bfloat16).view(torch.int16)
     nan = torch.where(torch.signbit(x), -0x40, 0x7FC0).to(torch.int16)  # -0x40 is 0xffc0
-    return torch.where(torch.isnan(x), nan, bits).view(torch.bfloat16)
+    return torch.where(torch.isnan(x), nan.view(torch.bfloat16), x.to(torch.bfloat16))
 
 
 def to_fp8_e4m3(x: torch.Tensor) -> torch.Tensor:
     """float32 -> float8_e4m3fn (the fp8 codec's storage) as JAX's astype:
     round to nearest even for |x| <= 464; NaN (0x7f, 0xff with the sign
     kept) for larger |x| and for +-inf, where torch's conversion saturates
-    to +-448."""
+    to +-448. Elsewhere the result is the cast itself, which autograd
+    differentiates as JAX does its astype."""
     x = x.to(torch.float32)
-    bits = x.to(torch.float8_e4m3fn).view(torch.uint8)
     nan = torch.where(torch.signbit(x), 0xFF, 0x7F).to(torch.uint8)
-    return torch.where(x.abs() > FP8_E4M3_OVERFLOW, nan, bits).view(torch.float8_e4m3fn)
+    return torch.where(x.abs() > FP8_E4M3_OVERFLOW, nan.view(torch.float8_e4m3fn),
+                       x.to(torch.float8_e4m3fn))
 
 
 def fp8_as_bytes(t: torch.Tensor) -> torch.Tensor:

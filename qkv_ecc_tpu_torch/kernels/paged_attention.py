@@ -70,27 +70,28 @@ _FLOAT = swar.FLOAT_CODECS
 # (data words per row, GQA group, head_dim) instantiated in
 # csrc/write_attend.cu, each with and without read injection: those of the
 # registered models, tiny-llama (int4, golay, hamming84: 2 words; hamming74
-# pads 16 values to 32: 4 words), bench-0.9b (16 words in every codec) and
+# pads 16 values to 32: 4 words), bench-0.9b (16 words in every codec),
 # gpt2 (12/12 heads, and trained-word's 6/6, at head_dim 64: 8 words in
-# every codec), and group 4 at head_dim 128, the kernel benchmark's 32
-# query heads over 8 KV heads (benchmarks/harness.py)
-KERNEL_SHAPES = ((2, 2, 16), (4, 2, 16), (16, 2, 128), (16, 4, 128), (8, 1, 64))
+# every codec), trained-tiny (8/8 heads at head_dim 32: 4 words in every
+# codec), and group 4 at head_dim 128, the kernel benchmark's 32 query heads
+# over 8 KV heads (benchmarks/harness.py)
+KERNEL_SHAPES = ((2, 2, 16), (4, 2, 16), (16, 2, 128), (16, 4, 128), (8, 1, 64), (4, 1, 32))
 # (codec, data words, parity words, GQA group, head_dim) instantiated in
-# csrc/decode_attend.cu for tiny-llama, bench-0.9b, gpt2 and the kernel
-# benchmark (hamming84 with and without interpolation)
+# csrc/decode_attend.cu for tiny-llama, bench-0.9b, gpt2, trained-tiny and
+# the kernel benchmark (hamming84 with and without interpolation)
 DECODE_KERNEL_SHAPES = (
     ("hamming84", 2, 2, 2, 16), ("hamming84", 16, 16, 2, 128), ("hamming84", 16, 16, 4, 128),
-    ("hamming84", 8, 8, 1, 64),
+    ("hamming84", 8, 8, 1, 64), ("hamming84", 4, 4, 1, 32),
     ("hamming74", 4, 3, 2, 16), ("hamming74", 16, 12, 2, 128), ("hamming74", 16, 12, 4, 128),
-    ("hamming74", 8, 6, 1, 64),
+    ("hamming74", 8, 6, 1, 64), ("hamming74", 4, 3, 1, 32),
     ("golay", 2, 4, 2, 16), ("golay", 16, 17, 2, 128), ("golay", 16, 17, 4, 128),
-    ("golay", 8, 10, 1, 64),
+    ("golay", 8, 10, 1, 64), ("golay", 4, 5, 1, 32),
 )
 _CODEC_IDS = {"hamming84": 0, "hamming74": 1, "golay": 2}
 # (GQA group, head_dim) instantiated in csrc/write_attend.cu's float_attend,
 # for bfloat16 (fp16) and e4m3 (fp8): tiny-llama, bench-0.9b, the kernel
-# benchmark and gpt2
-FLOAT_KERNEL_SHAPES = ((2, 16), (2, 128), (4, 128), (1, 64))
+# benchmark, gpt2 and trained-tiny
+FLOAT_KERNEL_SHAPES = ((2, 16), (2, 128), (4, 128), (1, 64), (1, 32))
 FLOAT_MAX_SPLITS = 8  # the kernels' largest cluster (kMaxSplits), the portable size
 _FLOAT_TILE_BYTES = 128  # bytes of each head-dim row in a float_attend tile (kTileLoads)
 

@@ -32,6 +32,24 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None, dtype=None) -> dic
     return module.init_params(cfg, generator, dtype=dtype)
 
 
+def map_tree(fn, node, path=()):
+    """A parameter tree (nested dicts and lists) with each leaf replaced by
+    fn(its path "/"-joined, leaf): the key of the leaf in an ``.npz``
+    checkpoint, e.g. ``layers/0/c_attn/w``."""
+    if isinstance(node, dict):
+        return {k: map_tree(fn, v, path + (str(k),)) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [map_tree(fn, v, path + (str(i),)) for i, v in enumerate(node)]
+    return fn("/".join(path), node)
+
+
+def tree_leaves(tree) -> dict:
+    """{path: leaf} of a parameter tree, in its order (map_tree's paths)."""
+    out = {}
+    map_tree(out.__setitem__, tree)
+    return out
+
+
 def params_from_jax(np_params, cfg: ModelConfig, device=None):
     """The JAX ``init_params`` pytree, as numpy arrays (nested dicts and
     lists, either architecture), -> the same tree of tensors with the same

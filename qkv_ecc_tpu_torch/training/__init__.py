@@ -1,9 +1,27 @@
-"""Loading what the JAX package's training wrote (counterpart of part of
-``qkv_ecc_tpu/training``): the ``.npz`` checkpoints of the trained models
-and the word-level tokenizer's vocabulary. Training itself is the JAX
-package's."""
+"""In-container language-model training (counterpart of
+``qkv_ecc_tpu/training``).
 
-from .corpus import WordTokenizer
-from .trainer import load_params
+The reference's quality tables were produced on HF-pretrained checkpoints,
+which this environment cannot download. A random-init model cannot show
+the framework's reason to exist - at BER 1e-2 its perplexity barely moves
+because its predictions carry no information to destroy. This package
+trains a small language model on text available on the machine (Python
+library sources + license texts), on the card unless told otherwise, so
+the sweep runs on a model whose perplexity degrades under KV-cache
+corruption: unprotected INT4 blows up at a high BER while the
+ECC-protected modes hold. It also loads and saves the ``.npz``
+checkpoints, which the two packages share, and the word tokenizer's
+vocabulary.
+"""
 
-__all__ = ["WordTokenizer", "load_params"]
+from .corpus import WordTokenizer, build_corpus
+from .trainer import TrainConfig, load_params, save_params, train_tiny
+
+__all__ = [
+    "build_corpus",
+    "TrainConfig",
+    "train_tiny",
+    "save_params",
+    "load_params",
+    "WordTokenizer",
+]

@@ -240,9 +240,10 @@ def test_load_model_matches_jax(monkeypatch, tmp_path, trained_tiny):
     """load_model: trained-tiny from its checkpoint; a missing checkpoint
     (QKV_TINY_CHECKPOINT) gives random weights or, required, raises in both;
     a random-init config without allow_random_init raises in both; the
-    port's HF branch raises without allow_random_init (JAX's does so
-    offline) and takes random weights with it. get_model_info and
-    estimate_param_count equal."""
+    port's HF branch, its converter patched to raise as it does without
+    transformers (the hub is never asked), raises without
+    allow_random_init (JAX's does so offline) and takes random weights with
+    it. get_model_info and estimate_param_count equal."""
     tp = trained_tiny[3]
     params, cfg, tok = tmodels.load_model("trained-tiny", device="cpu")
     assert cfg == trained_tiny[1] and type(tok) is tdata.ByteTokenizer
@@ -258,6 +259,12 @@ def test_load_model_matches_jax(monkeypatch, tmp_path, trained_tiny):
             module.load_model("tiny-gpt2", allow_random_init=False, **kw)
         with pytest.raises(ValueError, match="Unknown model"):
             module.load_model("gpt5", **kw)
+    from qkv_ecc_tpu_torch.models import convert as tconvert
+
+    def no_transformers(name, cfg):
+        raise RuntimeError("transformers is required for HF conversion")
+
+    monkeypatch.setattr(tconvert, "load_hf_checkpoint", no_transformers)
     with pytest.raises(RuntimeError, match="Could not load HF checkpoint 'gpt2'"):
         tmodels.load_model("gpt2", allow_random_init=False, device="cpu")
     params, cfg, tok = tmodels.load_model("gpt2", device="cpu")
