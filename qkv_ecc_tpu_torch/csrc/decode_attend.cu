@@ -23,12 +23,11 @@
 //      whole chunks of chunk_tokens / bs pages, page pg read at table entry
 //      min(pg, num_pages - 1) as the TPU's chunk copy clamps it - and
 //      decodes every attended token's row into int4-packed data words, so
-//      that paged_attend.cuh's attention reads them unchanged (decode_row):
-//      - hamming84: the byte-slot codewords of the values [0, D/2) and
-//        [D/2, D) are rebuilt from the data and parity words
-//        (swar.h84_rebuild_cw_words) and SECDED-decoded 4 at a time
-//        (swar.h84_swar_decode): singles corrected, doubles keep their data
-//        and set the doubles mask;
+//      that paged_attend.cuh's attention reads them unchanged:
+//      - hamming84: each data nibble with its parity nibble is one SECDED
+//        codeword (the pairs swar.h84_rebuild_cw_words makes), decoded 8 a
+//        word on nibble lanes (swar.h84_swar_decode's logic): singles
+//        corrected, doubles keep their data and set the doubles mask;
 //      - hamming74: 8 values of a data word at once (SWAR over nibble
 //        lanes), each lane's 3 parity bits gathered from the bit-sliced
 //        planes (bit t of plane p word g is parity bit p of value t*G + g);
@@ -58,10 +57,10 @@
 //      before a sliding window): hamming84 singles and doubles; hamming74
 //      nonzero syndromes (padding values included); golay corrected bits
 //      (error weights 1-3) and uncorrectable codewords.
-// The decoded words of hamming84 are int4-packed data words again (dec_lo |
-// dec_hi << 4), so the interpolation runs 8 nibbles per word: the
-// rounded-up mean of two nibble lanes is (a | b) - ((a ^ b) >> 1 & 0x7 per
-// lane), and the doubles mask selects per lane.
+// The decoded words of hamming84 are int4-packed data words again, so the
+// interpolation runs 8 nibbles per word: the rounded-up mean of two nibble
+// lanes is (a | b) - ((a ^ b) >> 1 & 0x7 per lane), and the doubles mask
+// selects per lane.
 //
 // Bound on this card at the bench-0.9b step (B 8, Hkv 8, ctx 1056): bytes
 // (each live token's K and V data and parity words and scales read once:
@@ -71,37 +70,35 @@
 // codeword in the built SASS (kernels/sass_count.py), 9 us at 64 lanes a
 // clock on 132 SMs for the 5.8 M codewords of a call, which binds.
 //
-// Design: a cluster of S blocks of 128 threads per (KV head, sequence)
-// (packed_splits: the fewest, a power of two up to 8, with a block per SM;
-// 4 at the bench step), block r taking the visited pages r, r + S, ... with
-// its own online softmax; merge_cluster (paged_attend.cuh) merges the
-// blocks' states in block 0's shared memory by merge_softmax_states'
-// formula, so at S = 1 the output is the unsplit one bit for bit. Phase A
-// maps threads to rows - item i < valid is token i's K row, item valid + i
-// its V row, for the valid tokens (t < ctx) of the page, so that the last
-// page's few tokens still spread over the warps - loads the row's words
-// (word j of token t at j*bs + t, coalesced), decodes them in registers
-// (all shifts and word indices compile-time constants; golay's tables sit
-// in shared memory, the syndrome table copied from the wrapper's tensor
-// once a block) and turns a K row into the token's scores, a V row into
-// shared memory; a slot past the context is never decoded (weight 0). With
-// INTERP phase D first decodes the page's words and doubles masks into
-// shared memory, with the page's left neighbour (the previous page's last
-// token) in column 0 and its right neighbour (the next page's first token,
-// when the chunk goes on) in column bs + 1, decoded by the first 4*WD
-// threads from the cache - so every page stands alone and the split needs
-// nothing from another block - and phase A interpolates each token from
-// its neighbours' words. Block 0 writes the new row; every block reads the
-// row passed in wherever it reads the new token's physical page and slot (a
-// -1 page and F4's clamp included), so no block waits for the write; a read
-// without a new row (K4) decodes every token from the cache. Writing and
-// the softmax state are runtime flags outside the unrolled decode. Counts
-// stay in registers and reach the stats by one integer atomicAdd per warp
-// and block (exact in any order). What still holds the kernel above its
-// bounds on an H100: the attention around the decode (the clean read of
-// the same pages, write_attend.cu, takes about half of golay's time) - a
-// launch's fixed cost, the per-page barriers and the latency of each
-// page's loads that a few blocks per SM leave uncovered (PERF.md).
+// Design (the packed core, paged_attend.cuh): a cluster of S blocks of
+// packed_threads (32 a data word: 512 at the bench step) per (KV head,
+// sequence) - packed_splits: every block on the card at once, 2 at the
+// bench step - block r taking the visited pages r, r + S, ... with its own
+// online softmax, merged by merge_cluster in block 0's shared memory. Each
+// page's data and parity words and scales reach a ring of kStages pages in
+// shared memory by cp.async (two pages in flight while one is used).
+// hamming84 decodes in the core's tiles: thread (row, chunk) copies and
+// decodes its 16 bytes (4 tokens) of one data row and its parity row, 8
+// SECDED codewords a word on nibble lanes (h84_decode_word), no barrier,
+// and with INTERP interpolates each double from its neighbours - the
+// chunks beside it by shuffles, the page's neighbours (the previous page's
+// last token, the next page's first when the chunk goes on) copied with
+// the page by the lanes of the first and last chunk - so every page stands
+// alone and the split needs nothing from another block. hamming74 and
+// golay decode whole rows (a codeword spans words): phase D maps threads
+// to the K and V rows of the page's valid tokens, reads them from the ring
+// (golay's tables in shared memory, the syndrome table copied from the
+// wrapper's tensor once a block) and stages the decoded words for the
+// core. A slot past the context is neither copied nor decoded (weight 0).
+// Block 0 writes the new row; every block overlays the row passed in
+// wherever it reads the new token's physical page and slot (a -1 page and
+// F4's clamp included), after the copy lands, so no block waits for the
+// write; a read without a new row (K4) decodes every token from the cache.
+// Counts stay in registers and reach the stats by one integer atomicAdd
+// per warp and block (exact in any order). What holds the reads above
+// their bounds on an H100 (PERF.md): the decode's integer instructions and
+// the core's arithmetic (issue, not memory, sets a page's time), three
+// barriers a page, a launch's fixed cost and the cluster's merge.
 
 #include "golay.cuh"
 #include "paged_attend.cuh"
@@ -114,78 +111,71 @@ using namespace paged_attend;
 
 enum Codec { kH84 = 0, kH74 = 1, kGolay = 2 };
 
-constexpr uint32_t kM1 = 0x01010101u;   // bit 0 of each byte
 constexpr uint32_t kN1 = 0x11111111u;   // bit 0 of each nibble
 
-// One token's counts, always taken (branch-free); the kernel keeps those
-// of valid tokens. hamming84 sums its singles and doubles (bit 0 of each
-// byte) per byte lane with plain adds: at most 2 per word and 64 per token,
-// so no lane overflows before the token's counts are folded in add().
+// Counts of one thread's valid tokens (hamming84: singles and doubles;
+// hamming74: nonzero syndromes; golay: corrected bits and uncorrectable
+// codewords).
 struct Counts {
-  uint32_t lane_c = 0, lane_d = 0;
   int corrected = 0, detected = 0;
 
-  __device__ __forceinline__ static int lanes(uint32_t x) {  // sum of the 4 byte lanes
-    x = (x & 0x00FF00FFu) + ((x >> 8) & 0x00FF00FFu);
-    return (int)((x & 0xFFFFu) + (x >> 16));
-  }
-
   __device__ __forceinline__ void add(const Counts& o) {
-    corrected += o.corrected + lanes(o.lane_c);
-    detected += o.detected + lanes(o.lane_d);
+    corrected += o.corrected;
+    detected += o.detected;
   }
 };
 
 // ---------------------------------------------------------------- hamming84
 
-// 4 SECDED codewords per word (byte slots) -> corrected data nibbles (byte
-// slots), the singles and the doubles masks (bit 0 of each byte);
-// swar.h84_swar_decode.
-__device__ __forceinline__ void h84_swar_decode(uint32_t x, uint32_t& dec, uint32_t& single,
-                                                uint32_t& dbl) {
-  const uint32_t x1 = x >> 1, x2 = x >> 2, x3 = x >> 3;
-  const uint32_t x4 = x >> 4, x5 = x >> 5, x6 = x >> 6;
-  const uint32_t a = (x ^ x1 ^ x3 ^ x4) & kM1;
-  const uint32_t b = (x ^ x2 ^ x3 ^ x5) & kM1;
-  const uint32_t c = (x1 ^ x2 ^ x3 ^ x6) & kM1;
-  uint32_t p = x ^ x4;
-  p ^= p >> 2;
-  p ^= p >> 1;
-  const uint32_t podd = p & kM1;
-  const uint32_t nonzero = a | b | c;
-  single = nonzero & podd;
-  dbl = nonzero & (podd ^ kM1);
+// One data word d and its parity word p: 8 SECDED codewords, codeword i
+// being data nibble i of d with parity nibble i of p (the pairs
+// swar.h84_rebuild_cw_words makes) -> the corrected data word; dbl gets the
+// doubles mask (bit 0 of each nibble lane). swar.h84_swar_decode on nibble
+// lanes, 8 codewords at once: the syndrome bits a, b, c and the overall
+// parity of each codeword in bit 0 of its lane; singles corrected, doubles
+// keep their data. Adds the singles and doubles to n when count.
+__device__ __forceinline__ uint32_t h84_decode_word(uint32_t d, uint32_t p, uint32_t& dbl,
+                                                    Counts& n, bool count = true) {
+  const uint32_t d1 = d >> 1, d2 = d >> 2, d3 = d >> 3;
+  const uint32_t a = (d ^ d1 ^ d3 ^ p) & kN1;
+  const uint32_t b = (d ^ d2 ^ d3 ^ (p >> 1)) & kN1;
+  const uint32_t c = (d1 ^ d2 ^ d3 ^ (p >> 2)) & kN1;
+  uint32_t t = d ^ p;
+  t ^= t >> 2;
+  t ^= t >> 1;
+  const uint32_t podd = t & kN1, nonzero = a | b | c;
+  const uint32_t single = nonzero & podd;
+  dbl = nonzero & ~podd;
   const uint32_t ab = a & b;
-  const uint32_t corr = ((ab & (c ^ kM1)) | ((a & (b ^ kM1) & c) << 1) |
-                         (((a ^ kM1) & b & c) << 2) | ((ab & c) << 3)) &
+  const uint32_t corr = ((ab & ~c) | ((a & ~b & c) << 1) | ((~a & b & c) << 2) | ((ab & c) << 3)) &
                         (single * 0xFu);
-  dec = (x ^ corr) & 0x0F0F0F0Fu;
+  if (count) {
+    n.corrected += __popc(single);
+    n.detected += __popc(dbl);
+  }
+  return d ^ corr;
 }
 
-// One data word and its parity word -> the corrected int4-packed data word
-// and the doubles mask of its 8 values (bit 0 of each nibble lane).
-__device__ __forceinline__ void h84_decode_word(int32_t d, int32_t p, int32_t& dec,
-                                                int32_t& dbl, Counts& n) {
-  const uint32_t du = (uint32_t)d, pu = (uint32_t)p;
-  const uint32_t lo = (du & 0x0F0F0F0Fu) | ((pu & 0x0F0F0F0Fu) << 4);
-  const uint32_t hi = ((du >> 4) & 0x0F0F0F0Fu) | (((pu >> 4) & 0x0F0F0F0Fu) << 4);
-  uint32_t dec_lo, s_lo, dbl_lo, dec_hi, s_hi, dbl_hi;
-  h84_swar_decode(lo, dec_lo, s_lo, dbl_lo);
-  h84_swar_decode(hi, dec_hi, s_hi, dbl_hi);
-  dec = (int32_t)(dec_lo | (dec_hi << 4));
-  dbl = (int32_t)(dbl_lo | (dbl_hi << 4));
-  n.lane_c += s_lo + s_hi;
-  n.lane_d += dbl_lo + dbl_hi;
+// A chunk's 4 tokens of one row: data words d and parity words p -> the
+// decoded words and their doubles masks, counting the first `valid` tokens
+// (those before the context length).
+__device__ __forceinline__ void h84_decode_chunk(const uint4& d, const uint4& p, int valid,
+                                                 uint4& dec, uint4& dbl, Counts& n) {
+#pragma unroll 1
+  for (int i = 0; i < 4; ++i) {  // not unrolled: the page loop's code stays small
+    uint32_t m;
+    set_lane(dec, i, h84_decode_word(lane_of(d, i), lane_of(p, i), m, n, i < valid));
+    set_lane(dbl, i, m);
+  }
 }
 
 // Per nibble lane: where the doubles mask is set, (left + right + 1) >> 1,
 // else own.
-__device__ __forceinline__ int32_t interpolate_word(int32_t own, int32_t left, int32_t right,
-                                                    int32_t dbl) {
-  const uint32_t a = (uint32_t)left, b = (uint32_t)right;
-  const uint32_t mean = (a | b) - (((a ^ b) >> 1) & 0x77777777u);
-  const uint32_t m = (uint32_t)dbl * 0xFu;
-  return (int32_t)((mean & m) | ((uint32_t)own & ~m));
+__device__ __forceinline__ uint32_t interpolate_word(uint32_t own, uint32_t left, uint32_t right,
+                                                     uint32_t dbl) {
+  const uint32_t mean = (left | right) - (((left ^ right) >> 1) & 0x77777777u);
+  const uint32_t m = dbl * 0xFu;
+  return (mean & m) | (own & ~m);
 }
 
 // ---------------------------------------------------------------- hamming74
@@ -314,37 +304,30 @@ struct Row {  // where one token's data and parity words live
   int stride;  // between consecutive words: bs in a page, 1 in the new row
 };
 
-// Decode one token's row into WD int4-packed data words (and, for
-// hamming84, the doubles mask of each word), adding its counts to n.
+// Decode one token's row (hamming74, golay) into WD int4-packed data words,
+// adding its counts to n.
 template <int CODEC, int WD, int PW>
-__device__ __forceinline__ void decode_row(const Row& r, int32_t (&dec)[WD], int32_t (&dbl)[WD],
-                                           Counts& n, const GolayTables& gt) {
-  if constexpr (CODEC == kH84) {
+__device__ __forceinline__ void decode_row(const Row& r, int32_t (&dec)[WD], Counts& n,
+                                           const GolayTables& gt) {
+  int32_t dw[WD], pw[PW];
 #pragma unroll
-    for (int j = 0; j < WD; ++j)
-      h84_decode_word(r.data[j * r.stride], r.parity[j * r.stride], dec[j], dbl[j], n);
+  for (int j = 0; j < WD; ++j) dw[j] = r.data[j * r.stride];
+#pragma unroll
+  for (int j = 0; j < PW; ++j) pw[j] = r.parity[j * r.stride];
+  if constexpr (CODEC == kH74) {
+    static_assert(PW == 3 * WD / 4, "hamming74 rows hold 3 parity planes of WD / 4 words");
+    H74Words<WD, WD>::run(dw, pw, dec, n);
   } else {
-    int32_t dw[WD], pw[PW];
+    static_assert((WD + PW) % 3 == 0, "golay rows hold 3 words per 4 codewords");
 #pragma unroll
-    for (int j = 0; j < WD; ++j) dw[j] = r.data[j * r.stride];
-#pragma unroll
-    for (int j = 0; j < PW; ++j) pw[j] = r.parity[j * r.stride];
-    if constexpr (CODEC == kH74) {
-      static_assert(PW == 3 * WD / 4, "hamming74 rows hold 3 parity planes of WD / 4 words");
-      H74Words<WD, WD>::run(dw, pw, dec, n);
-    } else {
-      static_assert((WD + PW) % 3 == 0, "golay rows hold 3 words per 4 codewords");
-#pragma unroll
-      for (int j = 0; j < WD; ++j) dec[j] = 0;
-      GolayCodewords<WD, PW, 4 * (WD + PW) / 3>::run(dw, pw, dec, n, gt);
-    }
-#pragma unroll
-    for (int j = 0; j < WD; ++j) dbl[j] = 0;
+    for (int j = 0; j < WD; ++j) dec[j] = 0;
+    GolayCodewords<WD, PW, 4 * (WD + PW) / 3>::run(dw, pw, dec, n, gt);
   }
 }
 
 template <int CODEC, int WD, int PW, int GROUP, int HD, bool INTERP>
-__global__ void __launch_bounds__(kThreads) decode_attend_kernel(
+__global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
+    decode_attend_kernel(
     const void* __restrict__ q,           // [B, Hq, HD] bf16, or fp32 when exact
     const int32_t* __restrict__ k_new,    // [B, Hkv, WD + PW] data ++ parity
     const int32_t* __restrict__ v_new,
@@ -367,33 +350,39 @@ __global__ void __launch_bounds__(kThreads) decode_attend_kernel(
     int out_bf16, int exact, int chunk_tokens, int has_new) {
   constexpr int D = 8 * WD;  // values per row (head_dim HD plus padding)
   constexpr int RW = WD + PW;
+  constexpr int T = packed_threads<WD>();
+  // hamming74 and golay decode whole rows (a codeword spans words) into
+  // shared memory; hamming84 decodes each word in the tiles, in registers
+  constexpr bool kRows = CODEC != kH84;
+  static_assert(kRows || PW == WD, "hamming84 rows hold a parity word per data word");
   cg::cluster_group cluster = cg::this_cluster();
   const int splits = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
+  const Tiles tl(bs, T, WD);
 
+  // the core's (Attend), then with kRows the decoded K and V words kd_s /
+  // vd_s [WD][bs], the ring of kStages stages (stage_words: data and parity
+  // rows, scales and INTERP's neighbour words), then the merge area
   extern __shared__ float smem[];
-  float* q_s = smem;                          // [GROUP][D]
-  float* p_s = q_s + GROUP * D;               // [GROUP][bs] scores, then weights
-  float* vs_s = p_s + GROUP * bs;             // [bs] V scales
-  int32_t* v_s = (int32_t*)(vs_s + bs);       // [WD][bs + 1] V words (padded rows)
-  // INTERP: decoded words, column c = token pg*bs + c - 1, and doubles masks
-  int32_t* kd = v_s + WD * (bs + 1);          // [WD][bs + 2]
-  int32_t* vd = kd + WD * (bs + 2);           // [WD][bs + 2]
-  int32_t* km = vd + WD * (bs + 2);           // [WD][bs]
-  int32_t* vm = km + WD * bs;                 // [WD][bs]
-  // in block 0, the cluster's states: acc [splits][GROUP][D], then m and l
-  // [splits][2][GROUP]
-  float* s_acc = (float*)(INTERP ? vm + WD * bs : kd);
+  int32_t* kd_s = (int32_t*)(smem + core_floats<WD, GROUP, T>(bs, 1));
+  int32_t* vd_s = kd_s + (kRows ? WD * bs : 0);
+  int32_t* ring = vd_s + (kRows ? WD * bs : 0);
+  const int sw = stage_words(RW, bs, WD, INTERP);
+  // in block 0, the cluster's states (merge_cluster)
+  float* s_acc = (float*)(ring + kStages * sw);
   float* s_ml = s_acc + splits * GROUP * D;
-  __shared__ SoftmaxState<GROUP> st;
   __shared__ uint32_t nib_s[CODEC == kGolay ? golay::kEncodeTableWords : 1];
   __shared__ __align__(16) uint16_t syn_s[CODEC == kGolay ? golay::kSyndromes : 8];
+  Attend<WD, GROUP, T> st(smem, tl, 1);
 
   const int Hq = Hkv * GROUP;
+  const PageTable table(block_table + (size_t)b * P, num_pages);
   const int ctx = context_lens[b];
+  Queries<WD, GROUP, HD, T> qv;
+  qv.load((const char*)q + ((size_t)b * Hq + (size_t)h * GROUP) * HD * (exact ? 4 : 2), exact);
   // the new token is written (by block 0), and decoded from the row passed
   // in wherever any block reads its physical page and slot, when its page
   // is one of the first num_pages; else (or in a read without a new row)
@@ -405,47 +394,42 @@ __global__ void __launch_bounds__(kThreads) decode_attend_kernel(
   const int ppc = chunk_tokens / bs;
   const int loop_pages = (num_pages + ppc - 1) / ppc * ppc;
 
-  stage_queries<WD, GROUP, HD>((const char*)q + row0 * HD * (exact ? 4 : 2), exact, q_s, st);
   GolayTables gt{nib_s, syn_s};
   if constexpr (CODEC == kGolay) {
     golay::fill_encode_tables(nib_s);
-    for (int i = tid; i < golay::kSyndromes / 8; i += kThreads)
+    for (int i = tid; i < golay::kSyndromes / 8; i += T)
       ((uint4*)syn_s)[i] = ((const uint4*)syn_table)[i];
   }
 
   const size_t new_row = (size_t)b * Hkv + h;
   const int32_t* kn = writes ? k_new + new_row * RW : nullptr;
   const int32_t* vn = writes ? v_new + new_row * RW : nullptr;
-  const float ksn = writes ? ks_new[new_row] : 0.f;
-  const float vsn = writes ? vs_new[new_row] : 0.f;
+  // the new row's words of this thread's row (hamming84's overlay: data,
+  // parity) and of word tid of the row (block 0's write) and its scales,
+  // loaded before they are needed
+  const int j = min(tl.row, WD - 1);  // this thread's row (a row >= WD holds nothing)
+  uint32_t new_j[2][2] = {};           // [K, V][data, parity]
+  if (has_new && !kRows) {
+    new_j[0][0] = (uint32_t)k_new[new_row * RW + j];
+    new_j[0][1] = (uint32_t)k_new[new_row * RW + WD + j];
+    new_j[1][0] = (uint32_t)v_new[new_row * RW + j];
+    new_j[1][1] = (uint32_t)v_new[new_row * RW + WD + j];
+  }
+  const bool word = has_new && tid < RW;
+  const int32_t kn_w = word ? k_new[new_row * RW + tid] : 0;
+  const int32_t vn_w = word ? v_new[new_row * RW + tid] : 0;
+  const float ksn = has_new ? ks_new[new_row] : 0.f;
+  const float vsn = has_new ? vs_new[new_row] : 0.f;
   auto page_of = [&](int pg) {  // page index of visited page pg (F4's clamp, -1 -> 0)
-    const int pidx = min(pg, num_pages - 1);
-    return head_page + (size_t)max(block_table[(size_t)b * P + pidx], 0) * Hkv + h;
+    return head_page + (size_t)max(table.entry(pg), 0) * Hkv + h;
   };
-  const size_t page_new = writes ? page_of((ctx - 1) / bs) : ~(size_t)0;
+  const size_t page_last = page_of(max(ctx - 1, 0) / bs);  // every lane: a shuffle, converged
+  const size_t page_new = writes ? page_last : ~(size_t)0;
   const int slot_new = writes ? (ctx - 1) % bs : -1;
 
-  // 1. the in-place write of the new token's data and parity columns and scales
-  if (writes && rank == 0) {
-    for (int j = tid; j < WD; j += kThreads) {
-      k_cache[(page_new * WD + j) * bs + slot_new] = kn[j];
-      v_cache[(page_new * WD + j) * bs + slot_new] = vn[j];
-    }
-    for (int j = tid; j < PW; j += kThreads) {
-      k_parity[(page_new * PW + j) * bs + slot_new] = kn[WD + j];
-      v_parity[(page_new * PW + j) * bs + slot_new] = vn[WD + j];
-    }
-    if (tid == 0) {
-      k_scales[page_new * bs + slot_new] = ksn;
-      v_scales[page_new * bs + slot_new] = vsn;
-    }
-  }
-
-  // the rows of token tok: the row passed in where tok's physical page and
-  // slot are the new token's, else the cache's
-  auto rows = [&](int tok, Row& kr, Row& vr) {
-    const size_t page = page_of(tok / bs);
-    const int slot = tok % bs;
+  // the rows of the token in slot `slot` of physical page `page`: the row
+  // passed in where they are the new token's, else the cache's
+  auto rows = [&](size_t page, int slot, Row& kr, Row& vr) {
     if (page == page_new && slot == slot_new) {
       kr = Row{kn, kn + WD, 1};
       vr = Row{vn, vn + WD, 1};
@@ -455,143 +439,203 @@ __global__ void __launch_bounds__(kThreads) decode_attend_kernel(
     vr = Row{v_cache + page * WD * bs + slot, v_parity + page * PW * bs + slot, bs};
   };
 
-  float acc[GROUP];
-#pragma unroll
-  for (int g = 0; g < GROUP; ++g) acc[g] = 0.f;
   Counts cnt;  // this thread's valid tokens
-
   const int first_tok = window > 0 ? max(0, ctx - window) : 0;
   const int npages = min((ctx + bs - 1) / bs, loop_pages);
   // pages before the window are decoded for the counts only, never attended
   const int count_from = stats ? 0 : first_tok / bs;
+
+  // visited page pg into stage st_i of the ring: the scales of the token
+  // this thread owns (token tid); hamming84: this thread's chunk of its row,
+  // data and parity, K and V, with INTERP the neighbour words of the page
+  // (the previous page's last token for chunk 0, the next page's first for
+  // the last chunk, when the chunk goes on); hamming74 and golay: every
+  // 16-byte chunk of the page's data and parity rows, dealt over the
+  // threads. A chunk with no token before ctx is not copied (its weights
+  // are 0). One commit a page, an empty one past the block's last.
+  auto load = [&](int pg, int st_i) {
+    const size_t page = page_of(pg);  // every lane: shuffles, converged
+    const size_t side_page[2] = {page_of(max(pg - 1, 0)), page_of(pg + 1)};
+    if (pg < npages) {
+      int32_t* sp = ring + st_i * sw;
+      if (tid < bs && pg * bs + tid < ctx) {
+        copy_async<4>(sp + 2 * RW * bs + tid, k_scales + page * bs + tid);
+        copy_async<4>(sp + 2 * RW * bs + bs + tid, v_scales + page * bs + tid);
+      }
+      if constexpr (kRows) {
+        for (int i = tid; i < 2 * RW * tl.nc; i += T) {
+          const int c = i % tl.nc, r = (i / tl.nc) % RW, kv = i / (tl.nc * RW);
+          if (pg * bs + 4 * c >= ctx) continue;
+          const int32_t* src = r < WD ? (kv ? v_cache : k_cache) + (page * WD + r) * bs
+                                      : (kv ? v_parity : k_parity) + (page * PW + r - WD) * bs;
+          copy_async<16>(sp + (kv * RW + r) * bs + 4 * c, src + 4 * c);
+        }
+      } else {
+        if (tl.row < WD && pg * bs + 4 * tl.chunk < ctx) {
+          const size_t at = (page * WD + tl.row) * bs + 4 * tl.chunk;
+          const int o = tl.row * bs + 4 * tl.chunk;
+          copy_async<16>(sp + o, k_cache + at);
+          copy_async<16>(sp + WD * bs + o, k_parity + at);
+          copy_async<16>(sp + RW * bs + o, v_cache + at);
+          copy_async<16>(sp + (RW + WD) * bs + o, v_parity + at);
+        }
+        if constexpr (INTERP) {
+          const int page_tok = pg * bs, next_tok = page_tok + bs;
+          const bool need_left = tl.chunk == 0 && pg > 0;
+          const bool need_right = tl.chunk == tl.nc - 1 && next_tok < ctx &&
+                                  pg + 1 < loop_pages && next_tok % chunk_tokens != 0;
+#pragma unroll
+          for (int side = 0; side < 2; ++side) {
+            if (tl.row >= WD || !(side ? need_right : need_left)) continue;
+            Row kr, vr;
+            rows(side_page[side], side ? 0 : bs - 1, kr, vr);
+            int32_t* e = sp + 2 * RW * bs + 2 * bs + side * 4 * WD + tl.row;
+            copy_async<4>(e, kr.data + j * kr.stride);
+            copy_async<4>(e + WD, kr.parity + j * kr.stride);
+            copy_async<4>(e + 2 * WD, vr.data + j * vr.stride);
+            copy_async<4>(e + 3 * WD, vr.parity + j * vr.stride);
+          }
+        }
+      }
+    }
+    copy_commit();
+  };
+  // hamming84: this thread's chunk of stage sp (K or V) decoded - the new
+  // row over whatever the copy found in its slot (at e_new) - counting the
+  // valid tokens of the thread's row; with INTERP, each double then from
+  // its pre-interpolation neighbours along the sequence: within the chunk,
+  // the neighbouring chunks' (the lanes beside, same row) or the page's
+  // neighbours, decoded. Token 0 is its own left neighbour; token t its own
+  // right one when t + 1 >= ctx or t + 1 starts a chunk of chunk_tokens
+  // tokens
+  auto decode = [&](const int32_t* sp, int kv, int page_tok, int e_new, bool interp) {
+    const int o = j * bs + 4 * tl.chunk;
+    uint4 d = *(const uint4*)(sp + kv * RW * bs + o);
+    uint4 p = *(const uint4*)(sp + (kv * RW + WD) * bs + o);
+    if (e_new >= 0 && e_new < 4) {
+      set_lane(d, e_new, new_j[kv][0]);
+      set_lane(p, e_new, new_j[kv][1]);
+    }
+    const int valid = tl.row < WD ? min(4, max(0, ctx - page_tok - 4 * tl.chunk)) : 0;
+    uint4 w, dbl;
+    h84_decode_chunk(d, p, valid, w, dbl, cnt);
+    if (INTERP && interp) {
+      uint32_t own[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) own[i] = lane_of(w, i);
+      const uint32_t up = __shfl_up_sync(kAll, own[3], 1);
+      const uint32_t down = __shfl_down_sync(kAll, own[0], 1);
+      const int32_t* e = sp + 2 * RW * bs + 2 * bs + 2 * kv * WD + j;
+      Counts none;
+      uint32_t m;
+      const uint32_t left =
+          tl.chunk > 0 ? up : h84_decode_word((uint32_t)e[0], (uint32_t)e[WD], m, none, false);
+      const uint32_t right = tl.chunk < tl.nc - 1
+          ? down : h84_decode_word((uint32_t)e[4 * WD], (uint32_t)e[5 * WD], m, none, false);
+      // a chunk of chunk_tokens starts only at a page: after the page's
+      // last token, when the next page starts a chunk
+      const bool seam = tl.chunk == tl.nc - 1 && (page_tok + bs) % chunk_tokens == 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = page_tok + 4 * tl.chunk + i;
+        const uint32_t l = t == 0 ? own[i] : i > 0 ? own[i - 1] : left;
+        const uint32_t rt = t + 1 >= ctx || (i == 3 && seam) ? own[i] : i < 3 ? own[i + 1] : right;
+        set_lane(w, i, interpolate_word(own[i], l, rt, lane_of(dbl, i)));
+      }
+    }
+    return w;
+  };
+
+  int pg = count_from + rank;
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) load(pg + i * splits, i);
+  // with the first pages in flight: the queries, and block 0's write
+  qv.store(st.q_s);
+  // the in-place write of the new token's data and parity columns and scales
+  if (writes && rank == 0) {
+    if (tid < WD) {
+      k_cache[(page_new * WD + tid) * bs + slot_new] = kn_w;
+      v_cache[(page_new * WD + tid) * bs + slot_new] = vn_w;
+    } else if (tid < RW) {
+      k_parity[(page_new * PW + tid - WD) * bs + slot_new] = kn_w;
+      v_parity[(page_new * PW + tid - WD) * bs + slot_new] = vn_w;
+    }
+    if (tid == 0) {
+      k_scales[page_new * bs + slot_new] = ksn;
+      v_scales[page_new * bs + slot_new] = vsn;
+    }
+  }
+
   __syncthreads();
 
   // the block's pages: every splits-th from count_from + rank
-  for (int pg = count_from + rank; pg < npages; pg += splits) {
+  for (int k = 0; pg < npages; pg += splits, ++k) {
     const int page_tok = pg * bs;
     const size_t page = page_of(pg);
     const int new_slot = page == page_new ? slot_new : -1;  // the new row's slot here
-    const float* ksp = k_scales + page * bs;
-    const float* vsp = v_scales + page * bs;
-
-    if (pg < first_tok / bs) {  // before the window: count only
-      for (int t = tid; t < bs; t += kThreads) {
-        if (page_tok + t >= ctx) continue;
-        Row kr, vr;
-        rows(page_tok + t, kr, vr);
-        int32_t dec[WD], dbl[WD];
-        Counts tc;
-        decode_row<CODEC, WD, PW>(kr, dec, dbl, tc, gt);
-        decode_row<CODEC, WD, PW>(vr, dec, dbl, tc, gt);
-        cnt.add(tc);
-      }
-      continue;
+    const int e_new = new_slot - 4 * tl.chunk;                // ... in this thread's chunk
+    const bool counted = pg < first_tok / bs;                 // before the window: count only
+    copy_wait();                                                     // page k landed
+    int32_t* sp = ring + (k % kStages) * sw;
+    float* scales = (float*)sp + 2 * RW * bs;  // the page's K and V scales [2][bs]
+    if (tid == new_slot) {  // the new token's scales over what the copy found
+      scales[tid] = ksn;
+      scales[bs + tid] = vsn;
     }
+    if constexpr (kRows) __syncthreads();                            // ... for every thread
+    load(pg + (kStages - 1) * splits, (k + kStages - 1) % kStages);  // into page k-1's stage
+    uint4 kw, vw;
 
-    if constexpr (INTERP) {
-      // phase D: decode the page into kd / vd columns 1..bs, and the
-      // neighbours outside it into columns 0 and bs + 1
-      for (int t = tid; t < bs; t += kThreads) {
-        Row kr, vr;
-        rows(page_tok + t, kr, vr);
-        Counts n;
-#pragma unroll
-        for (int j = 0; j < WD; ++j) {
-          int32_t dec, dbl;
-          h84_decode_word(kr.data[j * kr.stride], kr.parity[j * kr.stride], dec, dbl, n);
-          kd[j * (bs + 2) + t + 1] = dec;
-          km[j * bs + t] = dbl;
-          h84_decode_word(vr.data[j * vr.stride], vr.parity[j * vr.stride], dec, dbl, n);
-          vd[j * (bs + 2) + t + 1] = dec;
-          vm[j * bs + t] = dbl;
-        }
-        if (page_tok + t < ctx) cnt.add(n);
-      }
-      const int next_tok = page_tok + bs;
-      const bool need_left = pg > 0;
-      const bool need_right = next_tok < ctx && pg + 1 < loop_pages && next_tok % chunk_tokens != 0;
-      if (tid < 4 * WD) {
-        const bool right = tid >= 2 * WD;
-        const bool is_v = (tid / WD) % 2 == 1;
-        const int j = tid % WD;
-        if (right ? need_right : need_left) {
-          Row kr, vr;
-          rows(right ? next_tok : page_tok - 1, kr, vr);
-          const Row& r = is_v ? vr : kr;
-          int32_t dec, dbl;
-          Counts none;
-          h84_decode_word(r.data[j * r.stride], r.parity[j * r.stride], dec, dbl, none);
-          (is_v ? vd : kd)[j * (bs + 2) + (right ? bs + 1 : 0)] = dec;
-        }
-      }
-      __syncthreads();
-    }
-
-    float lmax[GROUP];
-#pragma unroll
-    for (int g = 0; g < GROUP; ++g) lmax[g] = kNegInf;
-    if constexpr (INTERP) {
-      // phase A: thread per token - its K words (interpolated) into scores,
-      // its V words into shared memory
-      for (int t = tid; t < bs; t += kThreads) {
-        const int tok = page_tok + t;
-        const bool is_new = t == new_slot;
-        const bool live = tok < ctx && tok >= first_tok;
-        const bool own_left = tok == 0;
-        const bool own_right = tok + 1 >= ctx || (tok + 1) % chunk_tokens == 0;
-        int32_t kw[WD];
-#pragma unroll
-        for (int j = 0; j < WD; ++j) {
-          const int32_t* kc = kd + j * (bs + 2) + t;  // columns t, t+1, t+2
-          const int32_t* vc = vd + j * (bs + 2) + t;
-          kw[j] = interpolate_word(kc[1], own_left ? kc[1] : kc[0], own_right ? kc[1] : kc[2],
-                                   km[j * bs + t]);
-          v_s[j * (bs + 1) + t] = interpolate_word(
-              vc[1], own_left ? vc[1] : vc[0], own_right ? vc[1] : vc[2], vm[j * bs + t]);
-        }
-        const float ks = is_new ? ksn : ksp[t];
-        vs_s[t] = is_new ? vsn : vsp[t];
-        score_token<WD, GROUP>(kw, q_s, ks * sm_scale, live, p_s + t, bs, lmax);
-      }
-    } else {
-      // phase A: thread per row - the K rows of the valid tokens (t < ctx)
-      // decoded into scores, their V rows decoded into shared memory: item
-      // i < valid is token i's K, item valid + i its V, so that a page with
-      // few valid tokens still spreads over the warps; a slot past the
-      // context has weight 0 and is not decoded (its staged V words stay
-      // finite nibbles)
+    if constexpr (kRows) {
+      // phase D: thread per row - item i < valid is token i's K row, item
+      // valid + i its V row, for the valid tokens (t < ctx) of the page, so
+      // that a page with few valid tokens still spreads over the warps -
+      // decoded from the stage into kd_s / vd_s (counted only before the
+      // window); a slot past the context is not decoded (its stale words
+      // are finite nibbles of weight 0)
       const int valid = min(bs, ctx - page_tok);
-      for (int i = tid; i < 2 * valid; i += kThreads) {
+      for (int i = tid; i < 2 * valid; i += T) {
         const bool is_v = i >= valid;
         const int t = is_v ? i - valid : i;
-        const int tok = page_tok + t;
-        const bool is_new = t == new_slot;
-        Row kr, vr;
-        rows(tok, kr, vr);
-        Counts n;
-        int32_t dec[WD], dbl[WD];
-        decode_row<CODEC, WD, PW>(is_v ? vr : kr, dec, dbl, n, gt);
-        cnt.add(n);
-        if (is_v) {
+        const int32_t* rn = is_v ? vn : kn;
+        const int32_t* sr = sp + (is_v ? RW : 0) * bs + t;
+        const Row r = t == new_slot ? Row{rn, rn + WD, 1} : Row{sr, sr + WD * bs, bs};
+        int32_t dec[WD];
+        decode_row<CODEC, WD, PW>(r, dec, cnt, gt);
+        if (counted) continue;
+        int32_t* dst = is_v ? vd_s : kd_s;
 #pragma unroll
-          for (int j = 0; j < WD; ++j) v_s[j * (bs + 1) + t] = dec[j];
-          vs_s[t] = is_new ? vsn : vsp[t];
-        } else {
-          const float ks = is_new ? ksn : ksp[t];
-          score_token<WD, GROUP>(dec, q_s, ks * sm_scale, tok >= first_tok, p_s + t, bs, lmax);
-        }
+        for (int w = 0; w < WD; ++w) dst[w * bs + t] = dec[w];
       }
-      for (int t = valid + tid; t < bs; t += kThreads) {
-#pragma unroll
-        for (int g = 0; g < GROUP; ++g) p_s[g * bs + t] = kNegInf;
+      if (counted) continue;
+      __syncthreads();
+      kw = *(const uint4*)(kd_s + j * bs + 4 * tl.chunk);
+      vw = *(const uint4*)(vd_s + j * bs + 4 * tl.chunk);
+    } else {
+      if (counted) {  // for the counts alone
+        decode(sp, 0, page_tok, e_new, false);
+        decode(sp, 1, page_tok, e_new, false);
+        continue;
       }
+      kw = decode(sp, 0, page_tok, e_new, true);
+      vw = decode(sp, 1, page_tok, e_new, true);
     }
-    attend_page<WD, GROUP>(lmax, p_s, vs_s, v_s, st, acc, page_tok, ctx, first_tok, bs,
-                           exact != 0);
+
+    st.scores(kw, tl);
+    __syncthreads();
+    const int tok = page_tok + tid;  // the token this thread owns
+    const bool live = tid < bs && tok < ctx && tok >= first_tok;
+    st.page_scores(tl, live, scales, sm_scale);
+    __syncthreads();
+    st.weights(tl, live, scales, exact != 0);
+    __syncthreads();
+    st.contract(vw, tl);
   }
 
   if (stats) flush_stats(stats, b, cnt.corrected, cnt.detected);
-  merge_cluster<GROUP, HD, D>(cluster, acc, st, s_acc, s_ml, out, row0, out_bf16, m_out, l_out);
+  // the ring, used up, holds the chunks' parts of the merge
+  merge_cluster<WD, GROUP, HD, T>(cluster, st, tl, (float*)ring, s_acc, s_ml, out, row0,
+                                  out_bf16, m_out, l_out);
 }
 
 template <int CODEC, int WD, int PW, int GROUP, int HD, bool INTERP>
@@ -604,16 +648,20 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    float sm_scale, int out_bf16, int exact, int chunk_tokens, int has_new,
                    int splits, cudaStream_t stream) {
   constexpr int D = 8 * WD;
-  size_t smem = (size_t)(GROUP * D + GROUP * bs + bs) * sizeof(float) +
-                (size_t)WD * (bs + 1) * sizeof(int32_t);
-  if (INTERP) smem += (size_t)WD * (2 * (bs + 2) + 2 * bs) * sizeof(int32_t);
-  smem += merge_bytes<GROUP, D>(splits);
+  constexpr int T = packed_threads<WD>();
+  if (!tiles_fit(bs)) return cudaErrorInvalidValue;
+  const size_t words = (size_t)(CODEC != kH84 ? 2 : 0) * WD * bs +
+                       (size_t)kStages * stage_words(WD + PW, bs, WD, INTERP);
+  const size_t smem = core_floats<WD, GROUP, T>(bs, 1) * sizeof(float) +
+                      words * sizeof(int32_t) + merge_bytes<GROUP, D>(splits);
   if (splits < 1 || splits > kMaxSplits || smem > kMaxSmem || chunk_tokens <= 0 ||
       chunk_tokens % bs != 0 || num_pages < 1 || num_pages > P ||
       (CODEC == kGolay && (syn_table == nullptr || (uintptr_t)syn_table % 16 != 0)))
     return cudaErrorInvalidValue;
   auto kernel = decode_attend_kernel<CODEC, WD, PW, GROUP, HD, INTERP>;
-  return launch_cluster(kernel, dim3(splits, Hkv, B), splits, smem, stream, q,
+  // golay's tables in static shared memory
+  const size_t tables = CODEC == kGolay ? golay::kEncodeTableWords * 4 + golay::kSyndromes * 2 : 0;
+  return launch_cluster(kernel, dim3(splits, Hkv, B), splits, T, smem, tables, stream, q,
                         (const int32_t*)k_new, (const int32_t*)v_new, (const float*)ks_new,
                         (const float*)vs_new, (int32_t*)k_cache, (int32_t*)v_cache,
                         (int32_t*)k_parity, (int32_t*)v_parity, (float*)k_scales,
@@ -641,9 +689,9 @@ __device__ __forceinline__ void sass_probe_golay(const int32_t* rows, int32_t* o
   Counts n;
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    int32_t dec[16], dbl[16];
+    int32_t dec[16];
     const int32_t* row = rows + (r0 + k) * 33;
-    decode_row<kGolay, 16, 17>(Row{row, row + 16, 1}, dec, dbl, n, GolayTables{nib_s, syn_s});
+    decode_row<kGolay, 16, 17>(Row{row, row + 16, 1}, dec, n, GolayTables{nib_s, syn_s});
 #pragma unroll
     for (int j = 0; j < 16; ++j) out[(r0 + k) * 16 + j] = dec[j];
   }

@@ -64,33 +64,37 @@
 // binds. Read injection is a template parameter: the clean read compiles
 // without the hash.
 //
-// Design: a cluster of S blocks of 128 threads per (KV head, sequence)
-// (packed_splits: the fewest, a power of two up to 8, with a block per SM,
-// 4 at the bench step; with injection two blocks per SM, 8 at the bench
-// step, so that one block's hashes keep the integer pipe busy while
-// another attends), block r taking the visited pages r, r + S, ... with
-// its own online softmax, merged in block 0's shared memory by
-// merge_cluster (paged_attend.cuh; at S = 1 the unsplit output, bit for
-// bit). With injection, phase H maps threads to the (K or V, word, slot)
-// items of the page's valid tokens (a slot past the context is never
-// attended nor counted; before a sliding window the flips are counted
-// alone, with stats), 32 independent hashes a word, and stages the flipped
-// words in shared memory; without it phase A loads the words itself. Phase
-// A maps threads to tokens (coalesced loads of the token-minor words:
-// thread t reads word j of token t at j*bs + t), computes the group's
-// scores and stages the V words; phases B and C (paged_attend.cuh, shared
-// with decode_attend.cu) take the page's softmax weights and map threads
-// to head-dim values to contract the staged V page. Block 0 writes the new
-// column; every block reads the column passed in (in registers) wherever it
+// Design (the packed core, paged_attend.cuh): a cluster of S blocks of
+// packed_threads (32 a data word: 512 at the bench step) per (KV head,
+// sequence) - packed_splits: the most, a power of two up to 8, with every
+// block on the card at once, 2 at the bench step - block r taking the
+// visited pages r, r + S, ... with its own online softmax, merged in block
+// 0's shared memory by merge_cluster. What bounded the read before this
+// design (0.10-0.12 of its bytes bound): a thread per token converting
+// nibbles by I2F, a serial V walk a thread per head-dim value, four
+// barriers and a serial reduction a page, no load in flight. Now thread
+// (row, chunk) holds 16 bytes (4 tokens) of one word row of K and of V: the
+// clean read copies them with cp.async into a ring of kStages pages (two in
+// flight while one is used; every thread waits for its own copies only),
+// scores its 4 tokens over its row (nibbles made floats by a byte permute),
+// and while the owners of page k's tokens take its softmax, every thread
+// scores page k + 1 into the other buffer of score parts: two block
+// barriers a page; then the V contraction over its row. The read-inject
+// read keeps phase H: threads mapped to the (K or V, word, slot) items of
+// the page's valid tokens (a slot past the context is never attended nor
+// counted; before a sliding window the flips are counted alone, with
+// stats), 32 independent hashes a word, the flipped words staged in shared
+// memory, then the core (three barriers a page). A slot past the context
+// is neither copied nor weighed (weight 0). Block 0 writes the new column;
+// every block overlays the column passed in (in registers) wherever it
 // reads the new token's physical page and slot (a -1 page and F4's clamp
-// included), so no block waits for the write. Rows whose page is -1 write
-// page 0 in no fixed order, as the TPU leaves undefined. Writing and the
-// softmax state are runtime flags outside the unrolled token loop. The
-// kernel allocates nothing; the wrapper zeroes the stats. What holds the
-// read-inject read at about half its integer bound on an H100: the
-// attention around the hashes (the clean read alone takes about a third of
-// the time), and the last page's block taking a quarter page more than the
-// others (PERF.md).
+// included), after the copy lands, so no block waits for the write. Rows
+// whose page is -1 write page 0 in no fixed order, as the TPU leaves
+// undefined. The kernel allocates nothing; the wrapper zeroes the stats.
+// What holds the clean read at about 0.15 of its bytes bound on an H100
+// (PERF.md): the instructions of the scores and the V contraction (issue,
+// not memory, sets a page's time), a launch's fixed cost and the cluster's
+// merge; the read-inject read stays about half its integer bound.
 
 #include <cooperative_groups.h>
 #include <cuda_fp16.h>
@@ -141,7 +145,8 @@ struct ReadInject {  // the read flips of one call
 };
 
 template <int WD, int GROUP, int HD, bool INJECT>
-__global__ void __launch_bounds__(kThreads) write_attend_kernel(
+__global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
+    write_attend_kernel(
     const void* __restrict__ q,          // [B, Hq, HD] bf16, or fp32 when exact
     const int32_t* __restrict__ k_new,    // [B, Hkv, WD]
     const int32_t* __restrict__ v_new,
@@ -162,26 +167,34 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
     int out_bf16, int exact, uint32_t thr, uint32_t seed_val, int num_chunks, int ppc,
     int has_new) {
   constexpr int DP = 8 * WD;
+  constexpr int T = packed_threads<WD>();
   cg::cluster_group cluster = cg::this_cluster();
   const int splits = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
+  const Tiles tl(bs, T, WD);
 
+  // the core's (Attend), then with INJECT the flipped K and V words k_s /
+  // v_s [WD][bs], else the ring of kStages stages (stage_words), then the
+  // merge area
   extern __shared__ float smem[];
-  float* q_s = smem;                          // [GROUP][DP]
-  float* p_s = q_s + GROUP * DP;              // [GROUP][bs] scores, then weights
-  float* vs_s = p_s + GROUP * bs;             // [bs] V scales
-  int32_t* v_s = (int32_t*)(vs_s + bs);       // [WD][bs + 1] V words (padded rows)
-  int32_t* k_s = v_s + WD * (bs + 1);         // INJECT: [WD][bs + 1] flipped K words
+  int32_t* k_s = (int32_t*)(smem + core_floats<WD, GROUP, T>(bs, 2));
+  int32_t* v_s = k_s + (INJECT ? WD * bs : 0);
+  float* sc_s = (float*)(v_s + (INJECT ? WD * bs : 0));  // INJECT: the scales [2][bs]
+  int32_t* ring = (int32_t*)sc_s + (INJECT ? 2 * bs : 0);
+  const int sw = stage_words(WD, bs, WD, false);
   // in block 0, the cluster's states (merge_cluster)
-  float* s_acc = (float*)(k_s + (INJECT ? WD * (bs + 1) : 0));
+  float* s_acc = (float*)(ring + (INJECT ? 0 : kStages * sw));
   float* s_ml = s_acc + splits * GROUP * DP;
-  __shared__ SoftmaxState<GROUP> st;
+  Attend<WD, GROUP, T> st(smem, tl, 2);
 
   const int Hq = Hkv * GROUP;
+  const PageTable table(block_table + (size_t)b * P, num_pages);
   const int ctx = context_lens[b];
+  Queries<WD, GROUP, HD, T> qv;
+  qv.load((const char*)q + ((size_t)b * Hq + (size_t)h * GROUP) * HD * (exact ? 4 : 2), exact);
   // the new token is written (by block 0), and read from the column passed
   // in wherever any block reads its physical page and slot, when its page
   // is one of the first num_pages; else (or in a read without a new column)
@@ -190,18 +203,25 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
   const size_t head_page = (size_t)layer * NB * Hkv;  // page index base of this layer
   const size_t row0 = (size_t)b * Hq + (size_t)h * GROUP;
 
-  stage_queries<WD, GROUP, HD>((const char*)q + row0 * HD * (exact ? 4 : 2), exact, q_s, st);
 
   const size_t new_row = (size_t)b * Hkv + h;
   const int32_t* kn = writes ? k_new + new_row * WD : nullptr;
   const int32_t* vn = writes ? v_new + new_row * WD : nullptr;
-  const float ksn = writes ? ks_new[new_row] : 0.f;
-  const float vsn = writes ? vs_new[new_row] : 0.f;
+  // the new column's words of this thread's row (its overlay) and of word
+  // tid (block 0's write) and its scales, loaded before they are needed
+  const int j = min(tl.row, WD - 1);
+  const uint32_t kn_j = has_new ? (uint32_t)k_new[new_row * WD + j] : 0u;
+  const uint32_t vn_j = has_new ? (uint32_t)v_new[new_row * WD + j] : 0u;
+  const bool word = has_new && tid < WD;
+  const int32_t kn_w = word ? k_new[new_row * WD + tid] : 0;
+  const int32_t vn_w = word ? v_new[new_row * WD + tid] : 0;
+  const float ksn = has_new ? ks_new[new_row] : 0.f;
+  const float vsn = has_new ? vs_new[new_row] : 0.f;
   auto page_of = [&](int pg) {  // page index of visited page pg (F4's clamp, -1 -> 0)
-    const int pidx = min(pg, num_pages - 1);
-    return head_page + (size_t)max(block_table[(size_t)b * P + pidx], 0) * Hkv + h;
+    return head_page + (size_t)max(table.entry(pg), 0) * Hkv + h;
   };
-  const size_t page_new = writes ? page_of((ctx - 1) / bs) : ~(size_t)0;
+  const size_t page_last = page_of(max(ctx - 1, 0) / bs);  // every lane: a shuffle, converged
+  const size_t page_new = writes ? page_last : ~(size_t)0;
   const int slot_new = writes ? (ctx - 1) % bs : -1;
 
   ReadInject ri;
@@ -215,11 +235,56 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
   ri.bs = bs;
   int flipped = 0;  // read bits flipped over this thread's valid tokens
 
-  // 1. the in-place write of the new token's column and scales
+  const int first_tok = window > 0 ? max(0, ctx - window) : 0;
+  // the pages of whole chunks, each past num_pages read as page num_pages - 1
+  const int npages = min((ctx + bs - 1) / bs, num_chunks * ppc);
+  // the flips of pages before the window are counted, never attended
+  const int count_from = stats && INJECT ? 0 : first_tok / bs;
+
+  // visited page pg into stage st_i of the ring (the clean read): this
+  // thread's chunk of its row of K and V (a chunk with no token before ctx
+  // is not copied: its weights are 0) and the scales of the token it owns
+  // (token tid); one commit a page, an empty one past the block's last
+  auto load = [&](int pg, int st_i) {
+    const size_t page = page_of(pg);  // every lane: a shuffle, converged
+    if (pg < npages) {
+      int32_t* sp = ring + st_i * sw;
+      if (tl.row < WD && pg * bs + 4 * tl.chunk < ctx) {
+        const size_t at = (page * WD + tl.row) * bs + 4 * tl.chunk;
+        copy_async<16>(sp + tl.row * bs + 4 * tl.chunk, k_cache + at);
+        copy_async<16>(sp + (WD + tl.row) * bs + 4 * tl.chunk, v_cache + at);
+      }
+      if (tid < bs && pg * bs + tid < ctx) {
+        copy_async<4>(sp + 2 * WD * bs + tid, k_scales + page * bs + tid);
+        copy_async<4>(sp + 2 * WD * bs + bs + tid, v_scales + page * bs + tid);
+      }
+    }
+    copy_commit();
+  };
+  // the read-inject read's scales of the token this thread owns
+  float ksr = 0.f, vsr = 0.f;
+  auto load_scales = [&](int pg) {
+    const size_t page = page_of(pg);
+    if (tid < bs && pg * bs + tid < ctx) {
+      ksr = k_scales[page * bs + tid];
+      vsr = v_scales[page * bs + tid];
+    }
+  };
+
+  int pg = count_from + rank;
+  if constexpr (INJECT) {
+    if (pg < npages) load_scales(pg);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kStages - 1; ++i) load(pg + i * splits, i);
+  }
+  // with the first pages in flight: the queries, and block 0's write
+  qv.store(st.q_s);
+  // the in-place write of the new token's column and scales
   if (writes && rank == 0) {
-    for (int j = tid; j < WD; j += kThreads) {
-      k_cache[(page_new * WD + j) * bs + slot_new] = kn[j];
-      v_cache[(page_new * WD + j) * bs + slot_new] = vn[j];
+    if (tid < WD) {
+      k_cache[(page_new * WD + tid) * bs + slot_new] = kn_w;
+      v_cache[(page_new * WD + tid) * bs + slot_new] = vn_w;
     }
     if (tid == 0) {
       k_scales[page_new * bs + slot_new] = ksn;
@@ -227,47 +292,39 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
     }
   }
 
-  float acc[GROUP];
-#pragma unroll
-  for (int g = 0; g < GROUP; ++g) acc[g] = 0.f;
-
-  const int first_tok = window > 0 ? max(0, ctx - window) : 0;
-  // the pages of whole chunks, each past num_pages read as page num_pages - 1
-  const int npages = min((ctx + bs - 1) / bs, num_chunks * ppc);
-  // the flips of pages before the window are counted, never attended
-  const int count_from = stats && INJECT ? 0 : first_tok / bs;
   __syncthreads();
 
-  // the block's pages: every splits-th from count_from + rank
-  for (int pg = count_from + rank; pg < npages; pg += splits) {
-    const size_t page = page_of(pg);
-    const int new_slot = page == page_new ? slot_new : -1;  // the new column's slot here
-    const int32_t* kp = k_cache + page * WD * bs;
-    const int32_t* vp = v_cache + page * WD * bs;
-    const float* ksp = k_scales + page * bs;
-    const float* vsp = v_scales + page * bs;
-
-    if constexpr (INJECT) {
+  if constexpr (INJECT) {
+    // the block's pages: every splits-th from count_from + rank
+    for (; pg < npages; pg += splits) {
+      const size_t page = page_of(pg);
+      const int new_slot = page == page_new ? slot_new : -1;  // the new column's slot here
+      if (tid < bs) {  // the scales of the token this thread owns, the new one's in its slot
+        sc_s[tid] = tid == new_slot ? ksn : ksr;
+        sc_s[bs + tid] = tid == new_slot ? vsn : vsr;
+      }
       // phase H: thread per (K or V, word, slot) of the valid tokens (a
       // slot past the context is never attended nor counted, and a page
       // with few valid tokens still spreads over the warps) - the word
       // read, XORed with its flips, into k_s / v_s; before the window the
       // flips are counted alone
+      const int32_t* kp = k_cache + page * WD * bs;
+      const int32_t* vp = v_cache + page * WD * bs;
       const uint32_t kbase = ri.base(pg, 0), vbase = ri.base(pg, 1);
       const int valid = min(bs, ctx - pg * bs);
       const bool attended = pg >= first_tok / bs;
-      // item i = row * valid + t, row = kv * WD + j, advanced by kThreads
-      // items a step without a division
+      // item i = row * valid + t, row = kv * WD + j, advanced by T items a
+      // step without a division
       int row = tid / valid, t = tid - row * valid;
-      const int drow = kThreads / valid, dt = kThreads - drow * valid;
-      for (int i = tid; i < 2 * WD * valid; i += kThreads) {
+      const int drow = T / valid, dt = T - drow * valid;
+      for (int i = tid; i < 2 * WD * valid; i += T) {
         const int j = row % WD, kv = row / WD;
         const uint32_t m = flip_word((kv ? vbase : kbase) + (uint32_t)(j * bs + t), ri.seed,
                                      ri.thr);
         flipped += __popc(m);
         if (attended) {
           const int32_t w = t == new_slot ? (kv ? vn : kn)[j] : (kv ? vp : kp)[j * bs + t];
-          (kv ? v_s : k_s)[j * (bs + 1) + t] = w ^ (int32_t)m;
+          (kv ? v_s : k_s)[j * bs + t] = w ^ (int32_t)m;
         }
         t += dt;
         row += drow;
@@ -276,39 +333,86 @@ __global__ void __launch_bounds__(kThreads) write_attend_kernel(
           ++row;
         }
       }
+      if (pg + splits < npages) load_scales(pg + splits);
       if (!attended) continue;
       __syncthreads();
+      // this thread's chunk of its row (a slot past the context holds
+      // stale words: finite nibbles of weight 0)
+      const int at = j * bs + 4 * tl.chunk;
+      const uint4 kw = *(const uint4*)(k_s + at), vw = *(const uint4*)(v_s + at);
+      st.scores(kw, tl);
+      __syncthreads();
+      const int tok = pg * bs + tid;  // the token this thread owns
+      const bool live = tid < bs && tok < ctx && tok >= first_tok;
+      st.page_scores(tl, live, sc_s, sm_scale);
+      __syncthreads();
+      st.weights(tl, live, sc_s, exact != 0);
+      __syncthreads();
+      st.contract(vw, tl);
     }
-
-    // phase A: thread per token - scores, and (without injection) the V
-    // page into shared memory
-    float lmax[GROUP];
-#pragma unroll
-    for (int g = 0; g < GROUP; ++g) lmax[g] = kNegInf;
-    for (int t = tid; t < bs; t += kThreads) {
-      const int tok = pg * bs + t;
-      const bool is_new = t == new_slot;
-      const bool live = tok < ctx && tok >= first_tok;
-      int32_t kw[WD];
-#pragma unroll
-      for (int j = 0; j < WD; ++j) {
-        if constexpr (INJECT) {
-          kw[j] = k_s[j * (bs + 1) + t];
-        } else {
-          kw[j] = is_new ? kn[j] : kp[j * bs + t];
-          v_s[j * (bs + 1) + t] = is_new ? vn[j] : vp[j * bs + t];
-        }
+  } else {
+    // the clean read, pipelined: while the owners of page k's tokens take
+    // its scores, every thread scores page k + 1 into the other buffer of
+    // score parts, so a page takes two block barriers and the owners'
+    // dependent chain runs beside the scores' arithmetic.
+    // page k of the block from stage k % kStages of the ring: its K words
+    // (returned), V words and scales, the new column (in slot new_slot of
+    // this page, or -1) over whatever the copy found in its slot
+    auto take = [&](int new_slot, int k, uint4& vw, float*& scales) {
+      int32_t* sp = ring + (k % kStages) * sw;
+      const int at = j * bs + 4 * tl.chunk;
+      uint4 kw = *(const uint4*)(sp + at);
+      vw = *(const uint4*)(sp + WD * bs + at);
+      scales = (float*)sp + 2 * WD * bs;
+      if (tid == new_slot) {
+        scales[tid] = ksn;
+        scales[bs + tid] = vsn;
       }
-      const float ks = is_new ? ksn : ksp[t];
-      vs_s[t] = is_new ? vsn : vsp[t];
-      score_token<WD, GROUP>(kw, q_s, ks * sm_scale, live, p_s + t, bs, lmax);
+      const int e = new_slot - 4 * tl.chunk;
+      if (e >= 0 && e < 4 && tl.row < WD) {
+        set_lane(kw, e, kn_j);
+        set_lane(vw, e, vn_j);
+      }
+      return kw;
+    };
+    // the new column's slot in visited page pg, or -1 (every lane: a
+    // shuffle, converged)
+    auto new_slot_of = [&](int pg) { return page_of(pg) == page_new ? slot_new : -1; };
+    uint4 vw = make_uint4(0u, 0u, 0u, 0u);
+    float* scales = nullptr;
+    const int ns0 = new_slot_of(pg);
+    if (pg < npages) {
+      copy_wait();                                     // page 0 landed
+      load(pg + (kStages - 1) * splits, kStages - 1);  // page kStages - 1 in flight
+      st.scores(take(ns0, 0, vw, scales), tl, 0);
+      __syncthreads();
     }
-    attend_page<WD, GROUP>(lmax, p_s, vs_s, v_s, st, acc, pg * bs, ctx, first_tok, bs,
-                           exact != 0);
+    for (int k = 0; pg < npages; pg += splits, ++k) {
+      const int tok = pg * bs + tid;  // the token this thread owns
+      const bool live = tid < bs && tok < ctx && tok >= first_tok;
+      st.page_scores(tl, live, scales, sm_scale, k & 1);
+      uint4 vw_next = vw;
+      float* scales_next = scales;
+      const int ns_next = new_slot_of(pg + splits);
+      if (pg + splits < npages) {  // page k + 1's scores meanwhile
+        copy_wait();
+        st.scores(take(ns_next, k + 1, vw_next, scales_next), tl, (k + 1) & 1);
+      }
+      __syncthreads();
+      st.weights(tl, live, scales, exact != 0);
+      __syncthreads();
+      // page k's stage is used up: page k + kStages into it
+      load(pg + kStages * splits, k % kStages);
+      st.contract(vw, tl);
+      vw = vw_next;
+      scales = scales_next;
+    }
   }
 
   if (stats) flush_stats(stats, b, flipped, 0);
-  merge_cluster<GROUP, HD, DP>(cluster, acc, st, s_acc, s_ml, out, row0, out_bf16, m_out, l_out);
+  // the score parts' two buffers hold the chunks' parts of the merge
+  merge_cluster<WD, GROUP, HD, T>(cluster, st, tl, st.red, s_acc, s_ml, out, row0, out_bf16,
+                                  m_out, l_out);
 }
 
 template <int WD, int GROUP, int HD, bool INJECT>
@@ -321,14 +425,17 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
                    int out_bf16, int exact, uint32_t thr, uint32_t seed_val, int num_chunks,
                    int ppc, int has_new, int splits, cudaStream_t stream) {
   constexpr int DP = 8 * WD;
-  const size_t smem = (size_t)(GROUP * DP + GROUP * bs + bs) * sizeof(float) +
-                      (size_t)(INJECT ? 2 : 1) * WD * (bs + 1) * sizeof(int32_t) +
-                      merge_bytes<GROUP, DP>(splits);
+  constexpr int T = packed_threads<WD>();
+  if (!tiles_fit(bs)) return cudaErrorInvalidValue;
+  const size_t words = INJECT ? (size_t)2 * WD * bs + 2 * bs
+                              : (size_t)kStages * stage_words(WD, bs, WD, false);
+  const size_t smem = core_floats<WD, GROUP, T>(bs, 2) * sizeof(float) +
+                      words * sizeof(int32_t) + merge_bytes<GROUP, DP>(splits);
   if (splits < 1 || splits > kMaxSplits || smem > kMaxSmem || num_pages < 1 || num_pages > P ||
       ppc < 1 || num_chunks < 1 || (long)num_chunks * ppc < num_pages)
     return cudaErrorInvalidValue;
   return launch_cluster(write_attend_kernel<WD, GROUP, HD, INJECT>, dim3(splits, Hkv, B), splits,
-                        smem, stream, q, (const int32_t*)k_new, (const int32_t*)v_new,
+                        T, smem, 0, stream, q, (const int32_t*)k_new, (const int32_t*)v_new,
                         (const float*)ks_new, (const float*)vs_new, (int32_t*)k_cache,
                         (int32_t*)v_cache, (float*)k_scales, (float*)v_scales,
                         (const int32_t*)block_table, (const int32_t*)context_lens, out,
@@ -730,8 +837,9 @@ cudaError_t launch_float(const void* q, const void* k_new, const void* v_new, vo
       ((uintptr_t)k_cache | (uintptr_t)v_cache) % 16 != 0 || num_pages < 1 || num_pages > P ||
       ppc < 1 || num_chunks < 1 || (long)num_chunks * ppc < num_pages)
     return cudaErrorInvalidValue;
-  return launch_cluster(float_attend_kernel<T, GROUP, HD>, dim3(splits, Hkv, B), splits, 0,
-                        stream, q, (const T*)k_new, (const T*)v_new, (T*)k_cache, (T*)v_cache,
+  return launch_cluster(float_attend_kernel<T, GROUP, HD>, dim3(splits, Hkv, B), splits,
+                        kThreads, 0, 0, stream, q, (const T*)k_new, (const T*)v_new, (T*)k_cache,
+                        (T*)v_cache,
                         (const int32_t*)block_table, (const int32_t*)context_lens, out,
                         (float*)m_out, (float*)l_out, Hkv, bs, NB, P, num_pages, layer, sm_scale,
                         window, out_bf16, exact, num_chunks, ppc, has_new);

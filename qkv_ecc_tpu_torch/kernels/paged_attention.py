@@ -110,22 +110,69 @@ def float_splits(batch: int, num_kv_heads: int, visited_tokens: int, elem_bytes:
     return s
 
 
+def packed_threads(data_words: int) -> int:
+    """Threads of a block of the packed kernels (csrc/paged_attend.cuh
+    packed_threads): 32 a data word - a thread per row and 16-byte chunk of
+    a 128-token page - from 128 to 512. Each holds at most 128 registers,
+    so an SM holds 512 / threads blocks at once."""
+    return min(512, max(128, 32 * data_words))
+
+
 def packed_splits(batch: int, num_kv_heads: int, visited: int, sms: int,
-                  blocks_per_sm: int = 1) -> int:
+                  data_words: int) -> int:
     """The blocks S (a power of two, 1 to 8) that the packed kernels
     (write_attend_kernel, decode_attend_kernel) give each (sequence, KV
-    head), splitting its visited pages round-robin: float_splits' rule with
-    pages for tiles - the fewest with batch * num_kv_heads * S blocks at
-    least ``blocks_per_sm`` per SM, and no more than leave every block a
-    page of the ``visited`` pages. The read-inject read asks for 2 (its
-    hashes load the integer pipe, which a second block on each SM keeps
-    busy while the first attends; S = 8 at the bench step, 4 for the
-    others)."""
+    head), splitting its ``visited`` pages round-robin: the most for which
+    batch * num_kv_heads * S blocks still run at once on ``sms`` SMs (each
+    holding 512 / packed_threads blocks: a second wave of blocks would
+    wait for the first to end), and no more than leave every block a page.
+    S = 2 at bench-0.9b's step (128 blocks of 512 threads) and gpt2's (192
+    of 256), 4 at trained-tiny's (its 4 pages; 256 of 128)."""
+    resident = sms * (512 // packed_threads(data_words))
     s = 1
-    while (s < FLOAT_MAX_SPLITS and batch * num_kv_heads * s < sms * blocks_per_sm
-           and s < visited):
+    while s < FLOAT_MAX_SPLITS and batch * num_kv_heads * s * 2 <= resident and s * 2 <= visited:
         s *= 2
     return s
+
+
+PACKED_STAGES = 3  # pages in the packed kernels' ring (csrc/paged_attend.cuh kStages)
+
+
+def packed_smem(data_words: int, group: int, block_size: int, splits: int, *,
+                parity_words: int = 0, staged: bool = False, ring: bool = True,
+                edges: bool = False) -> int:
+    """Bytes of dynamic shared memory of a block of the packed kernels
+    (csrc/paged_attend.cuh core_floats, stage_words and merge_bytes): fp32
+    queries [group][8 words], the scores' parts [group][row groups]
+    [block_size] (with row groups = min(threads / (block_size / 4), data
+    words); two buffers in write_attend, one with ``parity_words``, the
+    correcting read), the page's weights [group][block_size] and its rescale
+    [group][4]; with ``staged`` (the read-inject read's flipped words,
+    hamming74's and golay's decoded ones) K and V words [2][data words]
+    [block_size] int32; without ``ring`` (the read-inject read) the page's
+    scales [2][block_size]; with ``ring`` (every other read)
+    PACKED_STAGES stages of K and V rows [2][data + parity words]
+    [block_size] and their scales [2][block_size], with ``edges`` (hamming84
+    with interpolation) and a page's neighbour words [8][data words]; and
+    block 0's merge area, [splits][group][8 words + 2] fp32. Raises for a
+    block size the tiles do not take: a power of two from 4 to 128 tokens
+    (a row of 16-byte chunks fits in a warp)."""
+    if not (4 <= block_size <= 128 and block_size & (block_size - 1) == 0):
+        raise ValueError(f"block size {block_size}: the packed kernels take a power of two "
+                         "from 4 to 128")
+    threads = packed_threads(data_words)
+    rows = min(threads // (block_size // 4), data_words)
+    dp = 8 * data_words
+    buffers = 1 if parity_words else 2  # decode_attend's score parts; write_attend's two
+    floats = (group * (dp + buffers * rows * block_size + block_size + 4)
+              + splits * (group * dp + 2 * group))
+    words = 2 * data_words * block_size if staged else 0
+    if not ring:  # the read-inject read's scales [2][block_size]
+        words += 2 * block_size
+    else:
+        words += PACKED_STAGES * (2 * (data_words + parity_words) * block_size + 2 * block_size
+                                  + (8 * data_words if edges else 0))
+    return 4 * (floats + words)
 
 
 @functools.lru_cache(maxsize=None)
@@ -693,7 +740,9 @@ def _launch(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales,
     ptrs = (q, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scales, v_scales,
             block_table, context_lens, out, stats, seed_t, m, l)
     splits = packed_splits(batch, Hkv, visited_pages(num_pages, pages_per_chunk),
-                           _sm_count(query.device.index), 1 if read_threshold is None else 2)
+                           _sm_count(query.device.index), Wd)
+    inject = read_threshold is not None
+    packed_smem(Wd, group, bs, splits, staged=inject, ring=not inject)
     rc = launcher("write_attend", "p" * 16 + "i" * 10 + "f" + "i" * 10 + "p")(
         *(0 if t is None else t.data_ptr() for t in ptrs), batch, Hkv, group, Wd, head_dim,
         bs, NB, block_table.shape[1], num_pages, int(layer_idx), float(sm_scale),
@@ -805,7 +854,9 @@ def _launch_decode(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scal
             k_scales, v_scales, block_table, context_lens, syn, out, stats, m, l)
     interp = bool(interpolate and codec == "hamming84")
     splits = packed_splits(batch, Hkv, visited_pages(num_pages, pages_per_chunk),
-                           _sm_count(query.device.index))
+                           _sm_count(query.device.index), Wd)
+    packed_smem(Wd, group, bs, splits, parity_words=Pw, staged=codec != "hamming84",
+                edges=interp)
     rc = launcher("decode_attend", "p" * 18 + "i" * 13 + "f" + "i" * 7 + "p")(
         *(0 if t is None else t.data_ptr() for t in ptrs), batch, Hkv, group,
         _CODEC_IDS[codec], Wd, Pw, head_dim, bs, NB, block_table.shape[1], num_pages,

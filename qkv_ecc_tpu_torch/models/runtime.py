@@ -120,16 +120,16 @@ def _physical_pages(block_table, positions, bs):
 
 def _trash_routed_slots(block_table, pos, bs):
     """(physical page, slot) [B] of each row's token at ``pos``, for the
-    parity scatter of a decode step without a host sync: a row whose page is
-    -1 (an inactive serving slot) goes to slot b % block_size of the trash
-    page 0, distinct per row, where the kernels clamp its data column too.
-    Needs B <= block_size."""
-    B = pos.shape[0]
-    if B > bs:
-        raise ValueError(f"batch {B} > block_size {bs}: rows of -1 would share trash slots")
+    parity scatter of a decode step without a host sync. A row with a page
+    keeps its own (page, slot) at any batch size. A row whose page is -1 (an
+    inactive serving slot) goes to the trash page 0, where the kernels clamp
+    its data column too, at slot r % block_size for the r-th such row: the
+    first block_size of them get distinct slots, and any beyond share a
+    trash slot, which no live row reads."""
     page = torch.gather(block_table.long(), 1, (pos // bs).long()[:, None])[:, 0]
-    rows = torch.arange(B, device=pos.device)
-    slots = torch.where(page < 0, rows % bs, (pos % bs).long())
+    dead = page < 0
+    rank = torch.cumsum(dead.long(), 0) - 1
+    slots = torch.where(dead, rank % bs, (pos % bs).long())
     return page.clamp(min=0), slots
 
 

@@ -913,3 +913,66 @@ def test_kernel_query_is_contiguous(precision):
     assert kq.is_contiguous() and kq.shape == q.shape
     want = q if precision == "highest" else q.to(torch.bfloat16)
     assert kq.dtype == want.dtype and torch.equal(kq, want)
+
+
+@pytest.mark.parametrize("shape", [
+    # (batch, KV heads, visited pages, data words): threads, S
+    ((8, 8, 12, 16), (512, 2)),  # bench-0.9b's step: 128 blocks of 512 on 132 SMs
+    ((8, 12, 8, 8), (256, 2)),   # gpt2's: 192 blocks of 256, two an SM
+    ((8, 8, 4, 4), (128, 4)),    # trained-tiny's: its 4 pages, 256 blocks of 128
+    ((1, 8, 12, 16), (512, 8)),  # one sequence: 64 blocks
+    ((8, 8, 1, 16), (512, 1)),   # one page
+    ((64, 8, 12, 16), (512, 1)),  # more sequences and heads than SMs
+    ((2, 2, 12, 2), (128, 8)),   # tiny-llama's 2 data words
+])
+def test_packed_split_rule(shape):
+    """The packed kernels' block and split (csrc/paged_attend.cuh): 32
+    threads a data word, from 128 to 512, each with at most 128 registers,
+    so that an SM holds 512 / threads blocks; S the most blocks per
+    (sequence, KV head), a power of two up to 8, with every block of the
+    launch held at once on the card's 132 SMs and no block without a page."""
+    (batch, hkv, visited, wd), (threads, splits) = shape
+    assert tpa.packed_threads(wd) == threads
+    assert tpa.packed_splits(batch, hkv, visited, 132, wd) == splits
+    assert batch * hkv * splits <= 132 * (512 // threads) or splits == 1
+
+
+def _ring(words, bs, wd, edges=False):
+    """int32 words of the packed kernels' ring: 3 stages of K and V rows of
+    ``words`` words, their scales and (edges) a page's neighbour words."""
+    return 3 * (2 * words * bs + 2 * bs + (8 * wd if edges else 0))
+
+
+@pytest.mark.parametrize("shape", [
+    # (data words, group, block size, splits, options): floats and words of the block
+    ((16, 2, 128, 2, {}),  # K1 at bench-0.9b's step: two buffers of score parts
+     2 * (128 + 2 * 16 * 128 + 128 + 4) + 2 * (2 * 128 + 4) + _ring(16, 128, 16)),
+    ((16, 2, 128, 2, dict(staged=True, ring=False)),  # K2r: words and scales
+     2 * (128 + 2 * 16 * 128 + 128 + 4) + 2 * (2 * 128 + 4) + 2 * 16 * 128 + 2 * 128),
+    ((16, 2, 128, 2, dict(parity_words=16, edges=True)),  # K3
+     2 * (128 + 16 * 128 + 128 + 4) + 2 * (2 * 128 + 4) + _ring(32, 128, 16, True)),
+    ((16, 4, 128, 2, dict(parity_words=17, staged=True)),  # golay, the benchmark's group 4
+     4 * (128 + 16 * 128 + 128 + 4) + 2 * (4 * 128 + 8) + 2 * 16 * 128 + _ring(33, 128, 16)),
+    ((8, 1, 128, 2, dict(parity_words=8)),  # gpt2's hamming84
+     64 + 8 * 128 + 128 + 4 + 2 * (64 + 2) + _ring(16, 128, 8)),
+    ((4, 1, 128, 4, dict(parity_words=3, staged=True)),  # trained-tiny's hamming74
+     32 + 4 * 128 + 128 + 4 + 4 * (32 + 2) + 2 * 4 * 128 + _ring(7, 128, 4)),
+    ((2, 2, 16, 8, {}),  # tiny-llama's pages of 16
+     2 * (16 + 2 * 2 * 16 + 16 + 4) + 8 * (2 * 16 + 4) + _ring(2, 16, 2)),
+])
+def test_packed_smem_rule(shape):
+    """The packed kernels' dynamic shared memory (csrc/paged_attend.cuh
+    core_floats, stage_words, merge_bytes): the queries, the scores' parts
+    over min(threads / (block / 4), data words) row groups (two buffers in
+    the write+attend kernel, one in the correcting read), the page's
+    weights and rescale, the staged words of the read-inject, hamming74 and
+    golay reads (and the read-inject read's scales), the ring of 3 pages
+    (data and parity rows, scales, the interpolation's neighbour words) of
+    every read but the read-inject one, and block 0's merge area - at bench-0.9b's step, the
+    kernel benchmark's group 4, gpt2's and trained-tiny's group 1 and
+    tiny-llama's pages of 16. Block sizes the tiles do not take raise."""
+    (wd, group, bs, splits, kw), floats = shape
+    assert tpa.packed_smem(wd, group, bs, splits, **kw) == 4 * floats
+    for bad in (2, 48, 256):
+        with pytest.raises(ValueError, match="power of two from 4 to 128"):
+            tpa.packed_smem(16, 2, bad, 2)

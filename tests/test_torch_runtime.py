@@ -307,7 +307,7 @@ def test_negative_page_raises(weights):
 def decode_with_inactive_row(weights, mode):
     """Decode with row 1 inactive against JAX's decode_step on the same inputs (BER
     1e-2, numpy-made masks): int12-golay scatters its parity columns at the
-    end of the step (the -1 row's to slot b % block_size of page 0),
+    end of the step (the r-th -1 row's to slot r % block_size of page 0),
     interp's kernel writes them. The table's pages start at 1, and the last
     physical page belongs to no row. Logits within atol 1e-3 (the module
     docstring's bound), pages 1 .. NB-2 bit-equal to JAX's after each of two
@@ -365,6 +365,79 @@ def decode_with_inactive_row(weights, mode):
     # the -1 row's token went to page 0: its data column at slot 0 (ctx 1)
     assert tstate["k_cache"][:, 0, :, :, 0].any()
     np.testing.assert_array_equal(tstate["context_len"].numpy(), ctx + 2)
+
+
+def test_batch_above_block_size_matches_jax(weights):
+    """F13: a scrubbed decode step at a batch above block_size - tiny-llama,
+    int4-hamming84 at BER 0, pages of 16, batch 17, max_tokens 32, a
+    4-token prompt of zeros, one decode_step - against JAX's: logits within
+    the module docstring's atol 1e-3, the stored data and parity words
+    equal bit for bit (scales within its decode rtol 1e-3)."""
+    jparams, tparams = weights
+    jpol, tpol = policies("int4-hamming84")
+    batch = 17
+    ids = np.zeros((batch, 4), dtype=np.int64)
+    jstate, jbt, _ = jr.init_generation_state(J_TINY, jpol, batch, 32, block_size=BS)
+    tstate, tbt, _ = tr.init_generation_state(T_TINY, tpol, batch, 32, BS, device="cpu")
+    key = jax.random.key(0)
+    jlogits, jstate = jr.prefill(jparams, jnp.asarray(ids), jstate, jbt, J_TINY, jpol, key)
+    tlogits, tstate = tr.prefill(tparams, torch.from_numpy(ids), tstate, tbt, T_TINY, tpol)
+    jtok, ttok = jnp.argmax(jlogits, axis=-1), torch.argmax(tlogits, dim=-1)
+    np.testing.assert_array_equal(np.asarray(jtok), ttok.numpy())
+    jlogits, jstate = jr.decode_step(jparams, jtok, jstate, jbt, J_TINY, jpol, key,
+                                     block_size=BS)
+    tlogits, tstate = tr.decode_step(tparams, ttok, tstate, tbt, T_TINY, tpol, block_size=BS)
+    assert tlogits.shape == (batch, T_TINY.vocab_size)
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), rtol=0, atol=1e-3)
+    compare_caches(jstate, tstate, "batch 17 > block_size 16", 1e-3)
+
+
+def test_inactive_rows_above_block_size(weights):
+    """F13: a scrubbed decode step (int12-golay, BER 0, pages of 16) at
+    batch 19, rows 2, 5 and 11 inactive - block-table row -1, context 0, as
+    the server leaves a free slot - against the same step on the 16 live
+    rows alone: each live row's logits and its pages (data, parity, scales)
+    equal bit for bit, and the inactive rows' tokens land on the trash page
+    0, which no live row owns."""
+    _, tparams = weights
+    _, tpol = policies("int12-golay")
+    batch, pages, dead = 19, 3, [2, 5, 11]
+    live = [b for b in range(batch) if b not in dead]
+    ids = np.random.default_rng(11).integers(0, J_TINY.vocab_size, (batch, PROMPT))
+
+    def step(rows):
+        n = len(rows)
+        dims = dict(num_blocks=batch * pages + 1, block_size=BS, num_layers=T_TINY.num_layers,
+                    num_kv_heads=T_TINY.num_kv_heads, head_dim=T_TINY.head_dim,
+                    codec=tpol.codec)
+        from qkv_ecc_tpu_torch.cache.layout import ECCCacheConfig, allocate_ecc_kv_cache
+
+        state = allocate_ecc_kv_cache(ECCCacheConfig(**dims), device="cpu")
+        # row b's pages are 1 + b * pages ..., the same in both runs
+        bt = torch.tensor([[1 + b * pages + i for i in range(pages)] for b in rows],
+                          dtype=torch.int32)
+        logits, state = tr.prefill(tparams, torch.from_numpy(ids[rows]), state, bt, T_TINY,
+                                   tpol)
+        ctx = state["context_len"].clone()
+        for i, b in enumerate(rows):
+            if b in dead:
+                bt[i] = -1
+                ctx[i] = 0
+        state["context_len"] = ctx
+        logits, state = tr.decode_step(tparams, torch.argmax(logits, -1), state, bt, T_TINY,
+                                       tpol, block_size=BS)
+        return logits, state
+
+    full_logits, full = step(list(range(batch)))
+    live_logits, alone = step(live)
+    assert torch.equal(full_logits[live], live_logits)
+    for b in live:
+        p = slice(1 + b * pages, 1 + (b + 1) * pages)
+        for n in CACHE_NAMES:
+            assert torch.equal(full[n][:, p], alone[n][:, p]), (b, n)
+    # each inactive row's parity went to its own trash slot of page 0
+    assert full["k_parity"][:, 0, :, :, :len(dead)].any()
+    assert not alone["k_parity"][:, 0].any()
 
 
 def test_prefill_logit_pos_true_len(weights):
