@@ -123,13 +123,16 @@ often as it calls it (the quality paths: none). Then it times the kernels
 (K2f beside scaled_dot_product_attention over the same context stored dense, fp16's
 yardstick, and its read at 1, 2, 4 and 8 blocks per sequence and KV head
 and with no token; Golay's correcting read and the read-inject read at 1,
-2, 4 and 8 blocks, against their required times and targets; the Golay
-and Hamming encodes beside a gather from the table of all codewords; each
-beside its bound: the bytes at 3.35 TB/s or the fp32 flops at 67 T/s; the
-integer bound of Golay's decode and of the read hashes from their SASS
-instructions per pipe (kernels/sass_count.py), the other integer
-operations counted from the source printed as an estimate) and traces the
-decode step of each arm. Every phase prints
+2, 4 and 8 blocks, against their required times and targets; the codec
+kernels K5-K9, the redesigned ones against their required times and
+targets (REQUIRED_US), the Golay and Hamming encodes beside a gather
+from the table of all codewords and the Hamming decodes beside two, from
+data and flag tables; each beside its bound: the bytes at 3.35 TB/s or the
+fp32 flops at 67 T/s; the integer bound of Golay's decode, of the read
+hashes and of every codec kernel from their SASS instructions per pipe
+(kernels/sass_count.py), the packed Hamming reads' integer operations
+counted from the source printed as an estimate) and traces the decode step
+of each arm. Every phase prints
 one line with its seconds; any failure exits non-zero. Without a CUDA
 device it fails.
 
@@ -142,9 +145,10 @@ read, K2 hamming84 and K3 must meet their required times (REQUIRED_US).
 
     python3 chip_smoke.py --compare-with DIR
 
-times the packed kernels of this tree against those of DIR (another
-checkout, such as `git archive` of the parent commit) in one process
-(core_compare), and nothing else.
+times the packed kernels and the redesigned codec kernels (K5, K6, K7's
+decode, K8) of this tree against those of DIR (another checkout, such as
+`git archive` of the parent commit) in one process (core_compare), and
+nothing else.
 """
 
 import contextlib
@@ -190,12 +194,19 @@ H74_OPS_PER_WORD = 130
 # the required times at the bench step, and the targets (us), of the
 # kernels this port redesigned: Golay's correcting read and the read-inject
 # read, then, on the packed core's redesign, K1's extract read, Hamming(8,4)'s
-# correcting read (K2) and its interpolating read (K3). A required time
-# missed fails the run; a target is reported
+# correcting read (K2) and its interpolating read (K3), then the codec
+# kernels K5, K6, K7's decode and K8 (at the kernel benchmark's 8M values
+# and 8M / 3 Golay words: half of the bytes bound required, the design's
+# estimate the target). A required time missed fails the run; a target is
+# reported
 REQUIRED_US = {"golay": 180.0, "read-inject": 200.0, "extract": 18.0, "hamming84": 33.0,
-               "hamming84-interp": 42.0}
+               "hamming84-interp": 42.0, "hamming74_encode": 10.0, "hamming84_encode": 10.0,
+               "hamming74_decode": 15.0, "hamming84_decode": 15.0, "golay_decode_packed": 20.0,
+               "golay_write_scrub": 20.0}
 TARGET_US = {"golay": 60.0, "read-inject": 100.0, "extract": 8.0, "hamming84": 15.0,
-             "hamming84-interp": 20.0}
+             "hamming84-interp": 20.0, "hamming74_encode": 7.5, "hamming84_encode": 7.5,
+             "hamming74_decode": 11.0, "hamming84_decode": 11.0, "golay_decode_packed": 14.0,
+             "golay_write_scrub": 15.0}
 
 
 def say(msg):
@@ -1413,21 +1424,11 @@ def tiny_agreement(torch, device):
 # its time_fn_chained makes 3 warm-up and 20 timed calls of each function
 HARNESS_N = 8 * 1024 * 1024
 CHAINED_CALLS = 3 + 20
-# 32-bit integer operations per element counted from csrc/codec_kernels.cu
-# and golay.cuh: hamming74 encode (mask, 4 bit extractions 7, three parities
-# of 2 XORs, 2 shifts and 3 ORs) and decode (mask, 7 bit extractions 13,
-# syndrome 13, correction 5, XOR and mask 2, flag 1); hamming84 adds the
-# parity bit (popcount, mask, shift, OR) to the encode and the parity check
-# and type selects (10) to the decode; golay encode (mask, three nibble
-# indices 6, three table loads, two XORs, shift, OR) and decode (the
-# arithmetic IMLD of golay.cuh: two products by B of 60, two candidate
-# loops of 72 and 84, selects and counts 22); the
-# write scrub (encode, XOR, IMLD, encode); one flip decision of K9 (counter,
-# multiply, add, fmix32 8, compare, shift, OR)
-CODEC_OPS = {"hamming74_encode": 19, "hamming74_decode": 35, "hamming84_encode": 23,
-             "hamming84_decode": 45, "golay_encode": 14, "golay_decode": 298,
-             "golay_write_scrub": 327}
-INJECT_OPS_PER_BIT = 12.5
+# the kernels/sass_count.py probe of each codec row (its integer bound)
+CODEC_PROBES = {"hamming74_encode": "h74_encode", "hamming74_decode": "h74_decode",
+                "hamming84_encode": "h84_encode", "hamming84_decode": "h84_decode",
+                "golay_encode_packed": "golay_encode", "golay_decode_packed": "golay_decode",
+                "golay_write_scrub": "golay_scrub", "inject_bit_errors": "inject"}
 # (JSON name, wrapper, the TPU function it replaces) of K5-K9
 CODEC_KERNELS = (
     ("hamming74_encode (K5)", "hamming74_encode", "codec_kernels.py:99"),
@@ -1460,17 +1461,25 @@ def golay_error_patterns(torch, gen, device):
 def codec_kernel_check(torch, gen, device):
     """K5-K9 against their plain versions with torch.equal on the card,
     dtypes included: every byte through K5 and K6 (and random bytes in an
-    odd shape), all 4096 Golay data words and random int32 words through
-    K7's encode (also slices of them not 16-byte aligned or not a multiple
-    of 4 words long), 256 codewords under every error pattern of weight 0-3, 4000
-    of weight 4 and 256 words with bits 24-31 set through its decode, K8 on
-    8M / 3 random int32 words with random masks (BER 0.12 over 32 bits, and
-    every bit random), K9 on 16M uint8 values (n_bits 8) and 4M int32 words
+    odd shape, 40M random bytes: two passes and more of the grid-stride
+    loop, and inputs at every byte offset 0-15 of lengths 1, 5, 15, 16, 17
+    and 16k + 5: the vector path's edges and the one-byte path), all 4096
+    Golay data words and random int32 words through K7's encode (also
+    slices of them not 16-byte aligned or not a multiple of 4 words long),
+    256 codewords under every error pattern of weight 0-3, 4000 of weight 4
+    and 256 words with bits 24-31 set through its decode, then every one of
+    the 2^24 received words (each error count as often as the code has it)
+    and 4M random words; K7's decode and K8 at word offsets 0-3 of lengths
+    1, 3, 4, 5 and 4k + 1; K8 on 8M / 3 random int32 words with random masks
+    (BER 0.12 over 32 bits, and every bit random) and on every data word
+    under 256 masks each (BER 0.05 over 24 bits, and every bit random), K9
+    on 16M uint8 values (n_bits 8) and 4M int32 words
     (n_bits 24) at BER 1e-2: equal to the plain version, its flip rate
     within 1% of the BER, the same flips for the same seed and others for
-    the next. Then the kernel benchmark's own inputs at its size (8M values:
-    several passes of the kernels' grid-stride loop over at most 132 x 16
-    blocks of 256 threads), made as benchmarks/harness.py makes them:
+    the next. Then the kernel benchmark's own inputs at its size (8M values;
+    8M / 3 Golay words: several passes of the Golay grid-stride loop over
+    at most 132 x 4 blocks of 256 threads, 4 words each), made as
+    benchmarks/harness.py makes them:
     seed-0 nibbles through both Hamming encodes, their codewords through
     the decodes clean and with flips at BER 1e-2, seed-0 triplets through
     the Golay triplet wrappers (encode, decode clean and with flips), K9 on
@@ -1519,10 +1528,27 @@ def codec_kernel_check(torch, gen, device):
     u8, i32 = torch.uint8, torch.int32
     every_byte = torch.arange(256, dtype=i32, device=device).to(u8)
     odd = torch.randint(0, 256, (3, 1001, 7), generator=gen, device=device, dtype=u8)
-    for name in ("hamming74_encode", "hamming74_decode", "hamming84_encode", "hamming84_decode"):
+    hamming = ("hamming74_encode", "hamming74_decode", "hamming84_encode", "hamming84_decode")
+    for name in hamming:
         for x in (every_byte, odd):
             codec(name, x)
-    say("  K5, K6: every byte and 21021 random bytes equal to the plain versions")
+    # the vector paths' edges: x at every byte offset of a 16-byte vector
+    # (at 1-15: every byte one a thread), lengths below, at and around one
+    # vector and 16k + 5
+    lengths = (1, 5, 15, 16, 17, 16 * 4099 + 5)
+    base = torch.randint(0, 256, (max(lengths) + 16,), generator=gen, device=device, dtype=u8)
+    for name in hamming:
+        for off in range(16):
+            for n in lengths:
+                codec(name, base[off:off + n])
+    # 40M bytes: more than one pass of the grid-stride loop (132 x 16 blocks
+    # of 256 threads, 16 bytes each: 8.65M bytes a pass)
+    many = torch.randint(0, 256, (40 << 20,), generator=gen, device=device, dtype=u8)
+    for name in hamming:
+        codec(name, many)
+    del many
+    say(f"  K5, K6: every byte, 21021 and 40M random bytes, and inputs at byte offsets 0-15 of "
+        f"lengths {lengths}, equal to the plain versions")
 
     words = torch.cat([torch.arange(4096, dtype=i32, device=device),
                        torch.randint(-2 ** 31, 2 ** 31, (4096,), generator=gen, device=device,
@@ -1543,6 +1569,35 @@ def codec_kernel_check(torch, gen, device):
     say(f"  K7: 8192 words encoded (and slices of them not 16-byte aligned or not a multiple "
         f"of 4 long), {rx.numel()} received words decoded equal to the plain version (error "
         f"counts 0-4: {hist})")
+    # every 24-bit received word (bits 24-31 clear), then 4M with them set
+    every_cw = torch.arange(1 << 24, dtype=i32, device=device)
+    _, count = check("golay_decode_packed", ck.golay_decode_packed_cuda, ck.golay_decode_plain,
+                     every_cw)
+    hist = torch.bincount(count, minlength=5).tolist()
+    if hist[:4] != [4096, 4096 * 24, 4096 * 276, 4096 * 2024]:
+        fail(f"golay decode: error counts {hist} over every word are not the code's")
+    del every_cw, count
+    wide = torch.randint(-2 ** 31, 2 ** 31, (4 << 20,), generator=gen, device=device,
+                         dtype=torch.int64).to(i32)
+    check("golay_decode_packed", ck.golay_decode_packed_cuda, ck.golay_decode_plain, wide)
+    # the vector paths' edges: x (and K8's mask) at word offsets 0-3,
+    # lengths below, at and around one vector and 4k + 1
+    lengths = (1, 3, 4, 5, 4 * 4099 + 1)
+    n_edge = max(lengths) + 4
+    base = ck.golay_encode_plain(torch.randint(0, 4096, (n_edge,), generator=gen, device=device,
+                                               dtype=i32))
+    base = base ^ ck.inject_bit_errors_plain(torch.zeros_like(base), int(0.1 * 2 ** 32), 32, 3)
+    masks = torch.randint(-2 ** 31, 2 ** 31, (n_edge,), generator=gen, device=device,
+                          dtype=torch.int64).to(i32)
+    for off in range(4):
+        for n in lengths:
+            check("golay_decode_packed", ck.golay_decode_packed_cuda, ck.golay_decode_plain,
+                  base[off:off + n])
+            for moff in (0, (off + 1) % 4):
+                codec("golay_write_scrub", base[off:off + n], masks[moff:moff + n])
+    say(f"  K7: every one of the 2^24 received words decoded equal to the plain version "
+        f"(error counts 0-4: {hist}), and 4M random words with bits 24-31 set; K7's decode and "
+        f"K8 at word offsets 0-3 of lengths {lengths} (K8's mask at offset 0 or another)")
 
     m = HARNESS_N // 3
     data = torch.randint(-2 ** 31, 2 ** 31, (m,), generator=gen, device=device,
@@ -1555,7 +1610,19 @@ def codec_kernel_check(torch, gen, device):
                           dtype=torch.int64).to(i32)
     for mask in (sparse, dense):
         codec("golay_write_scrub", data, mask)
-    say(f"  K8: 2 x {m} words scrubbed equal to the plain version (masks over 32 bits)")
+    # every data word under 256 random masks each, at BER 0.05 over 24 bits
+    # (mostly correctable) and every bit random (mostly not)
+    every_d = torch.arange(4096, dtype=i32, device=device).repeat(256)
+    few = torch.zeros(every_d.shape, dtype=torch.int64, device=device)
+    for b in range(24):
+        few |= (torch.rand(every_d.shape, generator=gen, device=device) < 0.05).to(
+            torch.int64) << b
+    all_bits = torch.randint(-2 ** 31, 2 ** 31, every_d.shape, generator=gen, device=device,
+                             dtype=torch.int64).to(i32)
+    for mask in (few.to(i32), all_bits):
+        codec("golay_write_scrub", every_d, mask)
+    say(f"  K8: 2 x {m} random words and 2 x every data word x 256 masks scrubbed equal to the "
+        "plain version (masks over 32 bits, and over 24 bits at BER 0.05)")
 
     for dtype, n, n_bits in ((u8, 16 << 20, 8), (i32, 4 << 20, 24)):
         hi = 256 if dtype == u8 else 1 << 24
@@ -1758,18 +1825,16 @@ def scaling_phase(torch, smi):
     return row, write_attend.launches_by["read"]
 
 
-def codec_timing(torch, gen, device, smi):
-    """K5-K9 at the kernel benchmark's shapes (8M values, 8M / 3 Golay
-    words; K8, which has no caller there, on the Golay words with masks of
-    BER 1e-2 over 24 bits), each cycling 8 inputs (64-270 MB, beyond the 50
-    MB L2): device time behind a sleep (device_ms), the plain version's
-    time, the bound (bytes at 3.35 TB/s; the integer operations counted from
-    the source are printed as an estimate) and, for the encodes, one library call computing the
-    same function: index_select from the table of all 256 (Hamming, indices
-    held as int32) or 4096 (Golay) codewords. Returns the timings by
-    wrapper name."""
-    from qkv_ecc_tpu_torch.kernels import codec_kernels as ck
-
+def codec_cases(torch, gen, device, ck):
+    """K5-K9's inputs at the kernel benchmark's shapes (8M values, 8M / 3
+    Golay words; K8, which has no caller there, on the Golay words with
+    masks of BER 1e-2 over 24 bits; K9 on uint8 values, n_bits 8), 8 copies
+    each (64-270 MB, beyond the 50 MB L2), for the wrappers of module ck.
+    Returns {wrapper name: (inputs per copy, bytes moved, probe units,
+    library call or None, its label)}: the library calls compute the same
+    function with index_select from the table of all 256 (Hamming, indices
+    held as int32) or 4096 (Golay) codewords, and the Hamming decodes with
+    two index_selects from 256-entry data and flag tables."""
     n, m, copies = HARNESS_N, HARNESS_N // 3, 8
     u8, i32 = torch.uint8, torch.int32
     vals = [torch.randint(0, 16, (n,), generator=gen, device=device, dtype=u8)
@@ -1777,6 +1842,7 @@ def codec_timing(torch, gen, device, smi):
     idx = [v.to(i32) for v in vals]
     bytes_ = [torch.randint(0, 256, (n,), generator=gen, device=device, dtype=u8)
               for _ in range(copies)]
+    idx_b = [b.to(i32) for b in bytes_]
     words = [torch.randint(0, 4096, (m,), generator=gen, device=device, dtype=i32)
              for _ in range(copies)]
     zeros = torch.zeros((m,), dtype=i32, device=device)
@@ -1784,57 +1850,86 @@ def codec_timing(torch, gen, device, smi):
     cws = [ck.golay_encode_plain(w) ^ k for w, k in zip(words, masks)]
     every = torch.arange(4096, dtype=i32, device=device)
     lut_g = ck.golay_encode_plain(every)
-    lut_h = {name: getattr(ck, name + "_plain")(every[:256].to(u8))
-             for name in ("hamming74_encode", "hamming84_encode")}
+    lut = {name: getattr(ck, name + "_plain")(every[:256].to(u8))
+           for name in ("hamming74_encode", "hamming84_encode", "hamming74_decode",
+                        "hamming84_decode")}
+
+    def encode_call(name):
+        return lambda i: torch.index_select(lut[name], 0, idx[i])
+
+    def decode_call(name):
+        return lambda i: tuple(torch.index_select(t, 0, idx_b[i]) for t in lut[name])
+
+    table = "index_select from the codeword table"
+    two = "two index_select calls, from the 256-entry data and flag tables"
+    return {
+        "hamming74_encode": ([(v,) for v in vals], 2 * n, n, encode_call("hamming74_encode"),
+                             table),
+        "hamming74_decode": ([(b,) for b in bytes_], 3 * n, n, decode_call("hamming74_decode"),
+                             two),
+        "hamming84_encode": ([(v,) for v in vals], 2 * n, n, encode_call("hamming84_encode"),
+                             table),
+        "hamming84_decode": ([(b,) for b in bytes_], 3 * n, n, decode_call("hamming84_decode"),
+                             two),
+        "golay_encode_packed": ([(w,) for w in words], 8 * m, m,
+                                lambda i: torch.index_select(lut_g, 0, words[i]), table),
+        "golay_decode_packed": ([(c,) for c in cws], 12 * m, m, None, None),
+        "golay_write_scrub": (list(zip(words, masks)), 12 * m, m, None, None),
+        "inject_bit_errors": ([(v, BER, 8, 42) for v in vals], 2 * n, 8 * n, None, None),
+    }
+
+
+def codec_timing(torch, gen, device, smi, sass, sms, clock):
+    """K5-K9 at codec_cases' shapes, each cycling its 8 copies: device time
+    behind a sleep (device_ms), the plain version's time, the bound (bytes
+    at 3.35 TB/s), the integer bound from the SASS of the codec's probe
+    (kernels/sass_count.py: sass, the probes' counts; sms and clock, the
+    card's) and the library call where one computes the same function.
+    The redesigned rows (those in REQUIRED_US) must meet their required
+    times.
+    Returns the timings by wrapper name."""
+    from qkv_ecc_tpu_torch.kernels import codec_kernels as ck
+    from qkv_ecc_tpu_torch.kernels import sass_count
+
     thr = min(int(BER * 2 ** 32), 0xFFFFFFFF)
-    # (wrapper name, inputs per copy, bytes moved, int ops, library call)
-    cases = [
-        ("hamming74_encode", [(v,) for v in vals], 2 * n, CODEC_OPS["hamming74_encode"] * n,
-         lambda i: torch.index_select(lut_h["hamming74_encode"], 0, idx[i])),
-        ("hamming74_decode", [(b,) for b in bytes_], 3 * n, CODEC_OPS["hamming74_decode"] * n,
-         None),
-        ("hamming84_encode", [(v,) for v in vals], 2 * n, CODEC_OPS["hamming84_encode"] * n,
-         lambda i: torch.index_select(lut_h["hamming84_encode"], 0, idx[i])),
-        ("hamming84_decode", [(b,) for b in bytes_], 3 * n, CODEC_OPS["hamming84_decode"] * n,
-         None),
-        ("golay_encode_packed", [(w,) for w in words], 8 * m, CODEC_OPS["golay_encode"] * m,
-         lambda i: torch.index_select(lut_g, 0, words[i])),
-        ("golay_decode_packed", [(c,) for c in cws], 12 * m, CODEC_OPS["golay_decode"] * m,
-         None),
-        ("golay_write_scrub", list(zip(words, masks)), 12 * m,
-         CODEC_OPS["golay_write_scrub"] * m, None),
-    ]
     plains = {"golay_encode_packed": ck.golay_encode_plain,
-              "golay_decode_packed": ck.golay_decode_plain}
+              "golay_decode_packed": ck.golay_decode_plain,
+              "inject_bit_errors": lambda x, ber, n_bits, seed: ck.inject_bit_errors_plain(
+                  x, thr, n_bits, seed)}
     timings = {}
-    for name, inputs, nbytes, ops, library in cases:
+    for name, (inputs, nbytes, units, library, lib_label) in codec_cases(
+            torch, gen, device, ck).items():
         wrapper = getattr(ck, name + "_cuda")
         plain = plains.get(name) or getattr(ck, name + "_plain")
-        timings[name] = time_codec(torch, name, lambda i, w=wrapper, a=inputs: w(*a[i]),
-                                   lambda i, p=plain, a=inputs: p(*a[i]), wrapper, copies,
-                                   nbytes, ops, library, smi)
-    timings["inject_bit_errors"] = time_codec(
-        torch, "inject_bit_errors uint8 n_bits 8",
-        lambda i: ck.inject_bit_errors_cuda(vals[i], BER, 8, 42),
-        lambda i: ck.inject_bit_errors_plain(vals[i], thr, 8, 42), ck.inject_bit_errors_cuda,
-        copies, 2 * n, INJECT_OPS_PER_BIT * 8 * n, None, smi)
+        call = lambda i, w=wrapper, a=inputs: w(*a[i])  # noqa: E731
+        ms = min(device_ms(torch, call, 240, len(inputs), wrapper),
+                 device_ms(torch, call, 240, len(inputs), wrapper))
+        plain_ms = timed(torch, lambda i, p=plain, a=inputs: p(*a[i]), 24, len(inputs))
+        library_ms = (None if library is None else
+                      device_ms(torch, library, 240, len(inputs), None))
+        b_ms, b_by, _, _ = bound(nbytes, 0)
+        probe = CODEC_PROBES[name]
+        int_ms, pipe = sass_count.int_bound_ms(sass[probe], units, sms, clock)
+        unit = sass_count.PROBES[probe][3]
+        say(f"  {name}: {ms * 1e3:.2f} us/launch on the device (CUDA events, calls queued "
+            f"behind a sleep); bound {b_ms * 1e3:.2f} us by {b_by} ({nbytes / 1e6:.2f} MB at "
+            f"3.35 TB/s; no fp32 operations); share of bound {b_ms / ms:.3f}; integer bound "
+            f"{int_ms * 1e3:.2f} us by the {pipe} pipe ({units / 1e6:.2f} M {unit}s, "
+            f"{sass[probe]['issue']:.2f} SASS instructions a {unit}), share {int_ms / ms:.3f}; "
+            f"plain version {plain_ms * 1e3:.1f} us; library call: "
+            + ("none" if library_ms is None else f"{library_ms * 1e3:.2f} us ({lib_label})")
+            + f" ({smi})")
+        timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=library_ms, int_bound_ms=int_ms)
+        if name in REQUIRED_US:
+            req, target = REQUIRED_US[name], TARGET_US[name]
+            met = ms * 1e3 <= req
+            say(f"  {name}: {ms * 1e3:.2f} us; required at most {req:.1f} us: "
+                f"{'met' if met else 'MISSED'}; target at most {target:.1f} us: "
+                f"{'met' if ms * 1e3 <= target else 'missed'} ({smi})")
+            if not met:
+                fail(f"{name}: {ms * 1e3:.2f} us misses the required {req:.1f} us")
     return timings
-
-
-def time_codec(torch, label, call, plain, wrapper, copies, nbytes, ops, library, smi):
-    ms = min(device_ms(torch, call, 240, copies, wrapper),
-             device_ms(torch, call, 240, copies, wrapper))
-    plain_ms = timed(torch, plain, 24, copies)
-    library_ms = None if library is None else device_ms(torch, library, 240, copies, None)
-    b_ms, b_by, bytes_ms, _ = bound(nbytes, 0)
-    say(f"  {label}: {ms * 1e3:.2f} us/launch on the device (CUDA events, calls queued behind a "
-        f"sleep); bound {b_ms * 1e3:.2f} us by {b_by} ({nbytes / 1e6:.2f} MB at 3.35 TB/s; no "
-        f"fp32 operations; {int_estimate(ops)}); share of bound {b_ms / ms:.3f}; plain version "
-        f"{plain_ms * 1e3:.1f} us; library call: " + ("none" if library_ms is None else
-                    f"{library_ms * 1e3:.2f} us (index_select from the codeword table)")
-        + f" ({smi})")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                int_bound_ms=None)
 
 
 def trace_decode(torch, params, ids, gen, device, smi, cfg=None, steps=4):
@@ -3199,8 +3294,16 @@ COMPARE_ROWS = (
 )
 
 
+# the codec rows that core_compare times (the kernels of
+# csrc/codec_kernels.cu on packed Hamming words and Golay's syndrome table)
+COMPARE_CODECS = ("hamming74_encode", "hamming84_encode", "hamming74_decode", "hamming84_decode",
+                  "golay_decode_packed", "golay_write_scrub")
+
+
 def core_compare(torch, other):
-    """python3 chip_smoke.py --compare-with DIR: the packed kernels (every
+    """python3 chip_smoke.py --compare-with DIR: the codec kernels
+    (COMPARE_CODECS, on codec_cases' inputs, each tree's wrappers cycling
+    the 8 copies) and the packed kernels (every
     row of COMPARE_ROWS: K1's extract read, K2r, K3, K2 hamming84 /
     hamming74 / golay and their K4 reads) of this tree and of DIR's (another
     checkout's qkv_ecc_tpu_torch, such as `git archive` of the parent
@@ -3214,12 +3317,14 @@ def core_compare(torch, other):
     ones). Prints each row's four times, the best of each tree, their
     ratio, this tree's share of the bytes bound (the bytes at 3.35 TB/s),
     and its blocks per (sequence, KV head), threads, shared memory and
-    warps per SM."""
+    warps per SM; a codec row its four times, the best of each, their ratio
+    and the shares of the bytes bound."""
     import importlib
     import importlib.util
     from pathlib import Path
 
     from qkv_ecc_tpu_torch.kernels import _build
+    from qkv_ecc_tpu_torch.kernels import codec_kernels as ck
     from qkv_ecc_tpu_torch.kernels import paged_attention as pa
     from qkv_ecc_tpu_torch.models.config import BENCH_0_9B, GPT2_124M, TRAINED_TINY
 
@@ -3235,12 +3340,21 @@ def core_compare(torch, other):
     sys.modules[spec.name] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sys.modules[spec.name])
     opa = importlib.import_module(spec.name + ".kernels.paged_attention")
+    ock = importlib.import_module(spec.name + ".kernels.codec_kernels")
     obuild = importlib.import_module(spec.name + ".kernels._build")
-    names = ("write_attend", "decode_attend")
+    names = ("write_attend", "decode_attend", "codec_kernels")
     for b in _build.build_all(names) + obuild.build_all(names):
         say(f"  {b.path}: built in {b.seconds:.2f} s")
     gen = torch.Generator(device=device).manual_seed(0)
     sms = pa._sm_count(0)
+    cases = codec_cases(torch, gen, device, ck)
+    crows = []  # (name, {tree: (call, wrapper)}, copies, bytes)
+    for name in COMPARE_CODECS:
+        inputs, nbytes = cases[name][:2]
+        crows.append((name, {tree: ((lambda i, w=getattr(mod, name + "_cuda"), a=inputs:
+                                     w(*a[i])), getattr(mod, name + "_cuda"))
+                             for tree, mod in (("other", ock), ("this", ck))},
+                      len(inputs), nbytes))
     rows = []  # (label, {tree: (call, wrapper)}, layers, bytes, S, data words, smem, Hkv)
     for cfg, tokens, k4 in ((BENCH_0_9B, 1056, True), (GPT2_124M, 928, False),
                             (TRAINED_TINY, 480, False)):
@@ -3294,11 +3408,21 @@ def core_compare(torch, other):
                                   staged=inject or codec in ("hamming74", "golay"),
                                   ring=not inject, edges=bool(kw.get("use_interpolation")))
             rows.append((f"{cfg.name} {key}", calls, L, nbytes, s, wd, smem, Hkv))
-    times = {r[0]: {"other": [], "this": []} for r in rows}
+    times = {r[0]: {"other": [], "this": []} for r in rows + crows}
     for tree in ("other", "this", "this", "other"):
-        for label, calls, L, *_ in rows:
+        for label, calls, L, *_ in rows + crows:
             call, wrapper = calls[tree]
             times[label][tree].append(device_ms(torch, call, 240, L, wrapper))
+    for label, _, _, nbytes in crows:
+        t = times[label]
+        best_o, best_t = min(t["other"]), min(t["this"])
+        b_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        say(f"  codec {label}: {other} " + " / ".join(f"{x * 1e3:.2f}" for x in t["other"])
+            + " us, this tree " + " / ".join(f"{x * 1e3:.2f}" for x in t["this"])
+            + f" us; best {best_o * 1e3:.2f} -> {best_t * 1e3:.2f} us "
+            f"(this / {other} {best_t / best_o:.3f}); bytes bound {b_ms * 1e3:.2f} us "
+            f"({nbytes / 1e6:.2f} MB), share {b_ms / best_t:.3f} -> was {b_ms / best_o:.3f} "
+            f"({smi})")
     for label, _, _, nbytes, s, wd, smem, Hkv in rows:
         t = times[label]
         best_o, best_t = min(t["other"]), min(t["this"])
@@ -3844,7 +3968,7 @@ def main():
                 + ", ".join(f"S {k} {v * 1e3:.2f} us" for k, v in sweep.items())
                 + f"; with no token (ctx 0, S {s}): {fixed * 1e3:.2f} us ({smi})")
 
-        timings.update(codec_timing(torch, gen, device, smi))
+        timings.update(codec_timing(torch, gen, device, smi, sass, sms, clock))
 
     with Phase("trace"):
         trace_decode(torch, params, ids, gen, device, smi)

@@ -16,7 +16,10 @@ kernel's plain PyTorch version (the ``*_plain`` functions, the bodies of the
 JAX kernels composed from ``kernels/common.py``). Empty input launches
 nothing. Each wrapper that launches counts it in ``.launches`` and
 ``.launches_by`` (by operation; K9 by dtype); the triplet wrappers launch
-through the packed ones and count there.
+through the packed ones and count there. K7's decode and K8 read the
+4096-entry Golay syndrome table (``common.golay_syndrome_table``, built
+once per device by ``paged_attention.golay_syndrome_table``), which the
+wrapper passes to the kernel.
 
 K9's flips come from a counter hash, not from the TPU's on-chip PRNG: bit b
 of flat element i flips when murmur3's finalizer of ((i * n_bits + b) *
@@ -36,11 +39,14 @@ from ..codecs.reference import golay_pack, golay_unpack
 from . import common as C
 from . import swar
 from ._build import launcher
+from .paged_attention import golay_syndrome_table
 
 _B_MASKS = tuple(int(m) for m in GOLAY_B_ROW_MASKS)
 # the operations of csrc/codec_kernels.cu's codec_launch
 _OPS = {"hamming74_encode": 0, "hamming74_decode": 1, "hamming84_encode": 2,
         "hamming84_decode": 3, "golay_encode": 4, "golay_decode": 5, "golay_write_scrub": 6}
+# the operations that read the Golay syndrome table
+_SYNDROME_OPS = ("golay_decode", "golay_write_scrub")
 _INJECT_DTYPES = {torch.uint8: "uint8", torch.int32: "int32"}
 
 
@@ -123,8 +129,9 @@ def _run(wrapper, op, inputs, in_dtype, out_dtypes, plain):
         xs = tuple(t.contiguous() for t in xs)
         outs = tuple(torch.empty(x.shape, dtype=dt, device=x.device) for dt in out_dtypes)
         mask = xs[1].data_ptr() if len(xs) > 1 else 0
-        rc = launcher("codec_kernels", "ipppplp", "codec_launch")(
-            _OPS[op], xs[0].data_ptr(), mask, outs[0].data_ptr(),
+        syn = golay_syndrome_table(x.device).data_ptr() if op in _SYNDROME_OPS else 0
+        rc = launcher("codec_kernels", "ippppplp", "codec_launch")(
+            _OPS[op], xs[0].data_ptr(), mask, syn, outs[0].data_ptr(),
             outs[1].data_ptr() if len(outs) > 1 else 0, x.numel(), _stream(x))
         if rc != 0:
             raise RuntimeError(f"{op} kernel launch failed: cudaError {rc}")

@@ -1,7 +1,7 @@
-"""The integer bound of Golay's correcting read and of the read-inject read:
-the SASS instructions (``cuobjdump -sass`` of the built libraries) of one
-Golay codeword's decode and of one read-flip hash, per pipe, over the
-card's issue rates.
+"""The integer bound of the kernels whose integer work may outlast their
+bytes: Golay's correcting read, the read-inject read and the codec kernels
+K5-K9. The SASS instructions (``cuobjdump -sass`` of the built libraries)
+of one unit of each one's work, per pipe, over the card's issue rates.
 
     python -m qkv_ecc_tpu_torch.kernels.sass_count
 
@@ -9,24 +9,27 @@ Never-launched probe kernels sit in the sources beside the kernels they
 measure, each in two forms whose only difference is one more unit of work
 a thread: ``sass_probe_golay_row1`` / ``_row2`` (decode_attend.cu: one and
 two bench-0.9b rows of 44 codewords through ``decode_row``, as phase A runs
-it) and ``sass_probe_flip_word1`` / ``_word2`` (write_attend.cu: one and
-two words' 32 hashes, ``flip_word``). The difference of their
-instructions, classed by the pipe that issues them, divided by the
-codewords (44) or hashes (32) of a unit, is the count per codeword or
-hash: the probe's fixed cost (the tables' fill, the thread's index)
-cancels. Global loads and stores (the bytes bound's) are left out of every
-pipe; control flow and uniform-datapath instructions count against the
-issue rate alone. Rates in lanes per clock per SM, compute capability 9.0
-(CUDA C++ Programming Guide, "Arithmetic Instructions" throughput table):
-32-bit integer add, logic, shift, compare and select 64; integer
+it), ``sass_probe_flip_word1`` / ``_word2`` (write_attend.cu: one and two
+words' 32 hashes, ``flip_word``) and, in codec_kernels.cu, one and two
+vectors of a codec's loop (``sass_probe_<codec>1`` / ``2``: 16 Hamming
+values or 4 Golay words) and one and two uint8 elements of K9 (8 hashes
+each, ``sass_probe_inject1`` / ``2``). The difference of their
+instructions, classed by the pipe that issues them, divided by the units'
+codewords, hashes, values or words, is the count per one of them: the
+probe's fixed cost (the tables' fill, the thread's index) cancels. Global
+loads and stores (the bytes bound's) are left out of every pipe; control
+flow and uniform-datapath instructions count against the issue rate alone.
+Rates in lanes per clock per SM, compute capability 9.0 (CUDA C++
+Programming Guide, "Arithmetic Instructions" throughput table): 32-bit
+integer add, logic, shift, compare, select and byte permute 64; integer
 multiply-add 64; fp32 add, multiply and FMA 128; population count,
 conversions and the special functions 16; shared-memory loads and stores
 and shuffles 32 (one warp instruction a clock); and 4 warp instructions
 issued a clock (one per scheduler). A call's integer bound is its units
-(codewords decoded, hashes drawn) times the count on each pipe over that
-pipe's rate times the SMs and the clock, the largest over the pipes: the
-least time the card needs for that work alone, whatever else the kernel
-does.
+(codewords decoded, hashes drawn, values or words coded) times the count on
+each pipe over that pipe's rate times the SMs and the clock, the largest
+over the pipes: the least time the card needs for that work alone,
+whatever else the kernel does.
 """
 
 from __future__ import annotations
@@ -44,6 +47,11 @@ PROBES = {
     "golay": (("sass_probe_golay_row1", "sass_probe_golay_row2"), "decode_attend", 44,
               "codeword"),
     "hash": (("sass_probe_flip_word1", "sass_probe_flip_word2"), "write_attend", 32, "hash"),
+    **{key: ((f"sass_probe_{key}1", f"sass_probe_{key}2"), "codec_kernels", units, unit)
+       for key, units, unit in (("h74_encode", 16, "value"), ("h74_decode", 16, "value"),
+                                ("h84_encode", 16, "value"), ("h84_decode", 16, "value"),
+                                ("golay_encode", 4, "word"), ("golay_decode", 4, "word"),
+                                ("golay_scrub", 4, "word"), ("inject", 8, "hash"))},
 }
 # lanes per clock per SM of each pipe (compute capability 9.0)
 RATES = {"alu": 64, "imad": 64, "fp32": 128, "xu": 16, "shared": 32, "issue": 128}

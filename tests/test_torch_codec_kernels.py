@@ -9,10 +9,15 @@ through its decode, K8 with masks wider than 24 bits, odd shapes and empty
 input. K9 draws other bits than the JAX function on the CPU (threefry
 there, a counter hash here), so it is held to the JAX contract: the rate,
 the low n_bits only, dtype and shape, the identity at BER 0, and
-determinism per seed."""
+determinism per seed. The card's own formulation of K5-K8
+(csrc/codec_kernels.cu: four Hamming codewords a 32-bit word with prmt
+lookups, Golay's syndrome-table decode) is emulated in numpy with the
+source's tables and held to the plain versions and the JAX kernels too."""
 
 import os
+import re
 from itertools import combinations
+from pathlib import Path
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -154,6 +159,156 @@ def test_golay_encode_without_popcounts(form):
         parity = tables[0][x & 15] ^ tables[1][x >> 4 & 15] ^ tables[2][x >> 8]
     want = tk.golay_encode_plain(torch.arange(4096, dtype=torch.int32)).numpy()
     np.testing.assert_array_equal((x | parity << 12).astype(np.int32), want)
+
+
+# The card's formulation of K5-K8 (csrc/codec_kernels.cu), emulated in numpy
+# on uint32 words: the tables are read from the source itself
+_CU = (Path(tk.__file__).resolve().parent.parent / "csrc" / "codec_kernels.cu").read_text()
+_CU_CONST = {k: int(v, 16) for k, v in re.findall(r"\b(k\w+) = (0x[0-9A-Fa-f]+)u\b", _CU)}
+M1 = 0x01010101
+
+
+def prmt(lo, hi, sel):
+    """prmt.b32 in its default mode: byte k of the result is byte (sel >>
+    4k) & 7 of {hi, lo}, or that byte's bit 7 over all 8 bits when bit 4k + 3
+    of sel is set."""
+    src = (np.uint64(hi) << np.uint64(32)) | np.uint64(lo)
+    out = np.zeros(np.shape(sel), dtype=np.uint64)
+    for k in range(4):
+        nib = (np.asarray(sel, dtype=np.uint64) >> np.uint64(4 * k)) & np.uint64(15)
+        byte = (src >> (np.uint64(8) * (nib & np.uint64(7)))) & np.uint64(0xFF)
+        byte = np.where(nib & np.uint64(8), np.where(byte & np.uint64(0x80), 0xFF, 0), byte)
+        out |= byte.astype(np.uint64) << np.uint64(8 * k)
+    return out.astype(np.uint32)
+
+
+def pack_nibbles(v):
+    """codec_kernels.cu pack_nibbles: a value 0-15 in each byte slot -> the
+    four one a nibble in bits 0-15."""
+    return prmt(v | (v >> 4), np.uint32(0), np.full(v.shape, 0x0020, dtype=np.uint32))
+
+
+def hamming_word_emulated(op, x):
+    """codec_kernels.cu hamming_word on uint32 words x: (y0, y1), four
+    outputs each in the byte slots (y1 None for an encode)."""
+    c = _CU_CONST
+    x = x.astype(np.uint32)
+    if op.endswith("encode"):
+        lo, hi = (c["kH74Lo"], c["kH74Hi"]) if op.startswith("hamming74") else (c["kH84Lo"],
+                                                                                c["kH84Hi"])
+        cw = prmt(lo, hi, pack_nibbles(x & 0x07070707))
+        return cw ^ ((x & 0x08080808) * np.uint32(15)), None
+    x1, x2, x3, x4, x5, x6 = (x >> k for k in range(1, 7))
+    a = (x ^ x1 ^ x3 ^ x4) & M1
+    b = (x ^ x2 ^ x3 ^ x5) & M1
+    cc = (x1 ^ x2 ^ x3 ^ x6) & M1
+    nonzero = a | b | cc
+    s = a | (b << 1) | (cc << 2)
+    if op.startswith("hamming74"):
+        y1 = nonzero
+    else:
+        p = x ^ x4
+        p ^= p >> 2
+        p = (p ^ (p >> 1)) & M1
+        s |= (p ^ M1) << 3
+        y1 = p | ((nonzero ^ p) << 1)
+    return (x ^ prmt(c["kCorrLo"], c["kCorrHi"], pack_nibbles(s))) & 0x0F0F0F0F, y1
+
+
+def _bytes_of(words):
+    return words.astype("<u4").view(np.uint8)
+
+
+@pytest.mark.parametrize("name", HAMMING)
+def test_hamming_swar_emulation_matches_jax(name):
+    """K5 and K6 as the card computes them (four codewords a 32-bit word,
+    the syndromes by shifts and XORs, the lookups by prmt, whose sign mode
+    cancels Hamming(8,4)'s correction where the parity holds) equal the
+    plain versions and the JAX kernels on every byte 0-255 in every byte
+    slot of a word, beside random neighbours, and alone in slot 0 (the
+    one-byte path), and the source's tables are the codes' own."""
+    b = np.arange(256, dtype=np.uint32)
+    rng = np.random.default_rng(9)
+    words = np.concatenate([
+        b | ((b + 85) % 256) << 8 | ((b + 170) % 256) << 16 | ((b + 255) % 256) << 24,
+        b,
+        rng.integers(0, 2 ** 32, 4096, dtype=np.uint64).astype(np.uint32)])
+    for k in range(4):  # every byte in slot k, random bytes beside it
+        rand = rng.integers(0, 2 ** 32, 256, dtype=np.uint64).astype(np.uint32)
+        words = np.concatenate([words, (rand & ~np.uint32(0xFF << 8 * k)) | b << (8 * k)])
+    x = _bytes_of(words)
+    y0, y1 = hamming_word_emulated(name, words)
+    got = (torch.from_numpy(_bytes_of(y0).copy()),)
+    if y1 is not None:
+        got += (torch.from_numpy(_bytes_of(y1).copy()),)
+    got = got if len(got) > 1 else got[0]
+    same(getattr(jk, name + "_tpu")(x), got, name + " against JAX")
+    want = getattr(tk, name + "_plain")(torch.from_numpy(x))
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got if isinstance(got, tuple) else (got,), want):
+        assert torch.equal(g, w), name
+    code = "hamming74" if name.startswith("hamming74") else "hamming84"
+    enc = getattr(tk, code + "_encode_plain")(torch.arange(8, dtype=torch.uint8))
+    key = "kH74" if code == "hamming74" else "kH84"
+    table = np.array([_CU_CONST[key + "Lo"], _CU_CONST[key + "Hi"]], dtype="<u4").view(np.uint8)
+    np.testing.assert_array_equal(table, enc.numpy())
+
+
+def _golay_tables():
+    from qkv_ecc_tpu_torch.kernels import common as C
+
+    masks = tuple(int(m) for m in ts._B_MASKS)
+    return (C.golay_nibble_tables(masks).numpy().astype(np.int64),
+            C.golay_syndrome_table(masks).numpy().astype(np.int64) & 0xFFFF)
+
+
+def _times_b(tab, x):
+    return tab[x & 15] ^ tab[16 + (x >> 4 & 15)] ^ tab[32 + (x >> 8 & 15)]
+
+
+def _wrap_i32(x):
+    x = np.asarray(x, dtype=np.int64) & 0xFFFFFFFF
+    return (x - ((x >> 31) << 32)).astype(np.int32)
+
+
+def test_golay_table_decode_emulation_matches_jax():
+    """K7's decode as the card computes it (s = d . B ^ p in three
+    nibble-table lookups, then the 4096-entry syndrome table; data d ^
+    correction, whose entry is 0 at weight 4, so an uncorrectable word keeps
+    its corrupt data) over every syndrome beside 8 data words, bits 24-31
+    set in half of them, equals golay_decode_plain and JAX's kernel on data
+    and count; K8's form (the syndrome m_lo . B ^ m_hi of the mask alone,
+    uncorrectable -> 0, encoded again) equals golay_write_scrub_plain and
+    JAX's over every data word under masks of every syndrome."""
+    tab, syn = _golay_tables()
+    rng = np.random.default_rng(13)
+    s = np.arange(4096, dtype=np.int64)
+    d = rng.integers(0, 4096, (8, 1), dtype=np.int64)
+    high = np.where(np.arange(8)[:, None] % 2 == 1,
+                    rng.integers(0, 256, (8, 4096), dtype=np.int64) << 24, 0)
+    cw = _wrap_i32(d | ((_times_b(tab, d) ^ s) << 12) | high).reshape(-1)
+    u = cw.astype(np.int64) & 0xFFFFFFFF
+    dd = u & 0xFFF
+    e = syn[_times_b(tab, dd) ^ (u >> 12 & 0xFFF)]
+    got = (torch.from_numpy((dd ^ (e & 0xFFF)).astype(np.int32)),
+           torch.from_numpy((e >> 12).astype(np.int32)))
+    assert set(np.unique(got[1].numpy())) == {0, 1, 2, 3, 4}
+    same(jk.golay_decode_packed_tpu(cw), got, "golay table decode against JAX")
+    want = tk.golay_decode_plain(torch.from_numpy(cw))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+    v = _wrap_i32(np.concatenate([np.arange(4096), rng.integers(-2 ** 31, 2 ** 31, 4096)]))
+    r = rng.integers(0, 4096, 8192, dtype=np.int64)
+    syndromes = rng.permutation(np.tile(s, 2))
+    m = _wrap_i32(r | ((_times_b(tab, r) ^ syndromes) << 12)
+                  | rng.integers(0, 256, 8192, dtype=np.int64) << 24)
+    vu, mu = v.astype(np.int64) & 0xFFFFFFFF, m.astype(np.int64) & 0xFFFFFFFF
+    e = syn[_times_b(tab, mu & 0xFFF) ^ (mu >> 12 & 0xFFF)]
+    data = np.where(e >> 14 == 1, 0, (vu ^ mu ^ e) & 0xFFF)
+    scrubbed = torch.from_numpy((data | (_times_b(tab, data) << 12)).astype(np.int32))
+    same(jk.golay_write_scrub_tpu(v, m), scrubbed, "golay table scrub against JAX")
+    assert torch.equal(scrubbed, tk.golay_write_scrub_plain(torch.from_numpy(v),
+                                                            torch.from_numpy(m)))
 
 
 @pytest.mark.parametrize("name", HAMMING + ("golay_encode_packed", "golay_decode_packed"))
