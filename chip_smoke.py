@@ -30,11 +30,18 @@ fp8 included. The kernel instances of gpt2's shapes (group 1, head_dim 64:
 12/12 heads) are held the same way: K1's extract read, K2 and K3 with and
 without statistics, K2r, K2f in fp16 and fp8 with its NaN pages, and the K4
 reads of every branch, at batch 8 and contexts of 1 to 1024 tokens, at the
-S the split rule picks (and golay's split at 1, the rule's and 3); a shape
-without instances (tiny-gpt2's group 1 at head_dim 16) must raise. So are
+S the split rule picks (and golay's split at 1, the rule's and 3). So are
 trained-tiny's (group 1, head_dim 32: 8/8 heads) at contexts of 1 to 512
 tokens (K2f at the float checks' contexts), and timed on caches of 480
-tokens a row. Then it
+tokens a row, and so are tiny-gpt2's (group 1 at head_dim 16) and
+trained-100m's (group 3 at head_dim 64), against the unsplit plain
+version (the row term scaled for their S of 4, SPLIT_ROW_SCALE) and their
+packed reads also against the plain model of the split they take
+(split_model, with a printed report of the split's rounding by S), whose
+models then
+decode on the card in eleven arms against the CPU (M17); a shape without
+instances (group 1 at head_dim 96, which no model registers) must raise.
+Then it
 drives bench-0.9b (random bf16 weights from a seed) through the port's
 entry points on four paths:
   * the decode slice: batch 8, prompt 1024, 32 greedy steps at BER 1e-2 in
@@ -117,7 +124,29 @@ two more paths run:
     scaled_dot_product_attention at batch 1 and 8, context 512 and 2048),
     whose JSON is printed;
   * the scaling row: benchmarks.scaling.measure_single_device on bench-0.9b
-    in int12-golay, batch 4, prompt 64, 20 steps, block 128.
+    in int12-golay, batch 4, prompt 64, 20 steps, block 128, and beside it
+    measure_tp_mesh at 1x1: one rank through NCCL (the TP = 1 overhead),
+    both steps traced (the same kernels, no collective);
+  * the parallel layer (M11) on two gloo ranks sharing the card (a rank
+    that fails fails the run): TP at model 2 on bench-0.9b (full width, 4
+    layers, batch 8, 1024 + 4 steps, BER 1e-2) in float32 in
+    int4-write-inject, int4-hamming84 with stats, int12-golay and fp16,
+    and in its own bfloat16 in int4-hamming84 with and without stats,
+    gpt2 (its c_attn permuted) and one step of trained-100m in two arms,
+    each rank against the single-device run on the same card and draws:
+    the prefill's words (layer 0's equal, the rest within TP_WORD_SHARE:
+    float reassociation), then two decodes from the single-device prefill
+    cache: at the rank's own split rules (launches exact, logits within
+    output_tolerance) and at the single-device run's (splits_at), whose
+    words at the decode positions (the kernels' writes) must be equal in
+    layer 0 and within TP_DECODE_WORD_SHARE after it; words elsewhere
+    equal, ECC counts and every Hamming(8,4) codeword's syndrome equal;
+    bfloat16 within its own bounds; CP (K4's softmax state on page shards
+    of bench-0.9b's cache, merged over the ranks) in int4, hamming84 and
+    golay and with one shard empty, against the single K4 read; the TP
+    server (tiny-llama 8/4, 8 slots, 12 requests, int4-hamming84, BER 0)
+    against the single-device server as JAX's test holds its own;
+  * golay_sliced (M12, plain torch) on CUDA tensors against the CPU.
 Each path checks that every kernel branch it calls was launched exactly as
 often as it calls it (the quality paths: none). Then it times the kernels
 (K2f beside scaled_dot_product_attention over the same context stored dense, fp16's
@@ -532,6 +561,42 @@ def forced_splits(s):
         yield
     finally:
         pa.packed_splits = rule
+
+
+@contextlib.contextmanager
+def split_model():
+    """The packed kernels' plain versions (write_attend_plain,
+    write_decode_attend_plain and attend_plain, which all read through
+    paged_attention._read) taking the split that the kernel takes on the
+    same shapes: S = packed_splits of the call, block r the visited pages
+    r, r + S, ..., each state over its own pages and the states merged by
+    merge_softmax_states - the plain model of the split, which
+    tests/test_torch_paged_attention.py holds to JAX. Each weight is then
+    rounded against the same maximum in both, so a check under it holds a
+    kernel to its own split; the float codecs' reads (K2f splits tokens
+    differently) are left as they are."""
+    import torch
+    from qkv_ecc_tpu_torch.kernels import paged_attention as pa
+
+    real = pa._read
+
+    def read(query, k_cache, *args, codec, num_pages, pages_per_chunk, page_range=None, **kw):
+        kw.update(codec=codec, num_pages=num_pages, pages_per_chunk=pages_per_chunk)
+        pages = pa.visited_pages(num_pages, pages_per_chunk)
+        s = pa.packed_splits(query.shape[0], k_cache.shape[2], pages,
+                             pa._sm_count(query.device.index), k_cache.shape[3])
+        if codec in pa._FLOAT or page_range is not None or s == 1:
+            return real(query, k_cache, *args, page_range=page_range, **kw)
+        parts = [real(query, k_cache, *args, page_range=range(r, pages, s), **kw)
+                 for r in range(s)]
+        states = (torch.stack(x) for x in zip(*(state for state, _ in parts)))
+        return pa.merge_softmax_states(*states), parts[0][1]
+
+    pa._read = read
+    try:
+        yield
+    finally:
+        pa._read = real
 
 
 def splits_label(torch, batch, hkv, num_pages, ppc, data_words):
@@ -1319,16 +1384,17 @@ def output_tolerance(ref):
     the element (the last rounding, which both sides make), and 2^-8 of the
     largest |ref| of its (sequence, head) row allows one softmax weight
     p * v_scale to round to a neighbouring bf16 value after an fp32 ulp of
-    difference in exp or in the summation order. The packed kernels take
-    the softmax online page by page as the plain version does, so neither
-    term is needed for them in practice. K2f (float_attend) splits a
-    sequence's tokens over warps and blocks, each rounding its weights
-    against its own running maximum, so both terms are needed there: a
-    weight rounds to a neighbouring bf16 value (the second term), and the
-    fp32 results then differ enough for a bf16 output to round to the
-    neighbouring value (the first). A row scale rather than the batch's
-    largest value keeps a token dropped or added at any context length (ctx
-    1 to 1152) beyond the tolerance."""
+    difference in exp or in the summation order. K2f (float_attend) splits
+    a sequence's tokens over warps and blocks, and the packed kernels its
+    pages over S blocks (packed_splits), each block rounding its weights
+    against its own running maximum where the plain version rounds them
+    against the row's, so both terms are needed there: a weight rounds to
+    a neighbouring bf16 value (the second term), and the fp32 results then
+    differ enough for a bf16 output to round to the neighbouring value (the
+    first). At S = 1 a packed kernel takes the softmax page by page as the
+    plain version does and needs neither in practice. A row scale rather
+    than the batch's largest value keeps a token dropped or added at any
+    context length (ctx 1 to 1152) beyond the tolerance."""
     r = ref.float().abs()
     return 2.0 ** -7 * r + 2.0 ** -8 * ROW_TERM_SCALE * r.amax(dim=-1, keepdim=True)
 
@@ -1350,27 +1416,29 @@ ROW_TERM_SCALE = 1.0
 TINY_MODES = MODES + ("int12-golay/scrub=False", "int4-hamming/scrub=False",
                       "int4-write-inject/scrub=False", "int12-golay/stats", "int4-hamming/stats",
                       "int4-hamming84/stats", "int4-hamming84-interp/stats", "int4/stats")
+TINY_STEPS = 6  # tiny_agreement's decode steps
 
 
-def tiny_agreement(torch, device):
-    """tiny-llama prefill + 6 decode steps at BER 1e-2 in every mode (the
-    arms, the float arms fp16 and fp8, the unscrubbed reads,
-    collect_ecc_stats), on the card (kernels)
+def tiny_agreement(torch, device, cfg=None, modes=TINY_MODES):
+    """cfg's (default tiny-llama's) prefill + TINY_STEPS decode steps at BER
+    1e-2 in every mode (the arms, the float arms fp16 and fp8, the
+    unscrubbed reads, collect_ecc_stats), on the card (kernels)
     and on the CPU (plain versions), same weights, write masks, prefill read
     flips and read seeds: logits within 1e-2, the same greedy tokens and the
     same ECC counts."""
     import dataclasses
     from qkv_ecc_tpu_torch.codecs.fault_injection import flip_mask
-    from qkv_ecc_tpu_torch.models.config import TINY_LLAMA as cfg
+    from qkv_ecc_tpu_torch.models.config import TINY_LLAMA
     from qkv_ecc_tpu_torch.models.kv_policy import (
         hoisted_logical_masks, hoisted_write_deltas, policy_for_mode, write_inject)
-    from qkv_ecc_tpu_torch.models.registry import init_params
+    from qkv_ecc_tpu_torch.models.registry import init_params, map_tree
     from qkv_ecc_tpu_torch.models.runtime import (
         _use_scrub, decode_step, init_generation_state, prefill, write_mask_shape)
 
+    cfg = cfg or TINY_LLAMA
     params_cpu = init_params(cfg, seed=0, device="cpu")
     ids = torch.randint(0, cfg.vocab_size, (2, 21), generator=torch.Generator().manual_seed(1))
-    for mode in TINY_MODES:
+    for mode in modes:
         base = mode.split("/")[0]
         stats = mode.endswith("/stats")
         pol = policy_for_mode(base, ber=BER)
@@ -1381,14 +1449,13 @@ def tiny_agreement(torch, device):
         gen = torch.Generator().manual_seed(2)
         hoist = hoisted_write_deltas if _use_scrub(pol) and not stats else hoisted_logical_masks
         masks = [hoist(pol, cfg.num_layers, write_mask_shape(pol, 2, cfg), generator=gen)
-                 if write_inject(pol) else None for _ in range(6)]
+                 if write_inject(pol) else None for _ in range(TINY_STEPS)]
         read_masks = flip_mask((cfg.num_layers, 2, 2, 21, cfg.num_kv_heads, cfg.head_dim), BER,
                                4, gen) if read else None
-        seeds = torch.randint(-2 ** 31, 2 ** 31, (6,), generator=gen).tolist()
+        seeds = torch.randint(-2 ** 31, 2 ** 31, (TINY_STEPS,), generator=gen).tolist()
         runs = {}
         for dev in ("cpu", device):
-            params = {k: v.to(dev) for k, v in params_cpu.items() if k != "layers"}
-            params["layers"] = [{k: v.to(dev) for k, v in lp.items()} for lp in params_cpu["layers"]]
+            params = map_tree(lambda _, t, dev=dev: t.to(dev), params_cpu)
             state, bt, _ = init_generation_state(cfg, pol, 2, 32, 16, device=dev)
             logits, state = prefill(params, ids.to(dev), state, bt, cfg, pol0,
                                     read_masks=None if read_masks is None else read_masks.to(dev))
@@ -1410,13 +1477,13 @@ def tiny_agreement(torch, device):
         same_nan = torch.equal(nan, torch.isnan(lg))
         err = (torch.where(nan, 0.0, lc) - torch.where(nan, 0.0, lg)).abs().max().item()
         same_counts = all(torch.equal(x, y) for x, y in zip(cc, cg))
-        say(f"  tiny-llama {mode}: max |logits card - logits cpu| = {err:.3e} (tolerance 1e-2); "
+        say(f"  {cfg.name} {mode}: max |logits card - logits cpu| = {err:.3e} (tolerance 1e-2); "
             f"NaN logits {int(nan.sum())} on the cpu, at the same places on the card: {same_nan}; "
             f"tokens {'identical' if torch.equal(tc, tg) else 'DIFFER'}"
             + (f"; ECC counts card {[c.tolist() for c in cg]}, cpu {[c.tolist() for c in cc]}"
                if stats else ""))
         if not err <= 1e-2 or not same_nan or not torch.equal(tc, tg) or not same_counts:
-            fail(f"tiny-llama {mode}: the card disagrees with the CPU")
+            fail(f"{cfg.name} {mode}: the card disagrees with the CPU")
 
 
 # the kernel benchmark's shapes (benchmarks/harness.py run_full_benchmark's
@@ -2373,13 +2440,19 @@ def gpt2_attention_cfg():
 
 def unbuilt_shape_check(torch, device):
     """A shape without kernel instances raises on the card rather than
-    running the plain version: tiny-gpt2's group 1 at head_dim 16, in the
-    extract read, the correcting read and the float read."""
+    running the plain version: group 1 at head_dim 96, which no registered
+    model has (tiny-gpt2's head_dim 16, this check's shape before, has its
+    instances), in the extract read, the correcting read and the float
+    read."""
+    import dataclasses
     from qkv_ecc_tpu_torch.kernels.paged_attention import paged_attention_ecc_write_attend
-    from qkv_ecc_tpu_torch.models.config import TINY_GPT2 as cfg
+    from qkv_ecc_tpu_torch.models.config import MODEL_CONFIGS, TINY_GPT2
     from qkv_ecc_tpu_torch.models.kv_policy import KVCachePolicy
     from qkv_ecc_tpu_torch.models.runtime import init_generation_state
 
+    cfg = dataclasses.replace(TINY_GPT2, name="unregistered", head_dim=96, hidden_size=384)
+    if any((c.num_kv_groups, c.head_dim) == (1, 96) for c in MODEL_CONFIGS.values()):
+        fail("unbuilt_shape_check: a registered model has group 1 at head_dim 96")
     B, H, D = 2, cfg.num_kv_heads, cfg.head_dim
     for codec, scrub in (("int4", True), ("hamming84", False), ("fp16", False)):
         state, bt, _ = init_generation_state(cfg, KVCachePolicy(codec=codec), B, 32, 16,
@@ -2398,7 +2471,7 @@ def unbuilt_shape_check(torch, device):
         except ValueError as e:
             if "has no kernel instance" not in str(e):
                 raise
-            say(f"  {cfg.name} (group 1, head_dim 16) {codec} on the card raises: "
+            say(f"  group 1 at head_dim 96 (no registered model) {codec} on the card raises: "
                 f"{str(e)[:160]}...")
             continue
         fail(f"{cfg.name} {codec}: a shape without kernel instances did not raise")
@@ -2437,12 +2510,9 @@ def group1_kernel_check(torch, gen, device, cfg, ctx_before, k4_ctx):
 def gpt2_kernel_check(torch, gen, device):
     """The kernel instances of group 1, head_dim 64 at gpt2's attention
     shapes (12/12 heads, contexts GPT2_CTX_BEFORE + 1: 1 to 1024 tokens;
-    group1_kernel_check), then a shape without instances
-    (unbuilt_shape_check)."""
-    worst = group1_kernel_check(torch, gen, device, gpt2_attention_cfg(), GPT2_CTX_BEFORE,
-                                GPT2_K4_CTX)
-    unbuilt_shape_check(torch, device)
-    return worst
+    group1_kernel_check)."""
+    return group1_kernel_check(torch, gen, device, gpt2_attention_cfg(), GPT2_CTX_BEFORE,
+                               GPT2_K4_CTX)
 
 
 def tiny_kernel_check(torch, gen, device):
@@ -2772,7 +2842,8 @@ def gpt2_kernel_times(torch, runs, stats_runs, device, smi, cfg=None):
             qb = q.to(torch.bfloat16)[:, :, None]
 
             def library(layer, dense=dense, qb=qb):
-                return torch.nn.functional.scaled_dot_product_attention(qb, *dense[layer])
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qb, *dense[layer], enable_gqa=cfg.num_kv_groups > 1)
 
             library_ms = device_ms(torch, library, 240, L, None)
             del dense
@@ -2780,11 +2851,12 @@ def gpt2_kernel_times(torch, runs, stats_runs, device, smi, cfg=None):
         scale_bytes = 0 if codec in ("fp16", "fp8") else 4
         nbytes = (tokens * Hkv * 2 * (words * elem + scale_bytes) + 2 * q.numel() * 4
                   + 2 * BATCH * Hkv * (words * elem + scale_bytes) + bt.numel() * 4 + BATCH * 4)
-        flops = 2 * 2 * tokens * Hkv * D
+        flops = 2 * 2 * tokens * Hkv * cfg.num_kv_groups * D
         b_ms, b_by, bytes_ms, ops_ms = bound(nbytes, flops)
         times[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                           library_ms=library_ms)
-        say(f"  {cfg.name} write+attend {key} at ctx {tokens // BATCH} (group 1, head_dim {D}, "
+        say(f"  {cfg.name} write+attend {key} at ctx {tokens // BATCH} (group "
+            f"{cfg.num_kv_groups}, head_dim {D}, "
             f"{splits_label(torch, BATCH, Hkv, bt.shape[1], 4, state['k_cache'].shape[3])}): "
             f"{ms * 1e3:.2f} us/launch on the device; bound {b_ms * 1e3:.2f} us by {b_by} "
             f"({nbytes / 1e6:.2f} MB at 3.35 TB/s = {bytes_ms * 1e3:.2f} us; {flops / 1e6:.1f} "
@@ -2796,15 +2868,18 @@ def gpt2_kernel_times(torch, runs, stats_runs, device, smi, cfg=None):
     return times
 
 
-def tiny_kernel_times(torch, gen, device, smi):
-    """gpt2_kernel_times at trained-tiny's decode shapes (batch 8, 8/8 heads
-    at head_dim 32, 6 layers) on caches of TINY_TIME_CTX tokens a row, as
-    its decode leaves them: the extract read on a golay cache and the
+def tiny_kernel_times(torch, gen, device, smi, cfg=None):
+    """gpt2_kernel_times at cfg's decode shapes (default trained-tiny's:
+    batch 8, 8/8 heads at head_dim 32, 6 layers; also tiny-gpt2's and
+    trained-100m's, M17) on caches of TINY_TIME_CTX tokens a row, as its
+    decode leaves them: the extract read on a golay cache and the
     read-inject read on an int4 one (encoded_cache), the correcting reads
     on unscrubbed caches (unscrubbed_cache, BER 2e-2), the float reads on
-    float caches. The whole cache of a layer (0.3-0.9 MB) stays in the 50
+    float caches. The whole cache of a layer (0.1-0.9 MB) stays in the 50
     MB L2, so the bytes bound at 3.35 TB/s is not what holds these."""
-    from qkv_ecc_tpu_torch.models.config import TRAINED_TINY as cfg
+    from qkv_ecc_tpu_torch.models.config import TRAINED_TINY
+
+    cfg = cfg or TRAINED_TINY
 
     ctx_before = [TINY_TIME_CTX - 1] * BATCH
     ctx = torch.full((BATCH,), TINY_TIME_CTX, dtype=torch.int32, device=device)
@@ -3194,6 +3269,751 @@ def experiments_phase(torch, device, smi, work):
     return launches
 
 
+# -- the parallel layer on one card (ROADMAP M11) ---------------------------
+#
+# The H100 machine has one card, and NCCL puts no two ranks of one
+# communicator on the same device: so the parallel paths run as PAR_RANKS
+# gloo ranks sharing cuda:0 (gloo's all_reduce takes CUDA tensors), and as
+# one NCCL rank (measure_tp_mesh at 1x1). Both check correctness; ranks that
+# share a card give no scaling figure.
+
+PAR_RANKS = 2
+# bench-0.9b at full width and a cut depth, float32 (the row-parallel sums
+# reassociate additions, and float32 keeps the quantization ties they move
+# rare), batch 8, a 1024-token prompt and TP_STEPS decode steps, BER 1e-2
+TP_LAYERS, TP_PROMPT, TP_STEPS = 4, 1024, 4
+TP_ARMS = ("int4-write-inject", "int4-hamming84/stats", "int12-golay", "fp16")
+# and in bench-0.9b's own bfloat16 (the kernels' bfloat16-query variants):
+# the scrubbed extract read with its parity scatter, and the correcting read
+TP_BF16_ARMS = ("int4-hamming84", "int4-hamming84/stats")
+# gpt2 (full depth, 12/12 heads: 6 a rank, its c_attn permuted) and one step
+# of trained-100m (12/4 heads: 6/2 a rank, GQA group 3, M17's instances)
+TP_GPT2_PROMPT, TP_100M_PROMPT = 512, 256
+CP_CTX = [1024, 900, 1, 513, 129, 1000, 640, 777]
+CP_EMPTY_CTX = [100, 1, 128, 0, 50, 127, 3, 64]  # one page each: rank 1's shard is empty
+SERVE_TP_REQUESTS = 12
+
+
+def tolerance_share(torch, got, ref):
+    """The largest |got - ref| as a share of output_tolerance(ref); where
+    the tolerance is 0 (an empty row, whose ref is 0) any difference is
+    infinite."""
+    d = (got.float() - ref.float()).abs()
+    tol = output_tolerance(ref)
+    share = torch.where(tol > 0, d / torch.where(tol > 0, tol, 1.0),
+                        torch.where(d > 0, math.inf, 0.0))
+    return float(share.max())
+
+
+@contextlib.contextmanager
+def splits_at(num_kv_heads):
+    """The kernels' split rules (packed_splits, float_splits) taken at
+    num_kv_heads KV heads whatever a call's own: a TP rank's kernels then
+    split each (sequence, KV head) into as many blocks as the single-device
+    run's do, and round its softmax weights alike."""
+    from qkv_ecc_tpu_torch.kernels import paged_attention as pa
+
+    rules = pa.packed_splits, pa.float_splits
+    pa.packed_splits = lambda batch, hkv, *a: rules[0](batch, num_kv_heads, *a)
+    pa.float_splits = lambda batch, hkv, *a: rules[1](batch, num_kv_heads, *a)
+    try:
+        yield
+    finally:
+        pa.packed_splits, pa.float_splits = rules
+
+
+def tp_path(torch, mesh, cfg, mode, prompt, steps, seed=0):
+    """One arm of the tensor-parallel decode on this rank against the
+    single-device runtime on the same card: weights from ``seed`` in cfg's
+    dtype, the same generator draws (full-shape masks sliced by the TP
+    run). The TP prefill (which runs no kernel) is compared with the
+    single-device prefill. The TP decode then starts from the rank's head
+    slice of the single-device prefill cache, fed the single-device run's
+    greedy tokens, twice: as the path runs it (the kernels' split rules at
+    the rank's KV heads: launches and logits), and with the kernels split
+    as the single-device run's (splits_at), so that the words they write
+    at the decode positions differ only by the row-parallel sums' order.
+    Returns the words differing from the single-device slice by layer
+    (after the prefill, and after each decode at the decode positions and
+    elsewhere), the logits' largest share of output_tolerance in each
+    decode, the ECC counts of the second and the first decode's launches
+    by kernel branch."""
+    import dataclasses
+    from qkv_ecc_tpu_torch.kernels.paged_attention import (
+        paged_attention_ecc_write_attend as write_attend, write_decode_attend)
+    from qkv_ecc_tpu_torch.kernels import swar
+    from qkv_ecc_tpu_torch.models.kv_policy import policy_for_mode
+    from qkv_ecc_tpu_torch.models.registry import init_params
+    from qkv_ecc_tpu_torch.models import runtime as rt
+    from qkv_ecc_tpu_torch.parallel.sharding import shard_params
+    from qkv_ecc_tpu_torch.parallel.tp_runtime import make_tp_functions
+
+    device = mesh.device
+    stats = mode.endswith("/stats")
+    pol = policy_for_mode(mode.split("/")[0], ber=BER, seed=42)
+    if stats:
+        pol = dataclasses.replace(pol, scrub=False)
+    params = init_params(cfg, seed=seed, device=device, dtype=cfg.torch_dtype)
+    ids = torch.randint(0, cfg.vocab_size, (BATCH, prompt), device=device,
+                        generator=torch.Generator(device=device).manual_seed(seed + 1))
+    T = prompt + steps + 1
+    hl = cfg.num_kv_heads // mesh.model
+    heads = slice(mesh.model_index * hl, (mesh.model_index + 1) * hl)
+    names = ("k_cache", "v_cache", "k_parity", "v_parity", "k_scales", "v_scales")
+    # the single-device run
+    g = torch.Generator(device=device).manual_seed(7)
+    state, bt, _ = rt.init_generation_state(cfg, pol, BATCH, T, device=device)
+    logits, state = rt.prefill(params, ids, state, bt, cfg, pol, g)
+    names = [n for n in names if n in state]
+    prefilled = {n: state[n][:, :, heads].clone() for n in names}
+    ref_logits, toks = [], []
+    for _ in range(steps):
+        toks.append(torch.argmax(logits, -1))
+        logits, state = rt.decode_step(params, toks[-1], state, bt, cfg, pol, g,
+                                       collect_ecc_stats=stats)
+        ref_logits.append(logits)
+    final = {n: state[n][:, :, heads] for n in names}
+    # the TP run on the same draws
+    local = shard_params(params, cfg, mesh)
+    init_state, prefill, decode_step = make_tp_functions(cfg, pol, mesh,
+                                                         collect_ecc_stats=stats)
+    g = torch.Generator(device=device).manual_seed(7)
+    tstate, tbt = init_state(BATCH, T)
+    _, tstate = prefill(local, ids, tstate, tbt, g)
+    after_prefill = g.get_state()
+
+    # a word's token: sequence b owns pages [b P, (b + 1) P) of the table
+    bs = state["k_cache"].shape[4]
+    pages = torch.arange(state["k_cache"].shape[1], device=device) % bt.shape[1]
+    token = pages[:, None] * bs + torch.arange(bs, device=device)[None, :]  # [NB, bs]
+    at_decode = (token >= prompt) & (token < prompt + steps)
+
+    def differing(got, want):
+        """Words differing, [L, NB, bs], summed over the cache arrays (the
+        scales excepted), and the words a token holds in all of them."""
+        diff, per_token = 0, 0
+        for n in names:
+            if "scales" in n:
+                continue
+            a, b = raw_bits(got[n]), raw_bits(want[n])
+            diff = diff + (a != b).sum(dim=(2, 3))
+            per_token += a.shape[2] * a.shape[3]
+        return diff, per_token
+
+    diff, per_token = differing(tstate, prefilled)
+    out = dict(cfg=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype, mode=mode, steps=steps,
+               prompt=prompt, prefill_by_layer=diff.sum(dim=(1, 2)).tolist(),
+               prompt_total=int((token < prompt).sum()) * per_token * cfg.num_layers,
+               decode_total=int(at_decode.sum()) * per_token * cfg.num_layers)
+    for run in ("own", "same"):  # the rank's split rules, then the single-device run's
+        for n in names:
+            tstate[n].copy_(prefilled[n])
+        tstate["context_len"].fill_(prompt)
+        tstate.pop("ecc_corrected", None)
+        tstate.pop("ecc_detected", None)
+        g.set_state(after_prefill)
+        torch.cuda.synchronize()
+        reset_counts(write_attend, write_decode_attend)
+        worst = 0.0
+        with splits_at(cfg.num_kv_heads) if run == "same" else contextlib.nullcontext():
+            for tok, ref in zip(toks, ref_logits):
+                logits, tstate = decode_step(local, tok, tstate, tbt, g)
+                worst = max(worst, tolerance_share(torch, logits, ref))
+        torch.cuda.synchronize()
+        diff, _ = differing(tstate, final)
+        out[run] = dict(decode_by_layer=(diff * at_decode).sum(dim=(1, 2)).tolist(),
+                        outside_decode=int((diff * ~at_decode).sum()), worst=worst)
+        if run == "own":
+            out["launches"] = {
+                **{f"write_attend {k}": v for k, v in write_attend.launches_by.items() if v},
+                **{f"decode_attend {k}": v for k, v in write_decode_attend.launches_by.items()
+                   if v}}
+    if stats:
+        out["counts"] = [tstate[n].tolist() for n in ("ecc_corrected", "ecc_detected")]
+        out["ref_counts"] = [state[n].tolist() for n in ("ecc_corrected", "ecc_detected")]
+    if pol.codec == "hamming84":
+        # the syndrome of every stored codeword depends on its flips alone
+        # (a linear code, and a scrub that decides by the syndrome): equal
+        # syndromes mean the same injection, codeword by codeword, whatever
+        # values the two runs quantized
+        maps = []
+        for st in (tstate, final):
+            words = [swar.h84_rebuild_cw_words(st[f"{kv}_cache"], st[f"{kv}_parity"])
+                     for kv in "kv"]
+            maps.append(torch.stack([torch.stack(swar.h84_swar_syndromes(x))
+                                     for pair in words for x in pair]))
+        out["syndromes_equal"] = bool(torch.equal(*maps))
+        a, b, c, _ = maps[1].unbind(1)
+        out["errors"] = int(swar.C.popcount(a | b | c).sum())
+    return out
+
+
+def cp_path(torch, mesh):
+    """K4 with its softmax state on the page shards of bench-0.9b's cache
+    (2 layers, B 8, 16/8 heads), rank r reading pages [r p, (r+1) p) of
+    each row (p: half its pages, rounded up, as shard_context splits its
+    tokens), merged over the ranks (make_cp_attention over the model
+    group), against the single K4 read of the whole cache, in int4,
+    hamming84 and golay (with parity), and with rank 1's shard empty.
+    Returns the largest error over output_tolerance and the CP launches."""
+    from qkv_ecc_tpu_torch.kernels.paged_attention import paged_attention_ecc
+    from qkv_ecc_tpu_torch.parallel.context_parallel import make_cp_attention, shard_context
+
+    device = mesh.device
+    cfg = bench_attention_cfg()
+    names = ("k_cache", "v_cache", "k_scales", "v_scales")
+    out = {"cases": [], "launches": {}}
+    for codec, ctx_list in (("int4", CP_CTX), ("hamming84", CP_CTX), ("golay", CP_CTX),
+                            ("hamming84", CP_EMPTY_CTX)):
+        gen = torch.Generator(device=device).manual_seed(11)  # the same cache on every rank
+        state, bt, _ = (unscrubbed_cache(torch, cfg, f"int4-{codec}" if codec == "hamming84"
+                                         else "int12-golay", [c - 1 for c in ctx_list], gen,
+                                         device)
+                        if codec != "int4" else
+                        encoded_cache(torch, cfg, "int4", [c - 1 for c in ctx_list], 128, gen,
+                                      device))
+        ctx = torch.tensor(ctx_list, dtype=torch.int32, device=device)
+        n = mesh.model
+        local = torch.from_numpy(shard_context(ctx_list, n, 128)).to(device)
+        # shard s of row b: its pages [s pps, (s + 1) pps), pps = ceil(pages / n),
+        # as shard_context splits the tokens
+        pages = [-(-c // 128) for c in ctx_list]
+        pps = [-(-p // n) for p in pages]
+        bt_sh = torch.full((n, BATCH, max(max(pps), 1)), -1, dtype=torch.int32)
+        for sh in range(n):
+            for b, (p, q) in enumerate(zip(pages, pps)):
+                lo, hi = sh * q, min((sh + 1) * q, p)
+                if hi > lo:
+                    bt_sh[sh, b, :hi - lo] = bt[b, lo:hi].cpu()
+        bt_sh = bt_sh.to(device)
+        q = torch.randn((BATCH, cfg.num_heads, cfg.head_dim), generator=gen,
+                        device=device).to(torch.bfloat16)
+        parity = () if codec == "int4" else (state["k_parity"], state["v_parity"])
+        fn = make_cp_attention(mesh, "model", with_parity=bool(parity), codec=codec)
+        torch.cuda.synchronize()
+        before = dict(paged_attention_ecc.launches_by)
+        got = fn(q, *(state[n] for n in names), bt_sh, local, 1, *parity)
+        torch.cuda.synchronize()
+        for k, v in paged_attention_ecc.launches_by.items():
+            if v - before[k]:
+                out["launches"][k] = out["launches"].get(k, 0) + v - before[k]
+        ref = paged_attention_ecc(q, *(state[n] for n in names), bt, ctx, 1, *parity,
+                                  codec=codec)
+        err = tolerance_share(torch, got, ref)
+        out["cases"].append(dict(codec=codec, empty=ctx_list is CP_EMPTY_CTX, err=err,
+                                 finite=bool(torch.isfinite(got).all()),
+                                 local=local[mesh.model_index].tolist()))
+    return out
+
+
+def tp_server_path(torch, mesh):
+    """TPContinuousBatchingServer on this rank against the single-device
+    server on the same card: JAX's test_tp_server_mesh_2x4_end_to_end
+    (tests/test_serving.py:250-306) on its model, tiny-llama at 8/4 heads
+    (head_dim 16, float32, seed 3; 16-token pages): the admitted caches
+    equal within 1e-6, one decode step's logits within 1e-4, then
+    SERVE_TP_REQUESTS requests through 8 slots in int4-hamming84 at BER 0,
+    staggered, the share of stream tokens that agree (JAX asks for more
+    than 0.7). Returns the numbers and the TP server's launches."""
+    import dataclasses
+    from qkv_ecc_tpu_torch.kernels.paged_attention import (
+        paged_attention_ecc_write_attend as write_attend, write_decode_attend)
+    from qkv_ecc_tpu_torch.models.config import TINY_LLAMA
+    from qkv_ecc_tpu_torch.models.kv_policy import policy_for_mode
+    from qkv_ecc_tpu_torch.models.registry import init_params
+    from qkv_ecc_tpu_torch.serving import ContinuousBatchingServer, Request
+    from qkv_ecc_tpu_torch.serving import TPContinuousBatchingServer
+
+    device = mesh.device
+    cfg = dataclasses.replace(TINY_LLAMA, num_heads=8, num_kv_heads=4, name="tp-serve")
+    params = init_params(cfg, seed=3, device=device)
+    pol = policy_for_mode("int4-hamming84", ber=0.0, seed=42)
+    rng = torch.Generator().manual_seed(5)
+    lens = torch.randint(5, 40, (SERVE_TP_REQUESTS,), generator=rng).tolist()
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).numpy() for n in lens]
+    kw = dict(max_batch=8, max_seq_len=96, block_size=16)
+    hl = cfg.num_kv_heads // mesh.model
+    heads = slice(mesh.model_index * hl, (mesh.model_index + 1) * hl)
+
+    def servers():
+        return (ContinuousBatchingServer(params, cfg, pol, device=device, **kw),
+                TPContinuousBatchingServer(params, cfg, pol, mesh, **kw))
+
+    base, tp = servers()
+    for s in (base, tp):
+        s.add_request(Request(0, prompts[0], max_new_tokens=6))
+        s.add_request(Request(1, prompts[1], max_new_tokens=6))
+        s._try_admit()
+    state_err = max(float((tp.state[n].double() - base.state[n][:, :, heads].double()).abs().max())
+                    for n in ("k_cache", "v_cache", "k_parity", "v_parity", "k_scales",
+                              "v_scales"))
+    toks = torch.tensor([base.slots[0].next_token, base.slots[1].next_token] + [0] * 6,
+                        device=device)
+    logit_err = float((tp._run_decode(toks, tp._block_table())
+                       - base._run_decode(toks, base._block_table())).abs().max())
+    base, tp = servers()
+    reset_counts(write_attend, write_decode_attend)
+    streams = []
+    for s in (tp, base):
+        for i, p in enumerate(prompts[:8]):
+            s.add_request(Request(i, p, max_new_tokens=16))
+        s.step()
+        for i, p in enumerate(prompts[8:], start=8):
+            s.add_request(Request(i, p, max_new_tokens=16))
+        streams.append({o.request_id: list(o.token_ids) for o in s.run()})
+        if s is tp:
+            torch.cuda.synchronize()
+            launches = {**{f"write_attend {k}": v for k, v in write_attend.launches_by.items()
+                           if v},
+                        **{f"decode_attend {k}": v
+                           for k, v in write_decode_attend.launches_by.items() if v}}
+            steps = s._step_counter
+    match = sum(a == b for rid, t in streams[0].items() for a, b in zip(t, streams[1][rid]))
+    total = sum(len(t) for t in streams[1].values())
+    return dict(state_err=state_err, logit_err=logit_err, match=match, total=total,
+                finished=len(streams[0]), launches=launches, steps=steps,
+                layers=cfg.num_layers)
+
+
+def par_rank():
+    """A spawned rank of the parallel phase (parallel/launch.spawn): the
+    TP arms, the CP reads and the TP server on a 1 x PAR_RANKS mesh."""
+    import dataclasses
+    import torch
+    from qkv_ecc_tpu_torch.models.config import BENCH_0_9B, GPT2_124M, TRAINED_100M
+    from qkv_ecc_tpu_torch.parallel.launch import rank_device_from_env
+    from qkv_ecc_tpu_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh(1, PAR_RANKS, device=rank_device_from_env())
+    bench = dataclasses.replace(BENCH_0_9B, num_layers=TP_LAYERS)  # bfloat16, as configured
+    f32 = dict(dtype="float32")
+    t = time.perf_counter()
+    tp = [tp_path(torch, mesh, dataclasses.replace(bench, **f32), mode, TP_PROMPT, TP_STEPS)
+          for mode in TP_ARMS]
+    tp += [tp_path(torch, mesh, bench, mode, TP_PROMPT, TP_STEPS) for mode in TP_BF16_ARMS]
+    tp.append(tp_path(torch, mesh, dataclasses.replace(GPT2_124M, **f32), "int4-hamming84",
+                      TP_GPT2_PROMPT, 2))
+    tp += [tp_path(torch, mesh, dataclasses.replace(TRAINED_100M, **f32), mode, TP_100M_PROMPT, 1)
+           for mode in ("int12-golay", "int4-hamming84/stats")]
+    seconds = {"tp": time.perf_counter() - t}
+    t = time.perf_counter()
+    cp = cp_path(torch, mesh)
+    seconds["cp"] = time.perf_counter() - t
+    t = time.perf_counter()
+    server = tp_server_path(torch, mesh)
+    seconds["server"] = time.perf_counter() - t
+    return dict(rank=mesh.rank, tp=tp, cp=cp, server=server, seconds=seconds)
+
+
+# How far a TP shard's stored words may differ from the single-device
+# slice on the card (readings: PERF.md §6, an H100 at 700 W). The
+# row-parallel sums add the same terms in another order (and cuBLAS may
+# order a column shard's sums otherwise), so a K/V value on a quantization
+# boundary can store the neighbouring code.
+#   * After the prefill (which runs no kernel) every later position of the
+#     prompt attends such a value, so the words of the next layers differ
+#     more, layer by layer: float32, none of layer 0's int4 words (its K/V
+#     depend on the embedding and one column shard alone), 0 to 9 of 8.4M
+#     bfloat16 values in fp16's (TP_LAYER0_BF16_SHARE), and 1.5e-3 to
+#     7.8e-3 of the prompt's words at 4 to 14 layers (TP_WORD_SHARE).
+#   * The decode starts from the single-device prefill cache. At the
+#     rank's own split rules the kernels split a sequence into other
+#     blocks than the single-device run's, whose softmax weights round
+#     otherwise (2.2e-2 to 2.9e-2 of the decode positions' int4 words
+#     differ at bench-0.9b, 0.32 of fp16's values): printed, and the
+#     logits held to output_tolerance. With the single-device run's splits
+#     (splits_at) only the sums' order is left: layer 0's words must be
+#     equal (fp16: within TP_LAYER0_FP16_DECODE_SHARE, 9 of 32768 values),
+#     the others within TP_DECODE_WORD_SHARE (read: 0 to 5.6e-4) or
+#     TP_DECODE_FP16_SHARE (4.75e-3), and every word outside the decode
+#     positions equal after either decode.
+#   * In bfloat16 (bench-0.9b's own dtype) each row-parallel sum rounds its
+#     partials and then their sum, against one rounding on a single device,
+#     so the residual stream differs by an ulp in many elements from layer
+#     0's sums on: 0.140 of the prompt's words and 0.117 of the decode
+#     positions' (layer 0's equal), the logits within 3.67 to 3.85 of
+#     output_tolerance (the _BF16 bounds).
+# A wrong mask slice or head mapping differs in about a third of the words
+# from layer 0 on, and wrong words at the decode positions in nearly all of
+# theirs; the ECC counts and every Hamming(8,4) codeword's syndrome must
+# be equal anyway.
+TP_WORD_SHARE = 2e-2
+TP_LAYER0_BF16_SHARE = 1e-5
+TP_DECODE_WORD_SHARE = 3e-3
+TP_DECODE_FP16_SHARE = 2e-2
+TP_LAYER0_FP16_DECODE_SHARE = 1e-3
+TP_WORD_SHARE_BF16 = 3e-1
+TP_DECODE_WORD_SHARE_BF16 = 3e-1
+TP_LOGITS_BF16 = 8.0
+
+
+def parallel_phase(torch, smi):
+    """The parallel layer on PAR_RANKS gloo ranks sharing the card (one
+    spawn; a rank that fails fails the run): tp_path's arms, cp_path and
+    tp_server_path, each rank's results checked here. Returns the launches
+    of the TP arms, the TP server and CP (K4 by branch), summed over the
+    ranks."""
+    from qkv_ecc_tpu_torch.parallel.launch import spawn
+
+    try:
+        ranks = spawn("chip_smoke:par_rank", PAR_RANKS, backend="gloo", device="cuda:0",
+                      timeout=600)
+    except RuntimeError as e:
+        fail(f"parallel: {e}")
+    tp_l, serve_l, cp_l = {}, {}, {}
+    for r in ranks:
+        say(f"  rank {r['rank']} of {PAR_RANKS} (gloo, sharing cuda:0): "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in r["seconds"].items()))
+        for a in r["tp"]:
+            bf16 = a["dtype"] == "bfloat16"
+            pre = sum(a["prefill_by_layer"]) / a["prompt_total"]
+            dec = {run: sum(a[run]["decode_by_layer"]) / a["decode_total"]
+                   for run in ("own", "same")}
+            say(f"  rank {r['rank']} TP {a['cfg']} ({a['layers']} layers, {a['dtype']}) "
+                f"{a['mode']} at model {PAR_RANKS}, batch {BATCH}, prompt {a['prompt']} + "
+                f"{a['steps']} steps, BER {BER}: stored words differing from the single-device "
+                f"slice after the prefill {sum(a['prefill_by_layer'])} of {a['prompt_total']} "
+                f"({pre:.2e}; by layer {a['prefill_by_layer']}); after the decode from the "
+                f"single-device prefill cache, at the decode positions, "
+                + "; ".join(f"{how} {sum(a[run]['decode_by_layer'])} of {a['decode_total']} "
+                            f"({dec[run]:.2e}; by layer {a[run]['decode_by_layer']}), "
+                            f"elsewhere {a[run]['outside_decode']}, logits within "
+                            f"{a[run]['worst']:.3f} of output_tolerance"
+                            for run, how in (("own", "the rank's splits"),
+                                             ("same", "the single-device run's splits")))
+                + f"; launches {a['launches']}"
+                + (f"; ECC counts {a['counts']} (single device {a['ref_counts']})"
+                   if "counts" in a else "")
+                + (f"; syndromes of every codeword equal ({a['errors']} corrupted): "
+                   f"{a['syndromes_equal']}" if "syndromes_equal" in a else "") + f" ({smi})")
+            layer_words = (a["prompt_total"] / a["layers"], a["decode_total"] / a["layers"])
+            fp16 = a["mode"] == "fp16"
+            same = a["same"]
+            ok = (pre <= (TP_WORD_SHARE_BF16 if bf16 else TP_WORD_SHARE)
+                  and dec["same"] <= (TP_DECODE_WORD_SHARE_BF16 if bf16 else
+                                      TP_DECODE_FP16_SHARE if fp16 else TP_DECODE_WORD_SHARE)
+                  and a["own"]["outside_decode"] == same["outside_decode"] == 0
+                  and a["prefill_by_layer"][0] <= (TP_LAYER0_BF16_SHARE if fp16 else 0)
+                  * layer_words[0]
+                  and same["decode_by_layer"][0] <= (TP_LAYER0_FP16_DECODE_SHARE if fp16 else 0)
+                  * layer_words[1]
+                  and max(a["own"]["worst"], same["worst"]) <= (TP_LOGITS_BF16 if bf16 else 1.0))
+            if "counts" in a:
+                ok = ok and a["counts"] == a["ref_counts"]
+            if "syndromes_equal" in a:
+                ok = ok and a["syndromes_equal"]
+            if not ok:
+                fail(f"TP {a['cfg']} {a['dtype']} {a['mode']}: rank {r['rank']} disagrees with "
+                     "the single-device run")
+            want = a["layers"] * a["steps"]
+            branch = ("decode_attend hamming84" if "counts" in a else
+                      "write_attend fp16" if a["mode"] == "fp16" else "write_attend read")
+            if a["launches"] != {branch: want}:
+                fail(f"TP {a['cfg']} {a['mode']}: launches {a['launches']}, expected "
+                     f"{{{branch}: {want}}} ({a['layers']} layers x {a['steps']} steps)")
+            tp_l[branch] = tp_l.get(branch, 0) + want
+        for c in r["cp"]["cases"]:
+            say(f"  rank {r['rank']} CP {c['codec']} (K4 softmax state, local contexts "
+                f"{c['local']}): merged read within {c['err']:.3f} of output_tolerance of the "
+                f"single K4 read; finite {c['finite']}" + (" (rank 1's shard empty)"
+                                                          if c["empty"] else ""))
+            if not (c["err"] <= 1.0 and c["finite"]):
+                fail(f"CP {c['codec']}: rank {r['rank']} disagrees with the single K4 read")
+        cp_want = {"read": 1, "hamming84": 2, "golay": 1}  # one read a case
+        if r["cp"]["launches"] != cp_want:
+            fail(f"CP: rank {r['rank']} launched K4 {r['cp']['launches']}, not {cp_want}")
+        for k, v in r["cp"]["launches"].items():
+            cp_l[k] = cp_l.get(k, 0) + v
+        s = r["server"]
+        say(f"  rank {r['rank']} TP server (tiny-llama 8/4 heads, 8 slots, {SERVE_TP_REQUESTS} "
+            f"requests, int4-hamming84, BER 0): admitted caches within {s['state_err']:.2e} "
+            f"(JAX asks < 1e-6), one step's logits within {s['logit_err']:.2e} (< 1e-4); "
+            f"{s['finished']} finished; stream tokens agreeing with the single-device server "
+            f"{s['match']} of {s['total']} ({s['match'] / s['total']:.3f}; JAX asks > 0.7); "
+            f"launches {s['launches']} over {s['steps']} steps")
+        if not (s["state_err"] < 1e-6 and s["logit_err"] < 1e-4 and s["finished"] ==
+                SERVE_TP_REQUESTS and s["match"] / s["total"] > 0.7):
+            fail(f"TP server: rank {r['rank']} disagrees with the single-device server")
+        # the server collects ECC statistics: the correcting read, K2
+        want = {"decode_attend hamming84": s["layers"] * s["steps"]}
+        if s["launches"] != want:
+            fail(f"TP server: launches {s['launches']}, expected {want} ({s['layers']} layers "
+                 f"x {s['steps']} steps)")
+        serve_l["hamming84"] = serve_l.get("hamming84", 0) + want["decode_attend hamming84"]
+    return tp_l, serve_l, cp_l
+
+
+SCALING_ORDER = ("single", "1x1", "1x1", "single")
+
+
+def scaling_rank():
+    """A spawned rank of the scaling 1x1 phase: measure_tp_mesh on a 1x1
+    mesh (world size 1, NCCL) and measure_single_device in the same
+    process, in SCALING_ORDER (the scaling phase's arm and shapes)."""
+    import torch
+    from qkv_ecc_tpu_torch.benchmarks.scaling import measure_single_device, measure_tp_mesh
+    from qkv_ecc_tpu_torch.models.config import BENCH_0_9B as cfg
+    from qkv_ecc_tpu_torch.models.kv_policy import policy_for_mode
+    from qkv_ecc_tpu_torch.parallel.launch import rank_device_from_env
+    from qkv_ecc_tpu_torch.parallel.mesh import create_mesh
+
+    mesh = create_mesh(1, 1, device=rank_device_from_env())
+    pol = policy_for_mode("int12-golay", ber=BER, seed=42)
+    shapes = dict(prompt_len=64, steps=20, block_size=128)
+    rows = [measure_tp_mesh(cfg, pol, batch_per_data=4, mesh=mesh, **shapes) if tier == "1x1"
+            else measure_single_device(cfg, pol, batch=4, device=mesh.device, **shapes)
+            for tier in SCALING_ORDER]
+    assert torch.distributed.get_backend() == "nccl"
+    return rows, {tier: step_trace(torch, mesh, cfg, pol, tier) for tier in ("single", "1x1")}
+
+
+def step_trace(torch, mesh, cfg, pol, tier, steps=3):
+    """torch.profiler over ``steps`` decode steps of bench-0.9b (batch 4,
+    prompt 64) through the runtime (tier "single") or the TP functions on
+    ``mesh`` ("1x1"): CUDA kernels, device ms and host operations a step,
+    and the collectives' events."""
+    from torch.profiler import ProfilerActivity, profile
+    from qkv_ecc_tpu_torch.models import runtime as rt
+    from qkv_ecc_tpu_torch.models.registry import init_params
+    from qkv_ecc_tpu_torch.parallel.sharding import shard_params
+    from qkv_ecc_tpu_torch.parallel.tp_runtime import make_tp_functions
+
+    dev = mesh.device
+    params = init_params(cfg, 0, device=dev, dtype=cfg.torch_dtype)
+    ids = torch.randint(0, cfg.vocab_size, (4, 64), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    g = torch.Generator(device=dev).manual_seed(42)
+    if tier == "single":
+        state, bt, _ = rt.init_generation_state(cfg, pol, 4, 128, device=dev)
+        logits, state = rt.prefill(params, ids, state, bt, cfg, pol, g)
+
+        def step(tok, state):
+            return rt.decode_step(params, tok, state, bt, cfg, pol, g)
+    else:
+        init_state, prefill, decode_step = make_tp_functions(cfg, pol, mesh)
+        params = shard_params(params, cfg, mesh)
+        state, bt = init_state(4, 128)
+        logits, state = prefill(params, ids, state, bt, g)
+
+        def step(tok, state):
+            return decode_step(params, tok, state, bt, g)
+    for _ in range(steps):  # warm-up
+        logits, state = step(torch.argmax(logits, -1), state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            logits, state = step(torch.argmax(logits, -1), state)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    cuda = [e for e in events if e.device_type.name == "CUDA"]
+    return dict(kernels=sum(e.count for e in cuda) / steps,
+                device_ms=sum(e.self_device_time_total for e in cuda) / steps / 1e3,
+                host_ops=sum(e.count for e in events if e.device_type.name == "CPU") / steps,
+                collectives=sum(e.count for e in events
+                                if any(w in e.key.lower() for w in ("nccl", "all_reduce",
+                                                                   "allreduce", "all_gather"))))
+
+
+def scaling_tp_phase(torch, smi, single_row):
+    """benchmarks.scaling.measure_tp_mesh at 1x1 on the card: one rank
+    through NCCL (spawned; its failure fails the run), measured beside
+    measure_single_device in the same process (SCALING_ORDER), and printed
+    beside this process's single-device row. The gap is the tensor-parallel
+    step's overhead at TP = 1; one card gives no scaling figure. Both steps
+    are traced (step_trace): the 1x1 step must launch the single-device
+    step's kernels and no collective."""
+    from qkv_ecc_tpu_torch.parallel.launch import spawn
+
+    try:
+        rows, traces = spawn("chip_smoke:scaling_rank", 1, backend="nccl", timeout=600)[0]
+    except RuntimeError as e:
+        fail(f"scaling 1x1: {e}")
+    if not all(r["ms_per_step"] > 0 for r in rows) or rows[1]["mesh"] != "1x1":
+        fail("scaling 1x1: no time")
+    ms = {t: [r["ms_per_step"] for r, k in zip(rows, SCALING_ORDER) if k == t]
+          for t in ("single", "1x1")}
+    say(f"  scaling 1x1 (bench-0.9b, int12-golay, BER {BER}, batch 4, prompt 64, 20 steps, "
+        f"block 128; one spawned process, NCCL world size 1), in order "
+        + ", ".join(f"{t} {r['ms_per_step']:.3f}" for t, r in zip(SCALING_ORDER, rows))
+        + f" ms/step: measure_tp_mesh 1x1 {json.dumps(rows[1])}; TP = 1 costs "
+        f"{sum(ms['1x1']) / sum(ms['single']):.4f} x the same process's single-device step "
+        f"(this process's single-device row: {single_row['ms_per_step']:.3f} ms/step; no "
+        f"scaling figure: one card) ({smi})")
+    say("  the same process traced (torch.profiler, 3 decode steps each), a step: "
+        + "; ".join(f"{t} {x['kernels']:.1f} CUDA kernels, {x['device_ms']:.3f} device ms, "
+                    f"{x['host_ops']:.0f} host operations, {x['collectives']} collective events"
+                    for t, x in traces.items()) + f" ({smi})")
+    # a 1x1 mesh has no process group: its step is the single-device step's
+    # work and runs no collective
+    single, tp = traces["single"], traces["1x1"]
+    if tp["collectives"] or abs(tp["kernels"] - single["kernels"]) > 0.01 * single["kernels"]:
+        fail("scaling 1x1: the TP = 1 step does other device work than the single-device step")
+    return rows
+
+
+def instance_checks(torch, gen, device):
+    """M17: the kernel instances of tiny-gpt2 (group 1 at head_dim 16: 4/4
+    heads) and trained-100m (group 3 at head_dim 64: 12/4 heads) against
+    their plain versions (group1_kernel_check's checks at B 8, contexts 1
+    to 512), twice: against the unsplit plain version, with the row term
+    of output_tolerance scaled by SPLIT_ROW_SCALE for their S of 4 (and,
+    at head_dim 16, to a 64-value row, as trained-tiny's at 32), and then
+    the packed reads against the plain model of the split they take
+    (split_model), at the unscaled row term. Then a shape no model
+    registers raises (unbuilt_shape_check). Returns the largest error of
+    each branch."""
+    import dataclasses
+    from qkv_ecc_tpu_torch.models.config import TINY_GPT2, TRAINED_100M
+
+    global ROW_TERM_SCALE
+    worst = {}
+    for cfg, scale in ((dataclasses.replace(TINY_GPT2, num_layers=2), math.sqrt(
+            math.log(64) / math.log(16))), (dataclasses.replace(TRAINED_100M, num_layers=2), 1.0)):
+        for split, s in ((False, scale * SPLIT_ROW_SCALE), (True, scale)):
+            ROW_TERM_SCALE = s
+            try:
+                with split_model() if split else contextlib.nullcontext():
+                    checked = group1_kernel_check(torch, gen, device, cfg, TINY_CTX_BEFORE,
+                                                  TINY_K4_CTX)
+            finally:
+                ROW_TERM_SCALE = 1.0
+            for k, v in checked.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+    unbuilt_shape_check(torch, device)
+    return worst
+
+
+# The M17 instances run at S = 4 blocks a (sequence, KV head), where gpt2's
+# group-1 checks, on which output_tolerance's row term was set, run at 2.
+# Each block rounds its weights to bfloat16 against its own maximum, so the
+# split read's difference from the unsplit plain version is a sum of
+# independent roundings of the weights that the blocks without the row's
+# maximum read: (S - 1) / S of them, 1/2 at S = 2 and 3/4 at S = 4. Its
+# spread grows as the square root of that share, sqrt(3/2) from S 2 to 4
+# (and no more than sqrt(7/4) at S 8). Measured on an H100 without it
+# (split_rounding_report): 1.0045 of the tolerance on a trained-100m K4
+# hamming74 read at S 4 in one run, 0.612 in another (0.427 at S 2).
+# trained-tiny's instances, at S 4 too, stayed within their head_dim scale
+# alone (tiny_kernel_check).
+SPLIT_ROW_SCALE = math.sqrt(1.5)
+
+
+def split_rounding_report(torch, gen, device, cfg, smi):
+    """How the split's rounding grows with S (SPLIT_ROW_SCALE): K4's
+    hamming74 read at cfg's attention shapes (B 8, contexts TINY_K4_CTX) at
+    S 1, 2, 4 and 8 blocks a (sequence, KV head), its largest |kernel -
+    plain| as a share of the unscaled output_tolerance against the unsplit
+    plain version and against the plain model of its split. Printed, not
+    asserted: the asserted checks are instance_checks'."""
+    import dataclasses
+    from qkv_ecc_tpu_torch.kernels.paged_attention import attend_plain, paged_attention_ecc
+
+    cfg = dataclasses.replace(cfg, num_layers=2)
+    ctx_list = TINY_K4_CTX
+    state, bt, _ = unscrubbed_cache(torch, cfg, "int4-hamming", [max(c - 1, 0) for c in ctx_list],
+                                    gen, device)
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device=device)
+    q = torch.randn((len(ctx_list), cfg.num_heads, cfg.head_dim), generator=gen, device=device)
+    args = (q, *(state[n] for n in ("k_cache", "v_cache", "k_scales", "v_scales")), bt, ctx, 1,
+            state["k_parity"], state["v_parity"])
+    ppc = min(4, bt.shape[1])
+    shares = {}
+    for s in (1, 2, 4, 8):
+        with forced_splits(s):
+            out = paged_attention_ecc(*args, codec="hamming74")
+            torch.cuda.synchronize()
+            plain = attend_plain(*args, codec="hamming74", sm_scale=cfg.head_dim ** -0.5,
+                                 num_pages=bt.shape[1], pages_per_chunk=ppc)
+            with split_model():
+                model = attend_plain(*args, codec="hamming74", sm_scale=cfg.head_dim ** -0.5,
+                                     num_pages=bt.shape[1], pages_per_chunk=ppc)
+        shares[s] = (tolerance_share(torch, out, plain), tolerance_share(torch, out, model))
+    say(f"  {cfg.name} K4 hamming74, largest share of output_tolerance against the unsplit "
+        "plain version / the plain model of the split, by blocks a (sequence, KV head): "
+        + ", ".join(f"S {s} {a:.3f} / {b:.4f}" for s, (a, b) in shares.items()) + f" ({smi})")
+
+
+def instance_times(torch, gen, device, smi):
+    """M17's instances timed at their models' decode shapes
+    (tiny_kernel_times): tiny-gpt2 (2 layers, 4/4 heads at head_dim 16)
+    and trained-100m (14 layers, 12/4 heads at head_dim 64)."""
+    from qkv_ecc_tpu_torch.models.config import TINY_GPT2, TRAINED_100M
+
+    return {cfg.name: tiny_kernel_times(torch, gen, device, smi, cfg)
+            for cfg in (TINY_GPT2, TRAINED_100M)}
+
+
+# the arms of the M17 decode phase and the kernel branch each launches:
+# (0: write_attend, 1: decode_attend, branch) - every instance of a
+# configuration, the extract read, K2r, K3, K2f and each correcting read
+M17_MODES = {"int12-golay": (0, "read"), "int4-hamming84": (0, "read"),
+             "int4-hamming": (0, "read"), "int4-write-inject": (0, "read"),
+             "int4": (0, "read-inject"), "int4-hamming84-interp": (1, "hamming84-interp"),
+             "fp16": (0, "fp16"), "fp8": (0, "fp8"), "int12-golay/stats": (1, "golay"),
+             "int4-hamming/stats": (1, "hamming74"), "int4-hamming84/stats": (1, "hamming84")}
+def m17_decode_phase(torch, device, smi):
+    """tiny-gpt2 and trained-100m (2 layers, random weights) decode on the
+    card through their own instances: tiny_agreement in M17_MODES (prefill
+    and TINY_STEPS decode steps at BER 1e-2, the card against the CPU on
+    the same weights and draws: logits, tokens and ECC counts), each
+    branch's launches exact. Returns the launches by branch."""
+    import dataclasses
+    from qkv_ecc_tpu_torch.kernels.paged_attention import (
+        paged_attention_ecc_write_attend as write_attend, write_decode_attend)
+    from qkv_ecc_tpu_torch.models.config import TINY_GPT2, TRAINED_100M
+
+    launches = ({}, {})
+    for cfg in (TINY_GPT2, dataclasses.replace(TRAINED_100M, num_layers=2)):
+        reset_counts(write_attend, write_decode_attend)
+        tiny_agreement(torch, device, cfg, tuple(M17_MODES))
+        torch.cuda.synchronize()
+        want = ({}, {})
+        for i, branch in M17_MODES.values():
+            want[i][branch] = want[i].get(branch, 0) + cfg.num_layers * TINY_STEPS
+        how = f"{cfg.num_layers} layers x {TINY_STEPS} steps x the arms that call it"
+        check_launches(f"M17 decode {cfg.name}", {
+            f"{name} {k}": (w.launches_by[k], want[i].get(k, 0), how)
+            for i, (name, w) in enumerate((("write_attend", write_attend),
+                                           ("decode_attend", write_decode_attend)))
+            for k in w.launches_by})
+        for i, w in enumerate((write_attend, write_decode_attend)):
+            for k, v in w.launches_by.items():
+                launches[i][k] = launches[i].get(k, 0) + v
+    return launches
+
+
+def golay_sliced_check(torch, device):
+    """M12: kernels/golay_sliced.py (plain torch, no kernel) on CUDA
+    tensors equals its CPU result: the bit-sliced pack, the IMLD network
+    with its error planes, the nibble words and the error counts, on 3072
+    codewords a column with 0-5 flips each."""
+    from qkv_ecc_tpu_torch.kernels import common as C
+    from qkv_ecc_tpu_torch.kernels import golay_sliced as gs
+    from qkv_ecc_tpu_torch.kernels.swar import _B_MASKS
+
+    G, bs = 12, 128
+    g = torch.Generator().manual_seed(9)
+    data = torch.randint(0, 4096, (32 * G, bs), generator=g, dtype=torch.int32)
+    cw = C.golay_encode_i32(data, _B_MASKS)
+    for _ in range(5):
+        flip = torch.randint(0, 2, cw.shape, generator=g, dtype=torch.int32)
+        cw = cw ^ (flip << torch.randint(0, 24, cw.shape, generator=g, dtype=torch.int32))
+    outs = []
+    for dev in ("cpu", device):
+        w = gs.golay_slice_pack(cw.to(dev), G, axis=0)
+        dec, corr, (ed, ep) = gs.golay_sliced_correct_planes(w, G, full_errors=True)
+        valid = gs.valid_row_masks(G, 32 * G).to(dev)[:, None].expand(G, bs).contiguous()
+        counts = torch.stack(gs.sliced_error_count(ed, ep, corr, valid, G))
+        outs.append([x.cpu() for x in (w, dec, corr, ed, ep, counts,
+                                       *gs.sliced_nibble_words(dec, G),
+                                       gs.golay_slice_unpack(w, G, axis=0))])
+    same = all(torch.equal(a, b) for a, b in zip(*outs))
+    say(f"  golay_sliced on cuda equals the CPU: {same} (G {G}, {32 * G} x {bs} codewords; "
+        f"corrected bits {int(outs[0][5][0])}, uncorrectable {int(outs[0][5][1])})")
+    if not same:
+        fail("golay_sliced: the card's result differs from the CPU's")
+
+
 def device_ms(torch, fn, n, layers, wrapper):
     """Device time per call of fn over n calls run back to back on the card,
     cycling the layers, after 3 warm-up calls. The stream is first held by a
@@ -3495,8 +4315,18 @@ def main():
         max_err_tiny = tiny_kernel_check(torch, gen, device)
         tiny_kernel_times(torch, gen, device, smi)
 
+    with Phase("M17 kernel check"):
+        max_err_m17 = instance_checks(torch, gen, device)
+        from qkv_ecc_tpu_torch.models.config import TRAINED_100M
+
+        split_rounding_report(torch, gen, device, TRAINED_100M, smi)
+        instance_times(torch, gen, device, smi)
+
     with Phase("tiny agreement"):
         tiny_agreement(torch, device)
+
+    with Phase("M17 decode"):
+        m17_launches = m17_decode_phase(torch, device, smi)
 
     per_arm = cfg.num_layers * STEPS * ROUNDS
     with Phase("slice"):
@@ -3669,7 +4499,16 @@ def main():
         harness_launches = harness_phase(torch, smi)
 
     with Phase("scaling"):
-        _, scaling_launches = scaling_phase(torch, smi)
+        single_row, scaling_launches = scaling_phase(torch, smi)
+
+    with Phase("scaling 1x1"):
+        scaling_tp_phase(torch, smi, single_row)
+
+    with Phase("parallel"):
+        tp_launches, tp_serve_launches, cp_launches = parallel_phase(torch, smi)
+
+    with Phase("golay_sliced"):
+        golay_sliced_check(torch, device)
 
     with Phase("kernel timing"):
         group = cfg.num_heads // cfg.num_kv_heads
@@ -3977,10 +4816,26 @@ def main():
         trace_decode(torch, gpt2_params, gpt2_ids, gen, device, smi, GPT2_124M, steps=2)
         del gpt2_params
 
+    from qkv_ecc_tpu_torch.kernels.paged_attention import (
+        DECODE_KERNEL_SHAPES, FLOAT_KERNEL_SHAPES, KERNEL_SHAPES)
+
+    def instances(key, source):
+        """The instances built for a row: (data words, group, head_dim) of the
+        packed reads, (codec, data words, parity words, group, head_dim) of
+        the correcting reads, (group, head_dim) of K2f."""
+        if key.removeprefix("k4-") in ("fp16", "fp8"):
+            return [list(x) for x in FLOAT_KERNEL_SHAPES]
+        if source == "decode_attend.cu":
+            codec = key.removeprefix("k4-").removesuffix("-interp")
+            return [list(x) for x in DECODE_KERNEL_SHAPES if x[0] == codec]
+        if source == "write_attend.cu":
+            return [list(x) for x in KERNEL_SHAPES]
+        return None
+
     def entry(name, key, source, replaces, launches, err):
         return dict(name=name, route="cuda", source=f"qkv_ecc_tpu_torch/csrc/{source}",
                     replaces=f"qkv_ecc_tpu/kernels/{replaces}", launches=launches,
-                    max_abs_err=err, **timings[key])
+                    max_abs_err=err, instances=instances(key, source), **timings[key])
 
     # the write+attend kernels' launches over the decode slice, the stats
     # phase, the serve phase, gpt2's decode and stats, the generation demo on
@@ -3989,16 +4844,26 @@ def main():
     sl, st, sv, g2, k4 = slice_launches, stats_launches, serve_launches, gpt2_launches, k4_launches
     tg, fx = train_launches, experiments_launches
 
-    def wa(i, k):
-        return sl[i][k] + st[i][k] + sv[i][k] + g2[i][k] + tg[i][k] + fx[i][k]
+    # and the M17 decode phase's, the TP arms' and the TP server's (summed
+    # over the ranks); CP's K4 reads
+    par = ({k.split(" ", 1)[1]: v for k, v in tp_launches.items() if k.startswith("write_")},
+           {k.split(" ", 1)[1]: v for k, v in tp_launches.items() if k.startswith("decode_")})
 
-    def g(key, err):  # with the errors of the group-1 instances' checks
-        return max(err, max_err_gpt2.get(key, 0.0), max_err_tiny.get(key, 0.0))
+    def wa(i, k):
+        return (sl[i][k] + st[i][k] + sv[i][k] + g2[i][k] + tg[i][k] + fx[i][k]
+                + m17_launches[i].get(k, 0) + par[i].get(k, 0)
+                + (tp_serve_launches.get(k, 0) if i == 1 else 0))
+
+    def g(key, err):  # with the errors of the group-1, -3 and head_dim-16 instances' checks
+        return max(err, max_err_gpt2.get(key, 0.0), max_err_tiny.get(key, 0.0),
+                   max_err_m17.get(key, 0.0))
 
     # the kernel benchmark's launches of K4 (group 4) and of K5-K9, and the
     # scaling row's of K1
     k4 = dict(k4, hamming84=k4["hamming84"] + harness_launches[("paged_attention_ecc",
                                                                  "hamming84")])
+    # CP's reads (the ranks' K4 with its softmax state, parallel_phase)
+    k4 = {k: v + cp_launches.get(k, 0) for k, v in k4.items()}
 
     def k4_err(key, err):  # with the group-4 check's error on the branch
         return max(err, max_err_g4.get(key, 0.0))

@@ -30,5 +30,9 @@ other experiment CLIs (``evaluation/experiments/``: latency, generation,
 architecture, quantization_ecc_comparison, fault_tolerance_benchmark) and
 the perplexity runner ``evaluation/runners/tpu_eval.py`` run on the card
 too, the decoding ones through the kernels; ``models/convert.py`` converts
-HF checkpoints.
+HF checkpoints. The parallel layer (``parallel/``, ``serving/tp_server.py``)
+runs tensor-, data- and context-parallel decode and serving over
+``torch.distributed``, one process per rank, each rank's attention through
+the same kernels on its own KV heads or pages; ``kernels/golay_sliced.py``
+is the bit-sliced Golay decoder's plain reference (no kernel).
 """

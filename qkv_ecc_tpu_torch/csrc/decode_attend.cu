@@ -720,8 +720,9 @@ extern "C" __global__ void sass_probe_golay_row2(const int32_t* rows, int32_t* o
 // golay 16/17 at head_dim 128, group 2), the bench shapes at group 4
 // (the kernel benchmark's 32 query heads over 8 KV heads) and gpt2's
 // (hamming84 8/8, hamming74 8/6, golay 8/10 at head_dim 64, group 1; also
-// trained-word's) and trained-tiny's (hamming84 4/4, hamming74 4/3, golay
-// 4/5 at head_dim 32, group 1); hamming84 with
+// trained-word's), trained-tiny's (hamming84 4/4, hamming74 4/3, golay
+// 4/5 at head_dim 32, group 1), tiny-gpt2's (tiny-llama's words at group
+// 1) and trained-100m's (gpt2's words at group 3); hamming84 with
 // and without interpolation (interpolate is ignored for the other codecs);
 // any other shape returns cudaErrorInvalidValue. All tensors contiguous; q
 // bf16 (exact = 0) or fp32 (exact = 1); out fp32 (out_bf16 = 0) or bf16
@@ -764,13 +765,23 @@ extern "C" int decode_attend_launch(
   if (group == 2 && head_dim == 128) { DA_HD128(2); }
   if (group == 4 && head_dim == 128) { DA_HD128(4); }
 #undef DA_HD128
-  if (group == 1 && head_dim == 64) {
-    if (codec == kH84 && wd == 8 && pw == 8) {
-      err = interpolate ? launch<kH84, 8, 8, 1, 64, true>(DA_ARGS)
-                        : launch<kH84, 8, 8, 1, 64, false>(DA_ARGS);
+#define DA_HD64(G)                                                                 \
+  if (codec == kH84 && wd == 8 && pw == 8) {                                       \
+    err = interpolate ? launch<kH84, 8, 8, G, 64, true>(DA_ARGS)                   \
+                      : launch<kH84, 8, 8, G, 64, false>(DA_ARGS);                 \
+  }                                                                                \
+  if (codec == kH74 && wd == 8 && pw == 6) err = launch<kH74, 8, 6, G, 64, false>(DA_ARGS); \
+  if (codec == kGolay && wd == 8 && pw == 10) err = launch<kGolay, 8, 10, G, 64, false>(DA_ARGS)
+  if (group == 1 && head_dim == 64) { DA_HD64(1); }
+  if (group == 3 && head_dim == 64) { DA_HD64(3); }
+#undef DA_HD64
+  if (group == 1 && head_dim == 16) {
+    if (codec == kH84 && wd == 2 && pw == 2) {
+      err = interpolate ? launch<kH84, 2, 2, 1, 16, true>(DA_ARGS)
+                        : launch<kH84, 2, 2, 1, 16, false>(DA_ARGS);
     }
-    if (codec == kH74 && wd == 8 && pw == 6) err = launch<kH74, 8, 6, 1, 64, false>(DA_ARGS);
-    if (codec == kGolay && wd == 8 && pw == 10) err = launch<kGolay, 8, 10, 1, 64, false>(DA_ARGS);
+    if (codec == kH74 && wd == 4 && pw == 3) err = launch<kH74, 4, 3, 1, 16, false>(DA_ARGS);
+    if (codec == kGolay && wd == 2 && pw == 4) err = launch<kGolay, 2, 4, 1, 16, false>(DA_ARGS);
   }
   if (group == 1 && head_dim == 32) {
     if (codec == kH84 && wd == 4 && pw == 4) {

@@ -873,7 +873,9 @@ extern "C" __global__ void sass_probe_flip_word2(const uint32_t* elems, uint32_t
 // tiny-llama (hamming74 pads to 4 words), (16, 2, 128) for bench-0.9b,
 // (16, 4, 128) for the kernel benchmark's 32 query heads over 8 KV heads
 // (8, 1, 64) for gpt2 (and trained-word: 12/12 and 6/6 heads at
-// head_dim 64) and (4, 1, 32) for trained-tiny (8/8 heads at head_dim 32);
+// head_dim 64), (4, 1, 32) for trained-tiny (8/8 heads at head_dim 32),
+// (2, 1, 16) and (4, 1, 16) for tiny-gpt2 (4/4 heads at head_dim 16) and
+// (8, 3, 64) for trained-100m (12/4 heads at head_dim 64);
 // any other triple returns cudaErrorInvalidValue. All tensors contiguous;
 // q bf16 (exact = 0) or fp32 (exact = 1); out fp32 (out_bf16 = 0) or bf16
 // (out_bf16 = 1); window <= 0 means no window; P is the block table's row
@@ -905,6 +907,9 @@ extern "C" int write_attend_launch(
   if (wd == 16 && group == 4 && head_dim == 128) WA_LAUNCH(16, 4, 128);
   if (wd == 8 && group == 1 && head_dim == 64) WA_LAUNCH(8, 1, 64);
   if (wd == 4 && group == 1 && head_dim == 32) WA_LAUNCH(4, 1, 32);
+  if (wd == 2 && group == 1 && head_dim == 16) WA_LAUNCH(2, 1, 16);
+  if (wd == 4 && group == 1 && head_dim == 16) WA_LAUNCH(4, 1, 16);
+  if (wd == 8 && group == 3 && head_dim == 64) WA_LAUNCH(8, 3, 64);
 #undef WA_LAUNCH
 #undef WA_ARGS
   return (int)err;
@@ -915,7 +920,8 @@ extern "C" int write_attend_launch(
 // success). fp8 = 0: bfloat16 caches (codec fp16), fp8 = 1: e4m3.
 // Instances for (group, head_dim) = (2, 16) (tiny-llama), (2, 128)
 // (bench-0.9b), (4, 128) (the kernel benchmark), (1, 64) (gpt2,
-// trained-word) and (1, 32) (trained-tiny); any other pair, a
+// trained-word), (1, 32) (trained-tiny), (1, 16) (tiny-gpt2) and (3, 64)
+// (trained-100m); any other pair, a
 // block size that is not a multiple of 16, or caches not 16-byte aligned
 // return cudaErrorInvalidValue.
 // Tensors contiguous; q, out, window, P, num_pages, num_chunks, ppc,
@@ -938,6 +944,8 @@ extern "C" int float_attend_launch(
   if (group == 4 && head_dim == 128) FA_LAUNCH(4, 128);
   if (group == 1 && head_dim == 64) FA_LAUNCH(1, 64);
   if (group == 1 && head_dim == 32) FA_LAUNCH(1, 32);
+  if (group == 1 && head_dim == 16) FA_LAUNCH(1, 16);
+  if (group == 3 && head_dim == 64) FA_LAUNCH(3, 64);
 #undef FA_LAUNCH
 #undef FA_ARGS
   return (int)err;

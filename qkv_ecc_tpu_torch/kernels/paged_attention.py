@@ -73,25 +73,33 @@ _FLOAT = swar.FLOAT_CODECS
 # pads 16 values to 32: 4 words), bench-0.9b (16 words in every codec),
 # gpt2 (12/12 heads, and trained-word's 6/6, at head_dim 64: 8 words in
 # every codec), trained-tiny (8/8 heads at head_dim 32: 4 words in every
-# codec), and group 4 at head_dim 128, the kernel benchmark's 32 query heads
-# over 8 KV heads (benchmarks/harness.py)
-KERNEL_SHAPES = ((2, 2, 16), (4, 2, 16), (16, 2, 128), (16, 4, 128), (8, 1, 64), (4, 1, 32))
+# codec), tiny-gpt2 (4/4 heads at head_dim 16: tiny-llama's words at group
+# 1), trained-100m (12/4 heads at head_dim 64: 8 words, group 3), and group
+# 4 at head_dim 128, the kernel benchmark's 32 query heads over 8 KV heads
+# (benchmarks/harness.py). A model sharded over the model axis keeps its
+# group and head_dim (parallel/tp_runtime.py), so its ranks run these too
+KERNEL_SHAPES = ((2, 2, 16), (4, 2, 16), (16, 2, 128), (16, 4, 128), (8, 1, 64), (4, 1, 32),
+                 (2, 1, 16), (4, 1, 16), (8, 3, 64))
 # (codec, data words, parity words, GQA group, head_dim) instantiated in
-# csrc/decode_attend.cu for tiny-llama, bench-0.9b, gpt2, trained-tiny and
-# the kernel benchmark (hamming84 with and without interpolation)
+# csrc/decode_attend.cu for tiny-llama, bench-0.9b, gpt2, trained-tiny,
+# tiny-gpt2, trained-100m and the kernel benchmark (hamming84 with and
+# without interpolation)
 DECODE_KERNEL_SHAPES = (
     ("hamming84", 2, 2, 2, 16), ("hamming84", 16, 16, 2, 128), ("hamming84", 16, 16, 4, 128),
-    ("hamming84", 8, 8, 1, 64), ("hamming84", 4, 4, 1, 32),
+    ("hamming84", 8, 8, 1, 64), ("hamming84", 4, 4, 1, 32), ("hamming84", 2, 2, 1, 16),
+    ("hamming84", 8, 8, 3, 64),
     ("hamming74", 4, 3, 2, 16), ("hamming74", 16, 12, 2, 128), ("hamming74", 16, 12, 4, 128),
-    ("hamming74", 8, 6, 1, 64), ("hamming74", 4, 3, 1, 32),
+    ("hamming74", 8, 6, 1, 64), ("hamming74", 4, 3, 1, 32), ("hamming74", 4, 3, 1, 16),
+    ("hamming74", 8, 6, 3, 64),
     ("golay", 2, 4, 2, 16), ("golay", 16, 17, 2, 128), ("golay", 16, 17, 4, 128),
-    ("golay", 8, 10, 1, 64), ("golay", 4, 5, 1, 32),
+    ("golay", 8, 10, 1, 64), ("golay", 4, 5, 1, 32), ("golay", 2, 4, 1, 16),
+    ("golay", 8, 10, 3, 64),
 )
 _CODEC_IDS = {"hamming84": 0, "hamming74": 1, "golay": 2}
 # (GQA group, head_dim) instantiated in csrc/write_attend.cu's float_attend,
 # for bfloat16 (fp16) and e4m3 (fp8): tiny-llama, bench-0.9b, the kernel
-# benchmark, gpt2 and trained-tiny
-FLOAT_KERNEL_SHAPES = ((2, 16), (2, 128), (4, 128), (1, 64), (1, 32))
+# benchmark, gpt2, trained-tiny, tiny-gpt2 and trained-100m
+FLOAT_KERNEL_SHAPES = ((2, 16), (2, 128), (4, 128), (1, 64), (1, 32), (1, 16), (3, 64))
 FLOAT_MAX_SPLITS = 8  # the kernels' largest cluster (kMaxSplits), the portable size
 _FLOAT_TILE_BYTES = 128  # bytes of each head-dim row in a float_attend tile (kTileLoads)
 
@@ -336,7 +344,7 @@ def _online_attend(query, kn, vn, ks, vs, context_lens, bs, *, sm_scale,
             l.reshape(batch, num_q_heads))
 
 
-def merge_softmax_states(acc, m, l):
+def merge_softmax_states(acc, m, l, *, reduce_max=None, reduce_sum=None):
     """The softmax state of a context from those of its splits, the splits
     leading (acc [S, ..., D], m and l [S, ...]): JAX's merge_softmax_shards
     (qkv_ecc_tpu/parallel/context_parallel.py:30) without the collectives,
@@ -344,10 +352,16 @@ def merge_softmax_states(acc, m, l):
     that function's output. m is the splits' largest (NaN when one is NaN);
     split s weighs exp(m_s - m), m taken as 0 when it is -1e30 (every split
     empty), so a split without a live token adds 0 * acc: NaN stays NaN.
-    float_attend's block 0 merges the blocks of its cluster so."""
-    m_g = m.amax(dim=0)
+    float_attend's block 0 merges the blocks of its cluster so.
+
+    reduce_max / reduce_sum replace the largest and the sum over the split
+    axis: parallel/context_parallel.py passes all_reduces over ranks, each
+    holding one split without the leading axis."""
+    reduce_max = reduce_max or (lambda t: t.amax(dim=0))
+    reduce_sum = reduce_sum or (lambda t: t.sum(dim=0))
+    m_g = reduce_max(m)
     w = torch.exp(m - torch.where(m_g > _NEG_INF / 2, m_g, torch.zeros_like(m_g)))
-    return (acc * w[..., None]).sum(dim=0), m_g, (l * w).sum(dim=0)
+    return reduce_sum(acc * w[..., None]), m_g, reduce_sum(l * w)
 
 
 def _normalise(acc, l, dtype):

@@ -276,6 +276,26 @@ def golay_unpack_thirds(data12: torch.Tensor, axis: int = -1) -> torch.Tensor:
     return torch.movedim(out, -1, axis)
 
 
+def golay_pack4(cw: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """[..., 4G] 24-bit codewords -> [..., 3G] int32 words, byte-plane
+    packed: plane p (words [p G, (p + 1) G)) holds byte p of the codewords,
+    byte k of word j codeword 4j + k. 8.0 bits a value; no decode path
+    stores it (JAX's layout of an earlier TPU round)."""
+    cw = _last(cw, axis).to(torch.int32)
+    planes = [pack_bytes4((cw >> (8 * p)) & 0xFF, axis=-1) for p in range(3)]
+    return torch.movedim(torch.cat(planes, dim=-1), -1, axis)
+
+
+def golay_unpack4(w: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Inverse of golay_pack4: [..., 3G] words -> [..., 4G] codewords."""
+    w = _last(w, axis).to(torch.int32)
+    G = w.shape[-1] // 3
+    cw = torch.zeros(w.shape[:-1] + (4 * G,), dtype=torch.int32, device=w.device)
+    for p in range(3):
+        cw = cw | (unpack_bytes4(w[..., p * G:(p + 1) * G], axis=-1) << (8 * p))
+    return torch.movedim(cw, -1, axis)
+
+
 def golay_data_nibbles(head_dim: int) -> int:
     """Nibble count of the golay row's int4-packed data prefix:
     round_up(head_dim, 8) when the padded value count allows it, else the
@@ -582,6 +602,13 @@ def encode_codewords(codec: str, q: torch.Tensor, head_dim: int) -> torch.Tensor
     if codec == "hamming74":
         return C.hamming74_encode_i32(q)
     return C.hamming84_encode_i32(q)
+
+
+def encode_row(codec: str, q: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """Quantized nibbles [..., head_dim] -> packed int32 words [..., W],
+    without fault injection (inject on the logical codewords of
+    encode_codewords, then pack_codewords)."""
+    return pack_codewords(codec, encode_codewords(codec, q, head_dim), head_dim)
 
 
 def scrub_fold_mask(codec: str, mask: torch.Tensor) -> torch.Tensor:

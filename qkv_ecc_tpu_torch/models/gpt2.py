@@ -81,14 +81,18 @@ def qkv(x, lp, cfg: ModelConfig, positions=None, inv_freq=None):
             v.reshape(B, S, cfg.num_kv_heads, D))
 
 
-def attn_out_mlp(x, attn, lp, cfg: ModelConfig):
+def attn_out_mlp(x, attn, lp, cfg: ModelConfig, reduce=None):
     """The attention output's projection and residual, then ln_2 and the
-    tanh-GELU MLP with its residual."""
+    tanh-GELU MLP with its residual. ``reduce`` sums the two row-sharded
+    products (c_proj, mlp_proj) over a tensor-parallel group before their
+    biases (models/runtime.py); None when they are whole."""
+    r = reduce or (lambda t: t)
     B, S = x.shape[:2]
-    x = x + attn.reshape(B, S, cfg.num_heads * cfg.head_dim) @ lp["c_proj"]["w"] + lp["c_proj"]["b"]
+    a = attn.reshape(B, S, cfg.num_heads * cfg.head_dim)
+    x = x + r(a @ lp["c_proj"]["w"]) + lp["c_proj"]["b"]
     h = layer_norm(x, lp["ln_2"]["g"], lp["ln_2"]["b"], cfg.layer_norm_eps)
     h = torch.nn.functional.gelu(h @ lp["c_fc"]["w"] + lp["c_fc"]["b"], approximate="tanh")
-    return x + h @ lp["mlp_proj"]["w"] + lp["mlp_proj"]["b"]
+    return x + r(h @ lp["mlp_proj"]["w"]) + lp["mlp_proj"]["b"]
 
 
 def lm_head(params, x, cfg: ModelConfig):

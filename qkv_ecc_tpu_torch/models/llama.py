@@ -86,14 +86,17 @@ def qkv(x, lp, cfg: ModelConfig, positions, inv_freq):
     return apply_rope(q, positions, inv_freq), apply_rope(k, positions, inv_freq), v
 
 
-def attn_out_mlp(x, attn, lp, cfg: ModelConfig):
+def attn_out_mlp(x, attn, lp, cfg: ModelConfig, reduce=None):
     """o_proj and its residual, then post_attn_norm and the SwiGLU MLP with
-    its residual."""
+    its residual. ``reduce`` sums the two row-sharded products (o_proj,
+    down_proj) over a tensor-parallel group (models/runtime.py); None when
+    they are whole."""
+    r = reduce or (lambda t: t)
     B, S = x.shape[:2]
-    x = x + attn.reshape(B, S, cfg.num_heads * cfg.head_dim) @ lp["o_proj"]
+    x = x + r(attn.reshape(B, S, cfg.num_heads * cfg.head_dim) @ lp["o_proj"])
     h = rms_norm(x, lp["post_attn_norm"], cfg.rms_norm_eps)
     h = torch.nn.functional.silu(h @ lp["gate_proj"]) * (h @ lp["up_proj"])
-    return x + h @ lp["down_proj"]
+    return x + r(h @ lp["down_proj"])
 
 
 def lm_head(params, x, cfg: ModelConfig):

@@ -30,6 +30,8 @@ block-table rows are -1, into the trash page 0.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..cache.layout import ECCCacheConfig, allocate_ecc_kv_cache
@@ -41,6 +43,7 @@ from .config import ModelConfig
 from .kv_policy import (
     N_BITS,
     KVCachePolicy,
+    codeword_shape,
     decode_kv,
     encode_kv,
     encode_pack_kv_scrubbed,
@@ -51,6 +54,7 @@ from .kv_policy import (
     write_inject,
 )
 from ..codecs.fault_injection import flip_mask
+from ..parallel.mesh import all_gather_cat, all_reduce
 from .layers import causal_attention
 from .registry import arch_module
 
@@ -154,21 +158,77 @@ def _write_tokens(state, layer_idx, block_table, positions, kc, vc, ks, vs):
     return state
 
 
-def sample_tokens(logits, temperature, generator):
+def sample_tokens(logits, temperature, generator, *, row_offset: int = 0, full_batch=None):
     """Next tokens [B] of logits [B, V]: rows at temperature 0 take the
     argmax, the others the Gumbel-max of logits / temperature (a draw from
     their softmax, as jax.random.categorical), uniforms from ``generator``
-    on its device. temperature: a float, or [B] per row."""
+    on its device. temperature: a float, or [B] per row. With
+    ``full_batch``, logits are rows [row_offset, row_offset + B) of a batch
+    of that many, and the uniforms those rows of the whole batch's draw
+    (a data-parallel rank's share of the single-device sample)."""
     t = torch.as_tensor(temperature, dtype=torch.float32).to(logits.device).expand(logits.shape[0])
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    B, V = logits.shape
+    u = torch.rand((full_batch or B, V), generator=generator,
+                   device=logits.device)[row_offset:row_offset + B]
     sampled = torch.argmax(logits / t.clamp(min=1e-6)[:, None] - torch.log(-torch.log(u)), dim=-1)
     return torch.where(t > 0, sampled, torch.argmax(logits, dim=-1))
+
+
+def _local_cfg(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """cfg with a model rank's heads: num_heads / tp queries over
+    num_kv_heads / tp KV heads (AssertionError when they do not divide, as
+    JAX's assert); cfg itself at tp 1."""
+    if tp == 1:
+        return cfg
+    if cfg.num_heads % tp or cfg.num_kv_heads % tp:
+        raise AssertionError(f"heads {cfg.num_heads}/{cfg.num_kv_heads} not divisible by tp={tp}")
+    return dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
+                               num_kv_heads=cfg.num_kv_heads // tp)
+
+
+def _rank_slice(masks, mesh, batch_dim: int, b_local: int, kv_local: int,
+                batch_split: bool = True):
+    """A rank's (data rows, KV heads) slice of masks drawn at the
+    single-device shape: rows on ``batch_dim`` (all of them when the rows
+    are not split over the data ranks), heads on ``batch_dim + 2``; the
+    masks themselves without a mesh."""
+    if mesh is None:
+        return masks
+    m = masks.narrow(batch_dim, mesh.data_index * b_local, b_local) if batch_split else masks
+    return m.narrow(batch_dim + 2, mesh.model_index * kv_local, kv_local)
+
+
+def _psum(t: torch.Tensor, group) -> torch.Tensor:
+    """The model group's sum of a row-parallel product's partials, added in
+    float32 and rounded once to t's dtype."""
+    if t.dtype in (torch.bfloat16, torch.float16):
+        return all_reduce(t.float(), group).to(t.dtype)
+    return all_reduce(t, group)
+
+
+def _mesh_parts(cfg: ModelConfig, mesh, batch_split: bool = True):
+    """(tp, dp, the rank's cfg, the row-parallel sum or None) of ``mesh``;
+    (1, 1, cfg, None) without one. dp is 1 when the rows are not split."""
+    if mesh is None:
+        return 1, 1, cfg, None
+    group = mesh.model_group
+    reduce = None if group is None else (lambda t: _psum(t, group))
+    return mesh.model, mesh.data if batch_split else 1, _local_cfg(cfg, mesh.model), reduce
+
+
+def _lm_head(params, x, cfg: ModelConfig, mesh):
+    """The logits over the whole vocabulary: an untied llama head on a mesh
+    is vocab-sharded, its slices gathered over the model group."""
+    logits = arch_module(cfg).lm_head(params, x, cfg)
+    if mesh is not None and cfg.arch != "gpt2" and not cfg.tie_word_embeddings:
+        logits = all_gather_cat(logits, mesh.model_group)
+    return logits
 
 
 @torch.no_grad()
 def prefill(params, input_ids, state, block_table, cfg: ModelConfig,
             policy: KVCachePolicy, generator=None, logit_pos=None, true_len=None, *,
-            read_masks=None):
+            read_masks=None, mesh=None, batch_split: bool = True):
     """Process the prompt [B, S]: write the cache and return the last
     token's logits [B, V] float32 (with ``logit_pos`` [B], those at each
     row's position; ``true_len`` [B] is stored as the context length: a
@@ -182,51 +242,69 @@ def prefill(params, input_ids, state, block_table, cfg: ModelConfig,
     ``read_masks`` [L, 2, B, S, Hkv, D'] (the flips JAX draws from each
     layer's key folded with "READ"), or drawn from ``generator``.
 
+    ``mesh``: this rank's (data, model) mesh (parallel/mesh.py). params are
+    then its shards (parallel/sharding.shard_params), input_ids its rows
+    and the cache its KV heads; every mask is drawn (or given) at the
+    single-device run's shape, the whole batch's and all heads', and the
+    rank keeps its slice, and the row-parallel products are summed over the
+    model group. With ``batch_split`` False every data index prefills the
+    same rows (the TP server's admission), whose masks are the single-device
+    draw of those rows.
+
     Positional arguments are JAX's, a ``torch.Generator`` in place of
-    ``step_key``; ``read_masks`` is the port's own, keyword-only."""
+    ``step_key``; the others are the port's own, keyword-only."""
     _check_slice(cfg, policy)
+    tp, dp, cfgl, reduce = _mesh_parts(cfg, mesh, batch_split)
     scrub = _use_scrub(policy)
     read = read_inject(policy)
+    winject = write_inject(policy)
     B, S = input_ids.shape
     device = input_ids.device
     positions = torch.arange(S, device=device).expand(B, S)
     arch = arch_module(cfg)
     inv_freq = arch.inv_freq(cfg, device)
+
+    def draw(shape, n_bits):
+        """The rank's slice of a draw at the single-device shape."""
+        if generator is None:
+            raise ValueError("fault injection needs masks or a torch.Generator")
+        full = flip_mask((shape[0] * dp, shape[1], shape[2] * tp) + tuple(shape[3:]),
+                         policy.ber, n_bits, generator)
+        return _rank_slice(full, mesh, 0, shape[0], shape[2], batch_split)
+
     x = arch.embed(params, input_ids, cfg, positions)
     for i, lp in enumerate(params["layers"]):
-        q, k, v = arch.qkv(x, lp, cfg, positions, inv_freq)
-        kc, ks, _ = encode_kv(k, policy, generator)
-        vc, vs, _ = encode_kv(v, policy, generator)
+        q, k, v = arch.qkv(x, lp, cfgl, positions, inv_freq)
+        enc_shape = codeword_shape(policy.codec, k.shape, cfg.head_dim)
+        km, vm = ([draw(enc_shape, N_BITS[policy.codec]) for _ in range(2)] if winject
+                  else (None, None))
+        kc, ks, _ = encode_kv(k, policy, mask=km)
+        vc, vs, _ = encode_kv(v, policy, mask=vm)
         kcs = swar.scrub_codewords(policy.codec, kc) if scrub else kc
         vcs = swar.scrub_codewords(policy.codec, vc) if scrub else vc
         _write_tokens(state, i, block_table, positions, pack_kv(kcs, policy, cfg.head_dim),
                       pack_kv(vcs, policy, cfg.head_dim), ks, vs)
         if read:
-            km, vm = (read_masks[i] if read_masks is not None else
-                      [_draw_read(kc.shape, policy, generator) for _ in range(2)])
-            k_dec = decode_kv(kc, ks, policy, head_dim=cfg.head_dim, read_mask=km)[0]
-            v_dec = decode_kv(vc, vs, policy, head_dim=cfg.head_dim, read_mask=vm)[0]
+            rk, rv = ([_rank_slice(read_masks[i, j], mesh, 0, B, cfgl.num_kv_heads, batch_split)
+                       for j in (0, 1)] if read_masks is not None else
+                      [draw(kc.shape, N_BITS["int4"]) for _ in range(2)])
+            k_dec = decode_kv(kc, ks, policy, head_dim=cfg.head_dim, read_mask=rk)[0]
+            v_dec = decode_kv(vc, vs, policy, head_dim=cfg.head_dim, read_mask=rv)[0]
         else:
             k_dec = decode_kv(kc, ks, policy, head_dim=cfg.head_dim, seq_axis=1)[0]
             v_dec = decode_kv(vc, vs, policy, head_dim=cfg.head_dim, seq_axis=1)[0]
         attn = causal_attention(q, k_dec.to(x.dtype), v_dec.to(x.dtype),
                                 cfg.num_kv_groups, sliding_window=cfg.sliding_window)
-        x = arch.attn_out_mlp(x, attn, lp, cfg)
+        x = arch.attn_out_mlp(x, attn, lp, cfgl, reduce)
     if logit_pos is None:
         x_last = x[:, -1:, :]
     else:
         x_last = torch.take_along_dim(x, logit_pos.long().to(device)[:, None, None], dim=1)
-    logits = arch.lm_head(params, x_last, cfg)[:, 0]
+    logits = _lm_head(params, x_last, cfgl, mesh)[:, 0]
     state["context_len"] = (torch.full((B,), S, dtype=torch.int32, device=device)
                             if true_len is None
                             else torch.as_tensor(true_len, dtype=torch.int32).to(device))
     return logits, state
-
-
-def _draw_read(shape, policy: KVCachePolicy, generator):
-    if generator is None:
-        raise ValueError("read-time injection needs read masks or a torch.Generator")
-    return flip_mask(shape, policy.ber, N_BITS["int4"], generator)
 
 
 def write_mask_shape(policy: KVCachePolicy, batch: int, cfg: ModelConfig):
@@ -241,7 +319,7 @@ def write_mask_shape(policy: KVCachePolicy, batch: int, cfg: ModelConfig):
 def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
                 policy: KVCachePolicy, generator=None, block_size: int = 128,
                 collect_ecc_stats: bool = False, *, hoisted_masks=None,
-                read_inject_seed=None):
+                read_inject_seed=None, mesh=None):
     """One decode step: token_ids [B] -> logits [B, V] float32; the caches
     advance in place. A row whose block-table page is -1 (an inactive
     serving slot, context 0) writes into the trash page 0: its data column
@@ -249,8 +327,8 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
 
     Positional arguments are JAX's (``_decode_step_impl``), a
     ``torch.Generator`` in place of ``step_key``; ``block_size`` must be the
-    cache's page size (it raises otherwise); ``hoisted_masks`` and
-    ``read_inject_seed`` are keyword-only.
+    cache's page size (it raises otherwise); ``hoisted_masks``,
+    ``read_inject_seed`` and ``mesh`` are keyword-only.
 
     hoisted_masks: every layer's write masks for this step, [L, 2, *shape] -
     folded deltas (kv_policy.hoisted_write_deltas, uint8) in the scrubbed
@@ -266,16 +344,25 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
 
     read_inject_seed: the seed of mode int4's read flips this step (an int,
     or an int32 scalar tensor that the kernel reads on the card without a
-    host sync); drawn from ``generator`` on its device when not given."""
+    host sync); drawn from ``generator`` on its device when not given.
+
+    mesh: as prefill's. The kernels run on the rank's KV heads; the
+    hoisted masks are drawn (or given) at the single-device shape of the
+    whole batch and sliced; the step's ECC counts are summed over the model
+    group once. Mode int4's read flips hash the rank's local head index, as
+    JAX's do, so they differ from the single-device run's."""
     _check_slice(cfg, policy)
+    tp, dp, cfgl, reduce = _mesh_parts(cfg, mesh)
     bs = _check_block_size(state, block_size)
     B = token_ids.shape[0]
+    Hl = cfgl.num_kv_heads
     L = len(params["layers"])
     pos = state["context_len"]
     positions = pos[:, None]
     dw = state["k_cache"].shape[3]
+    device = token_ids.device
     arch = arch_module(cfg)
-    inv_freq = arch.inv_freq(cfg, token_ids.device)
+    inv_freq = arch.inv_freq(cfg, device)
     scrub = _use_scrub(policy) and not collect_ecc_stats
     ri_ber = policy.ber if read_inject(policy) else 0.0
     if ri_ber and read_inject_seed is None:
@@ -284,9 +371,12 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
         read_inject_seed = torch.randint(-2 ** 31, 2 ** 31, (), generator=generator,
                                          device=generator.device).to(torch.int32)
     inject = write_inject(policy)
-    if inject and hoisted_masks is None:
-        hoist = hoisted_write_deltas if scrub else hoisted_logical_masks
-        hoisted_masks = hoist(policy, L, write_mask_shape(policy, B, cfg), generator=generator)
+    if inject:
+        if hoisted_masks is None:
+            hoist = hoisted_write_deltas if scrub else hoisted_logical_masks
+            hoisted_masks = hoist(policy, L, write_mask_shape(policy, B * dp, cfg),
+                                  generator=generator)
+        hoisted_masks = _rank_slice(hoisted_masks, mesh, 2, B, Hl)
     # gpt2's position rows: each row's context length
     x = arch.embed(params, token_ids[:, None], cfg, positions)
     # scrubbed: the kernel reads data words only and the parity columns are
@@ -296,9 +386,9 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
     parity_args = (state["k_parity"], state["v_parity"]) if has_parity and not extract else ()
     k_par, v_par = [], []
     ctx = pos + 1
-    corrected = detected = torch.zeros((B,), dtype=torch.int32, device=token_ids.device)
+    counts = torch.zeros((2, B), dtype=torch.int32, device=device)
     for i, lp in enumerate(params["layers"]):
-        q, k, v = arch.qkv(x, lp, cfg, positions, inv_freq)
+        q, k, v = arch.qkv(x, lp, cfgl, positions, inv_freq)
         masks = hoisted_masks[i] if inject else (None, None)
         if scrub:
             kc, ks = encode_pack_kv_scrubbed(k, policy, folded=masks[0])
@@ -309,7 +399,7 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
             kc, vc = pack_kv(kc, policy, cfg.head_dim), pack_kv(vc, policy, cfg.head_dim)
         kc, vc = kc[:, 0], vc[:, 0]  # [B, Hkv, row_words]
         if ks is None:  # float codecs carry no scales: ones, as JAX passes
-            ks = vs = torch.ones((B, 1, cfg.num_kv_heads), device=kc.device)
+            ks = vs = torch.ones((B, 1, Hl), device=kc.device)
         if extract:
             k_par.append(kc[..., dw:])
             v_par.append(vc[..., dw:])
@@ -326,11 +416,10 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
         )
         if collect_ecc_stats:
             attn, stats = out
-            corrected = corrected + stats[:, 0]
-            detected = detected + stats[:, 1]
+            counts += stats.t()
         else:
             attn = out
-        x = arch.attn_out_mlp(x, attn[:, None], lp, cfg)
+        x = arch.attn_out_mlp(x, attn[:, None], lp, cfgl, reduce)
     if k_par:
         # parity[l, phys[b], h, :, slot[b]] = col[b, l, h, :], all layers at once
         phys, slots = _trash_routed_slots(block_table, pos, bs)
@@ -341,11 +430,13 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
         state["k_parity"][idx] = kp
         state["v_parity"][idx] = vp
     if collect_ecc_stats:
-        zeros = torch.zeros((B,), dtype=torch.int32, device=token_ids.device)
-        state["ecc_corrected"] = state.get("ecc_corrected", zeros) + corrected
-        state["ecc_detected"] = state.get("ecc_detected", zeros) + detected
+        if mesh is not None:
+            all_reduce(counts, mesh.model_group)  # once a step
+        zeros = torch.zeros((B,), dtype=torch.int32, device=device)
+        state["ecc_corrected"] = state.get("ecc_corrected", zeros) + counts[0]
+        state["ecc_detected"] = state.get("ecc_detected", zeros) + counts[1]
     state["context_len"] = ctx
-    return arch.lm_head(params, x, cfg)[:, 0], state
+    return _lm_head(params, x, cfgl, mesh)[:, 0], state
 
 
 @torch.no_grad()

@@ -91,7 +91,7 @@ class ContinuousBatchingServer:
             num_blocks = max_batch * self.max_pages_per_seq + 1
         self.cache_cfg = ECCCacheConfig(
             num_blocks=num_blocks, block_size=block_size, num_layers=cfg.num_layers,
-            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, codec=policy.codec,
+            num_kv_heads=self._cache_kv_heads(), head_dim=cfg.head_dim, codec=policy.codec,
             max_seqs=max_batch)
         self.state = allocate_ecc_kv_cache(self.cache_cfg, device=self.device)
         self.state["context_len"] = torch.zeros((max_batch,), dtype=torch.int32,
@@ -107,7 +107,11 @@ class ContinuousBatchingServer:
         self._gen = torch.Generator(device=self.device).manual_seed(policy.seed)
         self._sample_gen = torch.Generator(device=self.device).manual_seed(policy.seed + 1)
 
-    # -- step functions ----------------------------------------------------
+    # -- step functions (the tensor-parallel server's hooks) ----------------
+
+    def _cache_kv_heads(self) -> int:
+        """The KV heads of the cache this server holds."""
+        return self.cfg.num_kv_heads
 
     def _run_prefill(self, ids, row, logit_pos, true_len):
         self.state["context_len"] = torch.zeros((ids.shape[0],), dtype=torch.int32,
@@ -217,6 +221,12 @@ class ContinuousBatchingServer:
             tokens = torch.argmax(logits, dim=-1)
         return tokens.cpu().numpy()
 
+    def _decode_tokens(self, tokens: np.ndarray, requests_by_row) -> np.ndarray:
+        """One decode step of every slot's next token [max_batch], and the
+        tokens sampled from its logits."""
+        logits = self._run_decode(torch.from_numpy(tokens).to(self.device), self._block_table())
+        return self._pick_tokens(logits, requests_by_row)
+
     def _note_token(self, slot: int, token: int):
         st = self.slots[slot]
         st.generated.append(token)
@@ -241,11 +251,9 @@ class ContinuousBatchingServer:
             for s, st in enumerate(self.slots):
                 if st is not None:
                     tokens[s] = st.next_token
-            logits = self._run_decode(torch.from_numpy(tokens).to(self.device),
-                                      self._block_table())
+            next_tokens = self._decode_tokens(
+                tokens, {i: st.request for i, st in enumerate(self.slots) if st is not None})
             self._step_counter += 1
-            next_tokens = self._pick_tokens(
-                logits, {i: st.request for i, st in enumerate(self.slots) if st is not None})
             for s in range(self.max_batch):
                 st = self.slots[s]
                 if st is None:

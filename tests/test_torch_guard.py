@@ -110,3 +110,27 @@ def test_entry_points_need_a_card_unless_told():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_parallel_entry_points_need_a_card_unless_told():
+    """The parallel layer's entry points given no device - the meshes
+    (whose device generate_tp, make_cp_attention and the TP servers take),
+    measure_tp_mesh, the scaling CLI's mesh tiers and the multihost CLI -
+    run on the card or raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: device=None means that card")
+    from qkv_ecc_tpu_torch.parallel.launch import free_port
+    from qkv_ecc_tpu_torch.parallel.mesh import create_mesh, rank_device, single_device_mesh
+
+    pol = policy_for_mode("int12-golay", ber=1e-2)
+    for call in (create_mesh, single_device_mesh, rank_device,
+                 lambda: scaling.measure_tp_mesh(TINY_LLAMA, pol, data=1, model=1,
+                                                 batch_per_data=1, prompt_len=4, steps=1,
+                                                 block_size=16),
+                 lambda: scaling.main(["--meshes", "1x1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    r = _run(["-m", "qkv_ecc_tpu_torch.parallel.multihost", "--coordinator",
+              f"localhost:{free_port()}", "--num-processes", "1", "--process-id", "0"], ROOT)
+    assert r.returncode != 0 and "no CUDA device" in r.stderr
+    assert create_mesh(device="cpu").device == torch.device("cpu")

@@ -223,21 +223,30 @@ def test_attention_benchmark_row_on_the_cpu(tmp_path):
 
 def test_single_device_scaling_row():
     """measure_single_device on tiny-llama on the CPU gives the JAX row's
-    keys and values of the right kind; main runs --meshes single by default
-    and refuses a mesh (M11)."""
+    keys and values of the right kind; main's --meshes defaults to JAX's
+    list, runs --meshes single, and a DATAxMODEL mesh through
+    measure_tp_mesh (gloo ranks on the CPU) with JAX's row keys; given no
+    device, measure_tp_mesh needs a card."""
     pol = policy_for_mode("int12-golay", ber=1e-2, seed=42)
     row = tsc.measure_single_device(TINY_LLAMA, pol, batch=2, prompt_len=8, steps=2,
                                     block_size=16, warmup=1, device="cpu")
     assert list(row) == ["tier", "mesh", "batch", "ms_per_step", "tokens_per_s"]
     assert (row["tier"], row["mesh"], row["batch"]) == ("single-device", "1", 2)
     assert row["ms_per_step"] > 0 and row["tokens_per_s"] > 0
-    out = tsc.main(["--device", "cpu", "--steps", "1", "--prompt-len", "8",
-                    "--batch-per-data", "1"])
-    assert out["config"]["meshes"] == "single" and len(out["rows"]) == 1
+    args = ["--device", "cpu", "--steps", "1", "--prompt-len", "8", "--batch-per-data", "1"]
+    out = tsc.main(args + ["--meshes", "single"])
+    assert len(out["rows"]) == 1
     assert out["platform"] == "cpu" and out["rows"][0]["block_size"] == 16
     assert set(out["rows"][0]) >= {"model", "mode", "ber", "platform"}
-    with pytest.raises(NotImplementedError, match="M11"):
-        tsc.main(["--meshes", "1x1", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="M11"):
-        tsc.measure_tp_mesh(TINY_LLAMA, pol, data=1, model=1, batch_per_data=1, prompt_len=8,
-                            steps=1, block_size=16)
+    out = tsc.main(args + ["--meshes", "single,1x1"])
+    assert [r["mesh"] for r in out["rows"]] == ["1", "1x1"]
+    assert out["rows"][1]["tier"] == "in-process-mesh"
+    assert out["rows"][1]["weak_scaling_efficiency"] == 1.0
+    import inspect
+
+    default = '"1x1,2x1,4x1,8x1,1x2,2x2"'
+    assert default in inspect.getsource(tsc.main) and default in inspect.getsource(js.main)
+    if not torch.cuda.is_available():  # given no device: the cards, one a rank
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tsc.measure_tp_mesh(TINY_LLAMA, pol, data=1, model=1, batch_per_data=1,
+                                prompt_len=8, steps=1, block_size=16)

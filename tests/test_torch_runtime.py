@@ -722,7 +722,8 @@ def test_jax_positional_decode_loop(weights):
 def test_runtime_signatures_follow_jax():
     """F9: the entry points' parameters in JAX's order - the port's
     generator in the place of JAX's key - with every parameter the port
-    adds after them, keyword-only."""
+    adds after them, keyword-only (the tensor-parallel rank's ``mesh`` and
+    ``batch_split`` among them)."""
     import inspect
 
     renamed = {"step_key": "generator", "base_key": "generator"}
@@ -736,4 +737,5 @@ def test_runtime_signatures_follow_jax():
         if name == "decode_step":  # JAX's hoisted_masks is the port's keyword
             jparams.remove("hoisted_masks")
         assert positional == jparams, name
-        assert set(extra) <= {"read_masks", "hoisted_masks", "read_inject_seed", "device"}, name
+        assert set(extra) <= {"read_masks", "hoisted_masks", "read_inject_seed", "device",
+                              "mesh", "batch_split"}, name

@@ -429,3 +429,27 @@ def test_interpolation_matches(seq_dim):
     one = np.full((1, 3), 9, np.uint8)
     same(j_interp(jnp.asarray(one), jnp.full((1, 3), 2), seq_dim=0),
          t_interp(torch.from_numpy(one), torch.full((1, 3), 2), seq_dim=0))
+
+
+@pytest.mark.parametrize("shape,axis", [((5, 12), -1), ((4, 7), 0), ((2, 3, 24), -1)])
+def test_golay_pack4_matches_jax(shape, axis):
+    """golay_pack4 / golay_unpack4 (JAX's byte-plane layout) bit for bit,
+    and their roundtrip."""
+    rng = np.random.default_rng(sum(shape))
+    shp = list(shape)
+    shp[axis] *= 4
+    cw = rng.integers(0, 1 << 24, shp).astype(np.int32)
+    w = ts.golay_pack4(t(cw), axis=axis)
+    same(js.golay_pack4(jnp.asarray(cw), axis=axis), w)
+    same(js.golay_unpack4(jnp.asarray(w.numpy()), axis=axis), ts.golay_unpack4(w, axis=axis))
+    np.testing.assert_array_equal(ts.golay_unpack4(w, axis=axis).numpy(), cw)
+
+
+@pytest.mark.parametrize("codec", ["int4", "hamming74", "hamming84", "golay"])
+@pytest.mark.parametrize("head_dim", [16, 33, 64, 128])
+def test_encode_row_matches_jax(codec, head_dim):
+    q = np.random.default_rng(head_dim).integers(0, 16, (3, 2, head_dim)).astype(np.int32)
+    got = ts.encode_row(codec, t(q), head_dim)
+    same(js.encode_row(codec, jnp.asarray(q), head_dim), got)
+    assert torch.equal(got, ts.pack_codewords(codec, ts.encode_codewords(codec, t(q), head_dim),
+                                              head_dim))
