@@ -157,20 +157,21 @@ kernels K5-K9, the redesigned ones against their required times and
 targets (REQUIRED_US), the Golay and Hamming encodes beside a gather
 from the table of all codewords and the Hamming decodes beside two, from
 data and flag tables; each beside its bound: the bytes at 3.35 TB/s or the
-fp32 flops at 67 T/s; the integer bound of Golay's decode, of the read
-hashes and of every codec kernel from their SASS instructions per pipe
-(kernels/sass_count.py), the packed Hamming reads' integer operations
-counted from the source printed as an estimate) and traces the decode step
-of each arm. Every phase prints
-one line with its seconds; any failure exits non-zero. Without a CUDA
-device it fails.
+fp32 flops at 67 T/s; the integer bound of Golay's and Hamming(7,4)'s
+decodes, of the read hashes and of every codec kernel from their SASS
+instructions per pipe (kernels/sass_count.py), Hamming(8,4)'s reads'
+integer operations counted from the source printed as an estimate) and
+traces the decode step of each arm. Every phase prints one line with its
+seconds; any failure exits non-zero. Without a CUDA device it fails.
 
 Output, last lines: the kernel table as one JSON object (each kernel also
 with int_bound_ms, its integer bound where counted, else null), the card's
 name and power limit from nvidia-smi, then {"ok": true, "device": {...}}.
 The packed kernels are also held at contexts whose last page holds 1 token
-or is full, at head_dim 128, 64 and 32 (page_edge_check), and K1's extract
-read, K2 hamming84 and K3 must meet their required times (REQUIRED_US).
+or is full, at head_dim 128, 64 and 32 (page_edge_check), hamming74's
+reads in fp32 to the plain model of their split at 16, 8 and 4 data words
+(h74_exact_check), and K1's extract read, K2 hamming84, K2 hamming74 and
+K3 must meet their required times (REQUIRED_US).
 
     python3 chip_smoke.py --compare-with DIR
 
@@ -181,6 +182,7 @@ nothing else.
 """
 
 import contextlib
+import functools
 import itertools
 import json
 import math
@@ -214,28 +216,32 @@ INT32_OPS_PER_S = 64 * 132 * 1.98e9
 # one data word with its parity word, 8 codewords on nibble lanes
 # (decode_attend.cu h84_decode_word: 48, and its counts 4) and the
 # interpolation of one word (10);
-# hamming74's decode of one data word (parity gather 8 lanes x 3 planes x 4,
-# syndromes 15, correction 14, count 5). Golay's syndrome-table decode and
-# the read flips' hashes are counted in the built SASS instead
+# hamming74's decode of one data word (its token's parity planes moved onto
+# the data words' lanes by delta swaps, decode_attend.cu h74_lanes: 204 for
+# a bench-0.9b row of 16 words, 13; shifts and syndromes 11; correction and
+# its XOR 8; the syndromes' OR and the chunk's count, 2: one popcount for 4
+# words), printed beside its SASS count. Golay's syndrome-table decode,
+# hamming74's and the read flips' hashes are counted in the built SASS
 # (kernels/sass_count.py), which gives them an integer bound
 DECODE_OPS_PER_WORD, INTERP_OPS_PER_WORD = 52, 10
-H74_OPS_PER_WORD = 130
+H74_OPS_PER_WORD = 34
 # the required times at the bench step, and the targets (us), of the
 # kernels this port redesigned: Golay's correcting read and the read-inject
 # read, then, on the packed core's redesign, K1's extract read, Hamming(8,4)'s
-# correcting read (K2) and its interpolating read (K3), then the codec
+# correcting read (K2) and its interpolating read (K3), Hamming(7,4)'s
+# correcting read (K2, decoded in the core's tiles), then the codec
 # kernels K5, K6, K7's decode and K8 (at the kernel benchmark's 8M values
 # and 8M / 3 Golay words: half of the bytes bound required, the design's
 # estimate the target). A required time missed fails the run; a target is
 # reported
 REQUIRED_US = {"golay": 180.0, "read-inject": 200.0, "extract": 18.0, "hamming84": 33.0,
-               "hamming84-interp": 42.0, "hamming74_encode": 10.0, "hamming84_encode": 10.0,
-               "hamming74_decode": 15.0, "hamming84_decode": 15.0, "golay_decode_packed": 20.0,
-               "golay_write_scrub": 20.0}
+               "hamming84-interp": 42.0, "hamming74": 30.0, "hamming74_encode": 10.0,
+               "hamming84_encode": 10.0, "hamming74_decode": 15.0, "hamming84_decode": 15.0,
+               "golay_decode_packed": 20.0, "golay_write_scrub": 20.0}
 TARGET_US = {"golay": 60.0, "read-inject": 100.0, "extract": 8.0, "hamming84": 15.0,
-             "hamming84-interp": 20.0, "hamming74_encode": 7.5, "hamming84_encode": 7.5,
-             "hamming74_decode": 11.0, "hamming84_decode": 11.0, "golay_decode_packed": 14.0,
-             "golay_write_scrub": 15.0}
+             "hamming84-interp": 20.0, "hamming74": 24.0, "hamming74_encode": 7.5,
+             "hamming84_encode": 7.5, "hamming74_decode": 11.0, "hamming84_decode": 11.0,
+             "golay_decode_packed": 14.0, "golay_write_scrub": 15.0}
 
 
 def say(msg):
@@ -411,11 +417,12 @@ def decode_kernel_check(torch, gen, device, cfg=None, ctx_before=None, qdtype=No
     contexts 1 to 1152; queries of qdtype, default bf16), layer 1,
     512-token chunks: hamming84 with and without interpolation
     (doubles forced at tokens 0, 511, 512, 1023, 1024 and ctx-1), with and
-    without stats; hamming74 and golay, with and without stats; golay once
-    more with one row whose page is -1 (ctx 1: written to page 0, which no
-    other row reads). Caches, parity, scales and stats must be equal;
-    outputs within output_tolerance. Returns the largest error of each
-    codec's branch."""
+    without stats; hamming74 and golay, with and without stats; golay and
+    hamming74 once more with one row whose page is -1 (ctx 1: written to
+    page 0, which no other row reads), and hamming74 with stats and a
+    sliding window of 256 (the pages before it counted, not attended).
+    Caches, parity, scales and stats must be equal; outputs within
+    output_tolerance. Returns the largest error of each codec's branch."""
     from qkv_ecc_tpu_torch.kernels.paged_attention import (
         h84_decode_rows, gather_pages, paged_attention_ecc_write_attend as write_attend,
         write_decode_attend_plain)
@@ -437,10 +444,13 @@ def decode_kernel_check(torch, gen, device, cfg=None, ctx_before=None, qdtype=No
             say(f"  hamming84 cache: {int(dbl.sum())} K values of layer 1 read as doubles")
         variants = [(i, st) for i in ((True, False) if codec == "hamming84" else (False,))
                     for st in (False, True)]
-        if codec == "golay":
+        if codec != "hamming84":
             variants.append(("-1 page", False))
+        if codec == "hamming74":
+            variants.append(("window", True))
         for interp, stats in variants:
             bt_c, ctx_c = bt, ctx
+            window = 256 if interp == "window" else None
             if interp == "-1 page":  # row 3 (ctx 1) has no page; row 0 reads none
                 bt_c, ctx_c = bt.clone(), ctx.clone()
                 bt_c[3] = -1
@@ -451,13 +461,14 @@ def decode_kernel_check(torch, gen, device, cfg=None, ctx_before=None, qdtype=No
             out = write_attend(q, new[0], new[1], new[2], new[3], a["k_cache"], a["v_cache"],
                                a["k_scales"], a["v_scales"], bt_c, ctx_c, 1, a["k_parity"],
                                a["v_parity"], codec=codec, scrub=False,
-                               use_interpolation=interp is True, collect_stats=stats)
+                               use_interpolation=interp is True, collect_stats=stats,
+                               sliding_window=window)
             torch.cuda.synchronize()
             ref = write_decode_attend_plain(
                 q, new[0], new[1], new[2], new[3], p["k_cache"], p["v_cache"], p["k_scales"],
                 p["v_scales"], bt_c, ctx_c, 1, p["k_parity"], p["v_parity"], codec=codec,
                 sm_scale=D ** -0.5, interpolate=interp is True, pages_per_chunk=4,
-                collect_stats=stats)
+                collect_stats=stats, sliding_window=window)
             (out, st), (ref, ref_st) = (out, ref) if stats else ((out, None), (ref, None))
             name = f"decode_attend {codec} interpolate={interp} stats={stats} [{cfg.name}]"
             err = check_outputs(name, out, ref, a, p, names, st, ref_st)
@@ -597,6 +608,68 @@ def split_model():
         yield
     finally:
         pa._read = real
+
+
+# |kernel - plain model of its split| allowed for hamming74's reads in fp32
+# ("highest"): the sums' order moves an output by about 1e-5 (6.8e-6
+# read), while one wrong nibble of a token weighing more than 1e-3 moves it
+# by more than 1e-4
+H74_EXACT_TOL = 1e-4
+
+
+def h74_exact_check(torch, gen, device):
+    """hamming74's reads in fp32 (precision "highest", float32 queries)
+    against the plain model of their split (split_model), K2 with stats
+    (the new rows written) and K4, with and without a sliding window of
+    256, at bench-0.9b's, gpt2's and trained-tiny's attention shapes (16, 8
+    and 4 data words: G = 4, 2 and 1 words a parity plane; 2 layers, BER
+    2e-2): words and counts equal, outputs within H74_EXACT_TOL, which a
+    wrong decode of one value would exceed where the output tolerance
+    would not. Returns the largest difference."""
+    import dataclasses
+    from qkv_ecc_tpu_torch.kernels.paged_attention import (
+        attend_plain, paged_attention_ecc, paged_attention_ecc_write_attend as write_attend,
+        write_decode_attend_plain)
+    from qkv_ecc_tpu_torch.models.config import BENCH_0_9B, GPT2_124M, TRAINED_TINY
+
+    names = ("k_cache", "v_cache", "k_scales", "v_scales", "k_parity", "v_parity")
+    worst = 0.0
+    for cfg, ctxs in ((BENCH_0_9B, [1151, 1023, 1024, 0, 511, 512, 777, 1100]),
+                      (GPT2_124M, GPT2_CTX_BEFORE), (TRAINED_TINY, TINY_CTX_BEFORE)):
+        cfg = dataclasses.replace(cfg, num_layers=2)
+        state, bt, new = unscrubbed_cache(torch, cfg, "int4-hamming", ctxs, gen, device)
+        ctx = torch.tensor(ctxs, dtype=torch.int32, device=device) + 1
+        D, ppc = cfg.head_dim, min(4, bt.shape[1])
+        for window in (None, 256):
+            q = torch.randn((len(ctxs), cfg.num_heads, D), generator=gen, device=device)
+            a = {n: state[n].clone() for n in names}
+            p = {n: state[n].clone() for n in names}
+            k4 = (q, *(state[n] for n in names[:4]), bt, ctx, 1, state["k_parity"],
+                  state["v_parity"])
+            kw = dict(precision="highest", collect_stats=True, sliding_window=window)
+            outs = (write_attend(q, *new, *(a[n] for n in names[:4]), bt, ctx, 1, a["k_parity"],
+                                 a["v_parity"], codec="hamming74", **kw),
+                    paged_attention_ecc(*k4, codec="hamming74", **kw))
+            torch.cuda.synchronize()
+            with split_model():
+                refs = (write_decode_attend_plain(
+                            q, *new, *(p[n] for n in names[:4]), bt, ctx, 1, p["k_parity"],
+                            p["v_parity"], codec="hamming74", sm_scale=D ** -0.5,
+                            pages_per_chunk=ppc, **kw),
+                        attend_plain(*k4, codec="hamming74", sm_scale=D ** -0.5,
+                                     num_pages=bt.shape[1], pages_per_chunk=ppc, **kw))
+            for kernel, (out, st), (ref, ref_st) in zip(("K2", "K4"), outs, refs):
+                d = float((out - ref).abs().max())
+                say(f"  {kernel} hamming74 precision=highest window={window} [{cfg.name}]: "
+                    f"max |kernel - plain model of its split| = {d:.3e}")
+                if not d <= H74_EXACT_TOL or not torch.equal(st, ref_st):
+                    fail(f"{kernel} hamming74 [{cfg.name}]: {d:.3e} from the plain model of its "
+                         f"split (at most {H74_EXACT_TOL}), stats {st.tolist()} / "
+                         f"{ref_st.tolist()}")
+                worst = max(worst, d)
+            if not all(torch.equal(a[n], p[n]) for n in names):
+                fail(f"K2 hamming74 [{cfg.name}]: the arrays after the write differ")
+    return worst
 
 
 def splits_label(torch, batch, hkv, num_pages, ppc, data_words):
@@ -2781,9 +2854,9 @@ def gpt2_kernel_times(torch, runs, stats_runs, device, smi, cfg=None):
     904 of the decode and stats runs' caches; float32 queries, every layer
     cycled), beside its plain version's, its bytes bound at 3.35 TB/s (each
     live token's K and V words and scales once, the query, the new rows and
-    the output) and, for fp16, scaled_dot_product_attention over the same
-    context stored dense (bf16 query). Returns each branch's times keyed as
-    the kernels' table."""
+    the output), for hamming74 its integer bound (h74_read_counts) and, for
+    fp16, scaled_dot_product_attention over the same context stored dense
+    (bf16 query). Returns each branch's times keyed as the kernels' table."""
     from qkv_ecc_tpu_torch.kernels.paged_attention import (
         gather_pages, paged_attention_ecc_write_attend as write_attend, write_attend_plain,
         write_decode_attend, write_decode_attend_plain)
@@ -2853,19 +2926,42 @@ def gpt2_kernel_times(torch, runs, stats_runs, device, smi, cfg=None):
                   + 2 * BATCH * Hkv * (words * elem + scale_bytes) + bt.numel() * 4 + BATCH * 4)
         flops = 2 * 2 * tokens * Hkv * cfg.num_kv_groups * D
         b_ms, b_by, bytes_ms, ops_ms = bound(nbytes, flops)
+        int_ms, integer = None, ""
+        if key == "hamming74":  # the data words decoded, K and V
+            from qkv_ecc_tpu_torch.kernels import sass_count
+
+            counts, sms, clock = h74_read_counts()
+            data_words = tokens * Hkv * 2 * state["k_cache"].shape[3]
+            int_ms, pipe = sass_count.int_bound_ms(counts, data_words, sms, clock)
+            integer = (f"; integer bound {int_ms * 1e3:.2f} us by the {pipe} pipe "
+                       f"({data_words / 1e6:.2f} M data words at the bench-0.9b SASS count a "
+                       "data word)")
         times[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                          library_ms=library_ms)
+                          library_ms=library_ms, int_bound_ms=int_ms)
         say(f"  {cfg.name} write+attend {key} at ctx {tokens // BATCH} (group "
             f"{cfg.num_kv_groups}, head_dim {D}, "
             f"{splits_label(torch, BATCH, Hkv, bt.shape[1], 4, state['k_cache'].shape[3])}): "
             f"{ms * 1e3:.2f} us/launch on the device; bound {b_ms * 1e3:.2f} us by {b_by} "
             f"({nbytes / 1e6:.2f} MB at 3.35 TB/s = {bytes_ms * 1e3:.2f} us; {flops / 1e6:.1f} "
-            f"MFLOP fp32 at 67 T/s = {ops_ms * 1e3:.2f} us); share of bound {b_ms / ms:.3f}; "
+            f"MFLOP fp32 at 67 T/s = {ops_ms * 1e3:.2f} us{integer}); share of bound "
+            f"{b_ms / ms:.3f}; "
             f"plain version {plain_ms * 1e3:.1f} us; library call: "
             + ("none" if library_ms is None else
                f"{library_ms * 1e3:.2f} us (scaled_dot_product_attention, dense bf16 K/V)")
             + f" ({smi})")
     return times
+
+
+@functools.lru_cache(maxsize=None)
+def h74_read_counts():
+    """The integer bound's inputs for hamming74's read in the instance
+    tables: its SASS instructions a data word by pipe (kernels/sass_count.py,
+    the h74_read probe, at bench-0.9b's 16 data words), the card's SMs and
+    its largest SM clock."""
+    from qkv_ecc_tpu_torch.kernels import sass_count
+    from qkv_ecc_tpu_torch.kernels.paged_attention import _sm_count
+
+    return sass_count.probe_count("h74_read"), _sm_count(0), sass_count.max_sm_clock_hz()
 
 
 def tiny_kernel_times(torch, gen, device, smi, cfg=None):
@@ -4304,6 +4400,7 @@ def main():
         max_err_float = float_kernel_check(torch, gen, device)
         max_err = kernel_check(torch, gen, device)
         max_err_decode = decode_kernel_check(torch, gen, device)
+        h74_exact_check(torch, gen, device)
         max_err_k4 = attend_check(torch, gen, device)
         max_err_split = split_check(torch, gen, device)
         page_edge_check(torch, gen, device)
@@ -4532,6 +4629,10 @@ def main():
                 + ", ".join(f"{k} {v:.2f}" for k, v in sass[probe].items())
                 + f" (cuobjdump -sass of the built library; {sms} SMs, largest SM clock "
                 f"{clock / 1e9:.3f} GHz; {smi})")
+        say(f"  hamming74's read: {H74_OPS_PER_WORD} integer operations a data word counted "
+            f"from the source (H74_OPS_PER_WORD), "
+            f"{sass['h74_read']['alu'] + sass['h74_read']['imad'] + sass['h74_read']['xu']:.2f} "
+            "integer instructions (alu, imad and xu pipes) in the SASS")
 
         def time_kernel(key, label, call, plain, wrapper, state, bt, words_read, int_ops, row_w,
                         word_bytes=4, scale_bytes=4, library=None, note="", probe=None):
@@ -4596,6 +4697,9 @@ def main():
         def hashes(tok, h):  # 32 a data word read, K and V
             return tok * h * 2 * Wd * 32
 
+        def data_words(tok, h):  # hamming74: the data words decoded, K and V
+            return tok * h * 2 * Wd
+
         def sweep(label, call, wrapper, what):
             """The read at S = 1, 2, 4 and 8 blocks per (sequence, KV
             head), packed_splits replaced for the sweep alone."""
@@ -4659,8 +4763,7 @@ def main():
                  lambda w, p: w * (DECODE_OPS_PER_WORD + INTERP_OPS_PER_WORD), None),
                 ("hamming84", "hamming84", runs["int4-hamming84-interp"][-1], False,
                  lambda w, p: w * DECODE_OPS_PER_WORD, None),
-                ("hamming74", "hamming74", stats_runs["int4-hamming"], False,
-                 lambda w, p: w * H74_OPS_PER_WORD, None),
+                ("hamming74", "hamming74", stats_runs["int4-hamming"], False, None, "h74_read"),
                 ("golay", "golay", stats_runs["int12-golay"], False, None, "golay")):
             state, bt = src["state"], src["bt"]
             ctx = state["context_len"].clone()
@@ -4678,11 +4781,11 @@ def main():
                     state["k_parity"], state["v_parity"], codec=codec, sm_scale=sm,
                     interpolate=interp, pages_per_chunk=4)
 
-            ops = codewords if probe else (lambda tok, h, f=per_row, p=Pw: tok * h * 2 * f(Wd, p))
+            ops = ({"golay": codewords, "h74_read": data_words}[probe] if probe else
+                   (lambda tok, h, f=per_row, p=Pw: tok * h * 2 * f(Wd, p)))
             t = time_kernel(key, f"decode_attend {key}", call_d, plain_d, write_decode_attend,
                             state, bt, Wd + Pw, ops, Wd + Pw, note=f" ({s_rule})", probe=probe)
-            if probe or key.startswith("hamming84"):
-                against(key, key, t)
+            against(key, key, t)
 
         # K4, the read alone, on the same caches: each branch as above
         for key, codec, src, kw, per_row, probe in (
@@ -4694,8 +4797,7 @@ def main():
                  lambda w, p: w * (DECODE_OPS_PER_WORD + INTERP_OPS_PER_WORD), None),
                 ("hamming84", "hamming84", runs["int4-hamming84-interp"][-1], {},
                  lambda w, p: w * DECODE_OPS_PER_WORD, None),
-                ("hamming74", "hamming74", stats_runs["int4-hamming"], {},
-                 lambda w, p: w * H74_OPS_PER_WORD, None),
+                ("hamming74", "hamming74", stats_runs["int4-hamming"], {}, None, "h74_read"),
                 ("golay", "golay", stats_runs["int12-golay"], {}, None, "golay")):
             state, bt = src["state"], src["bt"]
             ctx = state["context_len"].clone()
@@ -4719,13 +4821,13 @@ def main():
                     read_seed=kw.get("read_inject_seed", 0),
                     interpolate=kw.get("use_interpolation", False))
 
-            ops = ({"golay": codewords, "hash": hashes}[probe] if probe else
+            ops = ({"golay": codewords, "hash": hashes, "h74_read": data_words}[probe] if probe else
                    (lambda tok, h, f=per_row, p=Pw: tok * h * 2 * f(Wd, p)))
             inject = "read_inject_ber" in kw
             t = time_kernel("k4-" + key, f"paged_attention_ecc {key} (K4)", call_k4, plain_k4,
                             paged_attention_ecc, state, bt, Wd + Pw, ops, 0,
                             note=f" ({s_rule})", probe=probe)
-            if probe:
+            if probe in ("golay", "hash"):
                 against("read-inject" if inject else "golay", "k4-" + key, t)
                 sweep(f"paged_attention_ecc {key} (K4)", call_k4, paged_attention_ecc,
                       s_rule)

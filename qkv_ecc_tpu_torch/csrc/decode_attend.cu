@@ -29,10 +29,10 @@
 //        word on nibble lanes (swar.h84_swar_decode's logic): singles
 //        corrected, doubles keep their data and set the doubles mask;
 //      - hamming74: 8 values of a data word at once (SWAR over nibble
-//        lanes), each lane's 3 parity bits gathered from the bit-sliced
-//        planes (bit t of plane p word g is parity bit p of value t*G + g);
-//        a nonzero syndrome {3, 5, 6, 7} flips data bit {0, 1, 2, 3}
-//        (swar.h74_value_correct);
+//        lanes), the 3 bit-sliced parity planes (bit t of plane p word g is
+//        parity bit p of value t*G + g) first moved onto the data words'
+//        lanes, a token at a time (h74_lanes); a nonzero syndrome {3, 5, 6,
+//        7} flips data bit {0, 1, 2, 3} (swar.h74_value_correct);
 //      - golay: each of the C = 4 (WD + PW) / 3 24-bit codewords is rebuilt
 //        from its three data nibbles (values c, c + C, c + 2C in bits 0-3,
 //        8-11 and 4-7; values past the data words live in the parity tail),
@@ -65,10 +65,12 @@
 // Bound on this card at the bench-0.9b step (B 8, Hkv 8, ctx 1056): bytes
 // (each live token's K and V data and parity words and scales read once:
 // B * ctx * Hkv * (2 * (WD + PW) * 4 + 8), 17.9, 15.4 and 18.1 MB for
-// hamming84, hamming74 and golay, 5.3, 4.6 and 5.4 us at 3.35 TB/s), and for
-// golay the integer work of its decode: about 26 integer-ALU instructions a
-// codeword in the built SASS (kernels/sass_count.py), 9 us at 64 lanes a
-// clock on 132 SMs for the 5.8 M codewords of a call, which binds.
+// hamming84, hamming74 and golay, 5.3, 4.6 and 5.4 us at 3.35 TB/s), and the
+// integer work of the decodes in the built SASS (kernels/sass_count.py): for
+// golay about 26 integer-ALU instructions a codeword, 9 us at 64 lanes a
+// clock on 132 SMs for the 5.8 M codewords of a call, which binds; for
+// hamming74 the instructions of its relayout and decode a data word over
+// the 2.16 M data words of a call.
 //
 // Design (the packed core, paged_attend.cuh): a cluster of S blocks of
 // packed_threads (32 a data word: 512 at the bench step) per (KV head,
@@ -84,12 +86,24 @@
 // chunks beside it by shuffles, the page's neighbours (the previous page's
 // last token, the next page's first when the chunk goes on) copied with
 // the page by the lanes of the first and last chunk - so every page stands
-// alone and the split needs nothing from another block. hamming74 and
-// golay decode whole rows (a codeword spans words): phase D maps threads
-// to the K and V rows of the page's valid tokens, reads them from the ring
-// (golay's tables in shared memory, the syndrome table copied from the
-// wrapper's tensor once a block) and stages the decoded words for the
-// core. A slot past the context is neither copied nor decoded (weight 0).
+// alone and the split needs nothing from another block. hamming74 decodes
+// in the tiles too: thread (row, chunk) copies its chunk of its data row
+// and, for the first PW rows, of that parity row, and decodes its 4 words
+// in registers (h74_decode_chunk) with their parity words on the same
+// lanes from par_s [2][WD][bs]. A page's par_s is made while the page
+// before it is read: between its first and second barriers - where only
+// the threads owning tokens sum the scores - every thread waits for its
+// copies of the next page, and after the first barrier the threads move
+// its K and V rows' parity onto the data lanes, a thread a row
+// (h74_relayout_row, delta swaps of the bit-sliced planes); the second
+// barrier makes them seen. No barrier of its own (the first page's two
+// come before the loop). golay decodes whole rows (a codeword spans
+// words): phase D maps threads to the K and V rows of the page's valid
+// tokens, reads them from the ring (the tables in shared memory, the
+// syndrome table copied from the wrapper's tensor once a block) and stages
+// the decoded words for the core. A slot past the context is not copied;
+// its stale words (finite nibbles of weight 0) are not counted, and in
+// hamming74's relayout and golay's rows not decoded.
 // Block 0 writes the new row; every block overlays the row passed in
 // wherever it reads the new token's physical page and slot (a -1 page and
 // F4's clamp included), after the copy lands, so no block waits for the
@@ -180,50 +194,137 @@ __device__ __forceinline__ uint32_t interpolate_word(uint32_t own, uint32_t left
 
 // ---------------------------------------------------------------- hamming74
 
-// Data word j of a row of WD words (8 WD values, G = WD / 4 words per
-// parity plane) and the row's 3 G parity words -> the corrected word; adds
-// the nonzero syndromes of its 8 values.
-template <int WD, int J>
-__device__ __forceinline__ int32_t h74_decode_word(const uint32_t d, const int32_t (&pw)[3 * WD / 4],
-                                                   Counts& n) {
-  constexpr int G = WD / 4;
-  constexpr int HALF = 4 * WD;  // values per nibble half of the row
-  uint32_t par[3] = {0u, 0u, 0u};  // parity bit p of each lane, at bit 0 of the lane
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-#pragma unroll
-    for (int hi = 0; hi < 2; ++hi) {
-      const int v = hi * HALF + 4 * J + k;  // the value in this lane
-      const int lane_shift = 8 * k + 4 * hi;
-#pragma unroll
-      for (int pl = 0; pl < 3; ++pl) {
-        par[pl] |= (((uint32_t)pw[pl * G + v % G] >> (v / G)) & 1u) << lane_shift;
-      }
-    }
-  }
-  const uint32_t s0 = (d ^ (d >> 1) ^ (d >> 3) ^ par[0]) & kN1;
-  const uint32_t s1 = (d ^ (d >> 2) ^ (d >> 3) ^ par[1]) & kN1;
-  const uint32_t s2 = ((d >> 1) ^ (d >> 2) ^ (d >> 3) ^ par[2]) & kN1;
-  const uint32_t corr = (s0 & s1 & (s2 ^ kN1)) | ((s0 & (s1 ^ kN1) & s2) << 1) |
-                        (((s0 ^ kN1) & s1 & s2) << 2) | ((s0 & s1 & s2) << 3);
-  n.corrected += __popc(s0 | s1 | s2);
-  return (int32_t)(d ^ corr);
+// Hamming(7,4)'s parity moved onto the data words' nibble lanes. The value
+// in lane (k, hi) of data word J (bits 8k + 4hi) is v = hi 4WD + 4J + k,
+// and its parity bit p is bit v / G of plane word p G + v % G (G = WD / 4).
+// So a token's 3 G plane words, padded with G zero words (p = 3), are a
+// bit matrix whose word index holds (v % G, p) and whose bit index (v / G)
+// holds J's bits, k / G and hi; the parity words on the lanes are the same
+// bits with J in the word index and (p, hi, k) in the bit index, bit 8k +
+// 4hi + p. One token's move is a few delta swaps: in-word swaps of two
+// bit-index bits (4 instructions a word), then exchanges of a word-index
+// bit with a bit-index bit (5 a pair of words): about 13 instructions a
+// data word at any G, done once a token; gathered by each data word's
+// thread, the 24 (plane, lane) bits took twice that and more.
+
+// bits b of a word with bit PA of b set and bit PB clear (PA < PB: the
+// lower of the pairs an in-word swap exchanges), or with bit PB clear
+// (PA < 0: the lower of an exchange's)
+__host__ __device__ constexpr uint32_t pos_mask(int pa, int pb) {
+  uint32_t m = 0;
+  for (int b = 0; b < 32; ++b)
+    if ((pa < 0 || (b >> pa & 1)) && !(b >> pb & 1)) m |= 1u << b;
+  return m;
 }
 
-template <int WD, int J>
-struct H74Words {  // compile-time loop over the data words
-  __device__ __forceinline__ static void run(const int32_t (&dw)[WD],
-                                             const int32_t (&pw)[3 * WD / 4],
-                                             int32_t (&out)[WD], Counts& n) {
-    H74Words<WD, J - 1>::run(dw, pw, out, n);
-    out[J - 1] = h74_decode_word<WD, J - 1>((uint32_t)dw[J - 1], pw, n);
+// swap bit-index bits PA < PB within word x
+template <int PA, int PB>
+__device__ __forceinline__ uint32_t swap_bits(uint32_t x) {
+  constexpr int d = (1 << PB) - (1 << PA);
+  constexpr uint32_t m = pos_mask(PA, PB);
+  const uint32_t t = ((x >> d) ^ x) & m;
+  return x ^ t ^ (t << d);
+}
+
+// exchange word-index bit WS (a stride) with bit-index bit PB over x
+template <int N, int WS, int PB>
+__device__ __forceinline__ void exchange_bits(uint32_t (&x)[N]) {
+  constexpr int d = 1 << PB;
+  constexpr uint32_t m = pos_mask(-1, PB);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (i & WS) continue;
+    const uint32_t t = ((x[i] >> d) ^ x[i + WS]) & m;
+    x[i + WS] ^= t;
+    x[i] ^= t << d;
   }
-};
+}
+
+// x: a token's plane words (x[p G + g]), then G zeros -> the parity words
+// of its data words, J's at x[h74_slot<WD>(J)]. Bit index on entry: (bits
+// 0-4) J0-J3, hi for G = 4; k1, J0-J2, hi for G = 2; k0, k1, J0, J1, hi
+// for G = 1. Word index: (k0, k1, p0, p1), (k0, p0, p1), (p0, p1).
 template <int WD>
-struct H74Words<WD, 0> {
-  __device__ __forceinline__ static void run(const int32_t (&)[WD], const int32_t (&)[3 * WD / 4],
-                                             int32_t (&)[WD], Counts&) {}
-};
+__device__ __forceinline__ void h74_lanes(uint32_t (&x)[WD]) {
+  constexpr int PW = 3 * WD / 4;
+#pragma unroll
+  for (int w = 0; w < PW; ++w) {
+    if constexpr (WD == 16) {
+      x[w] = swap_bits<2, 4>(x[w]);                  // (J0, J1, hi, J3, J2)
+    } else if constexpr (WD == 8) {
+      x[w] = swap_bits<0, 2>(swap_bits<0, 4>(x[w]));  // (J1, J0, hi, J2, k1)
+    } else {
+      x[w] = swap_bits<1, 2>(swap_bits<1, 4>(swap_bits<0, 3>(x[w])));  // (J1, J0, hi, k0, k1)
+    }
+  }
+  if constexpr (WD == 16) {
+    exchange_bits<16, 4, 0>(x);
+    exchange_bits<16, 8, 1>(x);
+    exchange_bits<16, 1, 3>(x);
+    exchange_bits<16, 2, 4>(x);
+  } else if constexpr (WD == 8) {
+    exchange_bits<8, 1, 3>(x);
+    exchange_bits<8, 2, 0>(x);
+    exchange_bits<8, 4, 1>(x);
+  } else {
+    exchange_bits<4, 1, 0>(x);
+    exchange_bits<4, 2, 1>(x);
+  }
+}
+
+// the word of x holding data word J's parity after h74_lanes: J's bits in
+// the order the exchanges moved them into the word index
+template <int WD>
+__host__ __device__ constexpr int h74_slot(int J) {
+  return WD == 16 ? (J >> 3 & 1) | (J >> 2 & 1) << 1 | (J & 1) << 2 | (J >> 1 & 1) << 3
+       : WD == 8  ? (J >> 2 & 1) | (J >> 1 & 1) << 1 | (J & 1) << 2
+                  : (J >> 1 & 1) | (J & 1) << 1;
+}
+
+// One token's parity planes (word w at src[w * stride]) -> its WD parity
+// words on the data lanes, word J at dst[J * bs].
+template <int WD>
+__device__ __forceinline__ void h74_relayout_row(const int32_t* src, int stride, int32_t* dst,
+                                                 int bs) {
+  uint32_t x[WD];
+#pragma unroll
+  for (int w = 0; w < WD; ++w) x[w] = w < 3 * WD / 4 ? (uint32_t)src[w * stride] : 0u;
+  h74_lanes<WD>(x);
+#pragma unroll
+  for (int J = 0; J < WD; ++J) dst[J * bs] = (int32_t)x[h74_slot<WD>(J)];
+}
+
+// One data word d and its parity word par on the same nibble lanes (bit p
+// of a lane: parity bit p of its value) -> the corrected word, 8 values at
+// once (swar.h74_value_correct on nibble lanes: a nonzero syndrome {3, 5,
+// 6, 7} flips data bit {0, 1, 2, 3}); err gets the nonzero syndromes (bit 0
+// of each lane).
+__device__ __forceinline__ uint32_t h74_decode_word(uint32_t d, uint32_t par, uint32_t& err) {
+  const uint32_t d1 = d >> 1, d2 = d >> 2, d3 = d >> 3;
+  const uint32_t s0 = (d ^ d1 ^ d3 ^ par) & kN1;
+  const uint32_t s1 = (d ^ d2 ^ d3 ^ (par >> 1)) & kN1;
+  const uint32_t s2 = (d1 ^ d2 ^ d3 ^ (par >> 2)) & kN1;
+  err = s0 | s1 | s2;
+  return d ^ ((s0 & s1 & ~s2) | ((s0 & ~s1 & s2) << 1) | ((~s0 & s1 & s2) << 2) |
+              ((s0 & s1 & s2) << 3));
+}
+
+// A chunk's 4 tokens of one data word: data words d and their parity words
+// par -> the corrected words, adding the nonzero syndromes of the first
+// `valid` tokens (those before the context length) to n, one popcount for
+// the 4 (token i's in bit i of each lane).
+__device__ __forceinline__ uint4 h74_decode_chunk(const uint4& d, const uint4& par, int valid,
+                                                  Counts& n) {
+  uint4 out;
+  uint32_t e0, e1, e2, e3;
+  out.x = h74_decode_word(d.x, par.x, e0);
+  out.y = h74_decode_word(d.y, par.y, e1);
+  out.z = h74_decode_word(d.z, par.z, e2);
+  out.w = h74_decode_word(d.w, par.w, e3);
+  const uint32_t err = e0 | (e1 << 1) | (e2 << 2) | (e3 << 3);
+  n.corrected += __popc(err & (kN1 * ((1u << valid) - 1u)));
+  return out;
+}
 
 // -------------------------------------------------------------------- golay
 
@@ -304,25 +405,20 @@ struct Row {  // where one token's data and parity words live
   int stride;  // between consecutive words: bs in a page, 1 in the new row
 };
 
-// Decode one token's row (hamming74, golay) into WD int4-packed data words,
-// adding its counts to n.
-template <int CODEC, int WD, int PW>
+// Decode one token's golay row into WD int4-packed data words, adding its
+// counts to n.
+template <int WD, int PW>
 __device__ __forceinline__ void decode_row(const Row& r, int32_t (&dec)[WD], Counts& n,
                                            const GolayTables& gt) {
+  static_assert((WD + PW) % 3 == 0, "golay rows hold 3 words per 4 codewords");
   int32_t dw[WD], pw[PW];
 #pragma unroll
   for (int j = 0; j < WD; ++j) dw[j] = r.data[j * r.stride];
 #pragma unroll
   for (int j = 0; j < PW; ++j) pw[j] = r.parity[j * r.stride];
-  if constexpr (CODEC == kH74) {
-    static_assert(PW == 3 * WD / 4, "hamming74 rows hold 3 parity planes of WD / 4 words");
-    H74Words<WD, WD>::run(dw, pw, dec, n);
-  } else {
-    static_assert((WD + PW) % 3 == 0, "golay rows hold 3 words per 4 codewords");
 #pragma unroll
-    for (int j = 0; j < WD; ++j) dec[j] = 0;
-    GolayCodewords<WD, PW, 4 * (WD + PW) / 3>::run(dw, pw, dec, n, gt);
-  }
+  for (int j = 0; j < WD; ++j) dec[j] = 0;
+  GolayCodewords<WD, PW, 4 * (WD + PW) / 3>::run(dw, pw, dec, n, gt);
 }
 
 template <int CODEC, int WD, int PW, int GROUP, int HD, bool INTERP>
@@ -351,10 +447,13 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
   constexpr int D = 8 * WD;  // values per row (head_dim HD plus padding)
   constexpr int RW = WD + PW;
   constexpr int T = packed_threads<WD>();
-  // hamming74 and golay decode whole rows (a codeword spans words) into
-  // shared memory; hamming84 decodes each word in the tiles, in registers
-  constexpr bool kRows = CODEC != kH84;
-  static_assert(kRows || PW == WD, "hamming84 rows hold a parity word per data word");
+  // golay decodes whole rows (a codeword spans words) into shared memory;
+  // hamming84 and hamming74 decode each word in the tiles, in registers,
+  // hamming74 with its parity words on the data lanes from shared memory
+  constexpr bool kRows = CODEC == kGolay;
+  static_assert(CODEC != kH84 || PW == WD, "hamming84 rows hold a parity word per data word");
+  static_assert(CODEC != kH74 || (PW == 3 * WD / 4 && WD % 4 == 0),
+                "hamming74 rows hold 3 parity planes of WD / 4 words");
   cg::cluster_group cluster = cg::this_cluster();
   const int splits = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -363,13 +462,17 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
   const int tid = threadIdx.x;
   const Tiles tl(bs, T, WD);
 
-  // the core's (Attend), then with kRows the decoded K and V words kd_s /
-  // vd_s [WD][bs], the ring of kStages stages (stage_words: data and parity
-  // rows, scales and INTERP's neighbour words), then the merge area
+  // the core's (Attend), then golay's decoded K and V words kd_s / vd_s
+  // [WD][bs] (hamming74: the parity words on the data lanes, par_s [2][WD]
+  // [bs], at the same place), the ring of kStages stages (stage_words: data
+  // and parity rows, scales and INTERP's neighbour words), then the merge
+  // area
+  constexpr bool kStaged = CODEC != kH84;
   extern __shared__ float smem[];
   int32_t* kd_s = (int32_t*)(smem + core_floats<WD, GROUP, T>(bs, 1));
-  int32_t* vd_s = kd_s + (kRows ? WD * bs : 0);
-  int32_t* ring = vd_s + (kRows ? WD * bs : 0);
+  int32_t* vd_s = kd_s + (kStaged ? WD * bs : 0);
+  int32_t* ring = vd_s + (kStaged ? WD * bs : 0);
+  int32_t* par_s = kd_s;
   const int sw = stage_words(RW, bs, WD, INTERP);
   // in block 0, the cluster's states (merge_cluster)
   float* s_acc = (float*)(ring + kStages * sw);
@@ -404,16 +507,19 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
   const size_t new_row = (size_t)b * Hkv + h;
   const int32_t* kn = writes ? k_new + new_row * RW : nullptr;
   const int32_t* vn = writes ? v_new + new_row * RW : nullptr;
-  // the new row's words of this thread's row (hamming84's overlay: data,
-  // parity) and of word tid of the row (block 0's write) and its scales,
-  // loaded before they are needed
+  // the new row's words of this thread's row (the overlay: data, and
+  // hamming84's parity; hamming74's parity reaches par_s with the page's)
+  // and of word tid of the row (block 0's write) and its scales, loaded
+  // before they are needed
   const int j = min(tl.row, WD - 1);  // this thread's row (a row >= WD holds nothing)
   uint32_t new_j[2][2] = {};           // [K, V][data, parity]
   if (has_new && !kRows) {
     new_j[0][0] = (uint32_t)k_new[new_row * RW + j];
-    new_j[0][1] = (uint32_t)k_new[new_row * RW + WD + j];
     new_j[1][0] = (uint32_t)v_new[new_row * RW + j];
-    new_j[1][1] = (uint32_t)v_new[new_row * RW + WD + j];
+    if constexpr (CODEC == kH84) {
+      new_j[0][1] = (uint32_t)k_new[new_row * RW + WD + j];
+      new_j[1][1] = (uint32_t)v_new[new_row * RW + WD + j];
+    }
   }
   const bool word = has_new && tid < RW;
   const int32_t kn_w = word ? k_new[new_row * RW + tid] : 0;
@@ -446,13 +552,14 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
   const int count_from = stats ? 0 : first_tok / bs;
 
   // visited page pg into stage st_i of the ring: the scales of the token
-  // this thread owns (token tid); hamming84: this thread's chunk of its row,
-  // data and parity, K and V, with INTERP the neighbour words of the page
-  // (the previous page's last token for chunk 0, the next page's first for
-  // the last chunk, when the chunk goes on); hamming74 and golay: every
-  // 16-byte chunk of the page's data and parity rows, dealt over the
-  // threads. A chunk with no token before ctx is not copied (its weights
-  // are 0). One commit a page, an empty one past the block's last.
+  // this thread owns (token tid); hamming84 and hamming74: this thread's
+  // chunk of its row, data and parity (hamming74: the parity planes' row of
+  // the thread's row, for the PW < WD rows), K and V, with INTERP the
+  // neighbour words of the page (the previous page's last token for chunk
+  // 0, the next page's first for the last chunk, when the chunk goes on);
+  // golay: every 16-byte chunk of the page's data and parity rows, dealt
+  // over the threads. A chunk with no token before ctx is not copied (its
+  // weights are 0). One commit a page, an empty one past the block's last.
   auto load = [&](int pg, int st_i) {
     const size_t page = page_of(pg);  // every lane: shuffles, converged
     const size_t side_page[2] = {page_of(max(pg - 1, 0)), page_of(pg + 1)};
@@ -473,11 +580,13 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
       } else {
         if (tl.row < WD && pg * bs + 4 * tl.chunk < ctx) {
           const size_t at = (page * WD + tl.row) * bs + 4 * tl.chunk;
+          const size_t pat = (page * PW + tl.row) * bs + 4 * tl.chunk;
           const int o = tl.row * bs + 4 * tl.chunk;
+          const bool par = CODEC == kH84 || tl.row < PW;
           copy_async<16>(sp + o, k_cache + at);
-          copy_async<16>(sp + WD * bs + o, k_parity + at);
+          if (par) copy_async<16>(sp + WD * bs + o, k_parity + pat);
           copy_async<16>(sp + RW * bs + o, v_cache + at);
-          copy_async<16>(sp + (RW + WD) * bs + o, v_parity + at);
+          if (par) copy_async<16>(sp + (RW + WD) * bs + o, v_parity + pat);
         }
         if constexpr (INTERP) {
           const int page_tok = pg * bs, next_tok = page_tok + bs;
@@ -546,6 +655,29 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
     return w;
   };
 
+  // hamming74: the parity of visited page pg (in stage sp; the new row's
+  // where it is the new token's) moved onto the data lanes into par_s, a
+  // thread a row - item i < valid is token i's K row, valid + i its V row,
+  // for the page's valid tokens - dealt from the last thread down, so that
+  // the threads owning the page's tokens in page_scores take the fewest.
+  // Every thread calls it (page_of's shuffles); nothing past the last page
+  auto relayout = [&](int pg, const int32_t* sp) {
+    if constexpr (CODEC == kH74) {
+      if (pg >= npages) return;
+      const int new_slot = page_of(pg) == page_new ? slot_new : -1;
+      const int valid = min(bs, ctx - pg * bs);
+      for (int i = T - 1 - tid; i < 2 * valid; i += T) {
+        const bool is_v = i >= valid;
+        const int t = is_v ? i - valid : i;
+        int32_t* dst = par_s + (is_v ? WD * bs : 0) + t;
+        if (t == new_slot)
+          h74_relayout_row<WD>((is_v ? vn : kn) + WD, 1, dst, bs);
+        else
+          h74_relayout_row<WD>(sp + ((is_v ? RW : 0) + WD) * bs + t, bs, dst, bs);
+      }
+    }
+  };
+
   int pg = count_from + rank;
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) load(pg + i * splits, i);
@@ -566,6 +698,11 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
     }
   }
 
+  if constexpr (CODEC == kH74) {  // the first page's parity, from every thread's copies
+    copy_wait();
+    __syncthreads();
+    relayout(pg, ring);
+  }
   __syncthreads();
 
   // the block's pages: every splits-th from count_from + rank
@@ -601,7 +738,7 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
         const int32_t* sr = sp + (is_v ? RW : 0) * bs + t;
         const Row r = t == new_slot ? Row{rn, rn + WD, 1} : Row{sr, sr + WD * bs, bs};
         int32_t dec[WD];
-        decode_row<CODEC, WD, PW>(r, dec, cnt, gt);
+        decode_row<WD, PW>(r, dec, cnt, gt);
         if (counted) continue;
         int32_t* dst = is_v ? vd_s : kd_s;
 #pragma unroll
@@ -611,7 +748,7 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
       __syncthreads();
       kw = *(const uint4*)(kd_s + j * bs + 4 * tl.chunk);
       vw = *(const uint4*)(vd_s + j * bs + 4 * tl.chunk);
-    } else {
+    } else if constexpr (CODEC == kH84) {
       if (counted) {  // for the counts alone
         decode(sp, 0, page_tok, e_new, false);
         decode(sp, 1, page_tok, e_new, false);
@@ -619,13 +756,38 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
       }
       kw = decode(sp, 0, page_tok, e_new, true);
       vw = decode(sp, 1, page_tok, e_new, true);
+    } else {
+      // hamming74: this thread's chunk of its row, K then V, with the
+      // parity words par_s holds for it (the page's relayout, seen since
+      // the last barrier), the new row's data word over the copy's; counts
+      // the valid tokens of the thread's row
+      const int o = j * bs + 4 * tl.chunk;
+      const int valid = tl.row < WD ? min(4, max(0, ctx - page_tok - 4 * tl.chunk)) : 0;
+#pragma unroll
+      for (int kv = 0; kv < 2; ++kv) {
+        uint4 d = *(const uint4*)(sp + kv * RW * bs + o);
+        if (e_new >= 0 && e_new < 4) set_lane(d, e_new, new_j[kv][0]);
+        const uint4 w = h74_decode_chunk(d, *(const uint4*)(par_s + kv * WD * bs + o), valid, cnt);
+        if (kv) vw = w; else kw = w;
+      }
+      if (counted) {  // for the counts alone; then the next page's relayout
+        copy_wait();
+        __syncthreads();
+        relayout(pg + splits, ring + ((k + 1) % kStages) * sw);
+        __syncthreads();
+        continue;
+      }
     }
 
     st.scores(kw, tl);
+    // hamming74: every thread's copies of the next page landed, seen after
+    // the barrier (which also ends this page's reads of par_s)
+    if constexpr (CODEC == kH74) copy_wait();
     __syncthreads();
     const int tok = page_tok + tid;  // the token this thread owns
     const bool live = tid < bs && tok < ctx && tok >= first_tok;
     st.page_scores(tl, live, scales, sm_scale);
+    if constexpr (CODEC == kH74) relayout(pg + splits, ring + ((k + 1) % kStages) * sw);
     __syncthreads();
     st.weights(tl, live, scales, exact != 0);
     __syncthreads();
@@ -691,7 +853,7 @@ __device__ __forceinline__ void sass_probe_golay(const int32_t* rows, int32_t* o
   for (int k = 0; k < N; ++k) {
     int32_t dec[16];
     const int32_t* row = rows + (r0 + k) * 33;
-    decode_row<kGolay, 16, 17>(Row{row, row + 16, 1}, dec, n, GolayTables{nib_s, syn_s});
+    decode_row<16, 17>(Row{row, row + 16, 1}, dec, n, GolayTables{nib_s, syn_s});
 #pragma unroll
     for (int j = 0; j < 16; ++j) out[(r0 + k) * 16 + j] = dec[j];
   }
@@ -707,6 +869,47 @@ extern "C" __global__ void sass_probe_golay_row1(const int32_t* rows, int32_t* o
 extern "C" __global__ void sass_probe_golay_row2(const int32_t* rows, int32_t* out, int* counts,
                                                  const uint16_t* syn_table) {
   sass_probe_golay<2>(rows, out, counts, syn_table);
+}
+
+// Never launched: a bench-0.9b hamming74 page (16 data words and 12 parity
+// words a token, bs tokens: 128) in shared memory, read as the page loop
+// reads it - in _unit1 one token's parity through h74_relayout_row and 4
+// chunks (4 tokens of one data word) through h74_decode_chunk, twice that
+// in _unit2 - whose difference in the built library's SASS is the work of
+// 16 data words (kernels/sass_count.py, for the integer bound).
+template <int N>
+__device__ __forceinline__ void sass_probe_h74(const int32_t* page, int32_t* out, int* counts,
+                                               int bs, int valid) {
+  constexpr int WD = 16, PW = 12;
+  __shared__ __align__(16) int32_t sp[(WD + PW) * 128];
+  __shared__ __align__(16) int32_t par[WD * 128];
+  for (int i = threadIdx.x; i < (WD + PW) * bs; i += blockDim.x) sp[i] = page[i];
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const int t = (threadIdx.x + k * blockDim.x) % bs;
+    h74_relayout_row<WD>(sp + WD * bs + t, bs, par + t, bs);
+  }
+  __syncthreads();
+  const int j = threadIdx.x % WD;
+  Counts n;
+#pragma unroll
+  for (int k = 0; k < 4 * N; ++k) {
+    const int o = j * bs + 4 * ((threadIdx.x / WD + k) % (bs / 4));
+    const uint4 w = h74_decode_chunk(*(const uint4*)(sp + o), *(const uint4*)(par + o), valid, n);
+    *(uint4*)(out + 4 * (4 * N * threadIdx.x + k)) = w;
+  }
+  counts[threadIdx.x] = n.corrected;
+}
+
+extern "C" __global__ void sass_probe_h74_unit1(const int32_t* page, int32_t* out, int* counts,
+                                                int bs, int valid) {
+  sass_probe_h74<1>(page, out, counts, bs, valid);
+}
+
+extern "C" __global__ void sass_probe_h74_unit2(const int32_t* page, int32_t* out, int* counts,
+                                                int bs, int valid) {
+  sass_probe_h74<2>(page, out, counts, bs, valid);
 }
 
 // Launches the kernel on `stream` as `splits` (1-8) blocks a cluster per

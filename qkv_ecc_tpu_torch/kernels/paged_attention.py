@@ -156,7 +156,8 @@ def packed_smem(data_words: int, group: int, block_size: int, splits: int, *,
     words); two buffers in write_attend, one with ``parity_words``, the
     correcting read), the page's weights [group][block_size] and its rescale
     [group][4]; with ``staged`` (the read-inject read's flipped words,
-    hamming74's and golay's decoded ones) K and V words [2][data words]
+    golay's decoded ones, hamming74's parity words on the data lanes) K and
+    V words [2][data words]
     [block_size] int32; without ``ring`` (the read-inject read) the page's
     scales [2][block_size]; with ``ring`` (every other read)
     PACKED_STAGES stages of K and V rows [2][data + parity words]
@@ -412,10 +413,7 @@ def decode_rows(codec: str, rows: torch.Tensor, data_words: int, head_dim: int):
     if codec == "hamming84":
         return h84_decode_rows(rows, dw)
     if codec == "hamming74":
-        p = swar._slice_unpack(rows[..., dw:], 3)
-        d = swar.unpack_int4(rows[..., :dw])
-        dec, _ = swar.h74_value_correct(d, p & 1, (p >> 1) & 1, (p >> 2) & 1)
-        return dec, None
+        return h74_decode_rows(rows, dw)[0], None
     if codec == "golay":
         d12, _ = swar.golay_decode_wide(swar.golay_split_unpack(rows, head_dim),
                                         zero_uncorrectable=True)
@@ -442,10 +440,7 @@ def count_errors(codec: str, rows: torch.Tensor, valid: torch.Tensor, data_words
             corr = corr + C.popcount(single).sum(-1, dtype=torch.int32)
             det = det + C.popcount(double).sum(-1, dtype=torch.int32)
     elif codec == "hamming74":
-        p = swar._slice_unpack(rows[..., dw:], 3)
-        _, err = swar.h74_value_correct(swar.unpack_int4(rows[..., :dw]), p & 1,
-                                        (p >> 1) & 1, (p >> 2) & 1)
-        corr, det = err.sum(-1, dtype=torch.int32), zero
+        corr, det = h74_decode_rows(rows, dw)[1].sum(-1, dtype=torch.int32), zero
     elif codec == "golay":
         _, cnt = swar.golay_decode_wide(swar.golay_split_unpack(rows, head_dim),
                                         zero_uncorrectable=True)
@@ -472,6 +467,70 @@ def h84_decode_rows(rows, data_words: int):
     nib = torch.cat([swar.unpack_bytes4(dec_lo), swar.unpack_bytes4(dec_hi)], dim=-1)
     dbl = torch.cat([swar.unpack_bytes4(dbl_lo), swar.unpack_bytes4(dbl_hi)], dim=-1)
     return nib, dbl != 0
+
+
+_N1 = 0x11111111  # bit 0 of each nibble lane
+
+
+# csrc/decode_attend.cu h74_lanes for G = 4, 2 and 1 plane words: the in-word
+# swaps of bit-index bits (a, b), then the exchanges of word-index bit
+# (stride) with bit-index bit b; and the J bit each word-index bit then holds
+_H74_NETS = {4: (((2, 4),), ((4, 0), (8, 1), (1, 3), (2, 4)), (3, 2, 0, 1)),
+             2: (((0, 4), (0, 2)), ((1, 3), (2, 0), (4, 1)), (2, 1, 0)),
+             1: (((0, 3), (1, 4), (1, 2)), ((1, 0), (2, 1)), (1, 0))}
+
+
+def _pos_mask(a, b):
+    """Bits of a word whose index has bit a set (a None: any) and bit b
+    clear."""
+    return sum(1 << i for i in range(32) if (a is None or i >> a & 1) and not i >> b & 1)
+
+
+def h74_parity_lanes(parity, data_words: int):
+    """Hamming(7,4)'s bit-sliced parity planes [..., 3 G] (G = data_words /
+    4) -> one word per data word [..., data_words] on that word's nibble
+    lanes, as csrc/decode_attend.cu lays them out: bit 8k + 4hi + p of word
+    J is parity bit p of the value in lane (k, hi) of data word J (value
+    hi * 4 data_words + 4J + k). The kernel's route (h74_lanes): the plane
+    words, padded with G zero words, are a bit matrix whose word index holds
+    (v % G, p) and whose bit index v / G; delta swaps move J into the word
+    index and (p, hi, k) into the bit index."""
+    G = data_words // 4
+    swaps, exchanges, slot_bits = _H74_NETS[G]
+    x = parity.to(torch.int64) & 0xFFFFFFFF
+    x = torch.cat([x, torch.zeros_like(x[..., :G])], dim=-1)
+    for a, b in swaps:
+        d, m = (1 << b) - (1 << a), _pos_mask(a, b)
+        t = ((x >> d) ^ x) & m
+        x = x ^ t ^ (t << d)
+    for stride, b in exchanges:
+        lo = torch.tensor([i for i in range(4 * G) if not i & stride], device=x.device)
+        d, m = 1 << b, _pos_mask(None, b)
+        t = ((x[..., lo] >> d) ^ x[..., lo + stride]) & m
+        x = x.index_copy(-1, lo + stride, x[..., lo + stride] ^ t)
+        x = x.index_copy(-1, lo, (x[..., lo] ^ (t << d)) & 0xFFFFFFFF)
+    j = torch.arange(data_words, device=x.device)
+    slot = sum(((j >> bit) & 1) << i for i, bit in enumerate(slot_bits))
+    return x[..., slot].to(torch.int32)
+
+
+def h74_decode_rows(rows, data_words: int):
+    """Full hamming74 rows [..., data_words + 3 * data_words / 4] (data ++
+    parity planes) -> (the corrected nibbles [..., 8 * data_words], the
+    nonzero-syndrome mask [..., 8 * data_words] bool), in value order, as
+    csrc/decode_attend.cu decodes them: the parity on the data words'
+    lanes (h74_parity_lanes), then 8 values a word at once, the syndrome
+    bits s0, s1, s2 in bit 0 of each nibble lane (swar.h74_value_correct's
+    logic: a nonzero syndrome {3, 5, 6, 7} flips data bit {0, 1, 2, 3})."""
+    d = rows[..., :data_words].to(torch.int32)
+    par = h74_parity_lanes(rows[..., data_words:], data_words)
+    d1, d2, d3 = d >> 1, d >> 2, d >> 3
+    s0 = (d ^ d1 ^ d3 ^ par) & _N1
+    s1 = (d ^ d2 ^ d3 ^ (par >> 1)) & _N1
+    s2 = (d1 ^ d2 ^ d3 ^ (par >> 2)) & _N1
+    corr = ((s0 & s1 & (s2 ^ _N1)) | ((s0 & (s1 ^ _N1) & s2) << 1)
+            | (((s0 ^ _N1) & s1 & s2) << 2) | ((s0 & s1 & s2) << 3))
+    return swar.unpack_int4(d ^ corr), swar.unpack_int4(s0 | s1 | s2) != 0
 
 
 def interpolate_chunked(nib, dbl, context_lens, chunk_tokens: int):

@@ -1,7 +1,8 @@
 """The integer bound of the kernels whose integer work may outlast their
-bytes: Golay's correcting read, the read-inject read and the codec kernels
-K5-K9. The SASS instructions (``cuobjdump -sass`` of the built libraries)
-of one unit of each one's work, per pipe, over the card's issue rates.
+bytes: Golay's and Hamming(7,4)'s correcting reads, the read-inject read
+and the codec kernels K5-K9. The SASS instructions (``cuobjdump -sass`` of
+the built libraries) of one unit of each one's work, per pipe, over the
+card's issue rates.
 
     python -m qkv_ecc_tpu_torch.kernels.sass_count
 
@@ -9,27 +10,30 @@ Never-launched probe kernels sit in the sources beside the kernels they
 measure, each in two forms whose only difference is one more unit of work
 a thread: ``sass_probe_golay_row1`` / ``_row2`` (decode_attend.cu: one and
 two bench-0.9b rows of 44 codewords through ``decode_row``, as phase A runs
-it), ``sass_probe_flip_word1`` / ``_word2`` (write_attend.cu: one and two
-words' 32 hashes, ``flip_word``) and, in codec_kernels.cu, one and two
-vectors of a codec's loop (``sass_probe_<codec>1`` / ``2``: 16 Hamming
-values or 4 Golay words) and one and two uint8 elements of K9 (8 hashes
-each, ``sass_probe_inject1`` / ``2``). The difference of their
+it), ``sass_probe_h74_unit1`` / ``_unit2`` (decode_attend.cu: one and two
+bench-0.9b rows' parity through ``h74_relayout_row`` and their 16 data
+words through ``h74_decode_chunk``, as the page loop runs them),
+``sass_probe_flip_word1`` / ``_word2`` (write_attend.cu:
+one and two words' 32 hashes, ``flip_word``) and, in codec_kernels.cu, one
+and two vectors of a codec's loop (``sass_probe_<codec>1`` / ``2``: 16
+Hamming values or 4 Golay words) and one and two uint8 elements of K9 (8
+hashes each, ``sass_probe_inject1`` / ``2``). The difference of their
 instructions, classed by the pipe that issues them, divided by the units'
-codewords, hashes, values or words, is the count per one of them: the
-probe's fixed cost (the tables' fill, the thread's index) cancels. Global
-loads and stores (the bytes bound's) are left out of every pipe; control
-flow and uniform-datapath instructions count against the issue rate alone.
-Rates in lanes per clock per SM, compute capability 9.0 (CUDA C++
-Programming Guide, "Arithmetic Instructions" throughput table): 32-bit
+codewords, data words, hashes, values or words, is the count per one of
+them: the probe's fixed cost (the tables' fill, the thread's index)
+cancels. Global loads and stores (the bytes bound's) are left out of every
+pipe; control flow and uniform-datapath instructions count against the
+issue rate alone. Rates in lanes per clock per SM, compute capability 9.0
+(CUDA C++ Programming Guide, "Arithmetic Instructions" throughput table): 32-bit
 integer add, logic, shift, compare, select and byte permute 64; integer
 multiply-add 64; fp32 add, multiply and FMA 128; population count,
 conversions and the special functions 16; shared-memory loads and stores
 and shuffles 32 (one warp instruction a clock); and 4 warp instructions
 issued a clock (one per scheduler). A call's integer bound is its units
-(codewords decoded, hashes drawn, values or words coded) times the count on
-each pipe over that pipe's rate times the SMs and the clock, the largest
-over the pipes: the least time the card needs for that work alone,
-whatever else the kernel does.
+(codewords or data words decoded, hashes drawn, values or words coded)
+times the count on each pipe over that pipe's rate times the SMs and the
+clock, the largest over the pipes: the least time the card needs for that
+work alone, whatever else the kernel does.
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ from . import _build
 PROBES = {
     "golay": (("sass_probe_golay_row1", "sass_probe_golay_row2"), "decode_attend", 44,
               "codeword"),
+    "h74_read": (("sass_probe_h74_unit1", "sass_probe_h74_unit2"), "decode_attend", 16,
+                 "data word"),
     "hash": (("sass_probe_flip_word1", "sass_probe_flip_word2"), "write_attend", 32, "hash"),
     **{key: ((f"sass_probe_{key}1", f"sass_probe_{key}2"), "codec_kernels", units, unit)
        for key, units, unit in (("h74_encode", 16, "value"), ("h74_decode", 16, "value"),
@@ -98,16 +104,21 @@ def per_pipe(ops: collections.Counter, units: int) -> dict:
     return out
 
 
+def probe_count(key: str, built: dict | None = None) -> dict:
+    """Instructions per unit by pipe of one probe, from its library as
+    built ({source: library path}; default: built now if needed)."""
+    (one, two), src, units, _ = PROBES[key]
+    library = built[src] if built else _build.build(src).path
+    diff = function_opcodes(library, two)
+    diff.subtract(function_opcodes(library, one))
+    return per_pipe(diff, units)
+
+
 def probe_counts() -> dict:
     """{probe: instructions per unit by pipe}, from the libraries as built
     (building them first if needed)."""
     built = {b.name: b.path for b in _build.build_all()}
-    out = {}
-    for key, ((one, two), src, units, _) in PROBES.items():
-        diff = function_opcodes(built[src], two)
-        diff.subtract(function_opcodes(built[src], one))
-        out[key] = per_pipe(diff, units)
-    return out
+    return {key: probe_count(key, built) for key in PROBES}
 
 
 def int_bound_ms(counts: dict, units: float, sms: int, clock_hz: float) -> tuple:
