@@ -2072,47 +2072,6 @@ def codec_timing(torch, gen, device, smi, sass, sms, clock):
     return timings
 
 
-def trace_decode(torch, params, ids, gen, device, smi, cfg=None, steps=4):
-    """Device busy share of the decode step of cfg (default bench-0.9b) on
-    the prompt ids: torch.profiler over `steps` steps of each arm, kernel
-    time summed over the window's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from qkv_ecc_tpu_torch.models.config import BENCH_0_9B
-    from qkv_ecc_tpu_torch.models.kv_policy import policy_for_mode
-    from qkv_ecc_tpu_torch.models.runtime import decode_loop, init_generation_state, prefill
-
-    cfg = cfg or BENCH_0_9B
-    for mode in MODES:
-        pol = policy_for_mode(mode, ber=BER, seed=42)
-        state, bt, _ = init_generation_state(cfg, pol, BATCH, ids.shape[1] + 8, device=device)
-        logits, state = prefill(params, ids, state, bt, cfg, pol, gen)
-        logits, state, _ = decode_loop(params, logits, state, bt, cfg, pol, gen, 1)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            decode_loop(params, logits, state, bt, cfg, pol, gen, steps)
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t)
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        busy = sum(e.time_range.elapsed_us() for e in kernels)
-        attend = {name: sum(e.time_range.elapsed_us() for e in kernels if name in e.name)
-                  for name in ("write_attend_kernel", "decode_attend_kernel",
-                               "float_attend_kernel")}
-        if not kernels or busy <= 0:
-            say(f"  {cfg.name} {mode}: device time not measured (the profiler recorded no device "
-                "events)")
-            continue
-        per = 1e3 * steps  # us over the window -> ms a step
-        say(f"  {cfg.name} {mode} (profiled, {steps} steps): {wall_us / per:.3f} ms/step wall, "
-            f"{len(kernels) / steps:.0f} device kernels/step, device busy {busy / per:.3f} "
-            f"ms/step ({100 * busy / wall_us:.1f}% of wall, idle "
-            f"{100 - 100 * busy / wall_us:.1f}%), write_attend "
-            f"{attend['write_attend_kernel'] / per:.3f} ms/step, decode_attend "
-            f"{attend['decode_attend_kernel'] / per:.3f} ms/step, float_attend "
-            f"{attend['float_attend_kernel'] / per:.3f} ms/step ({smi})")
-
-
 # gpt2 (124M, qkv_ecc_tpu/models/config.py:41): 12/12 heads at head_dim 64,
 # float32 as in the JAX package, random weights from seed 0; its decode runs
 # the kernel instances of group 1, head_dim 64. Contexts after the write at
@@ -4910,13 +4869,6 @@ def main():
                 + f"; with no token (ctx 0, S {s}): {fixed * 1e3:.2f} us ({smi})")
 
         timings.update(codec_timing(torch, gen, device, smi, sass, sms, clock))
-
-    with Phase("trace"):
-        trace_decode(torch, params, ids, gen, device, smi)
-        gpt2_params = init_params(GPT2_124M, seed=0, device=device)
-        # two steps an arm: the profiler's events take most of the phase
-        trace_decode(torch, gpt2_params, gpt2_ids, gen, device, smi, GPT2_124M, steps=2)
-        del gpt2_params
 
     from qkv_ecc_tpu_torch.kernels.paged_attention import (
         DECODE_KERNEL_SHAPES, FLOAT_KERNEL_SHAPES, KERNEL_SHAPES)

@@ -55,6 +55,7 @@ from .kv_policy import (
 )
 from ..codecs.fault_injection import flip_mask
 from ..parallel.mesh import all_gather_cat, all_reduce
+from ..tracing import span
 from .layers import causal_attention
 from .registry import arch_module
 
@@ -262,7 +263,6 @@ def prefill(params, input_ids, state, block_table, cfg: ModelConfig,
     device = input_ids.device
     positions = torch.arange(S, device=device).expand(B, S)
     arch = arch_module(cfg)
-    inv_freq = arch.inv_freq(cfg, device)
 
     def draw(shape, n_bits):
         """The rank's slice of a draw at the single-device shape."""
@@ -272,35 +272,44 @@ def prefill(params, input_ids, state, block_table, cfg: ModelConfig,
                          policy.ber, n_bits, generator)
         return _rank_slice(full, mesh, 0, shape[0], shape[2], batch_split)
 
-    x = arch.embed(params, input_ids, cfg, positions)
+    with span("prefill.embed"):
+        inv_freq = arch.inv_freq(cfg, device)
+        x = arch.embed(params, input_ids, cfg, positions)
     for i, lp in enumerate(params["layers"]):
-        q, k, v = arch.qkv(x, lp, cfgl, positions, inv_freq)
-        enc_shape = codeword_shape(policy.codec, k.shape, cfg.head_dim)
-        km, vm = ([draw(enc_shape, N_BITS[policy.codec]) for _ in range(2)] if winject
-                  else (None, None))
-        kc, ks, _ = encode_kv(k, policy, mask=km)
-        vc, vs, _ = encode_kv(v, policy, mask=vm)
-        kcs = swar.scrub_codewords(policy.codec, kc) if scrub else kc
-        vcs = swar.scrub_codewords(policy.codec, vc) if scrub else vc
-        _write_tokens(state, i, block_table, positions, pack_kv(kcs, policy, cfg.head_dim),
-                      pack_kv(vcs, policy, cfg.head_dim), ks, vs)
-        if read:
-            rk, rv = ([_rank_slice(read_masks[i, j], mesh, 0, B, cfgl.num_kv_heads, batch_split)
-                       for j in (0, 1)] if read_masks is not None else
-                      [draw(kc.shape, N_BITS["int4"]) for _ in range(2)])
-            k_dec = decode_kv(kc, ks, policy, head_dim=cfg.head_dim, read_mask=rk)[0]
-            v_dec = decode_kv(vc, vs, policy, head_dim=cfg.head_dim, read_mask=rv)[0]
+        with span("prefill.qkv"):
+            q, k, v = arch.qkv(x, lp, cfgl, positions, inv_freq)
+        with span("prefill.write"):
+            enc_shape = codeword_shape(policy.codec, k.shape, cfg.head_dim)
+            km, vm = ([draw(enc_shape, N_BITS[policy.codec]) for _ in range(2)] if winject
+                      else (None, None))
+            kc, ks, _ = encode_kv(k, policy, mask=km)
+            vc, vs, _ = encode_kv(v, policy, mask=vm)
+            kcs = swar.scrub_codewords(policy.codec, kc) if scrub else kc
+            vcs = swar.scrub_codewords(policy.codec, vc) if scrub else vc
+            _write_tokens(state, i, block_table, positions, pack_kv(kcs, policy, cfg.head_dim),
+                          pack_kv(vcs, policy, cfg.head_dim), ks, vs)
+        with span("prefill.codec_read"):
+            if read:
+                rk, rv = ([_rank_slice(read_masks[i, j], mesh, 0, B, cfgl.num_kv_heads,
+                                       batch_split) for j in (0, 1)]
+                          if read_masks is not None else
+                          [draw(kc.shape, N_BITS["int4"]) for _ in range(2)])
+                k_dec = decode_kv(kc, ks, policy, head_dim=cfg.head_dim, read_mask=rk)[0]
+                v_dec = decode_kv(vc, vs, policy, head_dim=cfg.head_dim, read_mask=rv)[0]
+            else:
+                k_dec = decode_kv(kc, ks, policy, head_dim=cfg.head_dim, seq_axis=1)[0]
+                v_dec = decode_kv(vc, vs, policy, head_dim=cfg.head_dim, seq_axis=1)[0]
+        with span("prefill.attention"):
+            attn = causal_attention(q, k_dec.to(x.dtype), v_dec.to(x.dtype),
+                                    cfg.num_kv_groups, sliding_window=cfg.sliding_window)
+        with span("prefill.out_mlp"):
+            x = arch.attn_out_mlp(x, attn, lp, cfgl, reduce)
+    with span("prefill.lm_head"):
+        if logit_pos is None:
+            x_last = x[:, -1:, :]
         else:
-            k_dec = decode_kv(kc, ks, policy, head_dim=cfg.head_dim, seq_axis=1)[0]
-            v_dec = decode_kv(vc, vs, policy, head_dim=cfg.head_dim, seq_axis=1)[0]
-        attn = causal_attention(q, k_dec.to(x.dtype), v_dec.to(x.dtype),
-                                cfg.num_kv_groups, sliding_window=cfg.sliding_window)
-        x = arch.attn_out_mlp(x, attn, lp, cfgl, reduce)
-    if logit_pos is None:
-        x_last = x[:, -1:, :]
-    else:
-        x_last = torch.take_along_dim(x, logit_pos.long().to(device)[:, None, None], dim=1)
-    logits = _lm_head(params, x_last, cfgl, mesh)[:, 0]
+            x_last = torch.take_along_dim(x, logit_pos.long().to(device)[:, None, None], dim=1)
+        logits = _lm_head(params, x_last, cfgl, mesh)[:, 0]
     state["context_len"] = (torch.full((B,), S, dtype=torch.int32, device=device)
                             if true_len is None
                             else torch.as_tensor(true_len, dtype=torch.int32).to(device))
@@ -362,81 +371,93 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
     dw = state["k_cache"].shape[3]
     device = token_ids.device
     arch = arch_module(cfg)
-    inv_freq = arch.inv_freq(cfg, device)
     scrub = _use_scrub(policy) and not collect_ecc_stats
     ri_ber = policy.ber if read_inject(policy) else 0.0
-    if ri_ber and read_inject_seed is None:
-        if generator is None:
-            raise ValueError("read-time injection needs a read_inject_seed or a torch.Generator")
-        read_inject_seed = torch.randint(-2 ** 31, 2 ** 31, (), generator=generator,
-                                         device=generator.device).to(torch.int32)
     inject = write_inject(policy)
-    if inject:
-        if hoisted_masks is None:
-            hoist = hoisted_write_deltas if scrub else hoisted_logical_masks
-            hoisted_masks = hoist(policy, L, write_mask_shape(policy, B * dp, cfg),
-                                  generator=generator)
-        hoisted_masks = _rank_slice(hoisted_masks, mesh, 2, B, Hl)
-    # gpt2's position rows: each row's context length
-    x = arch.embed(params, token_ids[:, None], cfg, positions)
+    with span("decode.masks"):
+        if ri_ber and read_inject_seed is None:
+            if generator is None:
+                raise ValueError("read-time injection needs a read_inject_seed or a "
+                                 "torch.Generator")
+            read_inject_seed = torch.randint(-2 ** 31, 2 ** 31, (), generator=generator,
+                                             device=generator.device).to(torch.int32)
+        if inject:
+            if hoisted_masks is None:
+                hoist = hoisted_write_deltas if scrub else hoisted_logical_masks
+                hoisted_masks = hoist(policy, L, write_mask_shape(policy, B * dp, cfg),
+                                      generator=generator)
+            hoisted_masks = _rank_slice(hoisted_masks, mesh, 2, B, Hl)
+    with span("decode.embed"):
+        inv_freq = arch.inv_freq(cfg, device)
+        # gpt2's position rows: each row's context length
+        x = arch.embed(params, token_ids[:, None], cfg, positions)
+        ctx = pos + 1
+        counts = torch.zeros((2, B), dtype=torch.int32, device=device)
     # scrubbed: the kernel reads data words only and the parity columns are
     # stored at the end of the step; otherwise parity streams through it
     has_parity = "k_parity" in state
     extract = scrub and has_parity and swar.scrub_extract_ok(policy.codec, cfg.head_dim)
     parity_args = (state["k_parity"], state["v_parity"]) if has_parity and not extract else ()
     k_par, v_par = [], []
-    ctx = pos + 1
-    counts = torch.zeros((2, B), dtype=torch.int32, device=device)
     for i, lp in enumerate(params["layers"]):
-        q, k, v = arch.qkv(x, lp, cfgl, positions, inv_freq)
-        masks = hoisted_masks[i] if inject else (None, None)
-        if scrub:
-            kc, ks = encode_pack_kv_scrubbed(k, policy, folded=masks[0])
-            vc, vs = encode_pack_kv_scrubbed(v, policy, folded=masks[1])
-        else:
-            kc, ks, _ = encode_kv(k, policy, mask=masks[0])
-            vc, vs, _ = encode_kv(v, policy, mask=masks[1])
-            kc, vc = pack_kv(kc, policy, cfg.head_dim), pack_kv(vc, policy, cfg.head_dim)
-        kc, vc = kc[:, 0], vc[:, 0]  # [B, Hkv, row_words]
-        if ks is None:  # float codecs carry no scales: ones, as JAX passes
-            ks = vs = torch.ones((B, 1, Hl), device=kc.device)
-        if extract:
-            k_par.append(kc[..., dw:])
-            v_par.append(vc[..., dw:])
-            kc, vc = kc[..., :dw], vc[..., :dw]
-        out = paged_attention_ecc_write_attend(
-            q[:, 0], kc.contiguous(), vc.contiguous(),
-            ks[:, 0].contiguous(), vs[:, 0].contiguous(),
-            state["k_cache"], state["v_cache"], state["k_scales"], state["v_scales"],
-            block_table, ctx, i, *parity_args, codec=policy.codec, scrub=scrub,
-            block_size=bs, use_interpolation=policy.use_interpolation,
-            collect_stats=collect_ecc_stats, read_inject_ber=ri_ber,
-            read_inject_seed=read_inject_seed if ri_ber else 0,
-            sliding_window=cfg.sliding_window,
-        )
+        with span("decode.qkv"):
+            q, k, v = arch.qkv(x, lp, cfgl, positions, inv_freq)
+        with span("decode.write_chain"):
+            masks = hoisted_masks[i] if inject else (None, None)
+            if scrub:
+                kc, ks = encode_pack_kv_scrubbed(k, policy, folded=masks[0])
+                vc, vs = encode_pack_kv_scrubbed(v, policy, folded=masks[1])
+            else:
+                kc, ks, _ = encode_kv(k, policy, mask=masks[0])
+                vc, vs, _ = encode_kv(v, policy, mask=masks[1])
+                kc, vc = pack_kv(kc, policy, cfg.head_dim), pack_kv(vc, policy, cfg.head_dim)
+            kc, vc = kc[:, 0], vc[:, 0]  # [B, Hkv, row_words]
+            if ks is None:  # float codecs carry no scales: ones, as JAX passes
+                ks = vs = torch.ones((B, 1, Hl), device=kc.device)
+            if extract:
+                k_par.append(kc[..., dw:])
+                v_par.append(vc[..., dw:])
+                kc, vc = kc[..., :dw], vc[..., :dw]
+            kc, vc = kc.contiguous(), vc.contiguous()
+            ks, vs = ks[:, 0].contiguous(), vs[:, 0].contiguous()
+        with span("decode.attend"):
+            out = paged_attention_ecc_write_attend(
+                q[:, 0], kc, vc, ks, vs,
+                state["k_cache"], state["v_cache"], state["k_scales"], state["v_scales"],
+                block_table, ctx, i, *parity_args, codec=policy.codec, scrub=scrub,
+                block_size=bs, use_interpolation=policy.use_interpolation,
+                collect_stats=collect_ecc_stats, read_inject_ber=ri_ber,
+                read_inject_seed=read_inject_seed if ri_ber else 0,
+                sliding_window=cfg.sliding_window,
+            )
+            if collect_ecc_stats:
+                attn, stats = out
+                counts += stats.t()
+            else:
+                attn = out
+        with span("decode.out_mlp"):
+            x = arch.attn_out_mlp(x, attn[:, None], lp, cfgl, reduce)
+    with span("decode.parity_scatter"):
+        if k_par:
+            # parity[l, phys[b], h, :, slot[b]] = col[b, l, h, :], all layers at once
+            phys, slots = _trash_routed_slots(block_table, pos, bs)
+            layers = torch.arange(L, device=phys.device)[None, :]
+            kp = torch.stack(k_par, dim=1)  # [B, L, Hkv, pw]
+            vp = torch.stack(v_par, dim=1)
+            idx = (layers, phys[:, None], slice(None), slice(None), slots[:, None])
+            state["k_parity"][idx] = kp
+            state["v_parity"][idx] = vp
+    with span("decode.ecc_counts"):
         if collect_ecc_stats:
-            attn, stats = out
-            counts += stats.t()
-        else:
-            attn = out
-        x = arch.attn_out_mlp(x, attn[:, None], lp, cfgl, reduce)
-    if k_par:
-        # parity[l, phys[b], h, :, slot[b]] = col[b, l, h, :], all layers at once
-        phys, slots = _trash_routed_slots(block_table, pos, bs)
-        layers = torch.arange(L, device=phys.device)[None, :]
-        kp = torch.stack(k_par, dim=1)  # [B, L, Hkv, pw]
-        vp = torch.stack(v_par, dim=1)
-        idx = (layers, phys[:, None], slice(None), slice(None), slots[:, None])
-        state["k_parity"][idx] = kp
-        state["v_parity"][idx] = vp
-    if collect_ecc_stats:
-        if mesh is not None:
-            all_reduce(counts, mesh.model_group)  # once a step
-        zeros = torch.zeros((B,), dtype=torch.int32, device=device)
-        state["ecc_corrected"] = state.get("ecc_corrected", zeros) + counts[0]
-        state["ecc_detected"] = state.get("ecc_detected", zeros) + counts[1]
+            if mesh is not None:
+                all_reduce(counts, mesh.model_group)  # once a step
+            zeros = torch.zeros((B,), dtype=torch.int32, device=device)
+            state["ecc_corrected"] = state.get("ecc_corrected", zeros) + counts[0]
+            state["ecc_detected"] = state.get("ecc_detected", zeros) + counts[1]
     state["context_len"] = ctx
-    return _lm_head(params, x, cfgl, mesh)[:, 0], state
+    with span("decode.lm_head"):
+        logits = _lm_head(params, x, cfgl, mesh)[:, 0]
+    return logits, state
 
 
 @torch.no_grad()

@@ -83,8 +83,8 @@ class ContinuousBatchingServer:
         # per-read correction/detection counts; costs the correcting read
         # (scrub off) - disable for pure-throughput serving
         self.collect_ecc_stats = collect_ecc_stats
-        self._ecc_corrected = 0
-        self._ecc_detected = 0
+        # corrected, detected: the decode steps' sums, kept on the device
+        self._ecc_counts = torch.zeros(2, dtype=torch.int64, device=self.device)
         self.prefill_bucket = max(1, prefill_bucket)
         self.max_pages_per_seq = -(-max_seq_len // block_size)
         if num_blocks is None:
@@ -131,16 +131,18 @@ class ContinuousBatchingServer:
         return logits
 
     def _harvest_ecc(self):
-        """Accumulate and pop the decode step's counters."""
+        """Pop the decode step's counters and add their sums into the
+        device totals, with no host sync."""
         if self.collect_ecc_stats:
-            self._ecc_corrected += int(self.state.pop("ecc_corrected").sum())
-            self._ecc_detected += int(self.state.pop("ecc_detected").sum())
+            self._ecc_counts += torch.stack([self.state.pop("ecc_corrected").sum(),
+                                             self.state.pop("ecc_detected").sum()])
 
     @property
     def ecc_stats(self) -> dict:
-        """Cumulative decode-phase ECC counters across all served steps."""
-        return {"errors_corrected": self._ecc_corrected,
-                "errors_detected": self._ecc_detected}
+        """Cumulative decode-phase ECC counters across all served steps,
+        read from the device when asked."""
+        corrected, detected = self._ecc_counts.tolist()
+        return {"errors_corrected": corrected, "errors_detected": detected}
 
     # -- host-side bookkeeping -------------------------------------------
 

@@ -76,13 +76,15 @@ class TPContinuousBatchingServer(ContinuousBatchingServer):
 
     def _harvest_ecc(self):
         """The step's counts of every row: the rank's rows (already summed
-        over the model group) summed over the data group."""
+        over the model group) summed over the data group, added into the
+        device totals. The sum over the data group stays in every step: a
+        collective run only when ``ecc_stats`` is read would need every
+        rank to read it at the same point, and a caller may read it on one
+        rank alone."""
         if self.collect_ecc_stats:
             counts = torch.stack([self.state.pop("ecc_corrected").sum(),
                                   self.state.pop("ecc_detected").sum()])
-            counts = all_reduce(counts, self.mesh.data_group).tolist()
-            self._ecc_corrected += int(counts[0])
-            self._ecc_detected += int(counts[1])
+            self._ecc_counts += all_reduce(counts, self.mesh.data_group)
 
     def _decode_tokens(self, tokens, requests_by_row):
         """Decode the rank's rows, sample them (with their rows of the
