@@ -721,11 +721,12 @@ def golay_crafted_cache(torch, cfg, ctx_before, block_size, gen, device):
 
 def golay_split_check(torch, gen, device, cfg, block_size, ctx_before):
     """K2 golay (decode_attend, write+attend, with and without stats) and
-    K4 golay (paged_attention_ecc with stats, row 1 empty) on
-    golay_crafted_cache against their plain versions at cfg's attention
-    shapes (layer 1, 512-token chunks): caches, parity and scales after the
-    write equal, the counts equal, outputs within output_tolerance. Returns
-    the largest error of K2 and of K4."""
+    K4 golay (paged_attention_ecc with stats, row 1 empty; then 8 times
+    with a sliding window of two pages, whose pages before it are counted,
+    never attended) on golay_crafted_cache against their plain versions at
+    cfg's attention shapes (layer 1, 512-token chunks): caches, parity and
+    scales after the write equal, the counts equal, outputs within
+    output_tolerance. Returns the largest error of K2 and of K4."""
     from qkv_ecc_tpu_torch.kernels.paged_attention import (
         attend_plain, paged_attention_ecc, paged_attention_ecc_write_attend as write_attend,
         write_decode_attend_plain)
@@ -771,6 +772,23 @@ def golay_split_check(torch, gen, device, cfg, block_size, ctx_before):
                              out[0], ref[0], {}, {}, (), out[1], ref[1])
     if out[0][1].any():
         fail("golay crafted errors: the empty row did not read 0")
+    # a counted page's rows and a partial last page's go to different
+    # threads in the same stage of the ring: the counts must hold every time
+    window = 2 * block_size
+    ref = attend_plain(*args, codec="golay", sm_scale=D ** -0.5, num_pages=bt.shape[1],
+                       pages_per_chunk=min(ppc, bt.shape[1]), collect_stats=True,
+                       sliding_window=window)
+    label = f"paged_attention_ecc golay crafted errors, window={window}, 8 reads {where}"
+    for i in range(8):
+        out = paged_attention_ecc(*args, codec="golay", block_size=block_size, collect_stats=True,
+                                  sliding_window=window)
+        torch.cuda.synchronize()
+        if i == 0:
+            worst[1] = max(worst[1], check_outputs(label, out[0], ref[0], {}, {}, (), out[1],
+                                                   ref[1]))
+        elif not (torch.equal(out[1], ref[1]) and torch.equal(out[0], first)):
+            fail(f"{label}: read {i} differs from the first")
+        first = out[0]
     return worst
 
 
@@ -779,20 +797,32 @@ def split_check(torch, gen, device):
     golay_split_check at bench-0.9b's attention shapes (block 128, contexts
     1 to 1152), at gpt2's (block 128, group 1, head_dim 64, contexts 1 to
     1024), at trained-tiny's (block 128, group 1, head_dim 32, contexts 1
-    to 512) and at tiny-llama's (block 16, contexts 1 to 160), and
-    read_inject_check. Returns the largest errors of K2 golay, K4 golay and
-    the read-inject reads."""
-    from qkv_ecc_tpu_torch.models.config import TINY_LLAMA
+    to 512) and at tiny-llama's (block 16, contexts 1 to 160); at the other
+    Golay instances - bench-0.9b's words at group 4 (the harness's 32/8
+    heads), trained-100m's (group 3 at head_dim 64) and tiny-gpt2's (group 1
+    at head_dim 16, block 16) - against the plain model of the split
+    (split_model, as instance_checks holds them); and read_inject_check.
+    Returns the largest errors of K2 golay, K4 golay and the read-inject
+    reads."""
+    import dataclasses
+    from qkv_ecc_tpu_torch.models.config import TINY_GPT2, TINY_LLAMA, TRAINED_100M
 
+    small = [159, 0, 15, 16, 100, 47, 128, 33]
     worst = dict(golay=0.0, k4_golay=0.0, inject=0.0)
     for s in CHECK_SPLITS:
         with forced_splits(s):
-            for cfg, bs, ctx_before in (
-                    (bench_attention_cfg(), 128, [1151, 1023, 1024, 0, 511, 512, 777, 1100]),
-                    (gpt2_attention_cfg(), 128, GPT2_CTX_BEFORE),
-                    (tiny_attention_cfg(), 128, TINY_CTX_BEFORE),
-                    (TINY_LLAMA, 16, [159, 0, 15, 16, 100, 47, 128, 33])):
-                k2, k4 = golay_split_check(torch, gen, device, cfg, bs, ctx_before)
+            for cfg, bs, ctx_before, model in (
+                    (bench_attention_cfg(), 128, [1151, 1023, 1024, 0, 511, 512, 777, 1100],
+                     False),
+                    (gpt2_attention_cfg(), 128, GPT2_CTX_BEFORE, False),
+                    (tiny_attention_cfg(), 128, TINY_CTX_BEFORE, False),
+                    (TINY_LLAMA, 16, small, False),
+                    (dataclasses.replace(bench_attention_cfg(), num_heads=32), 128,
+                     [1151, 1023, 1024, 0, 511, 512, 777, 1100], True),
+                    (dataclasses.replace(TRAINED_100M, num_layers=2), 128, TINY_CTX_BEFORE, True),
+                    (TINY_GPT2, 16, small, True)):
+                with split_model() if model else contextlib.nullcontext():
+                    k2, k4 = golay_split_check(torch, gen, device, cfg, bs, ctx_before)
                 worst["golay"] = max(worst["golay"], k2)
                 worst["k4_golay"] = max(worst["k4_golay"], k4)
             worst["inject"] = max(worst["inject"], read_inject_check(torch, gen, device))

@@ -93,15 +93,7 @@ enum Op {
   kGolayWriteScrub = 6,
 };
 
-// prmt.b32 in its default mode: byte k of the result is byte (sel >> 4k) &
-// 7 of the 8 bytes {hi, lo} (lo's byte 0 first); when bit 4k + 3 of sel is
-// set, that byte's bit 7 is copied over all 8 bits instead. Bits 16-31 of
-// sel are not read.
-__device__ __forceinline__ uint32_t prmt(uint32_t lo, uint32_t hi, uint32_t sel) {
-  uint32_t r;
-  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(lo), "r"(hi), "r"(sel));
-  return r;
-}
+using golay::prmt;  // prmt.b32 in its default mode
 
 constexpr uint32_t kM1 = 0x01010101u;  // bit 0 of each byte
 // The codewords of the data nibbles 0-7, one byte each, entries 0-3 in the

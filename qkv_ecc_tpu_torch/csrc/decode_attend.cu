@@ -33,16 +33,18 @@
 //        parity bit p of value t*G + g) first moved onto the data words'
 //        lanes, a token at a time (h74_lanes); a nonzero syndrome {3, 5, 6,
 //        7} flips data bit {0, 1, 2, 3} (swar.h74_value_correct);
-//      - golay: each of the C = 4 (WD + PW) / 3 24-bit codewords is rebuilt
-//        from its three data nibbles (values c, c + C, c + 2C in bits 0-3,
-//        8-11 and 4-7; values past the data words live in the parity tail),
-//        its low parity nibble and its high parity byte (_golay_cw_tile,
-//        swar.golay_split_unpack), and decoded by its syndrome: s = d . B ^
-//        p from three lookups in the encoder's nibble tables, then one
-//        lookup in the 4096-entry syndrome table (golay.cuh decode_table),
-//        whose entries are the arithmetic IMLD's data correction and error
-//        weight (common.golay_correct_data_i32 / golay_decode_i32 depend on
-//        s alone); uncorrectable codewords read as 0;
+//      - golay: each of the C = 4 (WD + PW) / 3 24-bit codewords - its
+//        three data nibbles (values c, c + C, c + 2C in bits 0-3, 8-11 and
+//        4-7; values past the data words live in the parity tail), its low
+//        parity nibble and its high parity byte (_golay_cw_tile,
+//        swar.golay_split_unpack) - is decoded by its syndrome s = d . B ^ p
+//        and one lookup in a 4096-entry table of the arithmetic IMLD's data
+//        correction and error weight (common.golay_correct_data_i32 /
+//        golay_decode_i32 depend on s alone); uncorrectable codewords read
+//        as 0. Codeword 4g + k keeps all five fields in byte k of fixed
+//        words, so the four of group g decode together on the byte lanes
+//        (golay.cuh decode_row_lanes): s by prmt lookups, the corrections
+//        XORed into the packed data words;
 //   3. with INTERP (hamming84), replaces each double by (left + right + 1)
 //      >> 1 of its pre-interpolation neighbours along the sequence, exactly
 //      as the TPU kernel does chunk by chunk: token 0 is its own left
@@ -67,8 +69,7 @@
 // B * ctx * Hkv * (2 * (WD + PW) * 4 + 8), 17.9, 15.4 and 18.1 MB for
 // hamming84, hamming74 and golay, 5.3, 4.6 and 5.4 us at 3.35 TB/s), and the
 // integer work of the decodes in the built SASS (kernels/sass_count.py): for
-// golay about 26 integer-ALU instructions a codeword, 9 us at 64 lanes a
-// clock on 132 SMs for the 5.8 M codewords of a call, which binds; for
+// golay the instructions a codeword over the 5.8 M codewords of a call; for
 // hamming74 the instructions of its relayout and decode a data word over
 // the 2.16 M data words of a call.
 //
@@ -99,9 +100,15 @@
 // barrier makes them seen. No barrier of its own (the first page's two
 // come before the loop). golay decodes whole rows (a codeword spans
 // words): phase D maps threads to the K and V rows of the page's valid
-// tokens, reads them from the ring (the tables in shared memory, the
-// syndrome table copied from the wrapper's tensor once a block) and stages
-// the decoded words for the core. A slot past the context is not copied;
+// tokens, each thread having copied its rows' words into the ring itself
+// (4 bytes a copy: it waits for its own copies alone), and stages the
+// decoded words for the core, one barrier later (the syndrome table in
+// shared memory, copied from the wrapper's tensor once a block, a copy group
+// ahead of the first page). Which thread holds a row depends on the page's
+// valid tokens, so a stage's rows may go to other threads when the ring
+// comes round to it: that barrier, which a page counted before the window
+// takes too, ends every read of the stage before the next page's copies.
+// A slot past the context is not copied;
 // its stale words (finite nibbles of weight 0) are not counted, and in
 // hamming74's relayout and golay's rows not decoded.
 // Block 0 writes the new row; every block overlays the row passed in
@@ -326,77 +333,6 @@ __device__ __forceinline__ uint4 h74_decode_chunk(const uint4& d, const uint4& p
   return out;
 }
 
-// -------------------------------------------------------------------- golay
-
-// Nibble n of an int4-packed segment of NW words starting at word W0 of
-// `words` (swar.pack_int4: value n < 4 NW sits in the low nibble of byte
-// n % 4 of word n / 4, value 4 NW + m in the high nibble of byte m % 4 of
-// word m / 4).
-template <int NW, int N, int W0, int LEN>
-__device__ __forceinline__ uint32_t nib(const int32_t (&words)[LEN]) {
-  constexpr int M = N < 4 * NW ? N : N - 4 * NW;
-  constexpr int SH = 8 * (M % 4) + (N < 4 * NW ? 0 : 4);
-  return ((uint32_t)words[W0 + M / 4] >> SH) & 0xFu;
-}
-
-template <int NW, int N>
-__device__ __forceinline__ void set_nib(int32_t* words, uint32_t v) {
-  constexpr int M = N < 4 * NW ? N : N - 4 * NW;
-  constexpr int SH = 8 * (M % 4) + (N < 4 * NW ? 0 : 4);
-  words[M / 4] |= (int32_t)(v << SH);
-}
-
-// Value V of a golay row: the data words hold values [0, 8 WD); the parity
-// tail's nibble segment (PT words) holds the C low parity nibbles, then the
-// values [8 WD, 3 C).
-template <int WD, int PW, int V>
-__device__ __forceinline__ uint32_t golay_value(const int32_t (&dw)[WD], const int32_t (&pw)[PW]) {
-  constexpr int C = 4 * (WD + PW) / 3;
-  constexpr int PT = PW - C / 4;
-  if constexpr (V < 8 * WD) {
-    return nib<WD, V, 0, WD>(dw);
-  } else {
-    return nib<PT, C + V - 8 * WD, 0, PW>(pw);
-  }
-}
-
-// The tables of the Golay decode, in shared memory: the encoder's nibble
-// tables (d . B in three lookups) and the syndrome table (golay.cuh
-// decode_table).
-struct GolayTables {
-  const uint32_t* nib;
-  const uint16_t* syn;
-};
-
-template <int WD, int PW, int CW>
-struct GolayCodewords {  // compile-time loop over the codewords
-  __device__ __forceinline__ static void run(const int32_t (&dw)[WD], const int32_t (&pw)[PW],
-                                             int32_t (&out)[WD], Counts& n,
-                                             const GolayTables& gt) {
-    GolayCodewords<WD, PW, CW - 1>::run(dw, pw, out, n, gt);
-    constexpr int c = CW - 1;
-    constexpr int C = 4 * (WD + PW) / 3;
-    constexpr int PT = PW - C / 4;
-    const uint32_t d12 = golay_value<WD, PW, c>(dw, pw) |
-                         (golay_value<WD, PW, c + 2 * C>(dw, pw) << 4) |
-                         (golay_value<WD, PW, c + C>(dw, pw) << 8);
-    const uint32_t plo = nib<PT, c, 0, PW>(pw);
-    const uint32_t phi = ((uint32_t)pw[PT + c / 4] >> (8 * (c % 4))) & 0xFFu;
-    uint32_t e;
-    const uint32_t dec = golay::decode_table(d12, plo | (phi << 4), gt.nib, gt.syn, e);
-    n.corrected += (int)((e >> 12) & 3u);  // weights 1-3; an uncorrectable one is 4
-    n.detected += (int)(e >> 14);
-    if constexpr (c < 8 * WD) set_nib<WD, c>(out, dec & 0xFu);
-    if constexpr (c + C < 8 * WD) set_nib<WD, c + C>(out, (dec >> 8) & 0xFu);
-    if constexpr (c + 2 * C < 8 * WD) set_nib<WD, c + 2 * C>(out, (dec >> 4) & 0xFu);
-  }
-};
-template <int WD, int PW>
-struct GolayCodewords<WD, PW, 0> {
-  __device__ __forceinline__ static void run(const int32_t (&)[WD], const int32_t (&)[PW],
-                                             int32_t (&)[WD], Counts&, const GolayTables&) {}
-};
-
 // --------------------------------------------------------------- one row
 
 struct Row {  // where one token's data and parity words live
@@ -406,19 +342,19 @@ struct Row {  // where one token's data and parity words live
 };
 
 // Decode one token's golay row into WD int4-packed data words, adding its
-// counts to n.
+// counts to n (golay.cuh decode_row_lanes; syn: the read's syndrome table in
+// shared memory).
 template <int WD, int PW>
 __device__ __forceinline__ void decode_row(const Row& r, int32_t (&dec)[WD], Counts& n,
-                                           const GolayTables& gt) {
-  static_assert((WD + PW) % 3 == 0, "golay rows hold 3 words per 4 codewords");
-  int32_t dw[WD], pw[PW];
+                                           const uint16_t* syn) {
+  uint32_t w[WD + PW];
 #pragma unroll
-  for (int j = 0; j < WD; ++j) dw[j] = r.data[j * r.stride];
+  for (int j = 0; j < WD; ++j) w[j] = (uint32_t)r.data[j * r.stride];
 #pragma unroll
-  for (int j = 0; j < PW; ++j) pw[j] = r.parity[j * r.stride];
+  for (int j = 0; j < PW; ++j) w[WD + j] = (uint32_t)r.parity[j * r.stride];
+  golay::decode_row_lanes<WD, PW>(w, syn, n.corrected, n.detected);
 #pragma unroll
-  for (int j = 0; j < WD; ++j) dec[j] = 0;
-  GolayCodewords<WD, PW, 4 * (WD + PW) / 3>::run(dw, pw, dec, n, gt);
+  for (int j = 0; j < WD; ++j) dec[j] = (int32_t)w[j];
 }
 
 template <int CODEC, int WD, int PW, int GROUP, int HD, bool INTERP>
@@ -437,7 +373,7 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
     float* v_scales,
     const int32_t* __restrict__ block_table,   // [B, P]
     const int32_t* __restrict__ context_lens,  // [B]
-    const uint16_t* __restrict__ syn_table,    // [4096] golay's syndrome table, or null
+    const uint16_t* __restrict__ syn_table,    // [4096] golay's read table, or null
     void* out,                                 // [B, Hq, HD] fp32 or bf16
     int* stats,                                // [B, 2] int32, or null
     float* m_out,                              // [B, Hq] softmax state, or null
@@ -477,7 +413,6 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
   // in block 0, the cluster's states (merge_cluster)
   float* s_acc = (float*)(ring + kStages * sw);
   float* s_ml = s_acc + splits * GROUP * D;
-  __shared__ uint32_t nib_s[CODEC == kGolay ? golay::kEncodeTableWords : 1];
   __shared__ __align__(16) uint16_t syn_s[CODEC == kGolay ? golay::kSyndromes : 8];
   Attend<WD, GROUP, T> st(smem, tl, 1);
 
@@ -497,12 +432,6 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
   const int ppc = chunk_tokens / bs;
   const int loop_pages = (num_pages + ppc - 1) / ppc * ppc;
 
-  GolayTables gt{nib_s, syn_s};
-  if constexpr (CODEC == kGolay) {
-    golay::fill_encode_tables(nib_s);
-    for (int i = tid; i < golay::kSyndromes / 8; i += T)
-      ((uint4*)syn_s)[i] = ((const uint4*)syn_table)[i];
-  }
 
   const size_t new_row = (size_t)b * Hkv + h;
   const int32_t* kn = writes ? k_new + new_row * RW : nullptr;
@@ -557,9 +486,11 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
   // the thread's row, for the PW < WD rows), K and V, with INTERP the
   // neighbour words of the page (the previous page's last token for chunk
   // 0, the next page's first for the last chunk, when the chunk goes on);
-  // golay: every 16-byte chunk of the page's data and parity rows, dealt
-  // over the threads. A chunk with no token before ctx is not copied (its
-  // weights are 0). One commit a page, an empty one past the block's last.
+  // golay: the words of the rows phase D gives this thread (its items; the
+  // valid tokens' alone), 4 bytes each, so that it reads no other thread's
+  // copies (it may overwrite another's: phase D's barrier comes first). A
+  // chunk with no token before ctx is not copied (its weights are 0). One
+  // commit a page, an empty one past the block's last.
   auto load = [&](int pg, int st_i) {
     const size_t page = page_of(pg);  // every lane: shuffles, converged
     const size_t side_page[2] = {page_of(max(pg - 1, 0)), page_of(pg + 1)};
@@ -570,12 +501,17 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
         copy_async<4>(sp + 2 * RW * bs + bs + tid, v_scales + page * bs + tid);
       }
       if constexpr (kRows) {
-        for (int i = tid; i < 2 * RW * tl.nc; i += T) {
-          const int c = i % tl.nc, r = (i / tl.nc) % RW, kv = i / (tl.nc * RW);
-          if (pg * bs + 4 * c >= ctx) continue;
-          const int32_t* src = r < WD ? (kv ? v_cache : k_cache) + (page * WD + r) * bs
-                                      : (kv ? v_parity : k_parity) + (page * PW + r - WD) * bs;
-          copy_async<16>(sp + (kv * RW + r) * bs + 4 * c, src + 4 * c);
+        const int valid = min(bs, ctx - pg * bs);
+        for (int i = tid; i < 2 * valid; i += T) {
+          const bool is_v = i >= valid;
+          const int t = is_v ? i - valid : i;
+          int32_t* dst = sp + (is_v ? RW : 0) * bs + t;
+          const int32_t* d = (is_v ? v_cache : k_cache) + page * WD * bs + t;
+          const int32_t* p = (is_v ? v_parity : k_parity) + page * PW * bs + t;
+#pragma unroll
+          for (int w = 0; w < WD; ++w) copy_async<4>(dst + w * bs, d + w * bs);
+#pragma unroll
+          for (int w = 0; w < PW; ++w) copy_async<4>(dst + (WD + w) * bs, p + w * bs);
         }
       } else {
         if (tl.row < WD && pg * bs + 4 * tl.chunk < ctx) {
@@ -679,6 +615,11 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
   };
 
   int pg = count_from + rank;
+  if constexpr (CODEC == kGolay) {  // golay's table: a copy group ahead of the pages'
+    for (int i = tid; i < golay::kSyndromes / 8; i += T)
+      copy_async<16>(syn_s + 8 * i, syn_table + 8 * i);
+    copy_commit();
+  }
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) load(pg + i * splits, i);
   // with the first pages in flight: the queries, and block 0's write
@@ -703,6 +644,7 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
     __syncthreads();
     relayout(pg, ring);
   }
+  if constexpr (CODEC == kGolay) copy_wait<kStages - 1>();  // the table landed
   __syncthreads();
 
   // the block's pages: every splits-th from count_from + rank
@@ -719,7 +661,6 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
       scales[tid] = ksn;
       scales[bs + tid] = vsn;
     }
-    if constexpr (kRows) __syncthreads();                            // ... for every thread
     load(pg + (kStages - 1) * splits, (k + kStages - 1) % kStages);  // into page k-1's stage
     uint4 kw, vw;
 
@@ -727,9 +668,9 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
       // phase D: thread per row - item i < valid is token i's K row, item
       // valid + i its V row, for the valid tokens (t < ctx) of the page, so
       // that a page with few valid tokens still spreads over the warps -
-      // decoded from the stage into kd_s / vd_s (counted only before the
-      // window); a slot past the context is not decoded (its stale words
-      // are finite nibbles of weight 0)
+      // decoded from the thread's own copies in the stage (no barrier
+      // first) into kd_s / vd_s (counted only before the window); a slot
+      // past the context is neither copied nor decoded
       const int valid = min(bs, ctx - page_tok);
       for (int i = tid; i < 2 * valid; i += T) {
         const bool is_v = i >= valid;
@@ -738,14 +679,16 @@ __global__ void __launch_bounds__(packed_threads<WD>(), packed_min_blocks<WD>())
         const int32_t* sr = sp + (is_v ? RW : 0) * bs + t;
         const Row r = t == new_slot ? Row{rn, rn + WD, 1} : Row{sr, sr + WD * bs, bs};
         int32_t dec[WD];
-        decode_row<WD, PW>(r, dec, cnt, gt);
+        decode_row<WD, PW>(r, dec, cnt, syn_s);
         if (counted) continue;
         int32_t* dst = is_v ? vd_s : kd_s;
 #pragma unroll
         for (int w = 0; w < WD; ++w) dst[w * bs + t] = dec[w];
       }
-      if (counted) continue;
+      // kd_s / vd_s staged, and the stage read by every thread before the
+      // next page's copies (a counted page's too: they may be other rows')
       __syncthreads();
+      if (counted) continue;
       kw = *(const uint4*)(kd_s + j * bs + 4 * tl.chunk);
       vw = *(const uint4*)(vd_s + j * bs + 4 * tl.chunk);
     } else if constexpr (CODEC == kH84) {
@@ -821,8 +764,8 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
       (CODEC == kGolay && (syn_table == nullptr || (uintptr_t)syn_table % 16 != 0)))
     return cudaErrorInvalidValue;
   auto kernel = decode_attend_kernel<CODEC, WD, PW, GROUP, HD, INTERP>;
-  // golay's tables in static shared memory
-  const size_t tables = CODEC == kGolay ? golay::kEncodeTableWords * 4 + golay::kSyndromes * 2 : 0;
+  // golay's table in static shared memory
+  const size_t tables = CODEC == kGolay ? golay::kSyndromes * 2 : 0;
   return launch_cluster(kernel, dim3(splits, Hkv, B), splits, T, smem, tables, stream, q,
                         (const int32_t*)k_new, (const int32_t*)v_new, (const float*)ks_new,
                         (const float*)vs_new, (int32_t*)k_cache, (int32_t*)v_cache,
@@ -835,27 +778,26 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new,
 
 }  // namespace
 
-// Never launched: bench-0.9b golay rows (44 codewords each) through
-// decode_row as phase A runs it, one row a thread in _row1 and two in
-// _row2, whose difference in the built library's SASS is one row's decode
-// (kernels/sass_count.py, for the integer bound).
-template <int N>
+// Never launched: golay rows through decode_row as phase D runs it, one
+// row a thread in _row1 and two in _row2, whose difference in the built
+// library's SASS is one row's decode (kernels/sass_count.py, for the integer
+// bound): bench-0.9b's (16 data and 17 parity words, 44 codewords) and
+// gpt2's (8 and 10, 24 codewords, _gpt2_).
+template <int WD, int PW, int N>
 __device__ __forceinline__ void sass_probe_golay(const int32_t* rows, int32_t* out, int* counts,
                                                  const uint16_t* syn_table) {
-  __shared__ uint32_t nib_s[golay::kEncodeTableWords];
-  __shared__ uint16_t syn_s[golay::kSyndromes];
-  golay::fill_encode_tables(nib_s);
+  __shared__ __align__(16) uint16_t syn_s[golay::kSyndromes];
   for (int i = threadIdx.x; i < golay::kSyndromes; i += blockDim.x) syn_s[i] = syn_table[i];
   __syncthreads();
   const int r0 = N * (blockIdx.x * blockDim.x + threadIdx.x);
   Counts n;
 #pragma unroll
   for (int k = 0; k < N; ++k) {
-    int32_t dec[16];
-    const int32_t* row = rows + (r0 + k) * 33;
-    decode_row<16, 17>(Row{row, row + 16, 1}, dec, n, GolayTables{nib_s, syn_s});
+    int32_t dec[WD];
+    const int32_t* row = rows + (r0 + k) * (WD + PW);
+    decode_row<WD, PW>(Row{row, row + WD, 1}, dec, n, syn_s);
 #pragma unroll
-    for (int j = 0; j < 16; ++j) out[(r0 + k) * 16 + j] = dec[j];
+    for (int j = 0; j < WD; ++j) out[(r0 + k) * WD + j] = dec[j];
   }
   counts[2 * r0] = n.corrected;
   counts[2 * r0 + 1] = n.detected;
@@ -863,12 +805,22 @@ __device__ __forceinline__ void sass_probe_golay(const int32_t* rows, int32_t* o
 
 extern "C" __global__ void sass_probe_golay_row1(const int32_t* rows, int32_t* out, int* counts,
                                                  const uint16_t* syn_table) {
-  sass_probe_golay<1>(rows, out, counts, syn_table);
+  sass_probe_golay<16, 17, 1>(rows, out, counts, syn_table);
 }
 
 extern "C" __global__ void sass_probe_golay_row2(const int32_t* rows, int32_t* out, int* counts,
                                                  const uint16_t* syn_table) {
-  sass_probe_golay<2>(rows, out, counts, syn_table);
+  sass_probe_golay<16, 17, 2>(rows, out, counts, syn_table);
+}
+
+extern "C" __global__ void sass_probe_golay_gpt2_row1(const int32_t* rows, int32_t* out,
+                                                      int* counts, const uint16_t* syn_table) {
+  sass_probe_golay<8, 10, 1>(rows, out, counts, syn_table);
+}
+
+extern "C" __global__ void sass_probe_golay_gpt2_row2(const int32_t* rows, int32_t* out,
+                                                      int* counts, const uint16_t* syn_table) {
+  sass_probe_golay<8, 10, 2>(rows, out, counts, syn_table);
 }
 
 // Never launched: a bench-0.9b hamming74 page (16 data words and 12 parity
@@ -914,8 +866,8 @@ extern "C" __global__ void sass_probe_h74_unit2(const int32_t* page, int32_t* ou
 
 // Launches the kernel on `stream` as `splits` (1-8) blocks a cluster per
 // (sequence, KV head) and returns its launch error (0 on success). codec:
-// 0 hamming84, 1 hamming74, 2 golay (syn_table: the [4096] uint16 syndrome
-// table of kernels/common.py golay_syndrome_table on the device, 16-byte
+// 0 hamming84, 1 hamming74, 2 golay (syn_table: the [4096] uint16 read table
+// of kernels/paged_attention.py golay_read_table on the device, 16-byte
 // aligned; null for the other codecs). Instances are built only for the
 // (codec, data words, parity words, group, head_dim) of the registered
 // models - tiny-llama (hamming84 2/2, hamming74 4/3, golay 2/4 words at

@@ -258,6 +258,23 @@ def golay_syndrome_table(b_masks) -> torch.Tensor:
     return (data | (weight << GOLAY_WEIGHT_SHIFT)).to(torch.int16)
 
 
+def golay_lane_index(s: torch.Tensor) -> torch.Tensor:
+    """The byte-lane read's table index of syndrome s: (s >> 4) | (s & 15)
+    << 8. golay.cuh decode_group forms s in two planes, bits 4-11 a byte a
+    lane and bits 0-3 a nibble, and joins a lane's two with one prmt, high
+    plane first; this is the one place the order is decided for the host."""
+    return (s >> 4) | ((s & 15) << 8)
+
+
+def golay_read_table(b_masks) -> torch.Tensor:
+    """[4096] int16, golay_syndrome_table in the byte-lane read's order:
+    entry golay_lane_index(s) holds syndrome s's entry."""
+    table = golay_syndrome_table(b_masks)
+    out = torch.empty_like(table)
+    out[golay_lane_index(torch.arange(4096))] = table
+    return out
+
+
 def golay_table_decode(cw: torch.Tensor, nibble_tables: torch.Tensor,
                        syndrome_table: torch.Tensor):
     """The kernels' syndrome-table decode of 24-bit codewords, in plain

@@ -15,8 +15,8 @@ return the unnormalised softmax state:
   * ``csrc/decode_attend.cu`` (K2, K3 and K4's correcting reads): the
     correcting read of the parity codecs - hamming84 (optionally
     interpolating double errors), hamming74 and golay (through the
-    syndrome table ``golay_syndrome_table``) - with the per-read ECC
-    statistics;
+    syndrome table ``golay_syndrome_table``, reordered for its index:
+    ``golay_read_table``) - with the per-read ECC statistics;
   * ``float_attend`` in ``csrc/write_attend.cu`` (K2f, and K4's reads of
     the float codecs): the raw values of fp16 (stored as bfloat16) and fp8
     (e4m3), widened to float32, with no scales, no zero point and no
@@ -190,6 +190,15 @@ def golay_syndrome_table(device: torch.device) -> torch.Tensor:
     on ``device``, built once per device: decode_attend.cu copies it into
     each block's shared memory."""
     return C.golay_syndrome_table(swar._B_MASKS).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def golay_read_table(device: torch.device) -> torch.Tensor:
+    """common.golay_read_table on ``device``, built once per device: the
+    syndrome table in the order of golay.cuh decode_row_lanes' index
+    (common.golay_lane_index). decode_attend.cu copies it into each block's
+    shared memory."""
+    return C.golay_read_table(swar._B_MASKS).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -922,7 +931,7 @@ def _launch_decode(query, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_scal
     ])
     q = _kernel_query(query, precision)
     out, stats, m, l = _outputs(query, collect_stats, return_softmax_state)
-    syn = golay_syndrome_table(query.device) if codec == "golay" else None
+    syn = golay_read_table(query.device) if codec == "golay" else None
     ptrs = (q, k_new, v_new, ks_new, vs_new, k_cache, v_cache, k_parity, v_parity,
             k_scales, v_scales, block_table, context_lens, syn, out, stats, m, l)
     interp = bool(interpolate and codec == "hamming84")

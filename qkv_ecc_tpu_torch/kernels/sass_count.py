@@ -9,8 +9,9 @@ card's issue rates.
 Never-launched probe kernels sit in the sources beside the kernels they
 measure, each in two forms whose only difference is one more unit of work
 a thread: ``sass_probe_golay_row1`` / ``_row2`` (decode_attend.cu: one and
-two bench-0.9b rows of 44 codewords through ``decode_row``, as phase A runs
-it), ``sass_probe_h74_unit1`` / ``_unit2`` (decode_attend.cu: one and two
+two bench-0.9b rows of 44 codewords through ``decode_row``, as phase D runs
+it; ``sass_probe_golay_gpt2_row1`` / ``_row2`` gpt2's rows of 24),
+``sass_probe_h74_unit1`` / ``_unit2`` (decode_attend.cu: one and two
 bench-0.9b rows' parity through ``h74_relayout_row`` and their 16 data
 words through ``h74_decode_chunk``, as the page loop runs them),
 ``sass_probe_flip_word1`` / ``_word2`` (write_attend.cu:
@@ -50,6 +51,8 @@ from . import _build
 PROBES = {
     "golay": (("sass_probe_golay_row1", "sass_probe_golay_row2"), "decode_attend", 44,
               "codeword"),
+    "golay_gpt2": (("sass_probe_golay_gpt2_row1", "sass_probe_golay_gpt2_row2"),
+                   "decode_attend", 24, "codeword"),
     "h74_read": (("sass_probe_h74_unit1", "sass_probe_h74_unit2"), "decode_attend", 16,
                  "data word"),
     "hash": (("sass_probe_flip_word1", "sass_probe_flip_word2"), "write_attend", 32, "hash"),
