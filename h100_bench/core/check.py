@@ -72,15 +72,31 @@ class Served:
     last_round: int  # the round whose tokens are checked (complete)
     rounds: int  # rounds run since the counters started (all complete)
     tokens: dict  # row -> [new_tokens] tokens of the last round
-    stored: dict  # row -> [L, 2, P + n, Hkv, row words] int32 stored rows
+    stored: dict  # row -> of each cache row, [L, P + n, count, row words] int32 stored words
     counts: dict  # row -> (corrected, detected) or absent
     chunk_tokens: int
     device: torch.device
 
 
-def _prefill_flips(s: Served, model, ncw: int):
-    """row -> layer -> (K, V) flips of its prefill group's draws, each group
-    replayed once and its sampled rows kept."""
+def _draw_shape(model) -> tuple:
+    """(cache rows a layer, count, width) of the program's write flips, as
+    the model states its cache (``cache(layer)``): every layer's rows are
+    alike, and the program draws them so (decode_flips)."""
+    sizes = {(count, width) for layer in range(model.L) for _, count, width in model.cache(layer)}
+    per_layer = {len(model.cache(layer)) for layer in range(model.L)}
+    if len(sizes) != 1 or len(per_layer) != 1:
+        raise ValueError(f"cache rows of unlike sizes {sorted(sizes)} or numbers "
+                         f"{sorted(per_layer)}: the program's draw of them is not stated")
+    (count, width), = sizes
+    return per_layer.pop(), count, width
+
+
+def _prefill_flips(s: Served, model, shape: tuple):
+    """row -> layer -> flips of each cache row from its prefill group's
+    draws (per layer, one draw a cache row, in the model's order), each
+    group replayed once and its sampled rows kept."""
+    R, count, width = shape
+    ncw = s.arm.codewords(width)
     group_of = {int(r): g for g, (rows, _) in enumerate(s.prompts.groups) for r in rows}
     sample = set(map(int, s.prompts.sample))
     cache = {}
@@ -93,25 +109,28 @@ def _prefill_flips(s: Served, model, ncw: int):
             idx = torch.tensor([j for j, r in enumerate(rows) if int(r) in sample],
                                device=s.device)
             gen = torch.Generator(device=s.device).manual_seed(tr.sub_seed(s.seed, tr.PREFILL, g))
-            per = [[cd.flip_pattern((len(rows), S, model.Hkv, ncw), s.traffic["ber"],
+            per = [[cd.flip_pattern((len(rows), S, count, ncw), s.traffic["ber"],
                                     s.arm.n_bits, gen, select=lambda u: u[:, idx])
-                    for _ in range(2)] for _ in range(model.L)]
+                    for _ in range(R)] for _ in range(model.L)]
             cache[g] = ({r: j for j, r in enumerate(kept)}, per)
         pos, per = cache[g]
         j = pos[row]
-        return lambda layer: (per[layer][0][j], per[layer][1][j])
+        return lambda layer: [e[j] for e in per[layer]]
 
     return for_row
 
 
-def decode_flips(s: Served, model, ncw: int, rnd_index: int, rows: list):
-    """[n, L, 2, len(rows), Hkv, ncw] flips of round ``rnd_index``'s steps
-    for ``rows``, replayed from the round's generator."""
+def decode_flips(s: Served, model, shape: tuple, rnd_index: int, rows: list):
+    """[n, L, R, len(rows), count, codewords] flips of round ``rnd_index``'s
+    steps for ``rows``, replayed from the round's generator: one draw a
+    step of [L, R, B, 1, count, codewords], R the cache rows a layer."""
+    R, count, width = shape
     B, n = s.traffic["batch"], s.traffic["new_tokens"]
     gen = torch.Generator(device=s.device).manual_seed(tr.sub_seed(s.seed, tr.ROUND, rnd_index))
     idx = torch.tensor(rows, device=s.device)
     return torch.stack([
-        cd.flip_pattern((model.L, 2, B, 1, model.Hkv, ncw), s.traffic["ber"], s.arm.n_bits, gen,
+        cd.flip_pattern((model.L, R, B, 1, count, s.arm.codewords(width)), s.traffic["ber"],
+                        s.arm.n_bits, gen,
                         select=lambda u: u[:, :, :, idx, 0])
         for _ in range(n)])
 
@@ -121,8 +140,8 @@ def _model(s: Served, rnd):
     return module.Model(s.config, s.weights, rnd)
 
 
-def _rows(s: Served, model, ncw: int, dflips):
-    pf = _prefill_flips(s, model, ncw)
+def _rows(s: Served, model, shape: tuple, dflips):
+    pf = _prefill_flips(s, model, shape)
     padded = {int(x): S for rows, S in s.prompts.groups for x in rows}
     out = []
     for i, r in enumerate(map(int, s.prompts.sample)):
@@ -131,8 +150,8 @@ def _rows(s: Served, model, ncw: int, dflips):
         fed = torch.as_tensor(np.concatenate([[s.first[r]], s.tokens[r][:-1]]), device=s.device)
         out.append(rf.Row(prompt=toks, P=int(s.prompts.lengths[r]), fed=fed,
                           prefill_flips=pf(r),
-                          decode_flips=(lambda layer, i=i: (dflips[:, layer, 0, i],
-                                                            dflips[:, layer, 1, i]))))
+                          decode_flips=(lambda layer, i=i: list(dflips[:, layer, :, i]
+                                                                .unbind(1)))))
     return out
 
 
@@ -177,26 +196,27 @@ def _clean_nibbles(arm, cw, e, scrubbed, pv):
     return vals, check(raw), torch.zeros_like(vals, dtype=torch.bool)
 
 
-def _stored_numbers(s: Served, rows, D: int, detail=None):
+def _stored_numbers(s: Served, model, rows, detail=None):
     """(bad codewords, far values, values compared)."""
     bad, far, total = 0, 0, 0
-    pv = cd.padded_values(s.arm.codec, D)
     collect = bool(s.traffic.get("collect_ecc_stats", False))
     for r, row in zip(map(int, s.prompts.sample), rows):
         stored = s.stored[r]
-        T = stored.shape[2]
+        T = stored[0].shape[1]
         scrubbed = torch.full((T,), s.arm.scrub_prefill(), dtype=torch.bool, device=s.device)
         scrubbed[row.P:] = s.arm.scrub_decode(collect)
-        for layer, (kq, _, vq, _) in enumerate(row.nibbles):
-            for j, q in enumerate((kq, vq)):
-                cw = cd.stored_codewords(s.arm.codec, stored[layer, j], D)
-                vals, valid, skip = _clean_nibbles(s.arm, cw, row.flips[layer][j], scrubbed, pv)
+        for layer, kept in enumerate(row.nibbles):
+            for j, ((q, _), (_, _, D)) in enumerate(zip(kept, model.cache(layer), strict=True)):
+                cw = cd.stored_codewords(s.arm.codec, stored[j][layer], D)
+                vals, valid, skip = _clean_nibbles(s.arm, cw, row.flips[layer][j], scrubbed,
+                                                   cd.padded_values(s.arm.codec, D))
                 bad += int((~valid).sum())
                 off = ((vals - q.to(torch.int32)).abs() > 1) & ~skip
                 far += int(off[..., :D].sum())
                 total += int((~skip[..., :D]).sum())
                 if detail is not None:
-                    d = detail.setdefault("far_by_layer", [[0, 0, 0, 0] for _ in row.nibbles])
+                    # per layer, of each cache row: far values in the prompt, then the decode
+                    d = detail.setdefault("far_by_layer", [[0] * 2 * len(k) for k in row.nibbles])
                     d[layer][2 * j] += int(off[:row.P, :, :D].sum())
                     d[layer][2 * j + 1] += int(off[row.P:, :, :D].sum())
                     one = detail.setdefault("one_level_by_layer", [0 for _ in row.nibbles])
@@ -204,20 +224,20 @@ def _stored_numbers(s: Served, rows, D: int, detail=None):
     return bad, far, total
 
 
-def _far_value_pct(rows_a, rows_b, D: int) -> float:
+def _far_value_pct(model, rows_a, rows_b) -> float:
     """% of values whose nibbles differ by more than one level between two
     runs of the reference (the control's stored values against the
     reference's)."""
     far, total = 0, 0
     for ra, rb in zip(rows_a, rows_b):
-        for (ka, _, va, _), (kb, _, vb, _) in zip(ra.nibbles, rb.nibbles):
-            for a, b in ((ka, kb), (va, vb)):
+        for layer, (ka, kb) in enumerate(zip(ra.nibbles, rb.nibbles)):
+            for (a, _), (b, _), (_, _, D) in zip(ka, kb, model.cache(layer), strict=True):
                 far += int(((a.to(torch.int32) - b.to(torch.int32)).abs() > 1)[..., :D].sum())
                 total += a[..., :D].numel()
     return 100.0 * far / total
 
 
-def _counts(s: Served, model, ncw: int, rows, last_flips):
+def _counts(s: Served, model, shape: tuple, rows, last_flips):
     """Expected (corrected, detected) of each sampled row over every round
     (a cell that counts: its decode steps write raw words)."""
     n = s.traffic["new_tokens"]
@@ -240,16 +260,16 @@ def _counts(s: Served, model, ncw: int, rows, last_flips):
         c = torch.zeros(2, dtype=torch.int64, device=s.device)
         if not s.arm.scrub_prefill():
             for layer in range(model.L):
-                for j in range(2):
-                    a, b = per_codeword(row.flips[layer][j][:row.P])
+                for e in row.flips[layer]:
+                    a, b = per_codeword(e[:row.P])
                     c += torch.stack([a.sum(), b.sum()])
         prompt.append(c)
     total = [n * s.rounds * p for p in prompt]
     if not s.arm.scrub_decode(collect_stats=True):
         for rnd_index in range(s.rounds):
             fl = last_flips if rnd_index == s.last_round else decode_flips(
-                s, model, ncw, rnd_index, sample)
-            a, b = per_codeword(fl)  # [n, L, 2, rows, H, ncw]
+                s, model, shape, rnd_index, sample)
+            a, b = per_codeword(fl)  # [n, L, R, rows, count, codewords]
             per_step = torch.stack([a.sum((1, 2, 4, 5)), b.sum((1, 2, 4, 5))], -1)  # [n, rows, 2]
             weight = (n - torch.arange(n, device=s.device))[:, None, None]
             for i in range(len(rows)):
@@ -271,25 +291,26 @@ def numbers(s: Served, with_control: bool = False) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = _model(s, exact)
-    ncw = s.arm.codewords(model.D)
+    shape = _draw_shape(model)
     sample = list(map(int, s.prompts.sample))
-    last = decode_flips(s, model, ncw, s.last_round, sample)
-    rows = rf.run_rows(model, s.arm, _rows(s, model, ncw, last), exact, s.chunk_tokens)
+    last = decode_flips(s, model, shape, s.last_round, sample)
+    rows = rf.run_rows(model, s.arm, _rows(s, model, shape, last), exact, s.chunk_tokens)
     gaps = [_gaps(_logits(r), _served(s, q)) for q, r in zip(sample, rows)]
     out = {"logit_gap": float(max(g.max() for g in gaps)),
            "logit_gap_mean": float(torch.cat(gaps).mean())}
     detail = {"gap_by_position": [g.tolist() for g in gaps]}
-    out["bad_codewords"], far, total = _stored_numbers(s, rows, model.D, detail)
+    out["bad_codewords"], far, total = _stored_numbers(s, model, rows, detail)
     out["far_value_pct"] = 100.0 * far / total
     out["detail"] = detail
     if s.traffic.get("collect_ecc_stats"):
-        want = _counts(s, model, ncw, rows, last)
+        want = _counts(s, model, shape, rows, last)
         out["ecc_count_diff"] = sum(abs(want[r][0] - s.counts[r][0]) + abs(want[r][1] - s.counts[r][1])
                                     for r in sample)
     if with_control:
         rnd = CONTROL[s.config["torch_dtype"]]
-        crows = rf.run_rows(_model(s, rnd), s.arm, _rows(s, model, ncw, last), rnd, s.chunk_tokens)
+        crows = rf.run_rows(_model(s, rnd), s.arm, _rows(s, model, shape, last), rnd,
+                            s.chunk_tokens)
         cg = torch.cat([_gaps(_logits(r), _logits(c).argmax(-1)) for r, c in zip(rows, crows)])
         out["control"] = {"logit_gap": float(cg.max()), "logit_gap_mean": float(cg.mean()),
-                          "far_value_pct": _far_value_pct(crows, rows, model.D)}
+                          "far_value_pct": _far_value_pct(model, crows, rows)}
     return out

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from . import traffic as tr
+from .spec import arch_module
 from .trace import Trace, traced
 from .weights import make_weights
 
@@ -43,10 +44,11 @@ def spin_ms(n: int = 200_000) -> float:
 class Run:
     """What the metric readers see (metrics/<name>.py ``read(run)``)."""
     cell: object  # spec.Cell
-    shape: dict  # counts.shape_of(config)
+    model: dict  # counts.describe(config): what the counts are taken from
     arm: object  # reference.arms.Arm
     collect_stats: bool
     batch: int
+    prompt_lengths: np.ndarray  # [batch] each row's prompt length
     prompt_sum: int  # sum of prompt lengths
     setup_s: float
     window_s: float = 0.0
@@ -66,6 +68,11 @@ class Run:
         of a round."""
         return self.prompt_sum + self.batch * (j + 1)
 
+    def ctx(self, j: int) -> np.ndarray:
+        """[batch] each row's context (the new token included) at step j of
+        a round."""
+        return self.prompt_lengths + (j + 1)
+
 
 @dataclasses.dataclass
 class Outcome:
@@ -82,22 +89,7 @@ def port_config(config: dict):
     from qkv_ecc_tpu_torch.models.config import get_model_config
 
     cfg = get_model_config(config["port_model"])
-    if config["reference"] == "llama":
-        want = {"hidden_size": config["hidden_size"], "num_layers": config["num_hidden_layers"],
-                "num_heads": config["num_attention_heads"],
-                "num_kv_heads": config["num_key_value_heads"],
-                "intermediate_size": config["intermediate_size"],
-                "vocab_size": config["vocab_size"], "rope_theta": config["rope_theta"],
-                "rms_norm_eps": config["rms_norm_eps"],
-                "tie_word_embeddings": config["tie_word_embeddings"],
-                "sliding_window": config["sliding_window"]}
-    else:
-        want = {"hidden_size": config["n_embd"], "num_layers": config["n_layer"],
-                "num_heads": config["n_head"], "vocab_size": config["vocab_size"],
-                "max_position_embeddings": config["n_positions"],
-                "layer_norm_eps": config["layer_norm_epsilon"],
-                "intermediate_size": config.get("n_inner") or 4 * config["n_embd"]}
-    want["dtype"] = config["torch_dtype"]
+    want = arch_module(config).port_sizes(config)
     have = {k: getattr(cfg, k) for k in want}
     if have != want:
         raise ValueError(f"the port's '{cfg.name}' is not the configuration run: {have} != {want}")
@@ -145,7 +137,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
     policy = policy_for_mode(tf["mode"], ber=tf["ber"])
     B, n, page = tf["batch"], tf["new_tokens"], tf["page"]
     prompts = tr.make_prompts(tf, cfg.vocab_size, seed)
-    weights = make_weights(cfg, seed, device)
+    weights = make_weights(arch_module(cell.config), cfg, seed, device)
     stage("weights")
 
     # set-up: the cache, and the prompts prefilled group by group
@@ -228,8 +220,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
     spans.clear()
     stage("warmup")
 
-    run = Run(cell=cell, shape=counts.shape_of(cell.config), arm=arm, collect_stats=collect,
-              batch=B, prompt_sum=int(prompts.lengths.sum()),
+    model = counts.describe(cell.config)
+    run = Run(cell=cell, model=model, arm=arm, collect_stats=collect, batch=B,
+              prompt_lengths=prompts.lengths.copy(), prompt_sum=int(prompts.lengths.sum()),
               setup_s=time.perf_counter() - t_start, setup_parts=parts, compiled=compiled)
 
     # the timed window; what set-up left is moved out of the collector's
@@ -275,7 +268,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
         det = state.get("ecc_detected", zeros).cpu()
         counts_of = {r: (int(corr[r]), int(det[r])) for r in sample}
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-    stored = {r: _stored_rows(state, table, r, int(prompts.lengths[r]) + n) for r in sample}
+    kinds = [kind for kind, _, _ in model["layers"][0]["rows"]]
+    stored = {r: _stored_rows(state, table, kinds, r, int(prompts.lengths[r]) + n)
+              for r in sample}
     chunk = min(512 // page, table.shape[1]) * page
     del state, logits
     loop.clear()
@@ -288,16 +283,18 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
     return Outcome(run, served, peak, attempted, failed)
 
 
-def _stored_rows(state, table, row: int, T: int) -> torch.Tensor:
-    """[L, 2, T, Hkv, row words] int32: row ``row``'s stored K and V rows
-    (data words, then parity words) at positions [0, T)."""
-    bs = state["k_cache"].shape[4]
+def _stored_rows(state, table, kinds: list, row: int, T: int) -> list:
+    """Of each cache row a token stores (``kinds``: the port's
+    ``<kind>_cache`` and ``<kind>_parity``), [L, T, count, row words] int32:
+    row ``row``'s stored words (data words, then parity words) at positions
+    [0, T)."""
+    bs = state[f"{kinds[0]}_cache"].shape[4]
     pages = table[row, : -(-T // bs)].long()
     out = []
-    for name in ("k", "v"):
+    for name in kinds:
         words = state[f"{name}_cache"][:, pages]
         if f"{name}_parity" in state:
             words = torch.cat([words, state[f"{name}_parity"][:, pages]], dim=3)
         L, npg, H, W, _ = words.shape
-        out.append(words.permute(0, 1, 4, 2, 3).reshape(L, npg * bs, H, W)[:, :T])
-    return torch.stack(out, dim=1).clone()
+        out.append(words.permute(0, 1, 4, 2, 3).reshape(L, npg * bs, H, W)[:, :T].clone())
+    return out

@@ -4,18 +4,28 @@
 and traffic. The rest lives in files of their own under ``h100_bench/``:
 
   configs/<config>.json     the configuration as run (sizes, dtype, the
-                            port's model name, the reference's module)
+                            port's model name, and under ``"reference"``
+                            the name of its architecture's two modules)
+  archs/<name>.py           the architecture as the harness runs and
+                            counts it (archs/__init__.py says what it gives)
+  reference/<name>.py       its plain float32 model, with the cache rows
+                            and window of each layer (reference/forward.py)
   workloads/<traffic>.json  the traffic mix and the cell's check limits
   metrics/<metric>.py       one reader a metric, ``read(run) -> float|None``
 
 A later cell, configuration or metric is a new file and a new entry in
-``BENCHMARK.json``; no file here changes. A cell over a cache mode that
-``reference/arms.py`` does not hold needs the reference extended first.
+``BENCHMARK.json``; no file here changes. A new architecture is new files
+too: its configuration file, a traffic file, ``archs/<name>.py``,
+``reference/<name>.py`` and the ``BENCHMARK.json`` entries, beside the
+port's model in the program; ``<name>`` is an import name. A cell over a
+cache mode that ``reference/arms.py`` does not hold needs the reference
+extended first.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import importlib.util
 import json
 from pathlib import Path
@@ -69,6 +79,12 @@ def load_module(path: Path, name: str):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def arch_module(config: dict):
+    """archs/<name>.py of a configuration file, ``<name>`` its
+    ``"reference"``."""
+    return importlib.import_module(f"{__package__.rsplit('.', 1)[0]}.archs.{config['reference']}")
 
 
 def metric_reader(name: str):

@@ -16,6 +16,6 @@ def read(run):
     spent = run.trace.kernel_ms_per_step(_ATTN) * run.trace.steps * 1e-3
     if spent <= 0:
         return None
-    least = sum(counts.attn_least_s(run.shape, run.arm, run.collect_stats, run.ctx_sum(j),
-                                    run.batch) for j in run.trace_j)
+    least = sum(counts.attn_least_s(run.model, run.arm, run.collect_stats, run.ctx(j))
+                for j in run.trace_j)
     return 100.0 * least / spent

@@ -9,6 +9,6 @@ from h100_bench.core import counts
 def read(run):
     if not run.window_j:
         return None
-    least = sum(counts.step_least_s(run.shape, run.arm, run.collect_stats, run.ctx_sum(j),
-                                    run.batch) for j in run.window_j)
+    least = sum(counts.step_least_s(run.model, run.arm, run.collect_stats, run.ctx(j))
+                for j in run.window_j)
     return 100.0 * least / run.window_s

@@ -1,14 +1,22 @@
 """The served rows recomputed in float32 over a protected cache.
 
+A model (``reference/<name>.py`` ``Model``) states per layer the rows a
+token stores in its cache (``cache(layer)``: (kind, count, width), a K and
+a V row of each KV head, or one row read as both), the tokens a query
+attends back (``window(layer)``, None for the whole context), and may give
+the layer's attention over the rows read (``attend(layer, q, *rows, mask,
+rnd, edge)``; by default ``attend`` below over a K and a V row). ``qkv``
+returns the query and one tensor [T, count, width] of each cache row.
+
 For one row the cache semantics are:
 
   prefill   the prompt, padded to its prefill group's length, in one causal
-            pass; each layer's K and V are quantized, encoded, flipped by the
-            prefill's draw and read back through the codec (a Golay word it
+            pass; each layer's cache rows are quantized, encoded, flipped by
+            the prefill's draw and read back through the codec (a Golay word it
             cannot correct keeps its data; Hamming(8,4) doubles interpolate
             along the whole padded prompt, each end its own neighbour);
   decode    n steps, step j at position P + j feeding served token j: its
-            K and V written with step j's flips, then every position up to
+            cache rows written with step j's flips, then every position up to
             P + j read through the codec (an uncorrectable Golay word reads
             as 0; a double interpolates with its right neighbour only where
             that is inside the context and in the same chunk of
@@ -24,6 +32,7 @@ precision for the control).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable
 
@@ -38,9 +47,10 @@ class Row:
     prompt: torch.Tensor  # [S] token ids, the prompt padded to its group's length
     P: int  # prompt length
     fed: torch.Tensor  # [n] tokens fed to the decode steps (served tokens 0..n-1)
-    prefill_flips: Callable  # layer -> (K, V) flip patterns [S, Hkv, codewords]
-    decode_flips: Callable  # layer -> (K, V) flip patterns [n, Hkv, codewords]
-    # filled in: each layer's clean nibbles [P + n, Hkv, pv] (uint8) and scales
+    prefill_flips: Callable  # layer -> flip patterns [S, count, codewords] of each cache row
+    decode_flips: Callable  # layer -> flip patterns [n, count, codewords] of each cache row
+    # filled in, per layer and cache row: the clean nibbles [P + n, count,
+    # pv] (uint8) and scales, and the flip patterns
     nibbles: list = dataclasses.field(default_factory=list)
     flips: list = dataclasses.field(default_factory=list)
     prefill_logits: torch.Tensor = None  # [V] at position P - 1
@@ -100,6 +110,21 @@ def attend(q, k, v, mask, rnd, edge=None):
     return out.permute(2, 0, 1, 3).reshape(Tq, H * D)
 
 
+def causal_mask(pos, T: int, window):
+    """[len(pos), T] True where the query at position pos attends key t:
+    t <= pos, and with a window, pos - t < window."""
+    t = torch.arange(T, device=pos.device)[None, :]
+    mask = t <= pos[:, None]
+    if window is not None:
+        mask &= t > pos[:, None] - window
+    return mask
+
+
+def _attend_of(model, layer):
+    own = getattr(model, "attend", None)
+    return attend if own is None else functools.partial(own, layer)
+
+
 def _quant(x, pv):
     q, s = cd.quantize_int4(x)
     if pv > q.shape[-1]:
@@ -111,47 +136,45 @@ def run_rows(model, arm: Arm, rows: list, rnd, chunk_tokens: int):
     """Both passes over every row, layer by layer; fills each Row's
     logits, its clean nibbles and the flip patterns its positions were
     stored with (prompt positions from the prefill, then the decode's)."""
-    D = model.D
-    pv = cd.padded_values(arm.codec, D)
     dev = rows[0].prompt.device
     xs = [model.embed(r.prompt, torch.arange(r.prompt.shape[0], device=dev)) for r in rows]
-    pre = [[] for _ in rows]  # per layer ((kq, ks), (vq, vs)) of the prompt pass
-    pre_e = [[] for _ in rows]
+    # per layer, of each cache row: the prompt pass's (nibbles, scales, flips)
+    pre = [[] for _ in rows]
     for layer in range(model.L):
+        cache, att = model.cache(layer), _attend_of(model, layer)
         for i, r in enumerate(rows):
             S = r.prompt.shape[0]
             pos = torch.arange(S, device=dev)
-            q, k, v = model.qkv(layer, xs[i], pos)
-            ek, ev = r.prefill_flips(layer)
-            vals = []
-            for x, e in ((k, ek), (v, ev)):
-                nq, sc = _quant(x, pv)
+            q, *xc = model.qkv(layer, xs[i], pos)
+            vals, kept = [], []
+            for (_, _, width), x, e in zip(cache, xc, r.prefill_flips(layer), strict=True):
+                nq, sc = _quant(x, cd.padded_values(arm.codec, width))
                 nib, dbl = read_nibbles(arm, nq, e, "prefill")
                 if arm.interp:
                     ends = torch.zeros(S, dtype=torch.bool, device=dev)
                     ends[-1] = True
                     nib = _interp(nib, dbl, ends)
-                vals.append(cd.dequantize(nib[..., :D], sc))
-                pre[i].append((nq, sc))
-            pre_e[i].append((ek, ev))
-            mask = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
-            xs[i] = model.post(layer, xs[i], attend(q, vals[0], vals[1], mask, rnd))
+                vals.append(cd.dequantize(nib[..., :width], sc))
+                kept.append((nq, sc, e))
+            pre[i].append(kept)
+            mask = causal_mask(pos, S, model.window(layer))
+            xs[i] = model.post(layer, xs[i], att(q, *vals, mask, rnd))
     for i, r in enumerate(rows):
         r.prefill_logits = model.logits(xs[i][r.P - 1:r.P])[0]
     xs = [model.embed(r.fed, r.P + torch.arange(r.fed.shape[0], device=dev)) for r in rows]
     for layer in range(model.L):
+        cache, att = model.cache(layer), _attend_of(model, layer)
         for i, r in enumerate(rows):
             n, P = r.fed.shape[0], r.P
             T = P + n
             pos = P + torch.arange(n, device=dev)
-            q, k, v = model.qkv(layer, xs[i], pos)
-            ek, ev = r.decode_flips(layer)
+            q, *xc = model.qkv(layer, xs[i], pos)
             full, edge, kept = [], [], []
-            for j, (x, e) in enumerate(((k, ek), (v, ev))):
-                nq, sc = _quant(x, pv)
-                pq, ps = pre[i][2 * layer + j]
+            for (_, _, width), x, e, (pq, ps, pe) in zip(cache, xc, r.decode_flips(layer),
+                                                          pre[i][layer], strict=True):
+                nq, sc = _quant(x, cd.padded_values(arm.codec, width))
                 nq, sc = torch.cat([pq[:P], nq]), torch.cat([ps[:P], sc])
-                e = torch.cat([pre_e[i][layer][j][:P], e])
+                e = torch.cat([pe[:P], e])
                 kept.append((nq, sc, e))
                 nib, dbl = read_nibbles(arm, nq, e, "decode")
                 if arm.interp:
@@ -159,17 +182,17 @@ def run_rows(model, arm: Arm, rows: list, rnd, chunk_tokens: int):
                     own = ((t + 1) % chunk_tokens == 0) | (t == T - 1)
                     nib_full = _interp(nib, dbl, own)
                     nib_edge = _interp(nib, dbl, torch.ones_like(own))[P:]
-                    edge.append(cd.dequantize(nib_edge[..., :D], sc[P:]))
+                    edge.append(cd.dequantize(nib_edge[..., :width], sc[P:]))
                     nib = nib_full
-                full.append(cd.dequantize(nib[..., :D], sc))
-            r.nibbles.append((kept[0][0], kept[0][1], kept[1][0], kept[1][1]))
-            r.flips.append((kept[0][2], kept[1][2]))
-            mask = torch.arange(T, device=dev)[None, :] <= pos[:, None]
-            e_arg = (edge[0], edge[1], pos) if arm.interp else None
-            xs[i] = model.post(layer, xs[i], attend(q, full[0], full[1], mask, rnd, e_arg))
+                full.append(cd.dequantize(nib[..., :width], sc))
+            r.nibbles.append([(nq, sc) for nq, sc, _ in kept])
+            r.flips.append([e for _, _, e in kept])
+            mask = causal_mask(pos, T, model.window(layer))
+            e_arg = (*edge, pos) if arm.interp else None
+            xs[i] = model.post(layer, xs[i], att(q, *full, mask, rnd, e_arg))
         if layer == model.L - 1:
             for i, r in enumerate(rows):
                 r.decode_logits = model.logits(xs[i])
         for i in range(len(rows)):  # the prompt pass's layer is no longer needed
-            pre[i][2 * layer] = pre[i][2 * layer + 1] = None
+            pre[i][layer] = None
     return rows

@@ -33,6 +33,15 @@ class Model:
         return (x - mean) * torch.rsqrt(var + self.eps) * p["g"].to(torch.float32) + \
             p["b"].to(torch.float32)
 
+    def cache(self, layer):
+        """The rows a token stores in ``layer``'s cache, (kind, count,
+        width): a K and a V row of every KV head."""
+        return [("k", self.Hkv, self.D), ("v", self.Hkv, self.D)]
+
+    def window(self, layer):
+        """Every layer attends the whole context."""
+        return None
+
     def embed(self, tokens, positions):
         return (self.w["wte"][tokens].to(torch.float32)
                 + self.w["wpe"][positions].to(torch.float32))

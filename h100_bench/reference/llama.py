@@ -36,6 +36,15 @@ class Model:
     def _norm(self, x, g):
         return x * torch.rsqrt(x.square().mean(-1, keepdim=True) + self.eps) * g.to(torch.float32)
 
+    def cache(self, layer):
+        """The rows a token stores in ``layer``'s cache, (kind, count,
+        width): a K and a V row of every KV head."""
+        return [("k", self.Hkv, self.D), ("v", self.Hkv, self.D)]
+
+    def window(self, layer):
+        """Every layer attends the whole context."""
+        return None
+
     def embed(self, tokens, positions):
         return self.w["embed"][tokens].to(torch.float32)
 

@@ -38,3 +38,33 @@ def test_the_guard_tells_the_names_apart():
     assert forbidden_modules(["qkv_ecc_tpu_torch", "qkv_ecc_tpu_torch.models", "torch"]) == []
     assert forbidden_modules(["qkv_ecc_tpu.codecs", "jax.numpy", "flax"]) == [
         "flax", "jax", "qkv_ecc_tpu"]
+
+
+def _names_an_architecture(source: str) -> list:
+    """Lines that name an architecture: a string "llama" or "gpt2", or a
+    comparison with an ``.arch`` or ``["arch"]``."""
+    found = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Constant) and node.value in ("llama", "gpt2"):
+            found.append(node.lineno)
+        elif isinstance(node, ast.Compare):
+            for side in [node.left, *node.comparators]:
+                if (isinstance(side, ast.Attribute) and side.attr == "arch") or (
+                        isinstance(side, ast.Subscript) and isinstance(side.slice, ast.Constant)
+                        and side.slice.value == "arch"):
+                    found.append(node.lineno)
+    return found
+
+
+def test_the_harness_core_names_no_architecture():
+    """What an architecture is lives in archs/<name>.py and reference/<name>.py
+    alone."""
+    paths = sorted((BENCH / "core").glob("*.py")) + [
+        BENCH / "reference" / f for f in ("forward.py", "codecs.py", "arms.py")]
+    assert {str(p): _names_an_architecture(p.read_text()) for p in paths} == {
+        str(p): [] for p in paths}
+
+
+def test_the_architecture_guard_sees_a_branch():
+    src = 'if cfg.arch == "gpt2":\n    pass\nif shape["arch"] != x:\n    pass\ny = "llama"\n'
+    assert sorted(_names_an_architecture(src)) == [1, 1, 3, 5]
