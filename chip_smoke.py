@@ -41,6 +41,14 @@ packed reads also against the plain model of the split they take
 models then
 decode on the card in eleven arms against the CPU (M17); a shape without
 instances (group 1 at head_dim 96, which no model registers) must raise.
+The latent read L1 (csrc/latent_attend.cu, DeepSeek-V2-Lite's decode
+read) is held to latent_attend_plain at the Lite's shape (72 data and 72
+parity words a row, 16 heads, p.v over 512 values, pages of 128), the
+correcting read with counts and the scrubbed read each: 4 rows of contexts
+6144-8064 split over a cluster, one of page -1, against the CPU, and the
+cell's 256 rows at BER 1e-2 against the plain version on the card, stored
+words, scales and counts exact, outputs within 2% of the largest; then
+timed at those 256 rows beside its bound (latent_phase).
 Then it
 drives bench-0.9b (random bf16 weights from a seed) through the port's
 entry points on four paths:
@@ -4067,6 +4075,178 @@ def m17_decode_phase(torch, device, smi):
     return launches
 
 
+# the tensor cores' bfloat16 rate (H100 SXM, dense; NVIDIA data sheet): the
+# latent read's q . k and p . v run there
+PEAK_BF16_FLOPS = 989e12
+
+
+def latent_pages(torch, n, bs, gen, device, ber=None, pats=None):
+    """n pages of DeepSeek-V2-Lite's latent rows (576 values: 72 data and
+    72 parity words a token), data and parity [1, n, 1, 72, bs] int32 on
+    the device: Golay codewords of random nibbles with errors, each of their
+    24 bits flipped at ``ber``, or one of ``pats`` (golay_error_patterns)
+    on 30% of the codewords; made 512 pages at a time."""
+    from qkv_ecc_tpu_torch.kernels import swar
+
+    D = 576
+    data = torch.empty((1, n, 1, 72, bs), dtype=torch.int32, device=device)
+    par = torch.empty_like(data)
+    for s in range(0, n, 512):
+        m = min(512, n - s)
+        nib = torch.randint(0, 16, (m, bs, D), generator=gen, device=device, dtype=torch.int32)
+        cw = swar.golay_split_unpack(swar.golay_pack_rows_from_nibbles(nib, D), D)
+        if pats is None:
+            err = torch.zeros_like(cw)
+            for bit in range(24):
+                err |= (torch.rand(cw.shape, generator=gen, device=device) < ber).to(
+                    torch.int32) << bit
+        else:
+            pick = pats[torch.randint(0, len(pats), cw.shape, generator=gen, device=device)]
+            err = torch.where(torch.rand(cw.shape, generator=gen, device=device) < 0.3, pick, 0)
+        rows = swar.golay_split_pack(cw ^ err, D).permute(0, 2, 1)  # [m, 144, bs]
+        data[0, s:s + m, 0] = rows[:, :72]
+        par[0, s:s + m, 0] = rows[:, 72:]
+    return data, par
+
+
+def latent_inputs(torch, ctx, pages, gen, device, ber=None, pats=None):
+    """One layer of a latent cache for rows of contexts ``ctx`` (the new
+    token included), ``pages`` pages of 128 tokens a row (row b's pages 1 +
+    b * pages on, page 0 the trash page), the Lite's absorbed queries (16
+    heads of 576) in bfloat16, a new row of valid codewords and its scale."""
+    from qkv_ecc_tpu_torch.kernels import swar
+
+    B, bs = len(ctx), 128
+    data, par = latent_pages(torch, B * pages + 1, bs, gen, device, ber, pats)
+    scales = torch.rand((1, B * pages + 1, 1, bs), generator=gen, device=device) * 0.2 + 0.01
+    table = (1 + torch.arange(B * pages, dtype=torch.int32, device=device)).reshape(B, pages)
+    q = (torch.randn((B, 16, 576), generator=gen, device=device) * 0.3).to(torch.bfloat16)
+    new = swar.golay_pack_rows_from_nibbles(
+        torch.randint(0, 16, (B, 1, 576), generator=gen, device=device, dtype=torch.int32), 576)
+    ks = torch.rand((B, 1), generator=gen, device=device) * 0.1 + 0.01
+    ctx = torch.tensor(ctx, dtype=torch.int32, device=device)
+    return dict(q=q, new=new, ks=ks, data=data, par=par, scales=scales, table=table, ctx=ctx)
+
+
+def latent_call(torch, x, decode, fn=None):
+    """The latent read of layer 0 over copies of the inputs ``x`` (the
+    correcting read with counts when ``decode``, else the scrubbed read of
+    the data words): the card's wrapper, or ``fn`` (latent_attend_plain)
+    on the inputs' device. Returns the output in float32, the counts and
+    the stored data, parity and scales after the write."""
+    from qkv_ecc_tpu_torch.kernels import paged_attention as pa
+    from qkv_ecc_tpu_torch.models.config import DEEPSEEK_V2_LITE
+    from qkv_ecc_tpu_torch.models.deepseek_v2 import softmax_scale
+
+    c = {k: v.clone() for k, v in x.items()}
+    new = c["new"] if decode else c["new"][..., :72].contiguous()
+    args = (c["q"], new, c["ks"], c["data"], c["scales"], c["table"], c["ctx"], 0,
+            c["par"] if decode else None)
+    kw = dict(sm_scale=softmax_scale(DEEPSEEK_V2_LITE), pv_width=512, collect_stats=decode)
+    if fn is None:
+        r = pa.paged_latent_write_attend(*args, scrub=not decode, block_size=128, **kw)
+    else:
+        r = fn(*args, **kw)
+    out, stats = r if decode else (r, None)
+    return out.float(), stats, c["data"], c["par"] if decode else None, c["scales"]
+
+
+def latent_compare(torch, label, x, decode, plain_on):
+    """The card's latent read against latent_attend_plain on ``plain_on``
+    (the same inputs): stored words, scales and counts exact, outputs within
+    2% of the largest (bfloat16's rounding of the weights, whose running
+    maxima differ with the split). Returns the largest output error."""
+    from qkv_ecc_tpu_torch.kernels import paged_attention as pa
+
+    want = latent_call(torch, {k: v.to(plain_on) for k, v in x.items()}, decode,
+                       pa.latent_attend_plain)
+    got = latent_call(torch, x, decode)
+    torch.cuda.synchronize()
+    want = [None if t is None else t.cpu() for t in want]
+    got = [None if t is None else t.cpu() for t in got]
+    err, ref = (got[0] - want[0]).abs().max().item(), want[0].abs().max().item()
+    exact = all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got[1:], want[1:]))
+    counts = None if want[1] is None else want[1].sum(0).tolist()
+    say(f"  L1 {label}: max abs err {err:.3e} of {ref:.3e} (2% of it allowed); stored words, "
+        f"scales{' and counts' if decode else ''} {'equal' if exact else 'DIFFER'}"
+        + (f"; counts (corrected, detected) {counts}" if decode else ""))
+    if not exact or not err <= 0.02 * ref:
+        fail(f"L1 {label}: the card's latent read is not its plain version")
+    if decode and not (counts[0] > 0 and counts[1] > 0):
+        fail(f"L1 {label}: the cache's errors were not counted")
+    return err
+
+
+def latent_phase(torch, device, smi):
+    """L1 (csrc/latent_attend.cu through paged_latent_write_attend) at
+    DeepSeek-V2-Lite's shape - 72 data and 72 parity words a row, 16 heads,
+    p.v over 512 values, pages of 128 - against latent_attend_plain, the
+    correcting read with counts and the scrubbed read each: 4 rows of
+    contexts 6144-8064, split over a cluster, one of them of page -1, on
+    caches whose codewords carry every error pattern of weight 0-3 and 4000
+    of weight 4, against the plain version on the CPU; then the cell's
+    batch of 256 at contexts 6144-8064 (one block a row) and BER 1e-2,
+    against the plain version on the card, timed there beside its bound
+    (that run's bytes at 3.35 TB/s, its flops at the bfloat16 peak).
+    Launches exact. Returns ({branch: max error}, {branch: launches},
+    {branch: timing})."""
+    from qkv_ecc_tpu_torch.kernels import paged_attention as pa
+    from qkv_ecc_tpu_torch.models.config import DEEPSEEK_V2_LITE
+    from qkv_ecc_tpu_torch.models.deepseek_v2 import softmax_scale
+
+    wrapper = pa.paged_latent_write_attend
+    reset_counts(wrapper)
+    gen = torch.Generator(device=device).manual_seed(25)
+    pats = golay_error_patterns(torch, gen, device)
+    pats = pats[(pats >> 24) == 0]
+    split = latent_inputs(torch, [8064, 6144, 7001, 6500], 63, gen, device, pats=pats)
+    split["table"][3] = -1
+    S = pa.latent_splits(4, 63 * 128 // pa.LATENT_TILE, pa._sm_count(0))
+    cell_ctx = torch.randint(6144, 8065, (256,), generator=gen, device=device).tolist()
+    cell = latent_inputs(torch, cell_ctx, 63, gen, device, ber=BER)
+    S_cell = pa.latent_splits(256, 63 * 128 // pa.LATENT_TILE, pa._sm_count(0))
+    if S < 2 or S_cell != 1:
+        fail(f"L1: the split rule gives S = {S} at 4 rows and {S_cell} at 256")
+    errs, times, calls = {}, {}, {"golay": 0, "read": 0}
+    tokens = int(cell["ctx"].sum())
+    for branch, decode in (("golay", True), ("read", False)):
+        errs[branch] = max(
+            latent_compare(torch, f"{branch}, 4 rows split over {S} blocks, row 3 of page -1",
+                           split, decode, "cpu"),
+            latent_compare(torch, f"{branch}, 256 rows, one block each", cell, decode, device))
+        calls[branch] += 2
+        c = cell
+        new = c["new"] if decode else c["new"][..., :72].contiguous()
+        args = (c["q"], new, c["ks"], c["data"], c["scales"], c["table"], c["ctx"], 0,
+                c["par"] if decode else None)
+        kw = dict(scrub=not decode, block_size=128, sm_scale=softmax_scale(DEEPSEEK_V2_LITE),
+                  pv_width=512, collect_stats=decode)
+
+        def call(_, args=args, kw=kw, branch=branch):
+            calls[branch] += 1
+            wrapper(*args, **kw)
+
+        ms = device_ms(torch, call, 50, 1, wrapper)
+        # counts.attn_bytes and attn_flops for one layer: every context
+        # row's words and scale, the new rows, the queries and outputs
+        token = (144 if decode else 72) * 4 + 4
+        nbytes = tokens * token + 256 * token + 256 * 16 * (576 + 512) * 2
+        flops = 2 * 16 * (576 + 512) * tokens
+        bytes_ms, ops_ms = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * flops / PEAK_BF16_FLOPS
+        b_ms, b_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+        say(f"  L1 {branch}: {ms:.4f} ms at 256 rows of contexts 6144-8064 ({tokens} tokens, "
+            f"BER {BER}); bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e9:.3f} GB at 3.35 TB/s; "
+            f"{flops / 1e9:.1f} GFLOP at 989 TFLOP/s bf16 {ops_ms:.4f} ms); share of the bound "
+            f"{b_ms / ms:.3f}; {smi}")
+        times[branch] = dict(ms=ms, plain_ms=None, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None, int_bound_ms=None)
+    torch.cuda.synchronize()
+    check_launches("L1", {f"latent_attend {k}": (wrapper.launches_by[k], calls[k],
+                                                 "2 checks and the timed calls")
+                          for k in ("golay", "read")})
+    return errs, dict(wrapper.launches_by), times
+
+
 def golay_sliced_check(torch, device):
     """M12: kernels/golay_sliced.py (plain torch, no kernel) on CUDA
     tensors equals its CPU result: the bit-sliced pack, the IMLD network
@@ -4413,6 +4593,9 @@ def main():
 
     with Phase("M17 decode"):
         m17_launches = m17_decode_phase(torch, device, smi)
+
+    with Phase("L1 latent check"):
+        max_err_l1, l1_launches, l1_times = latent_phase(torch, device, smi)
 
     per_arm = cfg.num_layers * STEPS * ROUNDS
     with Phase("slice"):
@@ -4901,7 +5084,7 @@ def main():
         timings.update(codec_timing(torch, gen, device, smi, sass, sms, clock))
 
     from qkv_ecc_tpu_torch.kernels.paged_attention import (
-        DECODE_KERNEL_SHAPES, FLOAT_KERNEL_SHAPES, KERNEL_SHAPES)
+        DECODE_KERNEL_SHAPES, FLOAT_KERNEL_SHAPES, KERNEL_SHAPES, LATENT_KERNEL_SHAPES)
 
     def instances(key, source):
         """The instances built for a row: (data words, group, head_dim) of the
@@ -4994,6 +5177,14 @@ def main():
         # the codec kernels' check (which fails unless it is 0)
         entry(name, key, "codec_kernels.cu", replaces, hv(key), max_err_codec[key])
         for name, key, replaces in CODEC_KERNELS
+    ] + [
+        # L1: the latent read, which replaces no TPU kernel (the JAX package
+        # has no latent attention)
+        dict(name=f"latent_attend {k} (L1)", route="cuda",
+             source="qkv_ecc_tpu_torch/csrc/latent_attend.cu", replaces=None,
+             launches=l1_launches[k], max_abs_err=max_err_l1[k],
+             instances=[list(x) for x in LATENT_KERNEL_SHAPES], **l1_times[k])
+        for k in ("golay", "read")
     ]}
     say(f"total {time.perf_counter() - T0:.1f} s")
     say(json.dumps(table))

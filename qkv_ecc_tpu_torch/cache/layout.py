@@ -10,6 +10,10 @@ The JAX package's format, kept so that caches compare bit for bit:
     block_size] int32 (hamming74, hamming84 and golay);
   * scales k_scales/v_scales [layers, blocks, kv_heads, block_size] float32
     (allocated for every codec; the float codecs never read them).
+
+A latent-attention model (deepseek_v2) stores one row kind, ``kv``: one
+row a token of the latent's width, as one "head" (``row_kinds``), in
+kv_cache / kv_parity / kv_scales.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ class ECCCacheConfig:
     head_dim: int = 64
     codec: str = "hamming84"
     max_seqs: int = 32
+    row_kinds: tuple = ("k", "v")  # the <kind>_cache arrays; ("kv",): one latent row
 
     def __post_init__(self):
         if self.codec not in CODEC_CHOICES:
@@ -113,24 +118,23 @@ class ECCCacheConfig:
 
 
 def allocate_ecc_kv_cache(config: ECCCacheConfig, device=None) -> dict:
-    """Zeroed cache tensors: k_cache, v_cache, k_scales, v_scales, plus
-    k_parity/v_parity for the codecs that have parity. ``device=None``
-    means the card."""
+    """Zeroed cache tensors of each row kind (``config.row_kinds``): k_cache,
+    v_cache, k_scales, v_scales, plus k_parity/v_parity for the codecs that
+    have parity (kv_* for the latent row). ``device=None`` means the card."""
     device = resolve_device(device)
 
     def zeros(shape, dtype):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    out = {
-        "k_cache": zeros(config.cache_shape(), config.cache_dtype),
-        "v_cache": zeros(config.cache_shape(), config.cache_dtype),
-        "k_scales": zeros(config.scales_shape(), torch.float32),
-        "v_scales": zeros(config.scales_shape(), torch.float32),
-    }
+    out = {}
+    for kind in config.row_kinds:
+        out[f"{kind}_cache"] = zeros(config.cache_shape(), config.cache_dtype)
+    for kind in config.row_kinds:
+        out[f"{kind}_scales"] = zeros(config.scales_shape(), torch.float32)
     pshape = config.parity_shape()
     if pshape is not None:
-        out["k_parity"] = zeros(pshape, torch.int32)
-        out["v_parity"] = zeros(pshape, torch.int32)
+        for kind in config.row_kinds:
+            out[f"{kind}_parity"] = zeros(pshape, torch.int32)
     return out
 
 

@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("write_attend", "decode_attend", "codec_kernels")
+SOURCES = ("write_attend", "decode_attend", "codec_kernels", "latent_attend")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--split-compile=0",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1191,3 +1191,173 @@ paged_attention_ecc.launches = 0  # K4, any kernel
 paged_attention_ecc.launches_by = dict.fromkeys(
     ("read", "read-inject", "hamming84", "hamming84-interp", "hamming74", "golay", "fp16", "fp8"),
     0)
+
+
+# ---------------------------------------------------------------- the latent read
+#
+# A latent-attention model (deepseek_v2) caches one row a token and layer:
+# its latent and roped key, as one "head" of 8 * data_words values under
+# Golay. csrc/latent_attend.cu reads it once for all query heads: (data
+# words, parity words, heads, p . v width) instantiated, DeepSeek-V2-Lite's
+# and tiny-deepseek-v2's
+LATENT_KERNEL_SHAPES = ((72, 72, 16, 512), (6, 6, 4, 32))
+LATENT_TILE = 64  # tokens a tile of the latent read's loop (kTile)
+LATENT_RESIDENT = 2  # its blocks an SM holds at once (shared memory, registers)
+
+
+def latent_splits(batch: int, tiles: int, sms: int) -> int:
+    """The blocks S (a power of two, 1 to 8) of a cluster that splits a
+    sequence's tiles in the latent read: the most with batch * S blocks
+    still on the card at once (LATENT_RESIDENT an SM), and no more than
+    leave every block a tile. S = 1 at DeepSeek-V2-Lite's batch of 256."""
+    s = 1
+    while s < FLOAT_MAX_SPLITS and batch * s * 2 <= sms * LATENT_RESIDENT and s * 2 <= tiles:
+        s *= 2
+    return s
+
+
+def latent_attend_plain(query, kv_new, ks_new, kv_cache, kv_scales, block_table, context_lens,
+                        layer_idx, kv_parity=None, *, sm_scale, pv_width, precision="fast",
+                        collect_stats=False):
+    """The latent read in plain PyTorch: write the new row (data, and parity
+    when ``kv_parity`` is given) and its scale at slot ctx-1 in place (a
+    page of -1 clamped to page 0, as the packed kernels do), then every
+    context row: decoded through Golay (an uncorrectable codeword reads 0;
+    counted once a read over the live tokens, ``count_errors``) with
+    ``kv_parity``, its data nibbles alone without. q . k over the whole row
+    times the row's scale and ``sm_scale``, p . v over its first
+    ``pv_width`` values, an online softmax taken in tiles of LATENT_TILE
+    tokens as the kernel takes them: "fast" rounds q and each weight p *
+    scale to bf16, "highest" keeps both in float32. query [B, H, D]; kv_new
+    [B, 1, row words]; ks_new [B, 1]. Returns the output [B, H, pv_width]
+    in the query's dtype, or (output, stats [B, 2] int32)."""
+    num_pages = block_table.shape[1]
+    dw = kv_cache.shape[3]
+    cols, arrays = (kv_new[..., :dw],), (kv_cache,)
+    if kv_parity is not None:
+        cols, arrays = cols + (kv_new[..., dw:],), arrays + (kv_parity,)
+    _write_column(cols, arrays, (ks_new,), (kv_scales,), block_table, context_lens, layer_idx,
+                  num_pages)
+    batch, heads, width = query.shape
+    rows = gather_pages(kv_cache, block_table, layer_idx, num_pages, kv_parity)  # [B, T, 1, W]
+    tokens = rows.shape[1]
+    live = _valid_tokens(context_lens, tokens)
+    stats = torch.zeros((batch, 2), dtype=torch.int32, device=query.device)
+    if kv_parity is None:
+        nib = swar.unpack_int4(rows[..., :dw])
+    else:
+        if collect_stats:
+            stats = count_errors("golay", rows, live, dw, width)
+        nib = decode_rows("golay", rows, dw, width)[0]
+    vals = nib[:, :, 0, :width].to(torch.float32) - 8.0  # [B, T, D]
+    scales = gather_scales(kv_scales, block_table, layer_idx, num_pages)[:, :, 0]  # [B, T]
+    exact = precision == "highest"
+    q = query.to(torch.float32) if exact else query.to(torch.bfloat16).to(torch.float32)
+    m = torch.full((batch, heads, 1), _NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((batch, heads, pv_width), device=q.device)
+    for start in range(0, tokens, LATENT_TILE):
+        t = slice(start, start + LATENT_TILE)
+        lv = live[:, None, t]
+        s = torch.einsum("bhd,btd->bht", q, vals[:, t]) * (scales[:, None, t] * sm_scale)
+        m_new = torch.maximum(m, torch.where(lv, s, _NEG_INF).amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(lv, torch.exp(s - m_new), 0.0)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pv = torch.where(lv, p * scales[:, None, t], 0.0)
+        if not exact:
+            pv = pv.to(torch.bfloat16).to(torch.float32)
+        acc = acc * alpha + torch.einsum("bht,btd->bhd", pv, vals[:, t, :pv_width])
+        m = m_new
+    out = _normalise(acc, l[..., 0], query.dtype)
+    return (out, stats) if collect_stats else out
+
+
+def _launch_latent(query, kv_new, ks_new, kv_cache, kv_scales, block_table, context_lens,
+                   layer_idx, kv_parity=None, *, sm_scale, pv_width, precision="fast",
+                   collect_stats=False):
+    """Check what csrc/latent_attend.cu takes, allocate the outputs (and the
+    splits' scratch) and launch it on the current stream."""
+    batch, heads, width = query.shape
+    L, NB, one, dw, bs = kv_cache.shape
+    decode = kv_parity is not None
+    shape = (dw, kv_parity.shape[3] if decode else dw, heads, pv_width)
+    ints = (kv_new, kv_cache, block_table, context_lens) + ((kv_parity,) if decode else ())
+    _check("latent_attend", [
+        (all(t.device == query.device and t.is_contiguous() for t in ints + (ks_new, kv_scales)),
+         "every tensor must be contiguous and on the query's device"),
+        (all(t.dtype == torch.int32 for t in ints), "words, block table and lengths must be int32"),
+        (ks_new.dtype == kv_scales.dtype == torch.float32, "scales must be float32"),
+        (precision == "fast", "the latent read runs in bf16 ('fast') alone"),
+        (one == 1 and width == 8 * dw and kv_scales.shape == (L, NB, 1, bs),
+         "cache or scale shapes"),
+        (kv_new.shape == (batch, 1, dw + (shape[1] if decode else 0))
+         and ks_new.shape == (batch, 1), "new row or new scale shapes"),
+        (block_table.dim() == 2 and block_table.shape[0] == batch
+         and context_lens.shape == (batch,), "block table or context length shapes"),
+        (0 <= layer_idx < L, "layer out of range"),
+        (bs % LATENT_TILE == 0, f"block size {bs} is not a multiple of {LATENT_TILE}"),
+        (shape in LATENT_KERNEL_SHAPES,
+         f"(data words, parity words, heads, p.v width) = {shape} has no kernel instance; "
+         f"built: {LATENT_KERNEL_SHAPES}"),
+    ])
+    dev = query.device
+    q = query.to(torch.bfloat16).contiguous()
+    out = torch.empty((batch, heads, pv_width), device=dev, dtype=query.dtype)
+    stats = torch.zeros((batch, 2), dtype=torch.int32, device=dev) if collect_stats else None
+    tiles = C.cdiv(block_table.shape[1] * bs, LATENT_TILE)
+    splits = latent_splits(batch, tiles, _sm_count(dev.index))
+    part_o = part_ml = None
+    if splits > 1:
+        part_o = torch.empty((batch, splits, heads, pv_width), device=dev)
+        part_ml = torch.empty((batch, splits, 2, heads), device=dev)
+    syn = golay_read_table(dev) if decode else None
+    ptrs = (q, kv_new, ks_new, kv_cache, kv_parity, kv_scales, block_table, context_lens, syn,
+            out, stats, part_o, part_ml)
+    rc = launcher("latent_attend", "p" * 13 + "i" * 9 + "f" + "i" * 3 + "p")(
+        *(0 if t is None else t.data_ptr() for t in ptrs), batch, dw, heads, pv_width,
+        int(decode), bs, NB, block_table.shape[1], int(layer_idx), float(sm_scale),
+        int(out.dtype == torch.bfloat16), 1, splits, _stream(query))
+    if rc != 0:
+        raise RuntimeError(f"latent_attend kernel launch failed: cudaError {rc}")
+    return (out, stats) if collect_stats else out
+
+
+def paged_latent_write_attend(query, kv_new, ks_new, kv_cache, kv_scales, block_table,
+                              context_lens, layer_idx, kv_parity=None, *, scrub: bool,
+                              block_size: int, sm_scale: float, pv_width: int,
+                              precision: str = "fast", collect_stats: bool = False):
+    """The decode step's latent read: write the new row at slot ctx-1 (in
+    place), then attend every context row with all query heads. scrub=True:
+    a write-scrubbed cache, read by its data words (kv_new holds the data
+    words; the caller stores the parity column); scrub=False: the
+    correcting read of full rows (kv_new data ++ parity, ``kv_parity``
+    given), with the ECC counts when ``collect_stats``. query [B, H, D] (the
+    absorbed query); caches [L, NB, 1, words, bs] int32; scales [L, NB, 1,
+    bs] float32; context_lens [B] with the new token. Returns [B, H,
+    pv_width] in the query's dtype, or (that, stats [B, 2] int32). On the
+    card csrc/latent_attend.cu (or raise), on the CPU latent_attend_plain;
+    launches count on ``.launches`` and ``.launches_by`` ("golay": the
+    correcting read, "read": the scrubbed one)."""
+    if kv_cache.shape[4] != block_size:
+        raise ValueError(f"block_size {block_size} != the cache's {kv_cache.shape[4]}")
+    if scrub and (collect_stats or kv_parity is not None):
+        raise ValueError("a scrubbed latent read takes no parity and collects no counts")
+    if not scrub and kv_parity is None:
+        raise ValueError("the correcting latent read needs kv_parity")
+    branch = "read" if scrub else "golay"
+    paged_latent_write_attend.launches += 1
+    paged_latent_write_attend.launches_by[branch] += 1
+    args = (query, kv_new, ks_new, kv_cache, kv_scales, block_table, context_lens, layer_idx,
+            kv_parity)
+    kw = dict(sm_scale=sm_scale, pv_width=pv_width, precision=precision,
+              collect_stats=collect_stats)
+    if query.device.type == "cuda":
+        return _launch_latent(*args, **kw)
+    if query.device.type == "cpu":
+        return latent_attend_plain(*args, **kw)
+    raise ValueError(f"latent_attend: no kernel for device {query.device}")
+
+
+paged_latent_write_attend.launches = 0
+paged_latent_write_attend.launches_by = dict.fromkeys(("golay", "read"), 0)

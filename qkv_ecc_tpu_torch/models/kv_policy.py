@@ -207,26 +207,27 @@ def encode_pack_kv_scrubbed(x, policy: KVCachePolicy, generator=None, mask=None,
 
 
 def hoisted_write_deltas(policy: KVCachePolicy, num_layers: int, enc_shape,
-                         generator=None, raw_masks=None) -> torch.Tensor:
-    """Every layer's (K, V) folded write delta in one chain.
+                         generator=None, raw_masks=None, rows: int = 2) -> torch.Tensor:
+    """Every layer's (K, V) folded write delta in one chain (``rows`` 1: a
+    latent model's one cache row).
 
-    raw_masks: [num_layers, 2, *enc_shape] logical masks to fold, or None to
-    draw them from ``generator``. enc_shape is the d12 codeword shape
+    raw_masks: [num_layers, rows, *enc_shape] logical masks to fold, or None
+    to draw them from ``generator``. enc_shape is the d12 codeword shape
     [..., C] for golay and the padded nibble shape otherwise.
-    Returns uint8 [num_layers, 2, *fold shape] (golay's last axis C -> 3C)."""
+    Returns uint8 [num_layers, rows, *fold shape] (golay's last axis C -> 3C)."""
     if raw_masks is None:
-        raw_masks = _draw(None, generator, (num_layers, 2) + tuple(enc_shape), policy)
+        raw_masks = _draw(None, generator, (num_layers, rows) + tuple(enc_shape), policy)
     return swar.scrub_fold_mask(policy.codec, raw_masks).to(torch.uint8)
 
 
 def hoisted_logical_masks(policy: KVCachePolicy, num_layers: int, enc_shape,
-                          generator=None) -> torch.Tensor:
+                          generator=None, rows: int = 2) -> torch.Tensor:
     """Every layer's (K, V) raw logical-codeword mask in one chain, for the
-    unscrubbed write path (encode_kv(mask=...)): [num_layers, 2,
-    *enc_shape], enc_shape the padded nibble shape (golay: the d12
-    codeword shape). uint8 for the codecs whose masks fit 8 bits, int32 for
-    golay's 24-bit masks."""
-    m = _draw(None, generator, (num_layers, 2) + tuple(enc_shape), policy)
+    unscrubbed write path (encode_kv(mask=...)): [num_layers, rows,
+    *enc_shape] (``rows`` 1: a latent model's one cache row), enc_shape the
+    padded nibble shape (golay: the d12 codeword shape). uint8 for the
+    codecs whose masks fit 8 bits, int32 for golay's 24-bit masks."""
+    m = _draw(None, generator, (num_layers, rows) + tuple(enc_shape), policy)
     return m if N_BITS[policy.codec] > 8 else m.to(torch.uint8)
 
 

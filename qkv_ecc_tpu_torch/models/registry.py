@@ -8,11 +8,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from . import gpt2, llama
+from . import deepseek_v2, gpt2, llama
 from .config import ModelConfig
 from .kv_policy import KVCachePolicy
 
-_ARCH = {"gpt2": gpt2, "llama": llama}
+_ARCH = {"gpt2": gpt2, "llama": llama, "deepseek_v2": deepseek_v2}
 
 
 def arch_module(cfg: ModelConfig):

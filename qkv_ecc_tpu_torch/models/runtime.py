@@ -26,6 +26,16 @@ the write chain, and the fused write+attend kernel
 [b*P, (b+1)*P)); the serving layer (``serving/scheduler.py``) hands out
 pages through ``cache/block_manager.py`` and decodes inactive slots, whose
 block-table rows are -1, into the trash page 0.
+
+A latent-attention model (deepseek_v2, models/deepseek_v2.py) caches one
+``kv`` row a token and layer (its latent and roped key, one "head" of
+``cfg.head_dim`` values) in mode int12-golay alone: prefill writes it and
+attends in the non-absorbed form; a decode step absorbs q_nope . W_UK and
+reads every context row once, for all heads, through the latent read
+(kernels/paged_attention.py ``paged_latent_write_attend``). Its write masks
+are one chain a step of [L, 1, B, 1, 1, codewords], one draw a layer in
+prefill. Every other arm, a mesh, the server and training raise
+NotImplementedError for it.
 """
 
 from __future__ import annotations
@@ -33,13 +43,15 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..cache.layout import ECCCacheConfig, allocate_ecc_kv_cache
 from ..device import resolve_device
 from ..kernels import common as C
 from ..kernels import swar
-from ..kernels.paged_attention import paged_attention_ecc_write_attend
-from .config import ModelConfig
+from ..kernels.grouped import grouped_mm
+from ..kernels.paged_attention import paged_attention_ecc_write_attend, paged_latent_write_attend
+from .config import ModelConfig, is_latent, refuse_latent
 from .kv_policy import (
     N_BITS,
     KVCachePolicy,
@@ -55,6 +67,7 @@ from .kv_policy import (
 )
 from ..codecs.fault_injection import flip_mask
 from ..parallel.mesh import all_gather_cat, all_reduce
+from .. import tracing
 from ..tracing import span
 from .layers import causal_attention
 from .registry import arch_module
@@ -74,12 +87,24 @@ def _use_scrub(policy: KVCachePolicy) -> bool:
 FUSED_CODECS = ("int4", "hamming74", "hamming84", "golay", "fp16", "fp8")
 
 
+def check_latent_policy(cfg: ModelConfig, policy: KVCachePolicy):
+    """A latent model runs mode int12-golay alone (Golay with write
+    injection, no interpolation, scrubbed or with ECC counts)."""
+    if is_latent(cfg) and (policy.codec != "golay" or policy.use_interpolation
+                           or policy.inject_at != "write"):
+        raise NotImplementedError(
+            f"architecture '{cfg.arch}' ({cfg.name}) runs mode int12-golay alone, got codec "
+            f"'{policy.codec}' (interpolation {policy.use_interpolation}, "
+            f"injection at {policy.inject_at})")
+
+
 def _check_slice(cfg: ModelConfig, policy: KVCachePolicy):
     """Raise for an architecture the port does not know and for a codec the
     runtime has no kernel for, as JAX's generate does."""
     arch_module(cfg)
     if policy.codec not in FUSED_CODECS:
         raise NotImplementedError(f"the runtime supports {FUSED_CODECS}, got '{policy.codec}'")
+    check_latent_policy(cfg, policy)
 
 
 def init_generation_state(cfg: ModelConfig, policy: KVCachePolicy, batch: int,
@@ -97,6 +122,7 @@ def init_generation_state(cfg: ModelConfig, policy: KVCachePolicy, batch: int,
         head_dim=cfg.head_dim,
         codec=policy.codec,
         max_seqs=batch,
+        row_kinds=("kv",) if is_latent(cfg) else ("k", "v"),
     )
     state = allocate_ecc_kv_cache(cache_cfg, device=device)
     state["context_len"] = torch.zeros((batch,), dtype=torch.int32, device=device)
@@ -105,9 +131,14 @@ def init_generation_state(cfg: ModelConfig, policy: KVCachePolicy, batch: int,
     return state, block_table, cache_cfg
 
 
+def _first_cache(state):
+    """The first ``<kind>_cache`` array of the state (k_cache, or kv_cache)."""
+    return state["k_cache"] if "k_cache" in state else state["kv_cache"]
+
+
 def _check_block_size(state, block_size: int) -> int:
     """The cache's page size, which ``block_size`` must equal."""
-    bs = state["k_cache"].shape[4]
+    bs = _first_cache(state).shape[4]
     if block_size != bs:
         raise ValueError(f"block_size {block_size} != the cache's page size {bs}")
     return bs
@@ -145,18 +176,23 @@ def _write_tokens(state, layer_idx, block_table, positions, kc, vc, ks, vs):
     through its bytes); ks/vs: [B, S, H], or None (float codecs: no
     scales); positions: [B, S]."""
     bs = state["k_cache"].shape[4]
-    dw = state["k_cache"].shape[3]
     phys = _physical_pages(block_table, positions, bs)
     slots = (positions % bs).long()
-    for name, rows in (("k_cache", kc), ("v_cache", vc)):
-        C.fp8_as_bytes(state[name])[layer_idx][phys, :, :, slots] = C.fp8_as_bytes(rows[..., :dw])
-    if "k_parity" in state:
-        state["k_parity"][layer_idx][phys, :, :, slots] = kc[..., dw:]
-        state["v_parity"][layer_idx][phys, :, :, slots] = vc[..., dw:]
-    if ks is not None:
-        state["k_scales"][layer_idx][phys, :, slots] = ks
-        state["v_scales"][layer_idx][phys, :, slots] = vs
+    for kind, rows, scales in (("k", kc, ks), ("v", vc, vs)):
+        _write_rows(state, kind, layer_idx, phys, slots, rows, scales)
     return state
+
+
+def _write_rows(state, kind, layer_idx, phys, slots, rows, scales):
+    """Store the rows of one kind (state's <kind>_cache, <kind>_parity,
+    <kind>_scales) at physical pages ``phys`` and ``slots`` [B, S]."""
+    cache = state[f"{kind}_cache"]
+    dw = cache.shape[3]
+    C.fp8_as_bytes(cache)[layer_idx][phys, :, :, slots] = C.fp8_as_bytes(rows[..., :dw])
+    if f"{kind}_parity" in state:
+        state[f"{kind}_parity"][layer_idx][phys, :, :, slots] = rows[..., dw:]
+    if scales is not None:
+        state[f"{kind}_scales"][layer_idx][phys, :, slots] = scales
 
 
 def sample_tokens(logits, temperature, generator, *, row_offset: int = 0, full_batch=None):
@@ -255,6 +291,11 @@ def prefill(params, input_ids, state, block_table, cfg: ModelConfig,
     Positional arguments are JAX's, a ``torch.Generator`` in place of
     ``step_key``; the others are the port's own, keyword-only."""
     _check_slice(cfg, policy)
+    if is_latent(cfg):
+        if mesh is not None:
+            refuse_latent(cfg, "a mesh (parallel/)")
+        return _prefill_latent(params, input_ids, state, block_table, cfg, policy, generator,
+                               logit_pos, true_len)
     tp, dp, cfgl, reduce = _mesh_parts(cfg, mesh, batch_split)
     scrub = _use_scrub(policy)
     read = read_inject(policy)
@@ -316,6 +357,52 @@ def prefill(params, input_ids, state, block_table, cfg: ModelConfig,
     return logits, state
 
 
+def _prefill_latent(params, input_ids, state, block_table, cfg: ModelConfig,
+                    policy: KVCachePolicy, generator, logit_pos, true_len):
+    """prefill of a latent model: per layer the cache row written through
+    the write chain (one mask a layer), read back through the codec (an
+    uncorrectable Golay word keeps its data) and attended in the
+    non-absorbed form (deepseek_v2.prefill_attention)."""
+    scrub = _use_scrub(policy)
+    B, S = input_ids.shape
+    device = input_ids.device
+    positions = torch.arange(S, device=device).expand(B, S)
+    arch = arch_module(cfg)
+    with span("prefill.embed"):
+        inv_freq = arch.inv_freq(cfg, device)
+        x = arch.embed(params, input_ids, cfg, positions)
+    for i, lp in enumerate(params["layers"]):
+        with span("prefill.qkv"):
+            q, row = arch.qkv(x, lp, cfg, positions, inv_freq)
+        with span("prefill.write"):
+            mask = None
+            if write_inject(policy):
+                if generator is None:
+                    raise ValueError("fault injection needs masks or a torch.Generator")
+                mask = flip_mask(codeword_shape(policy.codec, row.shape, cfg.head_dim),
+                                 policy.ber, N_BITS[policy.codec], generator)
+            rc, rs, _ = encode_kv(row, policy, mask=mask)
+            stored = swar.scrub_codewords(policy.codec, rc) if scrub else rc
+            bs = state["kv_cache"].shape[4]
+            _write_rows(state, "kv", i, _physical_pages(block_table, positions, bs),
+                        (positions % bs).long(), pack_kv(stored, policy, cfg.head_dim), rs)
+        with span("prefill.codec_read"):
+            read = decode_kv(rc, rs, policy, head_dim=cfg.head_dim, seq_axis=1)[0]
+        with span("prefill.attention"):
+            attn = arch.prefill_attention(q, read.to(x.dtype), lp, cfg)
+        x = arch.attn_out_mlp(x, attn, lp, cfg, "prefill", i)
+    with span("prefill.lm_head"):
+        if logit_pos is None:
+            x_last = x[:, -1:, :]
+        else:
+            x_last = torch.take_along_dim(x, logit_pos.long().to(device)[:, None, None], dim=1)
+        logits = arch.lm_head(params, x_last, cfg)[:, 0]
+    state["context_len"] = (torch.full((B,), S, dtype=torch.int32, device=device)
+                            if true_len is None
+                            else torch.as_tensor(true_len, dtype=torch.int32).to(device))
+    return logits, state
+
+
 def write_mask_shape(policy: KVCachePolicy, batch: int, cfg: ModelConfig):
     """Logical injection-mask shape of one decode token's K or V write: the
     d12 codeword array for golay, padded nibbles otherwise (fp8: its bytes,
@@ -361,6 +448,11 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
     group once. Mode int4's read flips hash the rank's local head index, as
     JAX's do, so they differ from the single-device run's."""
     _check_slice(cfg, policy)
+    if is_latent(cfg):
+        if mesh is not None:
+            refuse_latent(cfg, "a mesh (parallel/)")
+        return _decode_step_latent(params, token_ids, state, block_table, cfg, policy, generator,
+                                   block_size, collect_ecc_stats, hoisted_masks)
     tp, dp, cfgl, reduce = _mesh_parts(cfg, mesh)
     bs = _check_block_size(state, block_size)
     B = token_ids.shape[0]
@@ -458,6 +550,181 @@ def decode_step(params, token_ids, state, block_table, cfg: ModelConfig,
     with span("decode.lm_head"):
         logits = _lm_head(params, x, cfgl, mesh)[:, 0]
     return logits, state
+
+
+def _decode_step_latent(params, token_ids, state, block_table, cfg: ModelConfig,
+                        policy: KVCachePolicy, generator, block_size, collect_ecc_stats,
+                        hoisted_masks):
+    """decode_step of a latent model: the step's write masks (drawn here in
+    one chain when none are given: [L, 1, ...], folded deltas when
+    scrubbed, raw masks otherwise), then ``_latent_body``, then the counts
+    into the state. On the card the body runs as a CUDA graph
+    (``LatentGraph``, one a cache in ``_LATENT_GRAPHS``: captured at the
+    second call with the same arrays and shapes, replayed after) unless
+    tracing is recording; the first call and every CPU call run it
+    eagerly. No host sync but the capture's."""
+    bs = _check_block_size(state, block_size)
+    B = token_ids.shape[0]
+    scrub = _use_scrub(policy) and not collect_ecc_stats
+    inject = write_inject(policy)
+    with span("decode.masks"):
+        if inject and hoisted_masks is None:
+            hoist = hoisted_write_deltas if scrub else hoisted_logical_masks
+            hoisted_masks = hoist(policy, len(params["layers"]), write_mask_shape(policy, B, cfg),
+                                  generator=generator, rows=1)
+    pos = state["context_len"]
+    args = (params, cfg, policy, bs, collect_ecc_stats, scrub)
+    inputs = (token_ids, pos, hoisted_masks, block_table)
+    if token_ids.device.type == "cuda" and not tracing.recording():
+        graph = _LATENT_GRAPHS.get(state["kv_cache"])
+        if graph is None or not graph.fits(state, *args, *inputs):
+            graph = _LATENT_GRAPHS[state["kv_cache"]] = LatentGraph(state, *args, *inputs)
+        logits, counts = graph.run(state, *inputs)
+    else:
+        logits, counts = _latent_body(state, *args, *inputs)
+    with span("decode.ecc_counts"):
+        if collect_ecc_stats:
+            zeros = torch.zeros((B,), dtype=torch.int32, device=pos.device)
+            state["ecc_corrected"] = state.get("ecc_corrected", zeros) + counts[0]
+            state["ecc_detected"] = state.get("ecc_detected", zeros) + counts[1]
+    state["context_len"] = pos + 1
+    return logits, state
+
+
+# the latent model's decode graphs, one a cache: keyed by the state's
+# kv_cache tensor (by identity), dropped with it
+_LATENT_GRAPHS = WeakIdKeyDictionary()
+
+
+def _latent_body(state, params, cfg: ModelConfig, policy: KVCachePolicy, bs: int,
+                 collect_ecc_stats: bool, scrub: bool, token_ids, pos, hoisted_masks,
+                 block_table):
+    """The latent model's step past its masks: per layer the projections
+    and RoPE, q_nope . W_UK (``decode.absorb``), the write chain of the one
+    cache row, the latent read (every context row decoded once, for all
+    heads), then W_UV, o_proj and the MLP or expert layer; the scrubbed
+    modes' parity column; the LM head. Returns (logits [B, V] float32, the
+    step's counts [2, B] int32)."""
+    B = token_ids.shape[0]
+    positions = pos[:, None]
+    device = token_ids.device
+    arch = arch_module(cfg)
+    inject = hoisted_masks is not None
+    dw = state["kv_cache"].shape[3]
+    with span("decode.embed"):
+        inv_freq = arch.inv_freq(cfg, device)
+        x = arch.embed(params, token_ids[:, None], cfg, positions)
+        ctx = pos + 1
+        counts = torch.zeros((2, B), dtype=torch.int32, device=device)
+    parity = []
+    for i, lp in enumerate(params["layers"]):
+        with span("decode.qkv"):
+            q, row = arch.qkv(x, lp, cfg, positions, inv_freq)
+        with span("decode.absorb"):
+            qa = arch.absorb(q, lp, cfg)
+        with span("decode.write_chain"):
+            mask = hoisted_masks[i, 0] if inject else None
+            if scrub:
+                rc, rs = encode_pack_kv_scrubbed(row, policy, folded=mask)
+            else:
+                rc, rs, _ = encode_kv(row, policy, mask=mask)
+                rc = pack_kv(rc, policy, cfg.head_dim)
+            rc, rs = rc[:, 0], rs[:, 0]  # [B, 1, row_words], [B, 1]
+            if scrub:
+                parity.append(rc[..., dw:])
+                rc = rc[..., :dw]
+            rc, rs = rc.contiguous(), rs.contiguous()
+        with span("decode.attend"):
+            out = paged_latent_write_attend(
+                qa, rc, rs, state["kv_cache"], state["kv_scales"], block_table, ctx, i,
+                None if scrub else state["kv_parity"], scrub=scrub, block_size=bs,
+                sm_scale=arch.softmax_scale(cfg), pv_width=cfg.kv_lora_rank,
+                collect_stats=collect_ecc_stats)
+            if collect_ecc_stats:
+                attn, stats = out
+                counts += stats.t()
+            else:
+                attn = out
+        x = arch.attn_out_mlp(x, attn[:, None], lp, cfg, "decode", i, latent=True)
+    with span("decode.parity_scatter"):
+        if parity:
+            phys, slots = _trash_routed_slots(block_table, pos, bs)
+            layers = torch.arange(len(parity), device=phys.device)[None, :]
+            idx = (layers, phys[:, None], slice(None), slice(None), slots[:, None])
+            state["kv_parity"][idx] = torch.stack(parity, dim=1)  # [B, L, 1, pw]
+    with span("decode.lm_head"):
+        logits = arch.lm_head(params, x, cfg)[:, 0]
+    return logits, counts
+
+
+class LatentGraph:
+    """The latent model's step body (``_latent_body``) as a CUDA graph over
+    static copies of its inputs (tokens, context lengths, masks, block
+    table): the first ``run`` is eager (the kernels' and libraries' first
+    calls), the second captures and replays, every later one copies its
+    inputs in and replays. The cache is updated in place, as eagerly; the
+    logits and counts are returned as copies. It fits a call with the same
+    parameters and cache arrays (by address: every array the body reads or
+    writes), shapes and flags; it holds no reference to the state. A replay
+    adds the launches the capture counted to the wrappers' ``.launches``
+    and ``.launches_by`` (_COUNTED), so they count what runs on the card."""
+
+    def __init__(self, state, params, cfg, policy, bs, collect_ecc_stats, scrub, token_ids, pos,
+                 hoisted_masks, block_table):
+        self.args = (params, cfg, policy, bs, collect_ecc_stats, scrub)
+        self.key = self._key(state, *self.args, token_ids, pos, hoisted_masks, block_table)
+        self.graph = None
+        self.calls = 0
+
+    @staticmethod
+    def _key(state, params, cfg, policy, bs, collect_ecc_stats, scrub, token_ids, pos,
+             hoisted_masks, block_table):
+        shape = None if hoisted_masks is None else (tuple(hoisted_masks.shape), hoisted_masks.dtype)
+        # the latent model's tree: its top-level arrays and a dict of arrays
+        # a layer (read without tree_leaves' paths: the key is made each step)
+        arrays = [t.data_ptr() for k, t in params.items() if k != "layers"]
+        arrays += [t.data_ptr() for lp in params["layers"] for t in lp.values()]
+        arrays += [state[k].data_ptr() for k in ("kv_cache", "kv_parity", "kv_scales")]
+        return (id(params), tuple(arrays), cfg, policy, bs, collect_ecc_stats, scrub,
+                tuple(token_ids.shape), shape, tuple(block_table.shape))
+
+    def fits(self, *args):
+        return self._key(*args) == self.key
+
+    def run(self, state, token_ids, pos, hoisted_masks, block_table):
+        self.calls += 1
+        if self.calls == 1:
+            return _latent_body(state, *self.args, token_ids, pos, hoisted_masks, block_table)
+        inputs = [t for t in (token_ids, pos, hoisted_masks, block_table) if t is not None]
+        if self.graph is None:
+            self.inputs = [t.clone() for t in inputs]
+            torch.cuda.synchronize()
+            before = _launch_counts()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                tok, p, *rest = self.inputs
+                masks = rest[0] if hoisted_masks is not None else None
+                self.outputs = _latent_body(state, *self.args, tok, p, masks, rest[-1])
+            # what the capture counted runs at each replay, the first included
+            self.launched = [(n - n0, {k: by[k] - by0[k] for k in by})
+                             for (n, by), (n0, by0) in zip(_launch_counts(), before)]
+        else:
+            for w, (n, by) in zip(_COUNTED, self.launched):
+                w.launches += n
+                for k, d in by.items():
+                    w.launches_by[k] += d
+        for dst, src in zip(self.inputs, inputs):
+            dst.copy_(src)
+        self.graph.replay()
+        return self.outputs[0].clone(), self.outputs[1].clone()
+
+
+# the counted kernel wrappers the latent step calls
+_COUNTED = (paged_latent_write_attend, grouped_mm)
+
+
+def _launch_counts():
+    return [(w.launches, dict(getattr(w, "launches_by", {}))) for w in _COUNTED]
 
 
 @torch.no_grad()

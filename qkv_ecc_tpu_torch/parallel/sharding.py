@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from ..models.config import ModelConfig
+from ..models.config import ModelConfig, refuse_latent
 
 
 def llama_param_specs(cfg: ModelConfig) -> dict:
@@ -46,6 +46,7 @@ def gpt2_param_specs(cfg: ModelConfig) -> dict:
 
 
 def param_specs(cfg: ModelConfig) -> dict:
+    refuse_latent(cfg, "tensor parallelism")
     if cfg.arch == "llama":
         return llama_param_specs(cfg)
     return gpt2_param_specs(cfg)

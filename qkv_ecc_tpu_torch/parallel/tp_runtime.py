@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from ..models import runtime
-from ..models.config import ModelConfig
+from ..models.config import ModelConfig, refuse_latent
 from ..models.kv_policy import KVCachePolicy
 from ..models.runtime import _check_slice, _local_cfg, init_generation_state
 from .mesh import Mesh, all_gather_cat
@@ -65,6 +65,7 @@ def make_tp_functions(cfg: ModelConfig, policy: KVCachePolicy, mesh: Mesh,
     D'] as models/runtime takes them. Logits are [B_local, V] float32.
     collect_ecc_stats: as the runtime's decode_step, the counts summed over
     the model group."""
+    refuse_latent(cfg, "tensor parallelism")
     _check_slice(cfg, policy)  # NotImplementedError for an unknown architecture
     cfgl = _local_cfg(cfg, mesh.model)
 
@@ -114,6 +115,7 @@ def generate_tp(params, input_ids, cfg: ModelConfig, policy: KVCachePolicy, mesh
     stream). Every rank returns the global [B, S + max_new_tokens] tokens,
     the new ones kept on the device between steps and gathered once over
     the data group at the end."""
+    refuse_latent(cfg, "tensor parallelism")
     device = mesh.device
     params = shard_params(params, cfg, mesh)
     input_ids = torch.as_tensor(input_ids).to(device=device, dtype=torch.long)

@@ -35,7 +35,7 @@ import torch
 from ..cache.block_manager import BlockManager
 from ..cache.layout import ECCCacheConfig, allocate_ecc_kv_cache
 from ..device import resolve_device
-from ..models.config import ModelConfig
+from ..models.config import ModelConfig, refuse_latent
 from ..models.kv_policy import KVCachePolicy
 from ..models.runtime import _check_slice, decode_step, prefill, sample_tokens
 
@@ -74,6 +74,7 @@ class ContinuousBatchingServer:
                  block_size: int = 128, prefill_bucket: int = 128,
                  collect_ecc_stats: bool = True, device=None):
         _check_slice(cfg, policy)
+        refuse_latent(cfg, "the continuous-batching server")
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg

@@ -6,6 +6,8 @@ default.
         ...
     spans = tracing.drain()               # [(name, host start ns, host end ns,
                                           #   device ms or None)], and empty
+    tracing.count("decode.moe_tokens.3", t)  # in the program: add a device
+    counts = tracing.drain_counts()       # tensor into a counter; {name: sum}
     tracing.disable()
 
 Off, ``span`` returns one shared object whose ``__enter__`` and
@@ -20,7 +22,9 @@ synchronises but ``drain``, which waits for the last event.
 
 The spans of the decode step and of prefill are leaves: none opens inside
 another, so a reader sums a name over the layers and never counts a
-stretch twice. A span is appended when it closes. ``disable`` stops
+stretch twice. A span is appended when it closes. A counter adds device
+tensors on their device (one addition a call, no host read) while
+recording, and is not touched while off. ``disable`` stops
 recording and keeps what was recorded until the next ``drain``; ``enable``
 with a recording under way changes only whether device events are taken.
 """
@@ -52,6 +56,8 @@ _device_events = False
 # finished spans, (name, host start ns, host end ns, start event, end
 # event), until drained; the events are None without device events
 _spans: list = []
+# counters, name -> the sum of the tensors counted, until drained
+_counts: dict = {}
 
 
 class _Span:
@@ -96,9 +102,29 @@ def disable():
     _recording = False
 
 
+def recording() -> bool:
+    """Whether spans and counters are being recorded."""
+    return _recording
+
+
 def span(name: str):
     """A context manager timing the code inside it as ``name``."""
     return _Span(name) if _recording else _OFF
+
+
+def count(name: str, values: torch.Tensor):
+    """Add ``values`` into the counter ``name`` while recording (on values'
+    device, without a host read); nothing while off."""
+    if _recording:
+        held = _counts.get(name)
+        _counts[name] = values.clone() if held is None else held + values
+
+
+def drain_counts() -> dict:
+    """{name: summed tensor} of the counters; the recorder's are emptied."""
+    global _counts
+    counts, _counts = _counts, {}
+    return counts
 
 
 def drain() -> list:

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.config import ModelConfig
+from ..models.config import ModelConfig, refuse_latent
 from ..models.kv_policy import KVCachePolicy
 from ..models.registry import (cross_entropy, forward, init_params, map_tree,
                                params_from_jax, tree_leaves)
@@ -93,6 +93,7 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
 def train_loss(params, chunk, cfg: ModelConfig, policy: KVCachePolicy):
     """JAX's loss of one batch [B, S + 1]: the forward of its first S ids,
     then the mean cross entropy of each position's next id among them."""
+    refuse_latent(cfg, "training")
     ids = chunk[:, :-1]
     logits, _ = forward(params, ids, cfg, policy)
     total, count = cross_entropy(logits, ids)
@@ -114,6 +115,7 @@ def train_tiny(
     numpy ``default_rng(tcfg.seed)`` draws. ``params`` (the port's own,
     keyword-only) starts from given parameters, copied, instead of
     init_params(cfg, tcfg.seed); they stay in their dtype."""
+    refuse_latent(cfg, "training")
     device = resolve_device(device)
     if isinstance(corpus, (bytes, bytearray)):
         assert cfg.vocab_size >= 256, "byte-level training needs vocab >= 256"
@@ -155,7 +157,7 @@ def save_params(params, path: str, cfg: ModelConfig = None):
     np.savez(path, **{k: t.detach().cpu().numpy() for k, t in tree_leaves(params).items()})
     if cfg is not None:
         with open(path + ".json", "w") as fh:
-            json.dump(dataclasses.asdict(cfg), fh, indent=2)
+            json.dump(cfg.as_dict(), fh, indent=2)
 
 
 def load_params(path: str, cfg: ModelConfig, device=None):

@@ -113,18 +113,53 @@ def same(a, b):
 
 
 def test_configs_copied():
-    """The nine configurations, field for field and in JAX's order, and
-    get_model_config's unknown-name error."""
-    assert list(tconfig.MODEL_CONFIGS) == list(jconfig.MODEL_CONFIGS)
-    assert len(tconfig.MODEL_CONFIGS) == 9
+    """The nine configurations, field for field and in JAX's order (the
+    port's own latent-attention, expert and YaRN fields at their defaults),
+    then the port's own, and get_model_config's unknown-name error (its
+    list naming the port's configurations)."""
+    assert list(tconfig.MODEL_CONFIGS)[:9] == list(jconfig.MODEL_CONFIGS)
+    assert len(jconfig.MODEL_CONFIGS) == 9
+    assert list(tconfig.MODEL_CONFIGS)[9:] == ["deepseek-v2-lite", "tiny-deepseek-v2"]
+    defaults = {f.name: f.default for f in dataclasses.fields(tconfig.ModelConfig)}
     for name, jc in jconfig.MODEL_CONFIGS.items():
-        assert dataclasses.asdict(tconfig.get_model_config(name)) == dataclasses.asdict(jc), name
+        tc = dataclasses.asdict(tconfig.get_model_config(name))
+        jd = dataclasses.asdict(jc)
+        assert {k: tc[k] for k in jd} == jd, name
+        assert {k: v for k, v in tc.items() if k not in jd} == {
+            k: defaults[k] for k in tc if k not in jd}, name
     msgs = []
     for module in (jconfig, tconfig):
         with pytest.raises(ValueError, match="Unknown model 'gpt5'") as err:
             module.get_model_config("gpt5")
         msgs.append(str(err.value))
-    assert msgs[0] == msgs[1]
+    assert msgs[0] == f"Unknown model 'gpt5'. Known: {sorted(jconfig.MODEL_CONFIGS)}"
+    assert msgs[1] == f"Unknown model 'gpt5'. Known: {sorted(tconfig.MODEL_CONFIGS)}"
+
+
+@pytest.mark.parametrize("name", list(jconfig.MODEL_CONFIGS))
+def test_config_dict_and_repr_are_jax(name):
+    """A configuration of the nine gives JAX's dict (the JSON beside a saved
+    checkpoint) and JAX's repr (which sweep fingerprints hash), in its
+    order."""
+    tc, jc = tconfig.get_model_config(name), jconfig.get_model_config(name)
+    assert list(tc.as_dict().items()) == list(dataclasses.asdict(jc).items())
+    assert repr(tc) == repr(jc)
+
+
+@pytest.mark.parametrize("name", ["deepseek-v2-lite", "tiny-deepseek-v2"])
+def test_latent_config_dict_and_repr_keep_their_fields(name):
+    """A latent-attention configuration keeps the port's own fields that
+    differ from their defaults in its dict and repr, and only those."""
+    tc = tconfig.get_model_config(name)
+    full = dataclasses.asdict(tc)
+    jax_fields = [f.name for f in dataclasses.fields(jconfig.ModelConfig)]
+    own = {f.name: full[f.name] for f in dataclasses.fields(tconfig.ModelConfig)
+           if f.name not in jax_fields and full[f.name] != f.default}
+    assert {"kv_lora_rank", "qk_rope_head_dim", "n_routed_experts"} <= set(own)
+    assert tc.as_dict() == {**{k: full[k] for k in jax_fields}, **own}
+    assert repr(tc) == "ModelConfig(" + ", ".join(
+        f"{k}={v!r}" for k, v in tc.as_dict().items()) + ")"
+    assert all(f"{k}={v!r}" in repr(tc) for k, v in own.items())
 
 
 @pytest.mark.parametrize("model", ["tiny-gpt2", "tiny-llama"])

@@ -12,13 +12,15 @@ models/runtime.py, on the CPU, with the port's own tiny gpt2 and tiny llama
   * the server keeps its ECC totals on the device, with no host read a step.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
 
 from qkv_ecc_tpu_torch import tracing
 from qkv_ecc_tpu_torch.models import runtime
-from qkv_ecc_tpu_torch.models.config import TINY_GPT2, TINY_LLAMA
+from qkv_ecc_tpu_torch.models.config import TINY_DEEPSEEK_V2, TINY_GPT2, TINY_LLAMA
 from qkv_ecc_tpu_torch.models.kv_policy import policy_for_mode
 from qkv_ecc_tpu_torch.models.registry import init_params
 from qkv_ecc_tpu_torch.serving import ContinuousBatchingServer, Request
@@ -176,3 +178,73 @@ def test_server_keeps_ecc_counts_on_the_device(params, monkeypatch):
     stats = server.ecc_stats
     assert stats == {"errors_corrected": want[0], "errors_detected": want[1]}
     assert all(type(v) is int for v in stats.values())
+
+
+# DeepSeek-V2 (the latent read, the expert layer): its leaves per layer, the
+# expert layer's after out_mlp in every MoE layer
+DS_PREFILL_LAYER = ["prefill.qkv", "prefill.write", "prefill.codec_read", "prefill.attention",
+                    "prefill.out_mlp"]
+DS_DECODE_LAYER = ["decode.qkv", "decode.absorb", "decode.write_chain", "decode.attend",
+                   "decode.out_mlp"]
+
+
+def ds_names(phase_layer, moe_prefix, cfg):
+    out = []
+    for i in range(cfg.num_layers):
+        out += phase_layer
+        if i >= cfg.first_k_dense_replace:
+            out += [f"{moe_prefix}.moe_route", f"{moe_prefix}.moe_experts",
+                    f"{moe_prefix}.moe_shared"]
+    return out
+
+
+@pytest.fixture(scope="module")
+def ds_params():
+    return init_params(TINY_DEEPSEEK_V2, seed=0, device="cpu")
+
+
+@pytest.mark.parametrize("mode,stats", ARMS[1:] + [("int12-golay", False)])
+def test_deepseek_spans_are_leaves_in_order(ds_params, mode, stats):
+    """The latent model's prefill and decode leaves in the runtime's order,
+    none opening before the one ahead closes, so that summed they stay
+    within the step; the expert counter adds B * num_experts_per_tok tokens
+    a MoE layer and step (and the prompt's tokens in prefill)."""
+    cfg = TINY_DEEPSEEK_V2
+    tracing.enable(device_events=True)
+    t0 = time.perf_counter_ns()
+    run(ds_params, cfg, mode, stats)
+    t1 = time.perf_counter_ns()
+    spans = tracing.drain()
+    counts = tracing.drain_counts()
+    names = [s[0] for s in spans]
+    prefill = (["prefill.embed"] + ds_names(DS_PREFILL_LAYER, "prefill", cfg)
+               + ["prefill.lm_head"])
+    decode = (["decode.masks", "decode.embed"] + ds_names(DS_DECODE_LAYER, "decode", cfg)
+              + ["decode.parity_scatter", "decode.lm_head", "decode.ecc_counts"])
+    assert names == prefill + decode * STEPS
+    for (_, _, end, _), (name, start, _, _) in zip(spans, spans[1:]):
+        assert start >= end, f"{name} opens before the span ahead of it closes"
+    assert sum(e - s for _, s, e, _ in spans) <= t1 - t0
+    k = cfg.num_experts_per_tok
+    moe = range(cfg.first_k_dense_replace, cfg.num_layers)
+    assert sorted(counts) == sorted([f"decode.moe_tokens.{i}" for i in moe]
+                                    + [f"prefill.moe_tokens.{i}" for i in moe])
+    for i in moe:
+        assert int(counts[f"decode.moe_tokens.{i}"].sum()) == B * k * STEPS
+        assert int(counts[f"prefill.moe_tokens.{i}"].sum()) == B * PROMPT * k
+        assert counts[f"decode.moe_tokens.{i}"].shape == (cfg.n_routed_experts,)
+
+
+def test_deepseek_counter_off_and_no_bit_changed(ds_params, monkeypatch):
+    """Off, the counter is not touched and nothing is recorded; on, no
+    logit or cache word changes."""
+    cfg = TINY_DEEPSEEK_V2
+    off_logits, off_state = run(ds_params, cfg, "int12-golay", True)
+    assert tracing.drain_counts() == {}
+    tracing.enable()
+    on_logits, on_state = run(ds_params, cfg, "int12-golay", True)
+    assert len(tracing.drain_counts()) == 2 * (cfg.num_layers - cfg.first_k_dense_replace)
+    for a, b in zip(off_logits, on_logits):
+        assert torch.equal(a, b)
+    for name in off_state:
+        assert torch.equal(off_state[name], on_state[name]), name

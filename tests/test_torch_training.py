@@ -285,7 +285,7 @@ def test_train_cli_writes_under_runs(tmp_path, monkeypatch):
     params = ttrainer.load_params(str(out), cfg, device="cpu")
     assert params["wte"].shape == (256, 256)
     assert json.loads((tmp_path / "runs/trained_tiny/checkpoint.npz.json").read_text()) == \
-        dataclasses.asdict(cfg)
+        dataclasses.asdict(jconfig.get_model_config("trained-tiny"))
     texts = json.loads((tmp_path / "runs/trained_tiny/checkpoint.npz.eval_texts.json").read_text())
     assert texts == tcorpus.build_corpus(max_bytes=1 << 20)[1]
     assert [s for s, _, _ in res["log"]] == [0, 1] and np.isfinite(res["final_loss"])
