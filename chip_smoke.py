@@ -44,11 +44,12 @@ instances (group 1 at head_dim 96, which no model registers) must raise.
 The latent read L1 (csrc/latent_attend.cu, DeepSeek-V2-Lite's decode
 read) is held to latent_attend_plain at the Lite's shape (72 data and 72
 parity words a row, 16 heads, p.v over 512 values, pages of 128), the
-correcting read with counts and the scrubbed read each: 4 rows of contexts
-6144-8064 split over a cluster, one of page -1, against the CPU, and the
-cell's 256 rows at BER 1e-2 against the plain version on the card, stored
-words, scales and counts exact, outputs within 2% of the largest; then
-timed at those 256 rows beside its bound (latent_phase).
+correcting read with counts and the scrubbed read each: rows of contexts
+1-129 (the new token on a tile's and a page's first and last slots) and 4
+rows of 6144-8064 cut over several workers, one of page -1, against the
+CPU, and the cell's 256 rows at BER 1e-2 against the plain version on the
+card, stored words, scales and counts exact, outputs within 2% of the
+largest; then timed at those 256 rows beside its bound (latent_phase).
 Then it
 drives bench-0.9b (random bf16 weights from a seed) through the port's
 entry points on four paths:
@@ -4177,19 +4178,39 @@ def latent_compare(torch, label, x, decode, plain_on):
     return err
 
 
+def latent_split_report(ctx, sms):
+    """latent_partition (the plain model of the kernel's) at the real
+    contexts ``ctx`` on 63 pages of 128 a row: the blocks, the workers, the
+    parts each row is cut into and the tiles each block (SM) holds."""
+    from qkv_ecc_tpu_torch.kernels import paged_attention as pa
+
+    tiles = [-(-int(c) // pa.LATENT_TILE) for c in ctx]
+    blocks = pa.latent_blocks(len(ctx), 63 * 128 // pa.LATENT_TILE, sms)
+    parts = pa.latent_partition(tiles, blocks)
+    per_row = [0] * len(ctx)
+    per_sm = [0] * blocks
+    for k, mine in enumerate(parts):
+        for b, lo, hi in mine:
+            per_row[b] += 1
+            per_sm[k % blocks] += hi - lo
+    return blocks, len(parts), per_row, per_sm
+
+
 def latent_phase(torch, device, smi):
     """L1 (csrc/latent_attend.cu through paged_latent_write_attend) at
     DeepSeek-V2-Lite's shape - 72 data and 72 parity words a row, 16 heads,
     p.v over 512 values, pages of 128 - against latent_attend_plain, the
-    correcting read with counts and the scrubbed read each: 4 rows of
-    contexts 6144-8064, split over a cluster, one of them of page -1, on
-    caches whose codewords carry every error pattern of weight 0-3 and 4000
-    of weight 4, against the plain version on the CPU; then the cell's
-    batch of 256 at contexts 6144-8064 (one block a row) and BER 1e-2,
-    against the plain version on the card, timed there beside its bound
-    (that run's bytes at 3.35 TB/s, its flops at the bfloat16 peak).
-    Launches exact. Returns ({branch: max error}, {branch: launches},
-    {branch: timing})."""
+    correcting read with counts and the scrubbed read each: rows shorter
+    than the ring (contexts 1, 63, 64, 65, 128, 129: the new token on the
+    first and the last slot of a tile and of a page) beside one of 8064, and
+    4 rows of contexts 6144-8064 each cut over several workers, one of them
+    of page -1, on caches whose codewords carry every error pattern of
+    weight 0-3 and 4000 of weight 4, against the plain version on the CPU;
+    then the cell's batch of 256 at contexts 6144-8064 and BER 1e-2 (every
+    SM within 2% of the mean number of tiles), against the plain version on
+    the card, timed there beside its bound (that run's bytes at 3.35 TB/s,
+    its flops at the bfloat16 peak). Launches exact. Returns ({branch: max
+    error}, {branch: launches}, {branch: timing})."""
     from qkv_ecc_tpu_torch.kernels import paged_attention as pa
     from qkv_ecc_tpu_torch.models.config import DEEPSEEK_V2_LITE
     from qkv_ecc_tpu_torch.models.deepseek_v2 import softmax_scale
@@ -4199,22 +4220,31 @@ def latent_phase(torch, device, smi):
     gen = torch.Generator(device=device).manual_seed(25)
     pats = golay_error_patterns(torch, gen, device)
     pats = pats[(pats >> 24) == 0]
+    edges = latent_inputs(torch, [1, 63, 64, 65, 128, 129, 8064], 63, gen, device, pats=pats)
     split = latent_inputs(torch, [8064, 6144, 7001, 6500], 63, gen, device, pats=pats)
     split["table"][3] = -1
-    S = pa.latent_splits(4, 63 * 128 // pa.LATENT_TILE, pa._sm_count(0))
     cell_ctx = torch.randint(6144, 8065, (256,), generator=gen, device=device).tolist()
     cell = latent_inputs(torch, cell_ctx, 63, gen, device, ber=BER)
-    S_cell = pa.latent_splits(256, 63 * 128 // pa.LATENT_TILE, pa._sm_count(0))
-    if S < 2 or S_cell != 1:
-        fail(f"L1: the split rule gives S = {S} at 4 rows and {S_cell} at 256")
+    sms = pa._sm_count(0)
+    _, workers, per_row, _ = latent_split_report(split["ctx"].tolist(), sms)
+    blocks, cell_workers, _, per_sm = latent_split_report(cell_ctx, sms)
+    mean = sum(per_sm) / len(per_sm)
+    say(f"  L1 partition: 4 rows over {workers} workers, parts a row {per_row}; the cell's 256 "
+        f"rows over {blocks} blocks, {cell_workers} workers: tiles an SM {min(per_sm)}-"
+        f"{max(per_sm)}, mean {mean:.1f}")
+    if min(per_row) < 2 or blocks != sms or max(per_sm) > 1.02 * mean:
+        fail(f"L1: the partition cuts the 4 rows into {per_row} parts and gives the cell's SMs "
+             f"{min(per_sm)}-{max(per_sm)} tiles (mean {mean:.1f}) over {blocks} blocks")
     errs, times, calls = {}, {}, {"golay": 0, "read": 0}
     tokens = int(cell["ctx"].sum())
     for branch, decode in (("golay", True), ("read", False)):
         errs[branch] = max(
-            latent_compare(torch, f"{branch}, 4 rows split over {S} blocks, row 3 of page -1",
+            latent_compare(torch, f"{branch}, contexts 1-129 and 8064", edges, decode, "cpu"),
+            latent_compare(torch, f"{branch}, 4 rows cut over {workers} workers, row 3 of page -1",
                            split, decode, "cpu"),
-            latent_compare(torch, f"{branch}, 256 rows, one block each", cell, decode, device))
-        calls[branch] += 2
+            latent_compare(torch, f"{branch}, 256 rows over {cell_workers} workers", cell, decode,
+                           device))
+        calls[branch] += 3
         c = cell
         new = c["new"] if decode else c["new"][..., :72].contiguous()
         args = (c["q"], new, c["ks"], c["data"], c["scales"], c["table"], c["ctx"], 0,
@@ -4242,7 +4272,7 @@ def latent_phase(torch, device, smi):
                              library_ms=None, int_bound_ms=None)
     torch.cuda.synchronize()
     check_launches("L1", {f"latent_attend {k}": (wrapper.launches_by[k], calls[k],
-                                                 "2 checks and the timed calls")
+                                                 "3 checks and the timed calls")
                           for k in ("golay", "read")})
     return errs, dict(wrapper.launches_by), times
 

@@ -1202,18 +1202,46 @@ paged_attention_ecc.launches_by = dict.fromkeys(
 # and tiny-deepseek-v2's
 LATENT_KERNEL_SHAPES = ((72, 72, 16, 512), (6, 6, 4, 32))
 LATENT_TILE = 64  # tokens a tile of the latent read's loop (kTile)
-LATENT_RESIDENT = 2  # its blocks an SM holds at once (shared memory, registers)
+LATENT_GROUPS = 2  # its workers a block (kGroups): one block an SM
+LATENT_MIN_TILES = 8  # the fewest tiles a worker takes (kMinTiles)
+LATENT_PART_FLOATS = 8192  # floats of a worker's output state in the scratch (kPartFloats)
 
 
-def latent_splits(batch: int, tiles: int, sms: int) -> int:
-    """The blocks S (a power of two, 1 to 8) of a cluster that splits a
-    sequence's tiles in the latent read: the most with batch * S blocks
-    still on the card at once (LATENT_RESIDENT an SM), and no more than
-    leave every block a tile. S = 1 at DeepSeek-V2-Lite's batch of 256."""
-    s = 1
-    while s < FLOAT_MAX_SPLITS and batch * s * 2 <= sms * LATENT_RESIDENT and s * 2 <= tiles:
-        s *= 2
-    return s
+def latent_blocks(batch: int, tiles: int, sms: int) -> int:
+    """The latent read's grid: one block an SM, each two workers, and fewer
+    blocks when ``batch`` rows of at most ``tiles`` tiles (the block table's
+    width) could not give every worker LATENT_MIN_TILES tiles."""
+    return max(1, min(sms, -(-batch * tiles // (LATENT_GROUPS * LATENT_MIN_TILES))))
+
+
+def latent_workers(total_tiles: int, blocks: int) -> int:
+    """The workers W that the kernel gives ``total_tiles`` tiles, counted on
+    the card from the context lengths: two a block, or fewer so that each
+    takes LATENT_MIN_TILES."""
+    return min(LATENT_GROUPS * blocks, max(1, total_tiles // LATENT_MIN_TILES))
+
+
+def latent_partition(row_tiles, blocks: int):
+    """The plain model of csrc/latent_attend.cu's partition: the tiles of
+    every row (``row_tiles``, ceil(context / LATENT_TILE) each) counted in
+    row order, T in all; worker k of W = latent_workers(T, blocks) takes
+    [k T // W, (k + 1) T // W), and sits in block k % blocks. Returns, for
+    each worker, its pieces (row, first tile, end tile) in order."""
+    T = sum(row_tiles)
+    W = latent_workers(T, blocks)
+    starts = [0]
+    for n in row_tiles:
+        starts.append(starts[-1] + n)
+    pieces = []
+    for k in range(W):
+        s, e = k * T // W, (k + 1) * T // W
+        mine = []
+        for b, n in enumerate(row_tiles):
+            lo, hi = max(s, starts[b]), min(e, starts[b] + n)
+            if lo < hi:
+                mine.append((b, lo - starts[b], hi - starts[b]))
+        pieces.append(mine)
+    return pieces
 
 
 def latent_attend_plain(query, kv_new, ks_new, kv_cache, kv_scales, block_table, context_lens,
@@ -1276,8 +1304,9 @@ def latent_attend_plain(query, kv_new, ks_new, kv_cache, kv_scales, block_table,
 def _launch_latent(query, kv_new, ks_new, kv_cache, kv_scales, block_table, context_lens,
                    layer_idx, kv_parity=None, *, sm_scale, pv_width, precision="fast",
                    collect_stats=False):
-    """Check what csrc/latent_attend.cu takes, allocate the outputs (and the
-    splits' scratch) and launch it on the current stream."""
+    """Check what csrc/latent_attend.cu takes, allocate the outputs, the
+    workers' scratch and the rows' counters (zeroed on the stream, so a
+    captured graph resets them) and launch it on the current stream."""
     batch, heads, width = query.shape
     L, NB, one, dw, bs = kv_cache.shape
     decode = kv_parity is not None
@@ -1297,6 +1326,9 @@ def _launch_latent(query, kv_new, ks_new, kv_cache, kv_scales, block_table, cont
          and context_lens.shape == (batch,), "block table or context length shapes"),
         (0 <= layer_idx < L, "layer out of range"),
         (bs % LATENT_TILE == 0, f"block size {bs} is not a multiple of {LATENT_TILE}"),
+        (all(t.data_ptr() % 16 == 0
+             for t in (kv_cache, kv_scales) + ((kv_parity,) if decode else ())),
+         "the caches must be 16-byte aligned (the kernel's tensor copies read them)"),
         (shape in LATENT_KERNEL_SHAPES,
          f"(data words, parity words, heads, p.v width) = {shape} has no kernel instance; "
          f"built: {LATENT_KERNEL_SHAPES}"),
@@ -1306,18 +1338,18 @@ def _launch_latent(query, kv_new, ks_new, kv_cache, kv_scales, block_table, cont
     out = torch.empty((batch, heads, pv_width), device=dev, dtype=query.dtype)
     stats = torch.zeros((batch, 2), dtype=torch.int32, device=dev) if collect_stats else None
     tiles = C.cdiv(block_table.shape[1] * bs, LATENT_TILE)
-    splits = latent_splits(batch, tiles, _sm_count(dev.index))
-    part_o = part_ml = None
-    if splits > 1:
-        part_o = torch.empty((batch, splits, heads, pv_width), device=dev)
-        part_ml = torch.empty((batch, splits, 2, heads), device=dev)
+    blocks = latent_blocks(batch, tiles, _sm_count(dev.index))
+    slots = 2 * LATENT_GROUPS * blocks  # two a worker: its first row's part and its last's
+    part_o = torch.empty((slots, LATENT_PART_FLOATS), device=dev)
+    part_ml = torch.empty((slots, 2, 16), device=dev)
+    row_done = torch.zeros((batch,), dtype=torch.int32, device=dev)  # the rows' parts finished
     syn = golay_read_table(dev) if decode else None
     ptrs = (q, kv_new, ks_new, kv_cache, kv_parity, kv_scales, block_table, context_lens, syn,
-            out, stats, part_o, part_ml)
-    rc = launcher("latent_attend", "p" * 13 + "i" * 9 + "f" + "i" * 3 + "p")(
+            out, stats, part_o, part_ml, row_done)
+    rc = launcher("latent_attend", "p" * 14 + "i" * 9 + "f" + "i" * 3 + "p")(
         *(0 if t is None else t.data_ptr() for t in ptrs), batch, dw, heads, pv_width,
         int(decode), bs, NB, block_table.shape[1], int(layer_idx), float(sm_scale),
-        int(out.dtype == torch.bfloat16), 1, splits, _stream(query))
+        int(out.dtype == torch.bfloat16), 1, blocks, _stream(query))
     if rc != 0:
         raise RuntimeError(f"latent_attend kernel launch failed: cudaError {rc}")
     return (out, stats) if collect_stats else out
